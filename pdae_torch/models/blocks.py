@@ -1,0 +1,204 @@
+"""Building blocks of the diffusion UNets, NCHW.
+
+Port of ``pdae_tpu/models/blocks.py``. Submodule names and indices follow the
+reference torch state-dict layout (``pdae_tpu/utils/torch_convert.py``), so a
+converted checkpoint loads with ``load_state_dict(strict=True)``. Where the
+reference has a SiLU after a GroupNorm, the GN+AdaGN+SiLU chain runs as one op
+(``pdae_torch.ops.gn_adagn_silu``) and the SiLU's index holds an
+``nn.Identity`` placeholder, which has no parameters.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import ops
+
+
+def num_groups(channels: int) -> int:
+    """GroupNorm(32), or the largest divisor <= 32 for narrow test models."""
+    groups = min(32, channels)
+    while channels % groups != 0:
+        groups -= 1
+    return groups
+
+
+def group_norm(channels: int) -> nn.GroupNorm:
+    return nn.GroupNorm(num_groups(channels), channels, eps=1e-5)
+
+
+class GNSiluChain(nn.Module):
+    """GroupNorm(+AdaGN)+SiLU with GroupNorm's parameters (``weight``,
+    ``bias``); runs the model-mode op (the CUDA kernel on the card)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.groups = num_groups(channels)
+
+    def forward(self, x, scale=None, shift=None, z_scale=None, z_shift=None):
+        return ops.gn_adagn_silu(x, self.weight, self.bias, scale, shift,
+                                 z_scale, z_shift, self.groups)
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal timestep embedding, ``[cos | sin]`` layout."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    embedding = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
+    return embedding
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+
+
+def zero_init(module: nn.Module) -> nn.Module:
+    """Zero a layer's parameters, as the reference initialises its output
+    convs and attention projections."""
+    for p in module.parameters():
+        nn.init.zeros_(p)
+    return module
+
+
+class Upsample(nn.Module):
+    """2x nearest upsample with an optional 3x3 conv after it."""
+
+    def __init__(self, channels: int, use_conv: bool, out_channels=None):
+        super().__init__()
+        self.use_conv = use_conv
+        if use_conv:
+            self.conv = conv3x3(channels, out_channels or channels)
+
+    def forward(self, x):
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return self.conv(x) if self.use_conv else x
+
+
+class Downsample(nn.Module):
+    """2x downsample by a stride-2 3x3 conv or a 2x2 average pool."""
+
+    def __init__(self, channels: int, use_conv: bool, out_channels=None):
+        super().__init__()
+        self.use_conv = use_conv
+        if use_conv:
+            self.op = conv3x3(channels, out_channels or channels, stride=2)
+        elif (out_channels or channels) != channels:
+            raise ValueError("average-pool downsampling keeps the channel count")
+
+    def forward(self, x):
+        return self.op(x) if self.use_conv else F.avg_pool2d(x, 2)
+
+
+class ResBlock(nn.Module):
+    """Residual block with AdaGN time conditioning; with ``shift=True`` the
+    PDAE ResBlockShift, whose second chain also takes (z_scale, z_shift)
+    from the latent embedding."""
+
+    def __init__(self, channels: int, emb_channels: int, dropout: float,
+                 out_channels=None, use_conv: bool = False, up: bool = False,
+                 down: bool = False, shift: bool = False):
+        super().__init__()
+        out_ch = out_channels or channels
+        self.up, self.down, self.shift = up, down, shift
+        # [GN, SiLU, conv] in the reference; index 1 is fused into index 0
+        self.in_layers = nn.ModuleList([GNSiluChain(channels), nn.Identity(),
+                                        conv3x3(channels, out_ch)])
+        self.emb_layers = nn.ModuleList([nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch)])
+        if shift:
+            self.emb_z_layers = nn.ModuleList([nn.SiLU(),
+                                               nn.Linear(emb_channels, 2 * out_ch)])
+        # [GN, SiLU, dropout, zero-init conv]
+        self.out_layers = nn.ModuleList([GNSiluChain(out_ch), nn.Identity(),
+                                         nn.Dropout(dropout),
+                                         zero_init(conv3x3(out_ch, out_ch))])
+        if out_ch == channels:
+            self.skip_connection = nn.Identity()
+        elif use_conv:
+            self.skip_connection = conv3x3(channels, out_ch)
+        else:
+            self.skip_connection = nn.Conv2d(channels, out_ch, 1)
+
+    def forward(self, x, emb, emb_z=None):
+        h = self.in_layers[0](x)
+        if self.up:
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
+            h = F.interpolate(h, scale_factor=2, mode="nearest")
+        elif self.down:
+            h = F.avg_pool2d(h, 2)
+            x = F.avg_pool2d(x, 2)
+        h = self.in_layers[2](h)
+
+        scale, shift = self.emb_layers[1](F.silu(emb)).chunk(2, dim=1)
+        z_scale = z_shift = None
+        if self.shift:
+            z_scale, z_shift = self.emb_z_layers[1](F.silu(emb_z)).chunk(2, dim=1)
+        h = self.out_layers[0](h, scale, shift, z_scale, z_shift)
+        h = self.out_layers[3](self.out_layers[2](h))
+        return self.skip_connection(x) + h
+
+
+class ResBlockShift(ResBlock):
+    """PDAE conditioning block: the double AdaGN
+    ``(1 + z_scale) * (GN(h) * (1 + scale) + shift) + z_shift``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, shift=True, **kwargs)
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.Tensor:
+    """Multi-head self-attention over flattened spatial tokens.
+
+    ``qkv``: ``[B, 3C, T]``, the conv1d layout. ``new_order=False`` is the
+    reference's legacy heads-major split (``[B, H, 3, D, T]``), ``True`` its
+    qkv-major split (``[B, 3, H, D, T]``). q, k and v are permuted into
+    contiguous ``[B, H, T, D]`` for the kernel; returns ``[B, C, T]``.
+    """
+    b, w, t = qkv.shape
+    if w % (3 * num_heads):
+        raise ValueError(f"{w} qkv channels do not split into 3 x {num_heads} heads")
+    ch = w // (3 * num_heads)
+    if new_order:
+        q, k, v = qkv.reshape(b, 3, num_heads, ch, t).unbind(1)
+    else:
+        q, k, v = qkv.reshape(b, num_heads, 3, ch, t).unbind(2)
+    q, k, v = (a.transpose(-1, -2).contiguous() for a in (q, k, v))
+    out = ops.fused_qkv_attention(q, k, v)
+    return out.transpose(-1, -2).reshape(b, num_heads * ch, t)
+
+
+class AttentionBlock(nn.Module):
+    """GN -> conv1d qkv -> multi-head attention -> zero-init conv1d proj ->
+    residual. ``head_channel == -1`` selects ``num_heads`` heads, otherwise
+    ``channels // head_channel``."""
+
+    def __init__(self, channels: int, num_heads: int = 1, head_channel: int = -1,
+                 use_new_attention_order: bool = False):
+        super().__init__()
+        if head_channel == -1:
+            self.num_heads = num_heads
+        else:
+            if channels % head_channel:
+                raise ValueError(f"{channels} channels, head_channel {head_channel}")
+            self.num_heads = channels // head_channel
+        self.new_order = use_new_attention_order
+        self.norm = group_norm(channels)
+        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
+        self.proj_out = zero_init(nn.Conv1d(channels, channels, 1))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        tokens = x.reshape(b, c, h * w)
+        a = qkv_attention(self.qkv(self.norm(tokens)), self.num_heads, self.new_order)
+        return (tokens + self.proj_out(a)).reshape(b, c, h, w)

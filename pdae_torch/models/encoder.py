@@ -1,0 +1,56 @@
+"""Semantic encoders z = Enc(x_0), NCHW.
+
+Port of ``pdae_tpu/models/encoder.py``: stride-2 3x3 convs with GN+SiLU
+pre-activations, one attention block at the 16x16 map, then GN+SiLU, flatten
+and a Linear to ``latent_dim``. The stack is one ``nn.Sequential`` named
+``encoder`` so the keys read ``encoder.<index>.*`` as in the reference; the
+SiLU indices hold ``nn.Identity`` (fused into the GN chain before them).
+
+* 64px:  channels (64, 128, 128, 128), attention after stage 2;
+* 128px: channels (64, 128, 256, 256, 256), attention after stage 3.
+
+Both end at 4x4, so the flatten is ``channels[-1] * 16`` wide.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from torch import nn
+
+from .blocks import AttentionBlock, GNSiluChain, conv3x3
+
+
+class SemanticEncoder(nn.Module):
+
+    def __init__(self, latent_dim: int, channels: Sequence[int] = (64, 128, 128, 128),
+                 attn_after_stage: int = 2, attn_heads: int = 4,
+                 image_size: int = 64, input_channel: int = 3):
+        super().__init__()
+        layers = []
+        cin = input_channel
+        for i, ch in enumerate(channels):
+            if i > 0:
+                layers += [GNSiluChain(channels[i - 1]), nn.Identity()]
+            layers.append(conv3x3(cin, ch, stride=2))
+            cin = ch
+            if (i + 1) == attn_after_stage:
+                layers.append(AttentionBlock(ch, num_heads=attn_heads))
+        final_size = image_size >> len(channels)
+        layers += [GNSiluChain(channels[-1]), nn.Identity(), nn.Flatten(),
+                   nn.Linear(channels[-1] * final_size * final_size, latent_dim)]
+        self.encoder = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.encoder(x).float()
+
+
+def encoder_for_resolution(image_size: int, latent_dim: int) -> SemanticEncoder:
+    """The reference's per-dataset encoder geometry by input resolution."""
+    if image_size == 64:
+        return SemanticEncoder(latent_dim, channels=(64, 128, 128, 128),
+                               attn_after_stage=2, image_size=64)
+    if image_size == 128:
+        return SemanticEncoder(latent_dim, channels=(64, 128, 256, 256, 256),
+                               attn_after_stage=3, image_size=128)
+    raise ValueError(f"no reference encoder geometry for {image_size}px")
