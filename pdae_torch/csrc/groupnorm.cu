@@ -20,6 +20,12 @@
 // Null scale/shift (or z_scale/z_shift) pointers skip that AdaGN step, which
 // gives the same values as passing zeros.
 //
+// For training the kernel also writes the fp32 [B, G] mean and
+// rsqrt(var + eps) it has computed (the residuals of
+// pdae_tpu/ops/groupnorm_train.py::_fwd) where mean_out/rstd_out are given;
+// the backward kernel (groupnorm_bwd.cu) reads them. Null pointers (serving)
+// write nothing and leave the output as it was.
+//
 // Design: in NCHW one (batch, group) is one contiguous slab of
 // (C/G)*H*W elements. One 512-thread block owns one slab: it reduces the
 // stats (one pass in model mode, two in fold mode), then applies the chain
@@ -81,7 +87,8 @@ gn_adagn_silu_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, const T* __restrict__ scale,
                      const T* __restrict__ shift, int st_stride,
                      const T* __restrict__ z_scale, const T* __restrict__ z_shift,
-                     int z_stride, T* __restrict__ out, int c, int hw, int groups,
+                     int z_stride, T* __restrict__ out, float* __restrict__ mean_out,
+                     float* __restrict__ rstd_out, int c, int hw, int groups,
                      float eps) {
   __shared__ float red[33];
   const int bg = blockIdx.x;
@@ -111,6 +118,10 @@ gn_adagn_silu_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
   }
   const float inv = rsqrtf(var + eps);
+  if (mean_out != nullptr && threadIdx.x == 0) {
+    mean_out[bg] = mean;
+    rstd_out[bg] = inv;
+  }
 
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int ch = c0 + i / hw;
@@ -147,12 +158,13 @@ gn_adagn_silu_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 template <typename T, bool kFold>
 int launch(const void* x, const float* gamma, const float* beta, const void* scale,
            const void* shift, int st_stride, const void* z_scale, const void* z_shift,
-           int z_stride, void* out, int b, int c, int hw, int groups, float eps,
-           cudaStream_t stream) {
+           int z_stride, void* out, float* mean_out, float* rstd_out, int b, int c,
+           int hw, int groups, float eps, cudaStream_t stream) {
   gn_adagn_silu_kernel<T, kFold><<<b * groups, kThreads, 0, stream>>>(
       static_cast<const T*>(x), gamma, beta, static_cast<const T*>(scale),
       static_cast<const T*>(shift), st_stride, static_cast<const T*>(z_scale),
-      static_cast<const T*>(z_shift), z_stride, static_cast<T*>(out), c, hw, groups, eps);
+      static_cast<const T*>(z_shift), z_stride, static_cast<T*>(out), mean_out, rstd_out,
+      c, hw, groups, eps);
   return (int)cudaGetLastError();
 }
 
@@ -162,28 +174,33 @@ extern "C" {
 
 // x, out: contiguous [b, c, hw]; gamma, beta: fp32 [c]; scale/shift: rows of
 // c at st_stride (or both null), z_scale/z_shift likewise at z_stride.
+// mean_out, rstd_out: fp32 [b * groups], or both null.
 // dtype: 0 = float32, 1 = bfloat16. fold: 0 = model mode, 1 = fold mode.
 // Returns cudaGetLastError() after the launch.
 int pdae_gn_adagn_silu_fwd(const void* x, const void* gamma, const void* beta,
                            const void* scale, const void* shift, int st_stride,
                            const void* z_scale, const void* z_shift, int z_stride,
-                           void* out, int b, int c, int hw, int groups, float eps,
-                           int dtype, int fold, void* stream) {
+                           void* out, void* mean_out, void* rstd_out, int b, int c,
+                           int hw, int groups, float eps, int dtype, int fold,
+                           void* stream) {
   const float* g = static_cast<const float*>(gamma);
   const float* be = static_cast<const float*>(beta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mo = static_cast<float*>(mean_out);
+  float* ro = static_cast<float*>(rstd_out);
+  if ((mo == nullptr) != (ro == nullptr)) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && !fold)
     return launch<float, false>(x, g, be, scale, shift, st_stride, z_scale, z_shift,
-                                z_stride, out, b, c, hw, groups, eps, s);
+                                z_stride, out, mo, ro, b, c, hw, groups, eps, s);
   if (dtype == 0 && fold)
     return launch<float, true>(x, g, be, scale, shift, st_stride, z_scale, z_shift,
-                               z_stride, out, b, c, hw, groups, eps, s);
+                               z_stride, out, mo, ro, b, c, hw, groups, eps, s);
   if (dtype == 1 && !fold)
     return launch<__nv_bfloat16, false>(x, g, be, scale, shift, st_stride, z_scale,
-                                        z_shift, z_stride, out, b, c, hw, groups, eps, s);
+                                        z_shift, z_stride, out, mo, ro, b, c, hw, groups, eps, s);
   if (dtype == 1 && fold)
     return launch<__nv_bfloat16, true>(x, g, be, scale, shift, st_stride, z_scale,
-                                       z_shift, z_stride, out, b, c, hw, groups, eps, s);
+                                       z_shift, z_stride, out, mo, ro, b, c, hw, groups, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from .blocks import timestep_embedding
 from .encoder import SemanticEncoder, encoder_for_resolution
-from .shift_unet import ShiftUNet
+from .shift_unet import FROZEN_PREFIXES, SHIFT_TRAINABLE_PREFIXES, ShiftUNet
 from .unet import UNet
 
 # the celeba64 DPM geometry (the JAX repo's ``CELEBA64_DPM``): the UNet
@@ -57,4 +57,5 @@ def build_encoder(config: dict, image_size: int = None) -> SemanticEncoder:
 
 
 __all__ = ["CELEBA64_DPM", "UNet", "ShiftUNet", "SemanticEncoder", "timestep_embedding",
-           "encoder_for_resolution", "build_decoder", "build_encoder"]
+           "encoder_for_resolution", "build_decoder", "build_encoder",
+           "SHIFT_TRAINABLE_PREFIXES", "FROZEN_PREFIXES"]

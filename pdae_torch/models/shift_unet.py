@@ -5,6 +5,13 @@ Port of ``pdae_tpu/models/shift_unet.py``. The input trunk runs once and both
 decode stacks (``middle_block``/``output_blocks`` for epsilon,
 ``shift_middle_block``/``shift_output_blocks`` for the gradient) read the
 same stored skips. ``forward`` returns ``(epsilon, gradient)``.
+
+Freezing: the pre-trained trunk (``FROZEN_PREFIXES``) never trains. Its
+parameters are built with ``requires_grad_(False)`` and its modules stay in
+eval mode whatever ``train()`` is asked for, so dropout acts in the shift
+branch alone (the JAX model's ``deterministic`` / ``shift_deterministic``
+pair) and a backward saves nothing for the trunk. Only
+``SHIFT_TRAINABLE_PREFIXES`` train.
 """
 
 from __future__ import annotations
@@ -17,6 +24,15 @@ from torch import nn
 from .blocks import timestep_embedding
 from .unet import (apply_stage, build_decode_stack, build_input_stack,
                    output_head, time_embed_mlp)
+
+
+# Top-level names of the trainable PDAE branch, in the port's key layout
+# (the JAX package's ``shift_out_norm``/``shift_out_conv`` are ``shift_out.0/.2``
+# here); everything else is the frozen pre-trained DPM.
+SHIFT_TRAINABLE_PREFIXES = ("label_emb", "shift_middle_block",
+                            "shift_output_blocks", "shift_out")
+FROZEN_PREFIXES = ("time_embed", "input_blocks", "middle_block", "output_blocks",
+                   "out")
 
 
 class ShiftUNet(nn.Module):
@@ -43,6 +59,16 @@ class ShiftUNet(nn.Module):
         self.out = output_head(final_ch, input_channel * 2 if learn_sigma
                                else input_channel)
         self.shift_out = output_head(final_ch, input_channel)
+        for name in FROZEN_PREFIXES:
+            getattr(self, name).requires_grad_(False)
+        self.train()
+
+    def train(self, mode: bool = True):
+        """Set the shift branch's mode; the frozen trunk stays in eval mode."""
+        super().train(mode)
+        for name in FROZEN_PREFIXES:
+            getattr(self, name).eval()
+        return self
 
     def forward(self, x, time, condition):
         """``condition`` is the semantic latent z ``[N, latent_dim]``."""

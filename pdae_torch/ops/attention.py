@@ -6,6 +6,11 @@ are ``[B, H, T, D]``; the kernel takes them contiguous (the head split in
 ``D^-1/4`` on both q and k, fp32 logits and softmax, weights cast to v's
 dtype, fp32 sums. The kernel is bound by bytes at the celeba64 shapes of the
 UNet middle blocks and by fp32 operations at the encoder's (see the source).
+
+Where a gradient is wanted, ``fused_qkv_attention`` runs as one
+``torch.autograd.Function``: the same forward, and the standard attention
+backward of ``pdae_tpu/ops/attention.py::_attention_core_bwd`` in plain torch
+(the JAX package leaves that backward to XLA; it is no TPU kernel).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from ._dispatch import check_cuda_error, dtype_code, kernel_for, stream_handle
@@ -77,9 +83,44 @@ def attention_cuda(q, k, v):
     return out
 
 
-def fused_qkv_attention(q, k, v):
-    """``[B, H, T, D]`` attention: the kernel for CUDA tensors, the plain
-    version for CPU tensors (see ``pdae_torch.ops.set_use_kernels``)."""
+def _forward(q, k, v):
     if kernel_for(q):
         return attention_cuda(q, k, v)
     return reference_attention(q, k, v, 1.0 / math.sqrt(math.sqrt(q.shape[-1])))
+
+
+def attention_bwd(q, k, v, g):
+    """``(dq, dk, dv)``: the JAX ``_attention_core_bwd`` op by op (fp32 logits
+    times ``1/sqrt(D)``, softmax, then the five products in fp32)."""
+    s2 = 1.0 / math.sqrt(q.shape[-1])      # (D^-1/4)^2, on q and on k
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    w = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * s2, dim=-1)
+    dv = torch.matmul(w.transpose(-1, -2), gf)
+    dw = torch.matmul(gf, vf.transpose(-1, -2))
+    dl = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(dl, kf) * s2
+    dk = torch.matmul(dl.transpose(-1, -2), qf) * s2
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return attention_bwd(*ctx.saved_tensors, g)
+
+
+def fused_qkv_attention(q, k, v):
+    """``[B, H, T, D]`` attention: the kernel for CUDA tensors, the plain
+    version for CPU tensors (see ``pdae_torch.ops.set_use_kernels``);
+    differentiable through ``attention_bwd``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v)
+    return _forward(q, k, v)

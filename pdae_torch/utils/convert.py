@@ -17,6 +17,12 @@ The port's own copy of the flax -> reference-torch maps (the JAX package's
 Weight layouts: conv [kh,kw,I,O] -> [O,I,kh,kw]; Dense [I,O] -> Linear
 [O,I], or -> conv1d [O,I,1] for the attention qkv/proj_out; GroupNorm
 scale/bias -> weight/bias.
+
+``unet_tree``/``encoder_tree`` are the inverse maps (for grads keyed like a
+state dict, and round trips); ``train_state_tensors``/``train_state_trees``
+carry a whole representation-learning train state (params, EMA, Adam
+moments and count) across, as numpy, so both packages can step from the same
+state.
 """
 
 from __future__ import annotations
@@ -136,3 +142,155 @@ def encoder_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     sd[f"encoder.{idx}.weight"] = w.reshape(w.shape[0], -1)
     sd[f"encoder.{idx}.bias"] = np.asarray(tree["final_dense"]["bias"])
     return _tensors(sd)
+
+
+# --------------------------------------------------------------------- #
+# the way back: a state dict (or grads keyed like one) in the flax layout
+# --------------------------------------------------------------------- #
+
+_SUB_BACK = {torch_sub: (name, kind) for name, (torch_sub, kind) in _SUB.items()}
+_HEADS_BACK = {torch_sub: (name, kind) for name, (torch_sub, kind) in _HEADS.items()}
+
+
+def _numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _leaf_back(kind: str, leaf: str, value) -> tuple:
+    """The inverse of ``_leaf``: (flax leaf name, array in the flax layout)."""
+    v = _numpy(value)
+    if kind == "norm":
+        return ("scale" if leaf == "weight" else "bias"), v
+    if leaf == "bias":
+        return "bias", v
+    if kind == "conv2d":
+        return "kernel", v.transpose(2, 3, 1, 0)
+    if kind == "conv1d":
+        return "kernel", v[:, :, 0].T
+    if kind == "linear":
+        return "kernel", v.T
+    raise ValueError(kind)
+
+
+def _put_back(tree: Dict, path: tuple, kind: str, leaf: str, value) -> None:
+    name, v = _leaf_back(kind, leaf, value)
+    node = tree
+    for part in path:
+        node = node.setdefault(part, {})
+    node[name] = np.ascontiguousarray(v)
+
+
+def unet_tree(sd: Dict) -> Dict:
+    """``UNet``/``ShiftUNet`` state dict (or any subset of its keys, or grads
+    keyed like it) -> the flax param tree layout: the inverse of
+    ``unet_state_dict``."""
+    tree: Dict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        top, leaf = parts[0], parts[-1]
+        if top == "time_embed":
+            _put_back(tree, (top, {"0": "dense_0", "2": "dense_1"}[parts[1]]),
+                      "linear", leaf, value)
+        elif top == "label_emb":
+            if f"{top}.bias" in sd:
+                _put_back(tree, (top,), "linear", leaf, value)
+            else:
+                tree.setdefault(top, {})["embedding"] = _numpy(value)
+        elif key.startswith("input_blocks.0.0."):
+            _put_back(tree, ("input_blocks_0_0",), "conv2d", leaf, value)
+        elif ".".join(parts[:2]) in _HEADS_BACK:
+            name, kind = _HEADS_BACK[".".join(parts[:2])]
+            _put_back(tree, (name,), kind, leaf, value)
+        else:
+            depth = 2 if top in ("middle_block", "shift_middle_block") else 3
+            sub = ".".join(parts[depth:-1])
+            if top not in ("input_blocks", "output_blocks", "shift_output_blocks",
+                           "middle_block", "shift_middle_block") or sub not in _SUB_BACK:
+                raise KeyError(f"unmapped state-dict key: {key}")
+            name, kind = _SUB_BACK[sub]
+            _put_back(tree, ("_".join(parts[:depth]), name), kind, leaf, value)
+    return tree
+
+
+def encoder_tree(sd: Dict) -> Dict:
+    """``SemanticEncoder`` state dict (or grads keyed like it) -> the flax
+    param tree layout: the inverse of ``encoder_state_dict``. The whole key
+    set is needed, since the Sequential indices are read in order."""
+    indices = sorted({int(k.split(".")[1]) for k in sd})
+    tree: Dict = {}
+    stage = -1
+    for idx in indices:
+        prefix = f"encoder.{idx}."
+        leaves = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if "qkv.weight" in leaves:
+            for sub_leaf, value in leaves.items():
+                sub, leaf = sub_leaf.rsplit(".", 1)
+                name, kind = _SUB_BACK[sub]
+                _put_back(tree, (f"attn_{stage}", name), kind, leaf, value)
+        elif _numpy(leaves["weight"]).ndim == 4:
+            stage += 1
+            for leaf, value in leaves.items():
+                _put_back(tree, (f"conv_{stage}",), "conv2d", leaf, value)
+        elif _numpy(leaves["weight"]).ndim == 1:
+            # the norm before conv i is norm_i; the one after the last conv
+            # is final_norm, renamed below
+            for leaf, value in leaves.items():
+                _put_back(tree, (f"norm_{stage + 1}",), "norm", leaf, value)
+        else:
+            c = tree[f"norm_{stage + 1}"]["scale"].shape[0]
+            tree["final_norm"] = tree.pop(f"norm_{stage + 1}")
+            w = _numpy(leaves["weight"])                          # [out, C*H*W]
+            side = math.isqrt(w.shape[1] // c)
+            w = w.reshape(-1, c, side, side).transpose(0, 2, 3, 1)
+            tree["final_dense"] = {
+                "kernel": np.ascontiguousarray(w.reshape(w.shape[0], -1).T),
+                "bias": _numpy(leaves["bias"])}
+    return tree
+
+
+# --------------------------------------------------------------------- #
+# a whole train state, so both packages can step from the same point
+# --------------------------------------------------------------------- #
+
+def train_state_tensors(state: Dict) -> Dict:
+    """A ``pdae_tpu`` representation-learning train state, given as numpy,
+    in the port's layout.
+
+    ``state``: ``{"step": int, "params": {"encoder": tree, "shift": tree},
+    "ema_params": same}`` and, for Adam/AdamW, ``"mu"``/``"nu"`` (trees like
+    ``params``, optax's ``ScaleByAdamState``) and ``"count"``. Every tree
+    goes through the relayout of the weights (moments and EMA have the
+    weights' shapes). The result feeds ``TrainState.load_converted``."""
+    def relayout(tree):
+        return {"encoder": encoder_state_dict(tree["encoder"]),
+                "shift": unet_state_dict(tree["shift"])}
+
+    out = {"step": int(state["step"]), "params": relayout(state["params"]),
+           "ema_params": relayout(state["ema_params"])}
+    if "mu" in state:
+        out.update(mu=relayout(state["mu"]), nu=relayout(state["nu"]),
+                   count=int(state["count"]))
+    return out
+
+
+def train_state_trees(state) -> Dict:
+    """The way back: a ``pdae_torch.training.TrainState`` as numpy trees in
+    the flax layout, keyed as ``train_state_tensors`` takes them."""
+    def back(groups):
+        return {"encoder": encoder_tree(groups["encoder"]),
+                "shift": unet_tree(groups["shift"])}
+
+    out = {"step": int(state.step), "params": back(state.params),
+           "ema_params": back(state.ema_params)}
+    moments = state.optimizer.state
+    if moments:
+        named = {g: {k: moments[p] for k, p in group.items()}
+                 for g, group in state.params.items()}
+        out["mu"] = back({g: {k: m["exp_avg"] for k, m in group.items()}
+                          for g, group in named.items()})
+        out["nu"] = back({g: {k: m["exp_avg_sq"] for k, m in group.items()}
+                          for g, group in named.items()})
+        out["count"] = int(next(iter(moments.values()))["step"])
+    return out

@@ -125,7 +125,8 @@ def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
     assert torch.equal(out, ops.reference_attention(q, q, q, 16 ** -0.25))
     ops.gn_adagn_silu(torch.randn(1, 32, 4, 4), torch.ones(32), torch.zeros(32),
                       groups=32)
-    assert ops.launch_counts() == {"attention": 0, "gn_adagn_silu": 0}
+    assert ops.launch_counts() == {"attention": 0, "gn_adagn_silu": 0,
+                                   "gn_adagn_silu_bwd": 0}
     ops.set_use_kernels(False)
     assert torch.equal(ops.fused_qkv_attention(q, q, q), out)
 
@@ -155,7 +156,8 @@ def test_import_needs_no_nvcc_card_or_jax():
     """``import pdae_torch`` (every module) works with no nvcc on PATH and no
     visible card, and pulls in no JAX."""
     code = ("import sys, pdae_torch, pdae_torch.ops, pdae_torch.serving, "
-            "pdae_torch.utils; "
+            "pdae_torch.utils, pdae_torch.training, "
+            "pdae_torch.tools.profile_train_step; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pdae_tpu')]; "
             "assert not bad, bad; print('ok')")
