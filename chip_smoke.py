@@ -16,8 +16,16 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    forward that saves its stats and the GN backward with and without AdaGN
    and z coefficients, as the train step's chains have them; with
    the kernel's device time (CUDA-graph replay), its eager per-call time, and
-   the plain version's and a PyTorch library call's device times. Every
-   comparison in full goes to ``chiprun_out/chip_smoke_kernels.json``.
+   the plain version's and a PyTorch library call's device times (attention's
+   in bf16 too). Each shape's record names what served it: attention's tiling,
+   the GN variant and cluster size; a path shape that the GN cluster variant
+   does not serve fails the run. Edge shapes of both redesigned kernels are
+   compared and not timed: T off the tiles, T=1024 with D=256, small D, a D
+   that the wrapper must refuse; slabs that are misaligned, ragged or too
+   large (general variant), a cluster of 8, an H*W that is no power of two,
+   and a cluster launch inside a CUDA graph. ``launch_floor_ms`` is an empty
+   kernel's device time, the floor under the small shapes. Every comparison
+   in full goes to ``chiprun_out/chip_smoke_kernels.json``.
 3. ``serving``: ``PDAEService`` at the full celeba64 width (ShiftUNet
    ``CELEBA64_DPM`` + 64px encoder, latent 512, seeded random weights with the
    zero-init layers perturbed) answers an ``encode`` and an ``autoencode``
@@ -93,7 +101,17 @@ WHOLE_PATH_TOL = (1e-4, 1e-3)    # (atol, rtol): one ShiftUNet forward, fp32
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = (1e-3, 1e-3)
 # every comparison in full, beside the printed summary
-OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# attention shapes that are compared and not timed: T off the query and key
+# tiles, the TPU kernel's limits, small D
+ATTENTION_EDGES = [(1, 1, 1024, 256), (2, 3, 50, 36), (1, 2, 1000, 64), (3, 1, 16, 16),
+                   (2, 2, 77, 8), (2, 2, 1024, 128), (3, 2, 100, 32)]
+# GN shapes that are compared and not timed, with the variant that must serve
+# each (fp32): a cluster of 8, H*W no power of two, H*W no multiple of the
+# 16-byte vector, a slab over 8 x 64 KB
+GN_EDGES = [((1, 64, 256, 256), ("cluster", 8)), ((2, 64, 12, 12), ("cluster", 1)),
+            ((2, 64, 3, 3), ("general", 0)), ((1, 64, 384, 384), ("general", 0))]
 
 
 def emit(obj) -> None:
@@ -173,6 +191,21 @@ def perturb_zero_params(module, gen) -> None:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
 
 
+def build_models(seed, device):
+    """The celeba64 ShiftUNet and 64px encoder at full width on ``device``, in
+    eval mode, with seeded random weights; and the seeded CPU generator that
+    made them, which goes on to make the kernels' inputs."""
+    from pdae_torch.models import CELEBA64_DPM, ShiftUNet, encoder_for_resolution
+
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    decoder = ShiftUNet(latent_dim=LATENT, **CELEBA64_DPM)
+    encoder = encoder_for_resolution(64, LATENT)
+    perturb_zero_params(decoder, gen)
+    perturb_zero_params(encoder, gen)
+    return decoder.to(device).eval(), encoder.to(device).eval(), gen
+
+
 def path_shapes(decoder, encoder, device, train=False):
     """Count, per input shape, the GN chains and attention blocks of one
     ShiftUNet evaluation and one encoder pass at batch BATCH. With ``train``
@@ -233,28 +266,41 @@ def path_shapes(decoder, encoder, device, train=False):
     return dec_counts, enc_counts
 
 
-def check_attention(shape, gen, device):
+def check_attention(shape, gen, device, timed=True):
     from pdae_torch import ops
     from pdae_torch.ops import attention
 
     b, h, t, d = shape
     scale = 1.0 / math.sqrt(math.sqrt(d))
-    res = {"shape": list(shape), "err": {}}
+    res = {"shape": list(shape), "err": {}, "tiling": {}}
     for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        if (d * dtype.itemsize) % 16:
+            continue                 # the wrapper refuses it: see check_edges
         q, k, v = (torch.randn(shape, generator=gen).to(device, dtype) for _ in range(3))
         got = attention.attention_cuda(q, k, v)
         torch.cuda.synchronize()
-        name = str(dtype).split(".")[-1]
+        plan = attention.attention_plan(b * h, t, d, q.element_size())
+        if attention.library_smem_bytes(plan, t, d, q.element_size()) != plan.smem_bytes:
+            raise AssertionError(f"attention {shape} {name}: the plan's shared memory "
+                                 "is not the built source's")
+        res["tiling"][name] = plan._asdict()
         res["err"][name] = compare(got, ops.reference_attention(q, k, v, scale),
                                    TOL[("attention", dtype)])
+        if not timed:
+            continue
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, scale=1.0 / math.sqrt(d))
+
         if dtype == torch.float32:
-            res.update(timings(
-                lambda: attention.attention_cuda(q, k, v),
-                lambda: ops.reference_attention(q, k, v, scale),
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       scale=1.0 / math.sqrt(d))))
+            res.update(timings(lambda: attention.attention_cuda(q, k, v),
+                               lambda: ops.reference_attention(q, k, v, scale), library))
             res["bytes"] = 4 * q.numel() * q.element_size()
             res["flops"] = 4 * b * h * t * t * d
+        else:
+            res["bf16_ms"] = device_ms(lambda: attention.attention_cuda(q, k, v))
+            res["bf16_library_ms"] = device_ms(library)
     return res
 
 
@@ -314,18 +360,26 @@ def library_gn_backward(g, saved, need_dx):
         [need_dx, True, True]))
 
 
-def check_gn(key, gen, device):
+def check_gn(key, gen, device, timed=True):
     from pdae_torch import ops
     from pdae_torch.ops import groupnorm
 
     shape, has_st, has_z = key[1:5], key[5], key[6]
     groups = 32
-    res = {"shape": list(shape), "adagn": has_st, "z": has_z, "err": {}}
+    res = {"shape": list(shape), "adagn": has_st, "z": has_z, "err": {}, "variant": {}}
     for dtype in (torch.float32, torch.bfloat16):
         args = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
+        before = dict(groupnorm.variant_launches)
         got = groupnorm.gn_cuda(*args, groups=groups)
         torch.cuda.synchronize()
         name = str(dtype).split(".")[-1]
+        # what served it: the variant whose counter the launch raised, and the
+        # plan the wrapper made for this input and the output it returned
+        served = [v for v, n in groupnorm.variant_launches.items() if n != before[v]]
+        plan = groupnorm.plan_for(args[0], got, groups)
+        if served != [plan.variant]:
+            raise AssertionError(f"GN {shape} {name}: served by {served}, planned {plan}")
+        res["variant"][name] = plan._asdict()
         res["err"][f"model_{name}"] = compare(
             got, ops.gn_adagn_silu_fwd(*args, groups=groups), TOL[("gn_model", dtype)])
         x, gamma, beta, s, t, zs, zt = args
@@ -337,7 +391,7 @@ def check_gn(key, gen, device):
         res["err"][f"fold_{name}"] = compare(
             got, ops.reference_gn_adagn_silu(x, gamma, beta, *full, groups),
             TOL[("gn_fold", dtype)])
-        if dtype == torch.float32:
+        if dtype == torch.float32 and timed:
             res.update(timings(
                 lambda: groupnorm.gn_cuda(*args, groups=groups),
                 lambda: ops.gn_adagn_silu_fwd(*args, groups=groups),
@@ -407,6 +461,68 @@ def check_gn_bwd(key, gen, device):
     return res
 
 
+def check_edges(gen, device) -> dict:
+    """The redesigned kernels where their tilings end, compared and not
+    timed: every record's ``err`` entries are held to ``TOL`` like a path
+    shape's. Also: the attention wrapper refuses a D whose rows are no
+    multiple of 16 bytes; a misaligned GN input goes to the general variant
+    and agrees with the aligned one; a cluster launch captured in a CUDA
+    graph replays to the eager result."""
+    from pdae_torch.ops import attention, groupnorm
+
+    attn = [check_attention(shape, gen, device, timed=False) for shape in ATTENTION_EDGES]
+    q = torch.randn(1, 1, 8, 6, device=device)
+    try:
+        attention.attention_cuda(q, q, q)
+    except ValueError as e:
+        refused = "16 bytes" in str(e)
+    else:
+        refused = False
+    if not refused:
+        raise AssertionError("the attention wrapper took D=6 (rows of 24 bytes)")
+
+    gn = []
+    for shape, want in GN_EDGES:
+        res = check_gn(("gn", *shape, True, True), gen, device, timed=False)
+        got = (res["variant"]["float32"]["variant"], res["variant"]["float32"]["cluster"])
+        if got != want:
+            raise AssertionError(f"GN edge {shape}: served by {got}, expected {want}")
+        gn.append(res)
+
+    # a misaligned x (4 bytes into its storage) must take the general variant
+    shape = (2, 64, 8, 8)
+    args = gn_coefficients(shape, True, False, gen, device, torch.float32)
+    x = args[0]
+    off = torch.empty(x.numel() + 1, device=device)[1:].view(shape).copy_(x)
+    before = dict(groupnorm.variant_launches)
+    aligned = groupnorm.gn_cuda(*args, groups=32)
+    shifted = groupnorm.gn_cuda(off, *args[1:], groups=32)
+    torch.cuda.synchronize()
+    took = {v: n - before[v] for v, n in groupnorm.variant_launches.items()}
+    misaligned = compare(shifted, aligned, TOL[("gn_model", torch.float32)])
+    if took != {"cluster": 1, "general": 1} or off.data_ptr() % 16 == 0:
+        raise AssertionError(f"misaligned GN input: variants took {took}")
+
+    # a cluster launch (4 blocks per slab) inside a CUDA graph
+    args = gn_coefficients((8, 384, 64, 64), False, False, gen, device, torch.float32)
+    eager = groupnorm.gn_cuda(*args, groups=32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        groupnorm.gn_cuda(*args, groups=32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = groupnorm.gn_cuda(*args, groups=32)
+    graph.replay()
+    torch.cuda.synchronize()
+    graph_ok = torch.equal(captured, eager)
+    if not graph_ok:
+        raise AssertionError("a captured cluster launch does not replay to the eager result")
+    return {"attention": attn, "gn_adagn_silu": gn, "attention_refuses_d6": refused,
+            "gn_misaligned": misaligned, "cluster_launch_in_graph_ok": graph_ok}
+
+
 def brief(res, launches, train_launches) -> dict:
     """A per-shape record for the printed line: the launches per request and
     per train step at this shape, max abs/rel errors (3 digits; in full in
@@ -416,7 +532,9 @@ def brief(res, launches, train_launches) -> dict:
     out["launches_per_train_step"] = train_launches
     for kind in ("max_abs_err", "max_rel_err"):
         out[kind] = {k: float(f"{v[kind]:.3g}") for k, v in res["err"].items()}
-    out["bound_ms"] = max(res["bytes"] / HBM_BYTES_PER_S, res["flops"] / FP32_FLOPS) * 1e3
+    if "bytes" in res:               # a timed shape
+        out["bound_ms"] = max(res["bytes"] / HBM_BYTES_PER_S,
+                              res["flops"] / FP32_FLOPS) * 1e3
     return out
 
 
@@ -458,9 +576,9 @@ def main(argv=None) -> int:
 
     import pdae_torch
     from pdae_torch import ops
-    from pdae_torch.models import CELEBA64_DPM, ShiftUNet, encoder_for_resolution
+    from pdae_torch.models import CELEBA64_DPM
     from pdae_torch.diffusion import GaussianDiffusion
-    from pdae_torch.ops import _build
+    from pdae_torch.ops import _build, groupnorm
     from pdae_torch.serving import PDAEService
     from pdae_torch.training import (TrainState, make_optimizer,
                                      make_representation_train_step,
@@ -485,14 +603,7 @@ def main(argv=None) -> int:
                     for src, log in _build.build_logs.items()}})
 
     # the models of the path, and the shapes they give the kernels
-    gen = torch.Generator().manual_seed(args.seed)
-    torch.manual_seed(args.seed)
-    decoder = ShiftUNet(latent_dim=LATENT, **CELEBA64_DPM)
-    encoder = encoder_for_resolution(64, LATENT)
-    perturb_zero_params(decoder, gen)
-    perturb_zero_params(encoder, gen)
-    decoder.to(device).eval()
-    encoder.to(device).eval()
+    decoder, encoder, gen = build_models(args.seed, device)
     dec_counts, enc_counts = path_shapes(decoder, encoder, device)
     per_request = {k: STEPS * 2 * dec_counts[k] + enc_counts[k]
                    for k in set(dec_counts) | set(enc_counts)}
@@ -503,28 +614,45 @@ def main(argv=None) -> int:
     # the forward kernels at the shapes of both paths: the request's (b8) and
     # the train step's (b32)
     both = sorted(set(per_request) | set(per_step))
+    launch_floor_ms = device_ms(lambda: groupnorm.launch_empty(device))
     attn_res = {k: check_attention(k[1:], gen, device)
                 for k in both if k[0] == "attention"}
     gn_res = {k: check_gn(k, gen, device) for k in both if k[0] == "gn"}
     bwd_res = {k: check_gn_bwd(k, gen, device) for k in both if k[0] == "gn_bwd"}
+    edges = check_edges(gen, device)
     failed = [(r["shape"], k) for r in list(attn_res.values()) + list(gn_res.values())
-              + list(bwd_res.values())
+              + list(bwd_res.values()) + edges["attention"] + edges["gn_adagn_silu"]
               for k, v in r["err"].items() if not v["ok"]]
+    if not edges["gn_misaligned"]["ok"]:
+        failed.append(("gn misaligned", "model_float32"))
+    # every shape of both paths must go to the cluster variant, in both dtypes
+    not_cluster = [(r["shape"], name) for r in gn_res.values()
+                   for name, plan in r["variant"].items() if plan["variant"] != "cluster"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
-        json.dump({"attention": list(attn_res.values()),
+        json.dump({"launch_floor_ms": launch_floor_ms,
+                   "attention": list(attn_res.values()),
                    "gn_adagn_silu": list(gn_res.values()),
-                   "gn_adagn_silu_bwd": list(bwd_res.values())},
+                   "gn_adagn_silu_bwd": list(bwd_res.values()),
+                   "edges": edges},
                   f, indent=1)
     emit({"phase": "kernels", "tolerances": {f"{k[0]}/{str(k[1])[6:]}": v
                                              for k, v in TOL.items()},
+          "launch_floor_ms": launch_floor_ms,
           **{name: [brief(r, per_request.get(k, 0), per_step.get(k, 0))
                     for k, r in results.items()]
              for name, results in (("attention", attn_res), ("gn_adagn_silu", gn_res),
                                    ("gn_adagn_silu_bwd", bwd_res))},
-          "ok": not failed})
+          "edges": {"attention": [brief(r, 0, 0) for r in edges["attention"]],
+                    "gn_adagn_silu": [brief(r, 0, 0) for r in edges["gn_adagn_silu"]],
+                    **{k: v for k, v in edges.items()
+                       if k not in ("attention", "gn_adagn_silu")}},
+          "gn_path_shapes_not_on_cluster_variant": not_cluster,
+          "ok": not failed and not not_cluster})
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    if not_cluster:
+        raise AssertionError(f"GN path shapes off the cluster variant: {not_cluster}")
 
     # 3. serving at full width ---------------------------------------------
     config = {"trained_ddpm_config": CELEBA64_DPM,
@@ -551,6 +679,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     enc_launches = ops.launch_counts()
+    enc_variants = ops.gn_variant_counts()
     if z.shape != (BATCH, LATENT) or z.dtype != np.float32 or not np.isfinite(z).all():
         raise AssertionError(f"encode gave {z.shape} {z.dtype}, finite={np.isfinite(z).all()}")
 
@@ -561,6 +690,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     autoencode_s = time.perf_counter() - t0
     ae_launches = ops.launch_counts()
+    ae_variants = ops.gn_variant_counts()
     if recon.shape != images.shape or recon.dtype != np.uint8:
         raise AssertionError(f"autoencode gave {recon.shape} {recon.dtype}")
     emit({"phase": "serving", "batch": BATCH, "styles": f"ddim{STEPS}/ddim{STEPS}",
@@ -569,9 +699,13 @@ def main(argv=None) -> int:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "encode_launches": enc_launches, "encode_launches_expected": want_enc,
           "autoencode_launches": ae_launches,
-          "autoencode_launches_expected": want_ae})
+          "autoencode_launches_expected": want_ae,
+          "encode_gn_variants": enc_variants, "autoencode_gn_variants": ae_variants})
     if enc_launches != want_enc or ae_launches != want_ae:
         raise AssertionError("the launch counters do not match the path's structure")
+    for variants, want in ((enc_variants, want_enc), (ae_variants, want_ae)):
+        if variants != {"cluster": want["gn_adagn_silu"], "general": 0}:
+            raise AssertionError(f"GN launches off the cluster variant: {variants}")
 
     # 4. the representation-learning train step at full width ----------------
     gd = GaussianDiffusion(config["diffusion_config"])
@@ -594,7 +728,7 @@ def main(argv=None) -> int:
         u8 = rs.randint(0, 256, (TRAIN_BATCH, 64, 64, 3), np.uint8)
         return torch.from_numpy(from_uint8(u8)).to(device).permute(0, 3, 1, 2).contiguous()
 
-    losses, step_launches, step_s = [], [], []
+    losses, step_launches, step_variants, step_s = [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(1 + TRAIN_STEPS):                     # the first is the warm-up
         x_0 = batch_of_images()
@@ -605,6 +739,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         step_launches.append(ops.launch_counts())
+        step_variants.append(ops.gn_variant_counts())
         losses.append(float(loss))
     train_launches = step_launches[-1]
     mean_step_s = sum(step_s[1:]) / TRAIN_STEPS
@@ -623,6 +758,8 @@ def main(argv=None) -> int:
     ema_finite = all(bool(torch.isfinite(e).all()) for e in flat_params(state.ema_params))
     train_ok = (all(math.isfinite(v) for v in losses)
                 and all(c == want_step for c in step_launches)
+                and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+                        for v in step_variants)
                 and not stuck and not bad_grad and not thawed
                 and 2 * len(ema_still) < len(leaves) and ema_finite
                 and state.step == 1 + TRAIN_STEPS)
@@ -632,6 +769,7 @@ def main(argv=None) -> int:
           "mean_step_s": mean_step_s, "imgs_per_s": TRAIN_BATCH / mean_step_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches_per_step": train_launches, "launches_expected": want_step,
+          "gn_variants_per_step": step_variants[-1],
           "trainable_tensors": sum(len(g) for g in params.values()),
           "frozen_tensors": len(frozen_start),
           "params_not_moved": stuck[:5], "grads_missing_or_not_finite": bad_grad[:5],

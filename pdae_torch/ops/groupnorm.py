@@ -19,6 +19,12 @@ strided, as the halves of one ``chunk``); ``None`` skips that step, which is
 the same function as zeros. The kernel is bound by bytes: one read and one
 write of x.
 
+The source holds two hand-written variants and ``gn_plan`` picks one from the
+shape before the launch: the cluster variant splits a (batch, group) slab over
+a thread block cluster and keeps it in shared memory between the stats and
+the apply (one read of memory), the general variant takes every shape with
+one block per slab. ``variant_launches`` counts each; ``launches`` is their sum.
+
 For training, both the kernel (``save_stats``) and ``gn_adagn_silu_fwd``
 (``return_stats``) also give the fp32 ``[B, G]`` mean and rsqrt(var + eps),
 the residuals of the JAX ``_fwd``; ``gn_adagn_silu`` routes through the
@@ -28,6 +34,8 @@ autograd Function of ``groupnorm_train.py`` whenever a gradient is wanted.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,8 +45,61 @@ from ._dispatch import check_cuda_error, dtype_code, kernel_for, stream_handle
 EPS = 1e-5   # torch GroupNorm default, as the JAX package
 
 launches = 0   # kernel launches since the last reset (pdae_torch.ops)
+variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
+
+PART_BYTES = 65536       # most of a slab one block of the cluster variant holds
+CLUSTER_SIZES = (1, 2, 4, 8)
+MAX_THREADS = 512        # the cluster variant's largest block
 
 _fn = None
+
+
+class GNPlan(NamedTuple):
+    """Which variant serves a slab, and the cluster variant's launch."""
+    variant: str       # "cluster" or "general"
+    cluster: int       # blocks per slab (0 for the general variant)
+    threads: int       # threads per block
+    part_bytes: int    # bytes of the slab one block holds (0 for general)
+
+
+GENERAL = GNPlan("general", 0, 512, 0)
+
+
+def cluster_plan(n: int, elt: int, part_bytes: int, max_threads: int):
+    """The smallest cluster whose even part of a slab of ``n`` elements of
+    ``elt`` bytes is at most ``part_bytes`` and a multiple of 16 bytes, or
+    None. A part of 32 KB or more gets ``max_threads`` threads, a smaller one
+    a thread per 16-byte vector up to half of that."""
+    vec = 16 // elt
+    for cluster in CLUSTER_SIZES:
+        if n % (cluster * vec) == 0 and n // cluster * elt <= part_bytes:
+            part = n // cluster * elt
+            threads = (max_threads if part >= 32768
+                       else min(max_threads // 2, -(-part // 16 // 32) * 32))
+            return GNPlan("cluster", cluster, threads, part)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(n: int, hw: int, elt: int, x_ptr: int = 0, out_ptr: int = 0) -> GNPlan:
+    """The variant for slabs of ``n`` elements of ``elt`` bytes (``n`` =
+    channels per group x ``hw``) at the given addresses: the cluster variant
+    with ``cluster_plan``'s launch at parts of ``PART_BYTES`` and blocks of
+    ``MAX_THREADS`` (both measured with ``pdae_torch.tools.tune_kernels``).
+    It needs 16-byte aligned pointers and ``hw`` a multiple of the vector, so
+    that a vector lies in one channel; every other slab (misaligned, ragged,
+    or over 8 parts of ``PART_BYTES``) goes to the general variant."""
+    if x_ptr % 16 or out_ptr % 16 or hw % (16 // elt):
+        return GENERAL
+    return cluster_plan(n, elt, PART_BYTES, MAX_THREADS) or GENERAL
+
+
+def plan_for(x, out, groups: int) -> GNPlan:
+    """``gn_plan`` for the slabs of ``x`` [B, C, ...] and the output buffer
+    ``out``. The addresses matter modulo 16 alone, and so the cache hits."""
+    hw = x.numel() // (x.shape[0] * x.shape[1])
+    return gn_plan(x.shape[1] // groups * hw, hw, x.element_size(),
+                   x.data_ptr() % 16, out.data_ptr() % 16)
 
 
 def _per_channel(v, ndim):
@@ -92,8 +153,10 @@ def _kernel():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pdae_gn_adagn_silu_fwd.argtypes = [
             vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci,
-            ctypes.c_float, ci, ci, vp]
+            ctypes.c_float, ci, ci, ci, ci, vp]
         lib.pdae_gn_adagn_silu_fwd.restype = ci
+        lib.pdae_launch_empty.argtypes = [vp]
+        lib.pdae_launch_empty.restype = ci
         _fn = lib
     return _fn
 
@@ -131,30 +194,46 @@ def check_gn_inputs(x, gamma, beta, groups: int) -> None:
                              f"[{c}] on {x.device}")
 
 
-def gn_cuda(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None,
-            groups: int = 32, fold: bool = False, save_stats: bool = False):
-    """Launch the kernel on a contiguous CUDA ``x`` [B, C, ...]; raises on
-    what it does not take. With ``save_stats`` it returns
-    ``(out, mean, rstd)``, the stats fp32 ``[B, G]``."""
+def launch_empty(device) -> None:
+    """Launch the source's empty kernel on ``device``'s current stream: its
+    device time is the floor under every small launch."""
+    err = _kernel().pdae_launch_empty(torch.cuda.current_stream(device).cuda_stream)
+    check_cuda_error(err, "empty kernel")
+
+
+def _launch(plan: GNPlan, x, out, gamma, beta, scale, shift, z_scale, z_shift,
+            groups: int, fold: bool, mean=None, rstd=None) -> None:
+    """The kernel under ``plan`` from a checked ``x`` into ``out`` (and the
+    fp32 ``[B, G]`` ``mean``/``rstd``, where given)."""
     global launches
-    check_gn_inputs(x, gamma, beta, groups)
     b, c = x.shape[:2]
-    code = dtype_code(x.dtype)
     s, t, st_stride = _pair(scale, shift, x, "scale/shift")
     zs, zt, z_stride = _pair(z_scale, z_shift, x, "z_scale/z_shift")
-    lib = _kernel()
+    err = _kernel().pdae_gn_adagn_silu_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t, st_stride, zs, zt,
+        z_stride, out.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if rstd is None else rstd.data_ptr(), b, c, x.numel() // (b * c), groups,
+        EPS, dtype_code(x.dtype), int(fold), plan.cluster, plan.threads,
+        stream_handle(x))
+    check_cuda_error(err, f"GN kernel ({plan.variant} variant)")
+    launches += 1
+    variant_launches[plan.variant] += 1
+
+
+def gn_cuda(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None,
+            groups: int = 32, fold: bool = False, save_stats: bool = False):
+    """Launch the kernel on a contiguous CUDA ``x`` [B, C, ...] under
+    ``gn_plan``'s choice; raises on what it does not take. With
+    ``save_stats`` it returns ``(out, mean, rstd)``, the stats fp32
+    ``[B, G]``."""
+    check_gn_inputs(x, gamma, beta, groups)
     out = torch.empty_like(x)
     mean = rstd = None
     if save_stats:
-        mean = torch.empty(b, groups, device=x.device, dtype=torch.float32)
+        mean = torch.empty(x.shape[0], groups, device=x.device, dtype=torch.float32)
         rstd = torch.empty_like(mean)
-    err = lib.pdae_gn_adagn_silu_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t, st_stride, zs, zt,
-        z_stride, out.data_ptr(), mean.data_ptr() if save_stats else None,
-        rstd.data_ptr() if save_stats else None, b, c, x[0, 0].numel(), groups,
-        EPS, code, int(fold), stream_handle(x))
-    check_cuda_error(err, "GN kernel")
-    launches += 1
+    _launch(plan_for(x, out, groups), x, out, gamma, beta, scale, shift, z_scale,
+            z_shift, groups, fold, mean, rstd)
     return (out, mean, rstd) if save_stats else out
 
 

@@ -1,0 +1,157 @@
+"""Sweep the launch plans of the attention and GN forward kernels on the card.
+
+    python3 -m pdae_torch.tools.tune_kernels [--quick] [--only attention|gn]
+
+Run from the root of the repository: the shapes, the timer, the tolerances
+and the inputs are ``chip_smoke.py``'s (the shapes read off the celeba64
+models at b8 and b32, ``device_ms``, ``TOL``, ``ATTENTION_EDGES``), so the
+sweep measures what the smoke run checks. For each shape it holds the kernel
+against its plain version under every candidate plan and prints the device
+time per launch (CUDA-graph replay, fp32): the GN cluster variant over part
+sizes and block sizes beside the general variant, the attention kernel over
+the built query-tile heights beside ``scaled_dot_product_attention``. The
+candidates go through the wrappers' private ``_launch``; the public wrappers
+take ``gn_plan``'s and ``attention_plan``'s choice alone, whose constants
+were chosen from this table. ``--quick`` builds, checks every plan once (the
+attention edge shapes too) and times nothing. One JSON line per shape; the
+whole table goes to ``chiprun_out/tune_kernels.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import sys
+
+import torch
+import torch.nn.functional as F
+
+PART_SIZES = (8192, 16384, 32768, 49152, 65536)
+BLOCK_SIZES = (128, 256, 512)
+
+
+def attention_candidates(bh, t, d, elt):
+    """Every built plan that takes ``[bh, t, d]``, by name."""
+    from pdae_torch.ops import attention
+
+    base = attention.attention_plan(bh, t, d, elt)
+    bn = 64 if base.mma else base.bn
+    plans = {}
+    for (bm, tile_bn, warps), rows in attention.BUILT[elt].items():
+        r = attention.wv_rows(bm, warps, d)
+        if tile_bn == bn and r in rows and bm // r * (d // 4) <= 64 * warps:
+            plans[f"bm{bm}w{warps}"] = attention.AttentionPlan(
+                bm, bn, warps, r, -(-t // bm) * bh,
+                attention.attention_smem_bytes(t, d, elt, bm, bn))
+    if elt == 2 and d in attention.MMA_DIMS:
+        for bm in attention.MMA_ROWS:
+            plans[f"bm{bm}mma"] = attention.AttentionPlan(
+                bm, 64, 4, 0, -(-t // bm) * bh,
+                attention.attention_mma_smem_bytes(t, d, bm), True)
+    plans = {k: p for k, p in plans.items() if p.smem_bytes <= attention.SMEM_LIMIT}
+    if base not in plans.values():
+        raise AssertionError(f"attention_plan gave {base}, which is not built")
+    return base, plans
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--only", choices=("attention", "gn"), default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tune_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from pdae_torch import ops
+    from pdae_torch.ops import _build, attention, groupnorm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(json.dumps({"build_s": _build.build()}), flush=True)
+    decoder, encoder, gen = cs.build_models(0, dev)
+    shapes = set()
+    for train in (False, True):
+        for counts in cs.path_shapes(decoder, encoder, dev, train=train):
+            shapes |= set(counts)
+    table, bad = [], []
+    print(json.dumps({"launch_floor_ms": cs.device_ms(lambda: groupnorm.launch_empty(dev))}),
+          flush=True)
+
+    attn = sorted(k[1:] for k in shapes if k[0] == "attention")
+    for shape in [] if args.only == "gn" else (cs.ATTENTION_EDGES if args.quick else []) + attn:
+        b, h, t, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            if (d * dtype.itemsize) % 16:
+                continue
+            q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
+            want = ops.reference_attention(q, k, v, d ** -0.25)
+            base, plans = attention_candidates(b * h, t, d, q.element_size())
+            row = {"attention": list(shape), "dtype": str(dtype)[6:], "plan": base}
+            for name, plan in plans.items():
+                got = attention._launch(plan, q, k, v)
+                torch.cuda.synchronize()
+                res = cs.compare(got, want, cs.TOL[("attention", dtype)])
+                row[f"{name}_err"] = res["max_abs_err"]
+                if not res["ok"]:
+                    bad.append((shape, str(dtype), name, res["max_abs_err"]))
+                if not args.quick:
+                    row[f"{name}_ms"] = cs.device_ms(
+                        lambda: attention._launch(plan, q, k, v))
+            if not args.quick:
+                row["library_ms"] = cs.device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=1.0 / math.sqrt(d)))
+            table.append(row)
+            print(json.dumps(row), flush=True)
+
+    # one coefficient combination per shape: the fullest the path has there
+    gn = sorted({k[1:5]: k for k in sorted(shapes) if k[0] == "gn"}.values())
+    for key in [] if args.only == "attention" else gn[:: 5 if args.quick else 1]:
+        shape, has_st, has_z = key[1:5], key[5], key[6]
+        hw = shape[2] * shape[3]
+        for dtype in (torch.float32, torch.bfloat16) if args.quick else (torch.float32,):
+            x, gamma, beta, *coef = cs.gn_coefficients(shape, has_st, has_z, gen, dev, dtype)
+            want, mean_w, rstd_w = ops.gn_adagn_silu_fwd(x, gamma, beta, *coef, groups=32,
+                                                         return_stats=True)
+            zero = torch.zeros(shape[:2], device=dev, dtype=dtype)
+            full = [zero if a is None else a for a in coef]
+            want_fold = ops.reference_gn_adagn_silu(x, gamma, beta, *full, 32)
+            row = {"gn": list(shape), "adagn": has_st, "z": has_z, "dtype": str(dtype)[6:]}
+            plans = {"general": groupnorm.GENERAL}
+            for part in PART_SIZES:
+                for threads in BLOCK_SIZES:
+                    p = groupnorm.cluster_plan(shape[1] // 32 * hw, x.element_size(),
+                                               part, threads)
+                    if p is not None:
+                        plans[f"c{p.cluster}_t{p.threads}"] = p
+            out, out_fold = torch.empty_like(x), torch.empty_like(x)
+            mean, rstd = torch.empty_like(mean_w), torch.empty_like(rstd_w)
+            for name, p in plans.items():
+                groupnorm._launch(p, x, out, gamma, beta, *coef, 32, False, mean, rstd)
+                groupnorm._launch(p, x, out_fold, gamma, beta, *full, 32, True)
+                torch.cuda.synchronize()
+                for what, a, w in (("gn_model", out, want), ("gn_fold", out_fold, want_fold),
+                                   ("gn_stats", mean, mean_w), ("gn_stats", rstd, rstd_w)):
+                    res = cs.compare(a, w, cs.TOL[(what, dtype)])
+                    if not res["ok"]:
+                        bad.append((shape, str(dtype), name, what, res["max_abs_err"]))
+                    if what == "gn_model":
+                        row[name + "_err"] = res["max_abs_err"]
+                if not args.quick:
+                    row[name] = cs.device_ms(lambda: groupnorm._launch(
+                        p, x, out, gamma, beta, *coef, 32, False))
+            table.append(row)
+            print(json.dumps(row), flush=True)
+
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    with open(os.path.join(cs.OUT_DIR, "tune_kernels.json"), "w") as f:
+        json.dump(table, f, indent=1)
+    print(json.dumps({"ok": not bad, "bad": bad[:20]}), flush=True)
+    return 0 if not bad else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

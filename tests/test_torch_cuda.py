@@ -33,7 +33,11 @@ def cuda():
     _dispatch._USE_KERNELS = saved
 
 
-@pytest.mark.parametrize("shape", [(8, 4, 64, 128), (8, 4, 256, 32), (3, 1, 16, 16)])
+# the path's shapes, then the edges of the tiling: T off the query and key
+# tiles, the TPU kernel's limits (T=1024, D=256), small D
+@pytest.mark.parametrize("shape", [(8, 4, 64, 128), (8, 4, 256, 32), (3, 1, 16, 16),
+                                   (32, 4, 64, 128), (1, 1, 1024, 256), (2, 3, 50, 36),
+                                   (1, 2, 1000, 64), (2, 2, 77, 8)])
 def test_attention_kernel_matches_plain(cuda, shape):
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen).to(cuda) for _ in range(3))
@@ -41,13 +45,40 @@ def test_attention_kernel_matches_plain(cuda, shape):
     got = ops.fused_qkv_attention(q, k, v)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
+    plan = attention.attention_plan(shape[0] * shape[1], shape[2], shape[3], 4)
+    assert attention.library_smem_bytes(plan, shape[2], shape[3], 4) == plan.smem_bytes
     want = ops.reference_attention(q, k, v, shape[-1] ** -0.25)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
+# three path shapes (clusters of 4, 1 and 1), then the edges: a cluster of 8,
+# H*W no power of two, and two slabs for the general variant (H*W no multiple
+# of the 16-byte vector, a slab over 8 x 64 KB)
+# bf16: D of 32, 64, 128 runs both products on the tensor cores (T on and off
+# its 16-key steps and 64-key tiles, T=1024), any other D on the CUDA cores
+@pytest.mark.parametrize("shape", [(8, 4, 64, 128), (8, 4, 256, 32), (32, 4, 256, 32),
+                                   (2, 2, 1024, 128), (3, 2, 100, 32), (2, 3, 77, 64),
+                                   (1, 1, 1024, 256), (3, 1, 16, 16)])
+def test_bf16_attention_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, torch.bfloat16) for _ in range(3))
+    b, h, t, d = shape
+    plan = attention.attention_plan(b * h, t, d, 2)
+    assert plan.mma is (d in (32, 64, 128))
+    assert attention.library_smem_bytes(plan, t, d, 2) == plan.smem_bytes
+    got = ops.fused_qkv_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = ops.reference_attention(q, k, v, d ** -0.25)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
 @pytest.mark.parametrize("shape,variant", [((8, 384, 64, 64), "plain"),
                                            ((8, 128, 64, 64), "adagn_z"),
-                                           ((8, 512, 8, 8), "adagn")])
+                                           ((8, 512, 8, 8), "adagn"),
+                                           ((1, 64, 256, 256), "adagn_z"),
+                                           ((2, 64, 12, 12), "adagn"),
+                                           ((2, 64, 3, 3), "adagn_z"),
+                                           ((1, 64, 384, 384), "plain")])
 def test_gn_kernel_matches_plain_in_both_modes(cuda, shape, variant):
     gen = torch.Generator().manual_seed(1)
     b, c = shape[:2]
@@ -58,7 +89,10 @@ def test_gn_kernel_matches_plain_in_both_modes(cuda, shape, variant):
     zs, zt = (0.1 * torch.randn(b, 2 * c, generator=gen)).to(cuda).chunk(2, dim=1)
     coef = {"plain": (None,) * 4, "adagn": (s, t, None, None),
             "adagn_z": (s, t, zs, zt)}[variant]
+    before = dict(groupnorm.variant_launches)
     got = ops.gn_adagn_silu(x, gamma, beta, *coef, groups=32)
+    plan = groupnorm.plan_for(x, got, 32)
+    assert groupnorm.variant_launches[plan.variant] == before[plan.variant] + 1
     want = ops.gn_adagn_silu_fwd(x, gamma, beta, *coef, groups=32)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     zero = torch.zeros_like(s)
@@ -69,9 +103,13 @@ def test_gn_kernel_matches_plain_in_both_modes(cuda, shape, variant):
 
 
 def test_kernels_raise_rather_than_fall_back(cuda):
-    q = torch.randn(1, 1, 1024, 256, device=cuda)          # K and V overflow smem
-    with pytest.raises(ValueError, match="shared memory"):
+    q = torch.randn(1, 1, 1025, 64, device=cuda)           # past the kernel's T
+    with pytest.raises(ValueError, match="outside"):
         ops.fused_qkv_attention(q, q, q)
+    q = torch.randn(1, 1, 8, 6, device=cuda)               # rows of 24 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.fused_qkv_attention(q, q, q)
+    q = torch.randn(1, 1, 64, 64, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.fused_qkv_attention(q.half(), q.half(), q.half())
     x = torch.randn(2, 64, 4, 4, device=cuda)
@@ -102,6 +140,32 @@ def test_kernels_capture_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert torch.equal(a, b)
+
+
+def test_a_cluster_launch_captures_in_a_cuda_graph(cuda):
+    """The GN cluster variant with more than one block per slab (a launch
+    with a cluster-dimension attribute) inside a CUDA graph, and a misaligned
+    input beside it, which takes the general variant."""
+    x = torch.randn(8, 384, 64, 64, device=cuda)
+    gamma, beta = torch.ones(384, device=cuda), torch.zeros(384, device=cuda)
+    eager = groupnorm.gn_cuda(x, gamma, beta)
+    assert groupnorm.plan_for(x, eager, 32).cluster == 4
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        groupnorm.gn_cuda(x, gamma, beta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = groupnorm.gn_cuda(x, gamma, beta)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    off = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    before = groupnorm.variant_launches["general"]
+    torch.testing.assert_close(groupnorm.gn_cuda(off, gamma, beta), eager,
+                               atol=1e-4, rtol=1e-4)
+    assert groupnorm.variant_launches["general"] == before + 1
 
 
 def _grads_both_ways(fn, leaves, cot):
