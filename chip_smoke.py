@@ -18,14 +18,17 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the kernel's device time (CUDA-graph replay), its eager per-call time, and
    the plain version's and a PyTorch library call's device times (attention's
    in bf16 too). Each shape's record names what served it: attention's tiling,
-   the GN variant and cluster size; a path shape that the GN cluster variant
-   does not serve fails the run. Edge shapes of both redesigned kernels are
-   compared and not timed: T off the tiles, T=1024 with D=256, small D, a D
-   that the wrapper must refuse; slabs that are misaligned, ragged or too
-   large (general variant), a cluster of 8, an H*W that is no power of two,
-   and a cluster launch inside a CUDA graph. ``launch_floor_ms`` is an empty
-   kernel's device time, the floor under the small shapes. Every comparison
-   in full goes to ``chiprun_out/chip_smoke_kernels.json``.
+   the GN forward's and the GN backward's variant, cluster size and block
+   size; a path shape that a GN cluster variant does not serve fails the
+   run, and two backward launches on the same inputs must be bit-equal. Edge
+   shapes of the redesigned kernels are compared and not timed: T off the
+   tiles, T=1024 with D=256, small D, a D that the wrapper must refuse; for
+   both GN kernels slabs that are misaligned, ragged or too large (general
+   variant), a cluster of 8, an H*W that is no power of two, and a cluster
+   launch inside a CUDA graph; for the backward also a chain without dx.
+   ``launch_floor_ms`` is an empty kernel's device time, the floor under the
+   small shapes. Every comparison in full goes to
+   ``chiprun_out/chip_smoke_kernels.json``.
 3. ``serving``: ``PDAEService`` at the full celeba64 width (ShiftUNet
    ``CELEBA64_DPM`` + 64px encoder, latent 512, seeded random weights with the
    zero-init layers perturbed) answers an ``encode`` and an ``autoencode``
@@ -35,7 +38,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    (Adam lr 1e-4, fp32 with TF32 off, batch 32 of seeded uint8 images): one
    warm-up step, then 5 timed ones. Every loss must be finite, every step's
    launch counters (forward GN, backward GN, attention) must equal the
-   structure's counts, every trainable parameter must have moved with a finite
+   structure's counts, every GN launch forward and backward must have gone to
+   the cluster variant, every trainable parameter must have moved with a finite
    gradient, every frozen one must be bit-equal to its start, and most of the
    EMA's tensors must have moved (all finite).
 5. ``whole_path``: one full-width ShiftUNet forward at b2, one b2
@@ -112,6 +116,15 @@ ATTENTION_EDGES = [(1, 1, 1024, 256), (2, 3, 50, 36), (1, 2, 1000, 64), (3, 1, 1
 # 16-byte vector, a slab over 8 x 64 KB
 GN_EDGES = [((1, 64, 256, 256), ("cluster", 8)), ((2, 64, 12, 12), ("cluster", 1)),
             ((2, 64, 3, 3), ("general", 0)), ((1, 64, 384, 384), ("general", 0))]
+# GN backward shapes that are compared and not timed, (shape, AdaGN and z,
+# dx), with the variant that must serve each (fp32): a cluster of 8 with two
+# channels a group, no dx over a cluster of 4, H*W no power of two, H*W no
+# multiple of the vector, a slab pair over 8 parts
+GN_BWD_EDGES = [(((1, 64, 128, 256), True, True), ("cluster", 8)),
+                (((2, 256, 64, 64), False, False), ("cluster", 4)),
+                (((2, 64, 12, 12), True, True), ("cluster", 1)),
+                (((2, 64, 3, 3), True, True), ("general", 0)),
+                (((1, 64, 384, 384), False, True), ("general", 0))]
 
 
 def emit(obj) -> None:
@@ -403,18 +416,20 @@ def check_gn(key, gen, device, timed=True):
     return res
 
 
-def check_gn_bwd(key, gen, device):
+def check_gn_bwd(key, gen, device, timed=True):
     """The backward kernel against its plain version at one shape of the
-    train step: dx (where the chain's input needs one), dA and dB; the
-    forward kernel's saved stats against the plain forward's; and that asking
-    for the stats leaves the forward's output bit-equal to the one
-    ``check_gn`` holds against the plain forward at this shape."""
+    train step: dx (where the chain's input needs one), dA and dB, and a
+    second launch on the same inputs bit-equal to the first; the variant that
+    served it; the forward kernel's saved stats against the plain forward's;
+    and that asking for the stats leaves the forward's output bit-equal to
+    the one ``check_gn`` holds against the plain forward at this shape."""
     from pdae_torch import ops
     from pdae_torch.ops import groupnorm, groupnorm_train
 
     shape, has_st, has_z, need_dx = key[1:5], key[5], key[6], key[7]
     groups = 32
-    res = {"shape": list(shape), "adagn": has_st, "z": has_z, "dx": need_dx, "err": {}}
+    res = {"shape": list(shape), "adagn": has_st, "z": has_z, "dx": need_dx, "err": {},
+           "variant": {}, "bit_equal_repeat": {}}
     for dtype in (torch.float32, torch.bfloat16):
         args = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
         x, gamma, beta, coef = args[0], args[1], args[2], args[3:]
@@ -428,9 +443,23 @@ def check_gn_bwd(key, gen, device):
         name = str(dtype).split(".")[-1]
         res["err"][f"mean_{name}"] = compare(mean, mean_p, TOL[("gn_stats", dtype)])
         res["err"][f"rstd_{name}"] = compare(rstd, rstd_p, TOL[("gn_stats", dtype)])
+        before = dict(groupnorm_train.variant_launches)
         got = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef,
                                           groups=groups, need_dx=need_dx)
         torch.cuda.synchronize()
+        served = [v for v, n in groupnorm_train.variant_launches.items() if n != before[v]]
+        plan = groupnorm_train.plan_for(x, g, got[0], groups)
+        if served != [plan.variant]:
+            raise AssertionError(f"GN backward {shape} {name}: served by {served}, "
+                                 f"planned {plan}")
+        res["variant"][name] = plan._asdict()
+        again = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef,
+                                            groups=groups, need_dx=need_dx)
+        torch.cuda.synchronize()
+        res["bit_equal_repeat"][name] = all(
+            a is None and b is None or torch.equal(a, b) for a, b in zip(got, again))
+        if not res["bit_equal_repeat"][name]:
+            raise AssertionError(f"GN backward {shape} {name}: two launches differ")
         want = ops.gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, *coef,
                                            groups=groups, need_dx=need_dx)
         for part, a, b in zip(("dx", "dA", "dB"), got, want):
@@ -438,7 +467,7 @@ def check_gn_bwd(key, gen, device):
                 continue
             res["err"][f"{part}_{name}"] = compare(
                 a, b, scaled(TOL[("gn_bwd", dtype)], b))
-        if dtype == torch.float32:
+        if dtype == torch.float32 and timed:
             saved = library_gn_saved(x, gamma, beta, *coef, groups)
             res.update(
                 ms=device_ms(lambda: groupnorm_train.gn_bwd_cuda(
@@ -465,10 +494,11 @@ def check_edges(gen, device) -> dict:
     """The redesigned kernels where their tilings end, compared and not
     timed: every record's ``err`` entries are held to ``TOL`` like a path
     shape's. Also: the attention wrapper refuses a D whose rows are no
-    multiple of 16 bytes; a misaligned GN input goes to the general variant
-    and agrees with the aligned one; a cluster launch captured in a CUDA
-    graph replays to the eager result."""
-    from pdae_torch.ops import attention, groupnorm
+    multiple of 16 bytes; a misaligned GN input (forward: x; backward: x or
+    g) goes to the general variant and agrees with the aligned one; a cluster
+    launch of either GN kernel captured in a CUDA graph replays to the eager
+    result."""
+    from pdae_torch.ops import attention, groupnorm, groupnorm_train
 
     attn = [check_attention(shape, gen, device, timed=False) for shape in ATTENTION_EDGES]
     q = torch.randn(1, 1, 8, 6, device=device)
@@ -519,8 +549,68 @@ def check_edges(gen, device) -> dict:
     graph_ok = torch.equal(captured, eager)
     if not graph_ok:
         raise AssertionError("a captured cluster launch does not replay to the eager result")
-    return {"attention": attn, "gn_adagn_silu": gn, "attention_refuses_d6": refused,
-            "gn_misaligned": misaligned, "cluster_launch_in_graph_ok": graph_ok}
+
+    bwd = []
+    for (shape, adagn_z, need_dx), want in GN_BWD_EDGES:
+        res = check_gn_bwd(("gn_bwd", *shape, adagn_z, adagn_z, need_dx), gen, device,
+                           timed=False)
+        got = (res["variant"]["float32"]["variant"], res["variant"]["float32"]["cluster"])
+        if got != want:
+            raise AssertionError(f"GN backward edge {shape}: served by {got}, "
+                                 f"expected {want}")
+        bwd.append(res)
+
+    # a misaligned x, then a misaligned g (4 bytes into their storage): the
+    # general variant, in agreement with the aligned launch on the cluster one
+    shape = (2, 64, 8, 8)
+    args = gn_coefficients(shape, True, True, gen, device, torch.float32)
+    x, gamma, beta, coef = args[0], args[1], args[2], args[3:]
+    g = torch.randn(shape, generator=gen).to(device)
+    _, mean, rstd = groupnorm.gn_cuda(*args, groups=32, save_stats=True)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, device=device)[1:].view(t.shape).copy_(t)
+
+    bwd_misaligned = {}
+    for what, xs, gs in (("x", shifted(x), g), ("g", x, shifted(g))):
+        before = dict(groupnorm_train.variant_launches)
+        aligned = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+        off = groupnorm_train.gn_bwd_cuda(xs, gs, mean, rstd, gamma, beta, *coef)
+        torch.cuda.synchronize()
+        took = {v: n - before[v] for v, n in groupnorm_train.variant_launches.items()}
+        if took != {"cluster": 1, "general": 1}:
+            raise AssertionError(f"misaligned GN backward {what}: variants took {took}")
+        for part, a, b in zip(("dx", "dA", "dB"), off, aligned):
+            bwd_misaligned[f"{what}_{part}"] = compare(
+                a, b, scaled(TOL[("gn_bwd", torch.float32)], b))
+
+    # a cluster launch of the backward (4 blocks per slab) inside a CUDA graph
+    shape = (8, 256, 64, 64)
+    args = gn_coefficients(shape, False, False, gen, device, torch.float32)
+    g = torch.randn(shape, generator=gen).to(device)
+    _, mean, rstd = groupnorm.gn_cuda(*args, groups=32, save_stats=True)
+    bwd_args = (args[0], g, mean, rstd, args[1], args[2])
+    eager = groupnorm_train.gn_bwd_cuda(*bwd_args)
+    if groupnorm_train.plan_for(args[0], g, eager[0], 32).cluster != 4:
+        raise AssertionError("the backward's graph edge is not a cluster of 4")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        groupnorm_train.gn_bwd_cuda(*bwd_args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = groupnorm_train.gn_bwd_cuda(*bwd_args)
+    graph.replay()
+    torch.cuda.synchronize()
+    bwd_graph_ok = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    if not bwd_graph_ok:
+        raise AssertionError("a captured backward cluster launch does not replay to the "
+                             "eager result")
+    return {"attention": attn, "gn_adagn_silu": gn, "gn_adagn_silu_bwd": bwd,
+            "attention_refuses_d6": refused, "gn_misaligned": misaligned,
+            "gn_bwd_misaligned": bwd_misaligned, "cluster_launch_in_graph_ok": graph_ok,
+            "bwd_cluster_launch_in_graph_ok": bwd_graph_ok}
 
 
 def brief(res, launches, train_launches) -> dict:
@@ -622,11 +712,15 @@ def main(argv=None) -> int:
     edges = check_edges(gen, device)
     failed = [(r["shape"], k) for r in list(attn_res.values()) + list(gn_res.values())
               + list(bwd_res.values()) + edges["attention"] + edges["gn_adagn_silu"]
+              + edges["gn_adagn_silu_bwd"]
               for k, v in r["err"].items() if not v["ok"]]
     if not edges["gn_misaligned"]["ok"]:
         failed.append(("gn misaligned", "model_float32"))
-    # every shape of both paths must go to the cluster variant, in both dtypes
-    not_cluster = [(r["shape"], name) for r in gn_res.values()
+    failed += [("gn backward misaligned", k) for k, v in edges["gn_bwd_misaligned"].items()
+               if not v["ok"]]
+    # every GN shape of both paths, forward and backward, must go to the
+    # cluster variant, in both dtypes
+    not_cluster = [(r["shape"], name) for r in list(gn_res.values()) + list(bwd_res.values())
                    for name, plan in r["variant"].items() if plan["variant"] != "cluster"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
@@ -643,10 +737,10 @@ def main(argv=None) -> int:
                     for k, r in results.items()]
              for name, results in (("attention", attn_res), ("gn_adagn_silu", gn_res),
                                    ("gn_adagn_silu_bwd", bwd_res))},
-          "edges": {"attention": [brief(r, 0, 0) for r in edges["attention"]],
-                    "gn_adagn_silu": [brief(r, 0, 0) for r in edges["gn_adagn_silu"]],
+          "edges": {**{k: [brief(r, 0, 0) for r in edges[k]]
+                       for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")},
                     **{k: v for k, v in edges.items()
-                       if k not in ("attention", "gn_adagn_silu")}},
+                       if k not in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")}},
           "gn_path_shapes_not_on_cluster_variant": not_cluster,
           "ok": not failed and not not_cluster})
     if failed:
@@ -728,7 +822,7 @@ def main(argv=None) -> int:
         u8 = rs.randint(0, 256, (TRAIN_BATCH, 64, 64, 3), np.uint8)
         return torch.from_numpy(from_uint8(u8)).to(device).permute(0, 3, 1, 2).contiguous()
 
-    losses, step_launches, step_variants, step_s = [], [], [], []
+    losses, step_launches, step_variants, step_bwd_variants, step_s = [], [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(1 + TRAIN_STEPS):                     # the first is the warm-up
         x_0 = batch_of_images()
@@ -740,6 +834,7 @@ def main(argv=None) -> int:
         step_s.append(time.perf_counter() - t0)
         step_launches.append(ops.launch_counts())
         step_variants.append(ops.gn_variant_counts())
+        step_bwd_variants.append(ops.gn_bwd_variant_counts())
         losses.append(float(loss))
     train_launches = step_launches[-1]
     mean_step_s = sum(step_s[1:]) / TRAIN_STEPS
@@ -760,6 +855,8 @@ def main(argv=None) -> int:
                 and all(c == want_step for c in step_launches)
                 and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
                         for v in step_variants)
+                and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+                        for v in step_bwd_variants)
                 and not stuck and not bad_grad and not thawed
                 and 2 * len(ema_still) < len(leaves) and ema_finite
                 and state.step == 1 + TRAIN_STEPS)
@@ -770,6 +867,7 @@ def main(argv=None) -> int:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches_per_step": train_launches, "launches_expected": want_step,
           "gn_variants_per_step": step_variants[-1],
+          "gn_bwd_variants_per_step": step_bwd_variants,
           "trainable_tensors": sum(len(g) for g in params.values()),
           "frozen_tensors": len(frozen_start),
           "params_not_moved": stuck[:5], "grads_missing_or_not_finite": bad_grad[:5],

@@ -22,29 +22,68 @@
 // for zeros; a null dx skips the input gradient (a chain whose input needs
 // none) and with it the second pass.
 //
-// Design: the TPU kernel holds one batch element's [H*W, C] slab in VMEM and
-// sums groups with a one-hot [C, G] matmul. In NCHW a (batch, group) is one
-// contiguous slab of cs = C/G rows of H*W elements, so one 512-thread block
-// owns one slab. Pass 1: the slab is cut into tasks (a channel row, or a
-// segment of one where there are fewer rows than warps); each warp reduces
-// its tasks' dA and dB with shuffles into shared memory, the block then sums
-// the segments per channel in a fixed order (no atomics: the result does not
-// change from run to run) and m1, m2 over the group. Pass 2 reads x and g
-// again (from L2: the largest slab pair on the celeba64 path is 2 x 192 KB)
-// and writes dx.
+// Bound: bytes. x and g are read once and dx written once: 12 bytes per
+// element in fp32 (6 in bf16) with dx, 8 (4) without, for ~30 flops, far
+// below the card's ops-per-byte ridge. dx needs m1 and m2, which need the
+// sums over the whole (batch, group) slab, so every element is touched twice:
+// the question is where it waits between the two passes. In NCHW a (batch,
+// group) is one contiguous slab of cs = C/G rows of H*W elements. Two kernels,
+// chosen by the wrapper from the shape before the launch
+// (pdae_torch/ops/groupnorm_train.py::gn_bwd_plan):
 //
-// Bound: bytes. x and g are read once and dx written once (12 bytes per
-// element in fp32) for ~30 flops.
+//   cluster variant (gn_adagn_silu_bwd_cluster_kernel): the slab pair (x and
+//     g) is split evenly over a thread block cluster of 1, 2, 4 or 8 blocks.
+//     With dx, each block copies its contiguous part of x and of g into
+//     shared memory once with 16-byte cp.async copies, sent off in four
+//     groups so that the sums of the first run while the last are in flight;
+//     a thread reads back only what it copied itself. Pass 1 spreads the
+//     part's 16-byte vectors evenly over all threads (no warp idles for want
+//     of a channel row) and takes a vector's channel once, with a shift where
+//     H*W is a power of two. Each warp adds its sums into its own row of
+//     per-channel bins: where a warp's 32 vectors lie in one channel it sums
+//     in registers until the channel changes, elsewhere it runs a segmented
+//     scan over its lanes. The bins are added in warp order, the blocks
+//     exchange those partials through distributed shared memory and add them
+//     in rank order: no atomics, so every block and every run gets the same
+//     dA, dB, m1 and m2 (they feed the parameter gradients). Exactly one
+//     block writes each channel's dA and dB. Pass 2 computes dx from shared
+//     memory and writes it with 16-byte stores: x and g are read from memory
+//     once and dx written once, which is what the bound counts. In fp32, pass
+//     1 overwrites the part with xhat and dy, so pass 2 needs no second expf
+//     (8-14% faster on an H100 than recomputing them at the train step's
+//     32x32 and 64x64 slabs);
+//     in bf16 the part would round them, and pass 2 recomputes. Without dx
+//     nothing is kept: each vector goes from memory to registers once.
+//     It needs 16-byte aligned x, g and dx, a part that is a multiple of 16
+//     bytes, H*W a multiple of the vector and at most kMaxChannels rows;
+//   general variant (gn_adagn_silu_bwd_kernel): one 512-thread block per
+//     slab, element by element; a warp per channel row (or a segment of one
+//     where there are fewer rows than warps) reduces dA and dB, the block adds
+//     them in a fixed order, and pass 2 reads x and g from memory again. It
+//     takes every shape up to 6144 channels per group. The second read comes
+//     from L2 only while the slabs in flight fit there, which at the large
+//     slabs of the celeba64 train step they do not: [32,384,64,64] holds
+//     ~528 slab pairs of 384 KB in flight, ~200 MB against 50 MB of L2, and
+//     moves ~20 bytes per element in fp32 where the bound counts 12.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;           // the general variant's block
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxClusterThreads = 512;
+constexpr int kMaxChannels = 128;       // channels per group the cluster variant takes
+constexpr int kMaxPairBytes = 196608;   // x and g of one block's part, at most
+constexpr int kMaxSmem = 232448;        // what a block may use on sm_90
+constexpr int kLoadGroups = 4;          // cp.async groups a part is loaded in
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -86,6 +125,26 @@ __device__ __forceinline__ void point(float x, float g, float mean, float inv, f
   *dy = g * (sig * (1.f + y * (1.f - sig)));
 }
 
+// The fold of channel ch of batch element b, in the order of _fold_affine.
+template <typename T>
+__device__ __forceinline__ void fold(const float* __restrict__ gamma,
+                                     const float* __restrict__ beta,
+                                     const T* __restrict__ scale, const T* __restrict__ shift,
+                                     size_t st, const T* __restrict__ z_scale,
+                                     const T* __restrict__ z_shift, size_t zt, int ch,
+                                     float* a, float* b) {
+  const float s1 = scale ? 1.f + to_f(scale[st]) : 1.f;
+  const float zs1 = z_scale ? 1.f + to_f(z_scale[zt]) : 1.f;
+  *a = __fmul_rn(__fmul_rn(gamma[ch], s1), zs1);
+  float bb = __fmul_rn(beta[ch], s1);
+  if (shift) bb = __fadd_rn(bb, to_f(shift[st]));
+  bb = __fmul_rn(bb, zs1);
+  if (z_shift) bb = __fadd_rn(bb, to_f(z_shift[zt]));
+  *b = bb;
+}
+
+// ---------------------------------------------------------------- general
+
 // Shared memory: coef_a[cs], coef_b[cs], part_a[tasks], part_b[tasks].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -117,19 +176,10 @@ gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // the fold of this group's channels, in the order of _fold_affine
   for (int j = threadIdx.x; j < cs; j += kThreads) {
     const int ch = c0 + j;
-    const size_t st = (size_t)b * st_stride + ch;
-    const size_t zt = (size_t)b * z_stride + ch;
-    const float s1 = scale ? 1.f + to_f(scale[st]) : 1.f;
-    const float zs1 = z_scale ? 1.f + to_f(z_scale[zt]) : 1.f;
-    coef_a[j] = __fmul_rn(__fmul_rn(gamma[ch], s1), zs1);
-    float bb = __fmul_rn(beta[ch], s1);
-    if (shift) bb = __fadd_rn(bb, to_f(shift[st]));
-    bb = __fmul_rn(bb, zs1);
-    if (z_shift) bb = __fadd_rn(bb, to_f(z_shift[zt]));
-    coef_b[j] = bb;
+    fold(gamma, beta, scale, shift, (size_t)b * st_stride + ch, z_scale, z_shift,
+         (size_t)b * z_stride + ch, ch, &coef_a[j], &coef_b[j]);
   }
   __syncthreads();
 
@@ -174,7 +224,7 @@ gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   m1 = block_sum(m1, red) / (float)n;
   m2 = block_sum(m2, red) / (float)n;
 
-  // pass 2: dx
+  // pass 2: dx, reading x and g from memory again
   T* dxs = dx + (size_t)bg * n;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int j = i / hw;
@@ -184,26 +234,410 @@ gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* g, const float* gamma, const float* beta,
-           const void* scale, const void* shift, int st_stride, const void* z_scale,
-           const void* z_shift, int z_stride, const float* mean, const float* rstd,
-           void* dx, float* d_a, float* d_b, int b, int c, int hw, int groups,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------- cluster
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  const size_t src = __cvta_generic_to_global(gmem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The halves of cluster.sync(), so that work can sit between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes of T as fp32, from shared or global memory, and back.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static __forceinline__ void unpack(float4 r, float* v) {
+    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+  }
+  __device__ static __forceinline__ void load(const float* p, float* v) {
+    unpack(*reinterpret_cast<const float4*>(p), v);
+  }
+  __device__ static __forceinline__ void load_global(const float* p, float* v) {
+    unpack(__ldg(reinterpret_cast<const float4*>(p)), v);
+  }
+  __device__ static __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static __forceinline__ void unpack(uint4 r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static __forceinline__ void load(const __nv_bfloat16* p, float* v) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
+  }
+  __device__ static __forceinline__ void load_global(const __nv_bfloat16* p, float* v) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(p)), v);
+  }
+  __device__ static __forceinline__ void store(__nv_bfloat16* p, const float* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// Dynamic shared memory of the cluster variant, in this order: the x part
+// and the g part (kKeep only), then floats: coef_a[cs], coef_b[cs] (the
+// fold), tot_a[cs], tot_b[cs] (the cluster's sums), slot_a[cs], slot_b[cs]
+// (this block's sums, which the other blocks read), bins[warps][2][nloc].
+//
+// kKeep: dx is made, so the part waits in shared memory between the passes.
+template <typename T, bool kKeep>
+__global__ void __launch_bounds__(kMaxClusterThreads)
+gn_adagn_silu_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                                 const float* __restrict__ gamma,
+                                 const float* __restrict__ beta, const T* __restrict__ scale,
+                                 const T* __restrict__ shift, int st_stride,
+                                 const T* __restrict__ z_scale, const T* __restrict__ z_shift,
+                                 int z_stride, const float* __restrict__ mean_bg,
+                                 const float* __restrict__ rstd_bg, T* __restrict__ dx,
+                                 float* __restrict__ d_a, float* __restrict__ d_b, int c,
+                                 int hw, int hw_shift, int groups, int part) {
+  constexpr int VEC = Vec<T>::kN;
+  // fp32 keeps xhat and dy from pass 1 in place of x and g
+  constexpr bool kStash = kKeep && sizeof(T) == sizeof(float);
+  extern __shared__ __align__(16) unsigned char raw[];
+  __shared__ float moments[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned csize = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int bg = blockIdx.x / csize;
+  const int b = bg / groups;
   const int cs = c / groups;
+  const int c0 = (bg - b * groups) * cs;
+  const int n = cs * hw;                         // = csize * part
+  const int e0 = rank * part;                    // this block's first element of the slab
+  const int nvec = part / VEC;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const T* xg = x + (size_t)bg * n + e0;
+  const T* gg = g + (size_t)bg * n + e0;
+  auto channel = [&](int e) { return hw_shift >= 0 ? e >> hw_shift : e / hw; };
+  const int j_first = channel(e0);
+  const int nloc = channel(e0 + part - 1) - j_first + 1;   // channels this part touches
+
+  T* xs = reinterpret_cast<T*>(raw);
+  T* gs = xs + (kKeep ? part : 0);
+  float* coef_a = reinterpret_cast<float*>(gs + (kKeep ? part : 0));
+  float* coef_b = coef_a + cs;
+  float* tot_a = coef_b + cs;
+  float* tot_b = tot_a + cs;
+  float* slot_a = tot_b + cs;
+  float* slot_b = slot_a + cs;
+  float* bins = slot_b + cs;
+  float* bin_a = bins + warp * 2 * nloc;         // this warp's bins
+  float* bin_b = bin_a + nloc;
+
+  // vector tid + it * nthr, it in [0, iters), in kLoadGroups groups of `per`
+  const int iters = (nvec + nthr - 1) / nthr;
+  const int per = (iters + kLoadGroups - 1) / kLoadGroups;
+  if (kKeep) {
+#pragma unroll
+    for (int grp = 0; grp < kLoadGroups; ++grp) {
+      for (int it = grp * per; it < min((grp + 1) * per, iters); ++it) {
+        const int vi = it * nthr + tid;
+        if (vi < nvec) {
+          cp_async16(xs + vi * VEC, xg + vi * VEC);
+          cp_async16(gs + vi * VEC, gg + vi * VEC);
+        }
+      }
+      cp_async_commit();
+    }
+  }
+
+  // under the copies: the fold of the group's channels, this warp's bins
+  for (int j = tid; j < cs; j += nthr) {
+    const int ch = c0 + j;
+    fold(gamma, beta, scale, shift, (size_t)b * st_stride + ch, z_scale, z_shift,
+         (size_t)b * z_stride + ch, ch, &coef_a[j], &coef_b[j]);
+  }
+  for (int k = lane; k < 2 * nloc; k += 32) bin_a[k] = 0.f;
+  const float mean = mean_bg[bg];
+  const float inv = rstd_bg[bg];
+  __syncthreads();
+
+  // pass 1. Where each warp's 32 vectors lie in one channel (uniform), a
+  // thread sums in registers and the warp flushes into its bin when the
+  // channel changes; elsewhere a segmented scan over the lanes gives each
+  // run of one channel's lanes its sum, which the run's first lane adds.
+  const bool uniform = hw % (32 * VEC) == 0 && part % (32 * VEC) == 0;
+  int cur = -1;
+  float ca = 0.f, cb = 0.f;
+  auto flush = [&]() {                           // uniform: warp-uniform call
+    const float fa = warp_sum(ca), fb = warp_sum(cb);
+    if (lane == 0) {
+      bin_a[cur] += fa;
+      bin_b[cur] += fb;
+    }
+    ca = cb = 0.f;
+  };
+  auto pass1 = [&](int it) {
+    const int vi = it * nthr + tid;
+    const bool valid = vi < nvec;
+    if (uniform && !valid) return;               // the whole warp is past the end
+    int jl = INT_MAX;
+    float sa = 0.f, sb = 0.f;
+    if (valid) {
+      const int j = channel(e0 + vi * VEC);
+      jl = j - j_first;
+      const float a = coef_a[j], bb = coef_b[j];
+      float xv[VEC], gv[VEC];
+      if (kKeep) {
+        Vec<T>::load(xs + vi * VEC, xv);
+        Vec<T>::load(gs + vi * VEC, gv);
+      } else {
+        Vec<T>::load_global(xg + vi * VEC, xv);
+        Vec<T>::load_global(gg + vi * VEC, gv);
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float dy, xhat;
+        point(xv[i], gv[i], mean, inv, a, bb, &dy, &xhat);
+        sa = fmaf(dy, xhat, sa);
+        sb += dy;
+        xv[i] = xhat;
+        gv[i] = dy;
+      }
+      if (kStash) {
+        Vec<T>::store(xs + vi * VEC, xv);
+        Vec<T>::store(gs + vi * VEC, gv);
+      }
+    }
+    if (uniform) {
+      if (jl != cur) {
+        if (cur >= 0) flush();
+        cur = jl;
+      }
+      ca += sa;
+      cb += sb;
+      return;
+    }
+    for (int off = 1; off < 32; off <<= 1) {     // suffix sums within a run
+      const float oa = __shfl_down_sync(0xffffffffu, sa, off);
+      const float ob = __shfl_down_sync(0xffffffffu, sb, off);
+      const int ok = __shfl_down_sync(0xffffffffu, jl, off);
+      if (lane + off < 32 && ok == jl) {
+        sa += oa;
+        sb += ob;
+      }
+    }
+    const int before = __shfl_up_sync(0xffffffffu, jl, 1);
+    if (jl != INT_MAX && (lane == 0 || before != jl)) {
+      bin_a[jl] += sa;
+      bin_b[jl] += sb;
+    }
+  };
+  auto pass1_group = [&](int grp) {
+    for (int it = grp * per; it < min((grp + 1) * per, iters); ++it) pass1(it);
+  };
+  if (kKeep) {
+    cp_async_wait<3>(); pass1_group(0);
+    cp_async_wait<2>(); pass1_group(1);
+    cp_async_wait<1>(); pass1_group(2);
+    cp_async_wait<0>(); pass1_group(3);
+  } else {
+    for (int it = 0; it < iters; ++it) pass1(it);
+  }
+  if (uniform && cur >= 0) flush();
+  __syncthreads();
+
+  // this block's sums per channel: the warps' bins in warp order
+  const int warps = nthr >> 5;
+  for (int k = tid; k < nloc; k += nthr) {
+    float sa = 0.f, sb = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      sa += bins[w * 2 * nloc + k];
+      sb += bins[w * 2 * nloc + nloc + k];
+    }
+    slot_a[j_first + k] = sa;
+    slot_b[j_first + k] = sb;
+  }
+  // the cluster's sums: the blocks whose parts touch channel j, in rank order
+  if (csize > 1) cluster.sync();
+  else __syncthreads();
+  for (int j = tid; j < cs; j += nthr) {
+    float sa = 0.f, sb = 0.f;
+    const int r_hi = ((j + 1) * hw - 1) / part;
+    for (int r = j * hw / part; r <= r_hi; ++r) {
+      const float* ra = csize > 1 ? cluster.map_shared_rank(slot_a, r) : slot_a;
+      const float* rb = csize > 1 ? cluster.map_shared_rank(slot_b, r) : slot_b;
+      sa += ra[j];
+      sb += rb[j];
+    }
+    tot_a[j] = sa;
+    tot_b[j] = sb;
+    if (j % (int)csize == (int)rank) {
+      d_a[(size_t)b * c + c0 + j] = sa;
+      d_b[(size_t)b * c + c0 + j] = sb;
+    }
+  }
+  // no block may leave while another still reads its slots: arrive now, wait last
+  if (csize > 1) cluster_arrive();
+
+  if (kKeep) {
+    __syncthreads();
+    if (warp == 0) {
+      float p1 = 0.f, p2 = 0.f;
+      for (int j = lane; j < cs; j += 32) {
+        p1 = fmaf(coef_a[j], tot_b[j], p1);
+        p2 = fmaf(coef_a[j], tot_a[j], p2);
+      }
+      p1 = warp_sum(p1);
+      p2 = warp_sum(p2);
+      if (lane == 0) {
+        moments[0] = p1 / (float)n;
+        moments[1] = p2 / (float)n;
+      }
+    }
+    __syncthreads();
+    const float m1 = moments[0], m2 = moments[1];
+
+    // pass 2: dx from shared memory, 16-byte stores
+    T* dxg = dx + (size_t)bg * n + e0;
+    for (int it = 0; it < iters; ++it) {
+      const int vi = it * nthr + tid;
+      if (vi >= nvec) break;
+      const int j = channel(e0 + vi * VEC);
+      const float a = coef_a[j];
+      float xv[VEC], gv[VEC], out[VEC];
+      Vec<T>::load(xs + vi * VEC, xv);
+      Vec<T>::load(gs + vi * VEC, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float dy = gv[i], xhat = xv[i];
+        if (!kStash) point(xv[i], gv[i], mean, inv, a, coef_b[j], &dy, &xhat);
+        out[i] = inv * (dy * a - m1 - xhat * m2);
+      }
+      Vec<T>::store(dxg + vi * VEC, out);
+    }
+  }
+  if (csize > 1) cluster_wait();
+}
+
+// ---------------------------------------------------------------- launchers
+
+constexpr int kMaxDevices = 64;
+
+template <typename T, bool kKeep>
+cudaError_t ensure_cluster_smem() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(gn_adagn_silu_bwd_cluster_kernel<T, kKeep>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem - 1024);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+struct Args {
+  const void *x, *g, *scale, *shift, *z_scale, *z_shift;
+  const float *gamma, *beta, *mean, *rstd;
+  void* dx;
+  float *d_a, *d_b;
+  int st_stride, z_stride, b, c, hw, groups, cluster, threads;
+  cudaStream_t stream;
+};
+
+template <typename T>
+int launch_general(const Args& a) {
+  const int cs = a.c / a.groups;
   // fewer rows than warps: cut each row into segments, one warp each
   int segs = kWarps / cs;
-  const int max_segs = (hw + 31) / 32;
+  const int max_segs = (a.hw + 31) / 32;
   if (segs > max_segs) segs = max_segs;
   if (segs < 1) segs = 1;
   const size_t smem = (size_t)(2 * cs + 2 * cs * segs) * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  gn_adagn_silu_bwd_kernel<T><<<b * groups, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), gamma, beta,
-      static_cast<const T*>(scale), static_cast<const T*>(shift), st_stride,
-      static_cast<const T*>(z_scale), static_cast<const T*>(z_shift), z_stride, mean, rstd,
-      static_cast<T*>(dx), d_a, d_b, c, hw, groups, segs);
+  gn_adagn_silu_bwd_kernel<T><<<a.b * a.groups, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
+      static_cast<const T*>(a.scale), static_cast<const T*>(a.shift), a.st_stride,
+      static_cast<const T*>(a.z_scale), static_cast<const T*>(a.z_shift), a.z_stride,
+      a.mean, a.rstd, static_cast<T*>(a.dx), a.d_a, a.d_b, a.c, a.hw, a.groups, segs);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kKeep>
+int launch_cluster(const Args& a, int hw_shift, int part, size_t smem) {
+  cudaError_t err = ensure_cluster_smem<T, kKeep>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(a.b * a.groups * a.cluster));
+  config.blockDim = dim3((unsigned)a.threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &config, gn_adagn_silu_bwd_cluster_kernel<T, kKeep>,
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
+      static_cast<const T*>(a.scale), static_cast<const T*>(a.shift), a.st_stride,
+      static_cast<const T*>(a.z_scale), static_cast<const T*>(a.z_shift), a.z_stride,
+      a.mean, a.rstd, static_cast<T*>(a.dx), a.d_a, a.d_b, a.c, a.hw, hw_shift, a.groups,
+      part);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const Args& a) {
+  if (a.cluster == 0) return launch_general<T>(a);
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const int cs = a.c / a.groups;
+  const long long n = (long long)cs * a.hw;
+  const long long part = n / a.cluster;
+  const bool keep = a.dx != nullptr;
+  const bool cluster_ok = a.cluster == 1 || a.cluster == 2 || a.cluster == 4 || a.cluster == 8;
+  if (!cluster_ok || part * a.cluster != n || part % VEC != 0 || a.hw % VEC != 0
+      || cs > kMaxChannels || 2 * part * (long long)sizeof(T) > kMaxPairBytes
+      || a.threads < 32 || a.threads > kMaxClusterThreads || a.threads % 32 != 0
+      || reinterpret_cast<uintptr_t>(a.x) % 16 != 0
+      || reinterpret_cast<uintptr_t>(a.g) % 16 != 0
+      || reinterpret_cast<uintptr_t>(a.dx) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  int hw_shift = -1;
+  if ((a.hw & (a.hw - 1)) == 0)
+    for (hw_shift = 0; (1 << hw_shift) < a.hw; ++hw_shift) {}
+  // a part of `part` elements touches at most this many channels
+  long long nloc = (part + a.hw - 1) / a.hw + 1;
+  if (nloc > cs) nloc = cs;
+  const size_t smem = (keep ? 2 * part * sizeof(T) : 0)
+                      + (6 * cs + 2 * (a.threads / 32) * nloc) * sizeof(float);
+  if (smem > (size_t)(kMaxSmem - 1024)) return (int)cudaErrorInvalidValue;
+  if (!keep) return launch_cluster<T, false>(a, hw_shift, (int)part, smem);
+  return launch_cluster<T, true>(a, hw_shift, (int)part, smem);
 }
 
 }  // namespace
@@ -213,27 +647,32 @@ extern "C" {
 // x, g, dx: contiguous [b, c, hw] (dx may be null); gamma, beta: fp32 [c];
 // scale/shift: rows of c at st_stride (or both null), z_scale/z_shift likewise
 // at z_stride; mean, rstd: fp32 [b * groups]; d_a, d_b: fp32 [b, c].
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for more than 6144 channels per group.
+// dtype: 0 = float32, 1 = bfloat16. cluster: 0 = the general variant; 1, 2,
+// 4 or 8 = the cluster variant with that many blocks of `threads` threads per
+// slab (what it asks of the shape is in the header). Returns the launch's
+// error code, 0 on success, or cudaErrorInvalidValue for a shape the variant
+// does not take.
 int pdae_gn_adagn_silu_bwd(const void* x, const void* g, const void* gamma,
                            const void* beta, const void* scale, const void* shift,
                            int st_stride, const void* z_scale, const void* z_shift,
                            int z_stride, const void* mean, const void* rstd, void* dx,
                            void* d_a, void* d_b, int b, int c, int hw, int groups,
-                           int dtype, void* stream) {
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  const float* me = static_cast<const float*>(mean);
-  const float* rs = static_cast<const float*>(rstd);
-  float* da = static_cast<float*>(d_a);
-  float* db = static_cast<float*>(d_b);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, g, ga, be, scale, shift, st_stride, z_scale, z_shift, z_stride,
-                         me, rs, dx, da, db, b, c, hw, groups, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, g, ga, be, scale, shift, st_stride, z_scale, z_shift,
-                                 z_stride, me, rs, dx, da, db, b, c, hw, groups, s);
+                           int dtype, int cluster, int threads, void* stream) {
+  Args a;
+  a.x = x; a.g = g; a.scale = scale; a.shift = shift; a.z_scale = z_scale;
+  a.z_shift = z_shift;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.mean = static_cast<const float*>(mean);
+  a.rstd = static_cast<const float*>(rstd);
+  a.dx = dx;
+  a.d_a = static_cast<float*>(d_a);
+  a.d_b = static_cast<float*>(d_b);
+  a.st_stride = st_stride; a.z_stride = z_stride;
+  a.b = b; a.c = c; a.hw = hw; a.groups = groups; a.cluster = cluster; a.threads = threads;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(a);
+  if (dtype == 1) return launch<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }
 

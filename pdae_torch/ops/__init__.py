@@ -12,8 +12,9 @@ A CUDA tensor never falls back: it launches the kernel or raises, in the
 forward and, where a gradient is wanted, in the backward. Each kernel
 module keeps a plain integer ``launches`` that its wrapper raises by one per
 launch; ``launch_counts``/``reset_launch_counts`` read and clear them. The GN
-forward has two hand-written variants, chosen from the shape before the launch;
-``gn_variant_counts`` says how many of its launches each served.
+forward and the GN backward each have two hand-written variants, chosen from
+the shape before the launch; ``gn_variant_counts`` and
+``gn_bwd_variant_counts`` say how many of their launches each served.
 """
 
 from __future__ import annotations
@@ -37,14 +38,19 @@ def gn_variant_counts() -> dict:
     return dict(groupnorm.variant_launches)
 
 
+def gn_bwd_variant_counts() -> dict:
+    return dict(groupnorm_train.variant_launches)
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
-    for variant in groupnorm.variant_launches:
-        groupnorm.variant_launches[variant] = 0
+    for counts in (groupnorm.variant_launches, groupnorm_train.variant_launches):
+        for variant in counts:
+            counts[variant] = 0
 
 
-__all__ = ["set_use_kernels", "launch_counts", "gn_variant_counts",
+__all__ = ["set_use_kernels", "launch_counts", "gn_variant_counts", "gn_bwd_variant_counts",
            "reset_launch_counts", "fused_qkv_attention", "reference_attention",
            "gn_adagn_silu", "gn_adagn_silu_fwd", "fused_gn_adagn_silu",
            "reference_gn_adagn_silu", "gn_adagn_silu_train",

@@ -21,11 +21,19 @@ that is the JAX package's backward, mirrored and not "fixed". ``None``
 coefficients get no gradient and are never materialised as zeros; the values
 equal those of a chain fed zeros. The kernel is bound by bytes: x and g read
 once, dx written once.
+
+The source holds two hand-written variants and ``gn_bwd_plan`` picks one from
+the shape before the launch: the cluster variant splits a (batch, group) slab
+pair (x and g) over a thread block cluster and keeps it in shared memory
+between the sums and dx (one read of memory), the general variant takes every
+shape with one block per slab. ``variant_launches`` counts each; ``launches``
+is their sum.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -34,6 +42,12 @@ from . import _build, groupnorm
 from ._dispatch import check_cuda_error, dtype_code, kernel_for, stream_handle
 
 launches = 0   # backward-kernel launches since the last reset (pdae_torch.ops)
+variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
+
+PAIR_BYTES = 65536      # most of a slab pair (x and g) one block of the cluster variant holds
+BYTES_PER_THREAD = 128  # of that pair, for which the cluster variant gives a thread
+MAX_THREADS = 256       # the cluster variant's largest block
+MAX_CHANNELS = 128      # the most channels per group the cluster variant takes
 
 _fn = None
 
@@ -114,6 +128,44 @@ def unfold_grads(d_a, d_b, gamma, beta, scale, shift, z_scale, z_shift, needs):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def gn_bwd_plan(n: int, hw: int, elt: int, need_dx: bool, x_ptr: int = 0, g_ptr: int = 0,
+                dx_ptr: int = 0) -> groupnorm.GNPlan:
+    """The variant for slabs of ``n`` elements of ``elt`` bytes (``n`` =
+    channels per group x ``hw``) at the given addresses: the cluster variant
+    with ``groupnorm.cluster_plan``'s split, each block holding at most
+    ``PAIR_BYTES`` of x and g together, and a block of the smallest power of
+    two of threads that gives each at most ``BYTES_PER_THREAD`` of it, from
+    32 up to ``MAX_THREADS`` (all three measured with
+    ``pdae_torch.tools.tune_kernels``); ``part_bytes`` is the bytes of x and
+    g one block reads (and, with ``need_dx``, holds). It needs 16-byte
+    aligned pointers, ``hw`` a multiple of the vector (a vector lies in one
+    channel) and at most ``MAX_CHANNELS`` channels per group; every other
+    slab (misaligned, ragged, too many channels, or over 8 parts) goes to the
+    general variant. Without ``need_dx`` the launch is the same, and the part
+    is read once and not held."""
+    if x_ptr % 16 or g_ptr % 16 or dx_ptr % 16 or hw % (16 // elt) or n // hw > MAX_CHANNELS:
+        return groupnorm.GENERAL
+    plan = groupnorm.cluster_plan(n, elt, PAIR_BYTES // 2, MAX_THREADS)
+    if plan is None:
+        return groupnorm.GENERAL
+    pair = 2 * plan.part_bytes
+    threads = 32
+    while threads < MAX_THREADS and threads * BYTES_PER_THREAD < pair:
+        threads *= 2
+    return plan._replace(threads=threads, part_bytes=pair)
+
+
+def plan_for(x, g, dx, groups: int) -> groupnorm.GNPlan:
+    """``gn_bwd_plan`` for the slabs of ``x`` [B, C, ...], the output gradient
+    ``g`` and the input gradient buffer ``dx`` (None without one). The
+    addresses matter modulo 16 alone, and so the cache hits."""
+    hw = x.numel() // (x.shape[0] * x.shape[1])
+    return gn_bwd_plan(x.shape[1] // groups * hw, hw, x.element_size(), dx is not None,
+                       x.data_ptr() % 16, g.data_ptr() % 16,
+                       0 if dx is None else dx.data_ptr() % 16)
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -121,18 +173,36 @@ def _kernel():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pdae_gn_adagn_silu_bwd.argtypes = [
             vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp,
-            ci, ci, ci, ci, ci, vp]
+            ci, ci, ci, ci, ci, ci, ci, vp]
         lib.pdae_gn_adagn_silu_bwd.restype = ci
         _fn = lib
     return _fn
 
 
+def _launch(plan: groupnorm.GNPlan, x, g, mean, rstd, gamma, beta, scale, shift, z_scale,
+            z_shift, groups: int, dx, d_a, d_b) -> None:
+    """The kernel under ``plan`` from checked inputs into ``dx`` (or None),
+    ``d_a`` and ``d_b``."""
+    global launches
+    b, c = x.shape[:2]
+    s, t, st_stride = groupnorm._pair(scale, shift, x, "scale/shift")
+    zs, zt, z_stride = groupnorm._pair(z_scale, z_shift, x, "z_scale/z_shift")
+    err = _kernel().pdae_gn_adagn_silu_bwd(
+        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t,
+        st_stride, zs, zt, z_stride, mean.data_ptr(), rstd.data_ptr(),
+        None if dx is None else dx.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
+        b, c, x[0, 0].numel(), groups, dtype_code(x.dtype), plan.cluster, plan.threads,
+        stream_handle(x))
+    check_cuda_error(err, f"GN backward kernel ({plan.variant} variant)")
+    launches += 1
+    variant_launches[plan.variant] += 1
+
+
 def gn_bwd_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
                 z_shift=None, groups: int = 32, need_dx: bool = True):
-    """Launch the backward kernel on contiguous CUDA ``x``, ``g`` [B, C, ...];
-    raises on what it does not take. Returns ``(dx, dA, dB)`` as
-    ``gn_adagn_silu_bwd_plain``."""
-    global launches
+    """Launch the backward kernel on contiguous CUDA ``x``, ``g`` [B, C, ...]
+    under ``gn_bwd_plan``'s choice; raises on what it does not take. Returns
+    ``(dx, dA, dB)`` as ``gn_adagn_silu_bwd_plain``."""
     groupnorm.check_gn_inputs(x, gamma, beta, groups)
     b, c = x.shape[:2]
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
@@ -148,20 +218,11 @@ def gn_bwd_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=N
     if c // groups > 6144:
         raise ValueError(f"GN backward kernel: {c // groups} channels per group "
                          "exceed the 6144 its shared memory holds")
-    code = dtype_code(x.dtype)
-    s, t, st_stride = groupnorm._pair(scale, shift, x, "scale/shift")
-    zs, zt, z_stride = groupnorm._pair(z_scale, z_shift, x, "z_scale/z_shift")
-    lib = _kernel()
     dx = torch.empty_like(x) if need_dx else None
     d_a = torch.empty(b, c, device=x.device, dtype=torch.float32)
     d_b = torch.empty_like(d_a)
-    err = lib.pdae_gn_adagn_silu_bwd(
-        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t,
-        st_stride, zs, zt, z_stride, mean.data_ptr(), rstd.data_ptr(),
-        dx.data_ptr() if need_dx else None, d_a.data_ptr(), d_b.data_ptr(),
-        b, c, x[0, 0].numel(), groups, code, stream_handle(x))
-    check_cuda_error(err, "GN backward kernel")
-    launches += 1
+    _launch(plan_for(x, g, dx, groups), x, g, mean, rstd, gamma, beta, scale, shift,
+            z_scale, z_shift, groups, dx, d_a, d_b)
     return dx, d_a, d_b
 
 

@@ -1,18 +1,21 @@
-"""Sweep the launch plans of the attention and GN forward kernels on the card.
+"""Sweep the launch plans of the attention and GN kernels on the card.
 
-    python3 -m pdae_torch.tools.tune_kernels [--quick] [--only attention|gn]
+    python3 -m pdae_torch.tools.tune_kernels [--quick] [--only attention|gn|gn_bwd]
 
 Run from the root of the repository: the shapes, the timer, the tolerances
 and the inputs are ``chip_smoke.py``'s (the shapes read off the celeba64
 models at b8 and b32, ``device_ms``, ``TOL``, ``ATTENTION_EDGES``), so the
 sweep measures what the smoke run checks. For each shape it holds the kernel
 against its plain version under every candidate plan and prints the device
-time per launch (CUDA-graph replay, fp32): the GN cluster variant over part
-sizes and block sizes beside the general variant, the attention kernel over
+time per launch (CUDA-graph replay, fp32): the GN forward's cluster variant
+over part sizes and block sizes beside the general variant; the GN
+backward's cluster variant over cluster sizes and block sizes (``cC_tT``)
+beside the general variant, at the train step's 23 backward shapes, in fp32
+and (checked, not timed) bf16; the attention kernel over
 the built query-tile heights beside ``scaled_dot_product_attention``. The
 candidates go through the wrappers' private ``_launch``; the public wrappers
-take ``gn_plan``'s and ``attention_plan``'s choice alone, whose constants
-were chosen from this table. ``--quick`` builds, checks every plan once (the
+take ``gn_plan``'s, ``gn_bwd_plan``'s and ``attention_plan``'s choice alone,
+whose constants were chosen from this table. ``--quick`` builds, checks every plan once (the
 attention edge shapes too) and times nothing. One JSON line per shape; the
 whole table goes to ``chiprun_out/tune_kernels.json``.
 """
@@ -30,6 +33,8 @@ import torch.nn.functional as F
 
 PART_SIZES = (8192, 16384, 32768, 49152, 65536)
 BLOCK_SIZES = (128, 256, 512)
+BWD_BLOCK_SIZES = (32, 64, 128, 256, 512)
+BWD_MAX_PAIR = 196608      # the most of x and g the backward's cluster block takes
 
 
 def attention_candidates(bh, t, d, elt):
@@ -56,17 +61,38 @@ def attention_candidates(bh, t, d, elt):
     return base, plans
 
 
+def gn_bwd_candidates(n, hw, elt, need_dx):
+    """The backward's plans for a slab of ``n`` elements, by name: every
+    cluster size whose even part the kernel takes, at every block size that
+    leaves no warp without a vector."""
+    from pdae_torch.ops import groupnorm, groupnorm_train
+
+    vec = 16 // elt
+    plans = {"general": groupnorm.GENERAL}
+    for cluster in groupnorm.CLUSTER_SIZES:
+        if n % (cluster * vec) or 2 * n // cluster * elt > BWD_MAX_PAIR:
+            continue
+        for threads in BWD_BLOCK_SIZES:
+            if threads > 32 and (threads - 32) * vec >= n // cluster:
+                continue
+            plans[f"c{cluster}_t{threads}"] = groupnorm.GNPlan(
+                "cluster", cluster, threads, 2 * n // cluster * elt)
+    base = groupnorm_train.gn_bwd_plan(n, hw, elt, need_dx)
+    plans[f"c{base.cluster}_t{base.threads}" if base.cluster else "general"] = base
+    return base, plans
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--only", choices=("attention", "gn"), default=None)
+    ap.add_argument("--only", choices=("attention", "gn", "gn_bwd"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from pdae_torch import ops
-    from pdae_torch.ops import _build, attention, groupnorm
+    from pdae_torch.ops import _build, attention, groupnorm, groupnorm_train
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,7 +108,9 @@ def main(argv=None) -> int:
           flush=True)
 
     attn = sorted(k[1:] for k in shapes if k[0] == "attention")
-    for shape in [] if args.only == "gn" else (cs.ATTENTION_EDGES if args.quick else []) + attn:
+    if args.quick:
+        attn = cs.ATTENTION_EDGES + attn
+    for shape in [] if args.only in ("gn", "gn_bwd") else attn:
         b, h, t, d = shape
         for dtype in (torch.float32, torch.bfloat16):
             if (d * dtype.itemsize) % 16:
@@ -109,7 +137,7 @@ def main(argv=None) -> int:
 
     # one coefficient combination per shape: the fullest the path has there
     gn = sorted({k[1:5]: k for k in sorted(shapes) if k[0] == "gn"}.values())
-    for key in [] if args.only == "attention" else gn[:: 5 if args.quick else 1]:
+    for key in [] if args.only in ("attention", "gn_bwd") else gn[:: 5 if args.quick else 1]:
         shape, has_st, has_z = key[1:5], key[5], key[6]
         hw = shape[2] * shape[3]
         for dtype in (torch.float32, torch.bfloat16) if args.quick else (torch.float32,):
@@ -143,6 +171,45 @@ def main(argv=None) -> int:
                 if not args.quick:
                     row[name] = cs.device_ms(lambda: groupnorm._launch(
                         p, x, out, gamma, beta, *coef, 32, False))
+            table.append(row)
+            print(json.dumps(row), flush=True)
+
+    # the backward at every shape of the train step, in both dtypes
+    bwd = sorted(k for k in shapes if k[0] == "gn_bwd")
+    for key in [] if args.only in ("attention", "gn") else bwd:
+        shape, has_st, has_z, need_dx = key[1:5], key[5], key[6], key[7]
+        hw = shape[2] * shape[3]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gamma, beta, *coef = cs.gn_coefficients(shape, has_st, has_z, gen, dev, dtype)
+            g = torch.randn(shape, generator=gen).to(dev, dtype)
+            _, mean, rstd = ops.gn_adagn_silu_fwd(x, gamma, beta, *coef, groups=32,
+                                                  return_stats=True)
+            want = ops.gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, *coef,
+                                               groups=32, need_dx=need_dx)
+            base, plans = gn_bwd_candidates(shape[1] // 32 * hw, hw, x.element_size(),
+                                            need_dx)
+            row = {"gn_bwd": list(shape), "adagn": has_st, "z": has_z, "dx": need_dx,
+                   "dtype": str(dtype)[6:], "plan": base._asdict()}
+            dx = torch.empty_like(x) if need_dx else None
+            d_a = torch.empty(shape[:2], device=dev)
+            d_b = torch.empty_like(d_a)
+            for name, p in plans.items():
+                def run():
+                    groupnorm_train._launch(p, x, g, mean, rstd, gamma, beta, *coef, 32,
+                                            dx, d_a, d_b)
+                run()
+                torch.cuda.synchronize()
+                err = 0.0
+                for what, a, w in zip(("dx", "dA", "dB"), (dx, d_a, d_b), want):
+                    if w is None:
+                        continue
+                    res = cs.compare(a, w, cs.scaled(cs.TOL[("gn_bwd", dtype)], w))
+                    err = max(err, res["max_abs_err"])
+                    if not res["ok"]:
+                        bad.append((shape, str(dtype), name, what, res["max_abs_err"]))
+                row[name + "_err"] = err
+                if not args.quick and dtype == torch.float32:
+                    row[name] = cs.device_ms(run)
             table.append(row)
             print(json.dumps(row), flush=True)
 

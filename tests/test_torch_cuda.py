@@ -9,8 +9,12 @@ GN chain within 1e-4 + 1e-4*|ref| (sums in another order). The two autograd
 Functions (GN chain: forward and backward kernels; attention: forward kernel,
 plain-torch backward) are held against the same Functions on the plain
 versions (``set_use_kernels(False)``): every gradient within
-1e-4 * max(1, max|ref|) + 1e-4 * |ref|. ``chip_smoke.py`` covers every path
-shape, bf16 and timings.
+1e-4 * max(1, max|ref|) + 1e-4 * |ref|. The GN backward kernel's two
+variants are held against its plain version directly (dx, dA, dB within
+1e-4 * max(1, max|ref|) + 1e-4 * |ref| in fp32, 3e-2 * max(1, max|ref|) +
+2e-2 * |ref| in bf16, where dx is rounded), and two of its launches on the
+same inputs must be bit-equal. ``chip_smoke.py`` covers every path shape,
+bf16 and timings.
 """
 
 import pytest
@@ -276,3 +280,108 @@ def test_backward_through_the_kernels_reaches_every_trainable_parameter(cuda):
     counts = ops.launch_counts()
     assert counts["gn_adagn_silu_bwd"] > 0 and counts["attention"] > 0
     assert counts["gn_adagn_silu_bwd"] < counts["gn_adagn_silu"]
+
+
+def _bwd_inputs(cuda, shape, variant, dtype=torch.float32, seed=5):
+    """x, g, the forward kernel's saved stats, gamma, beta and the four AdaGN
+    vectors (None where ``variant`` has none) for the GN backward kernel."""
+    gen = torch.Generator().manual_seed(seed)
+    b, c = shape[:2]
+    x = torch.randn(shape, generator=gen).to(cuda, dtype)
+    g = torch.randn(shape, generator=gen).to(cuda, dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen)).to(cuda)
+    beta = (0.1 * torch.randn(c, generator=gen)).to(cuda)
+    s, t = (0.1 * torch.randn(b, 2 * c, generator=gen)).to(cuda, dtype).chunk(2, dim=1)
+    zs, zt = (0.1 * torch.randn(b, 2 * c, generator=gen)).to(cuda, dtype).chunk(2, dim=1)
+    coef = {"plain": (None,) * 4, "adagn": (s, t, None, None),
+            "adagn_z": (s, t, zs, zt)}[variant]
+    _, mean, rstd = groupnorm.gn_cuda(x, gamma, beta, *coef, groups=32, save_stats=True)
+    return x, g, mean, rstd, gamma, beta, coef
+
+
+def _assert_bwd_close(got, want, dtype):
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 2e-2)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol * max(1.0, float(b.float().abs().max())))
+
+
+# each variant at the train step's kinds of slab (clusters of 8, 4, 2 and 1; a
+# segmented scan at 8x8 and 4x4), then the edges: a cluster of 8 with two
+# channels a group, no dx over a
+# cluster, H*W no power of two, and two slabs for the general variant (H*W no
+# multiple of the 16-byte vector, a slab pair over 8 parts)
+@pytest.mark.parametrize("shape,variant,need_dx,want", [
+    ((4, 384, 64, 64), "plain", True, ("cluster", 8)),
+    ((4, 256, 64, 64), "adagn_z", True, ("cluster", 4)),
+    ((4, 128, 64, 64), "adagn_z", True, ("cluster", 2)),
+    ((4, 512, 8, 8), "adagn", True, ("cluster", 1)),
+    ((4, 128, 4, 4), "plain", True, ("cluster", 1)),
+    ((1, 64, 128, 256), "adagn_z", True, ("cluster", 8)),
+    ((2, 256, 64, 64), "plain", False, ("cluster", 4)),
+    ((4, 512, 8, 8), "plain", False, ("cluster", 1)),
+    ((2, 64, 12, 12), "adagn_z", True, ("cluster", 1)),
+    ((2, 64, 3, 3), "adagn_z", True, ("general", 0)),
+    ((1, 64, 384, 384), "plain", True, ("general", 0))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_backward_kernel_matches_plain(cuda, shape, variant, need_dx, want, dtype):
+    x, g, mean, rstd, gamma, beta, coef = _bwd_inputs(cuda, shape, variant, dtype)
+    before = dict(groupnorm_train.variant_launches)
+    got = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef,
+                                      need_dx=need_dx)
+    torch.cuda.synchronize()
+    plan = groupnorm_train.plan_for(x, g, got[0], 32)
+    if dtype == torch.float32:
+        assert (plan.variant, plan.cluster) == want
+    assert groupnorm_train.variant_launches[plan.variant] == before[plan.variant] + 1
+    want_grads = ops.gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, *coef,
+                                             need_dx=need_dx)
+    _assert_bwd_close(got, want_grads, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_backward_repeats_bit_for_bit(cuda, dtype):
+    """The sums feed the parameter gradients: no atomics, one order."""
+    x, g, mean, rstd, gamma, beta, coef = _bwd_inputs(cuda, (32, 256, 64, 64), "adagn_z",
+                                                      dtype)
+    first = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+    second = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+    torch.cuda.synchronize()
+    assert groupnorm_train.plan_for(x, g, first[0], 32).cluster > 1
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gn_backward_misaligned_input_takes_the_general_variant(cuda):
+    x, g, mean, rstd, gamma, beta, coef = _bwd_inputs(cuda, (2, 256, 16, 16), "adagn_z")
+    aligned = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+    off_x = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    off_g = torch.empty(g.numel() + 1, device=cuda)[1:].view(g.shape).copy_(g)
+    for xs, gs in ((off_x, g), (x, off_g)):
+        before = groupnorm_train.variant_launches["general"]
+        got = groupnorm_train.gn_bwd_cuda(xs, gs, mean, rstd, gamma, beta, *coef)
+        torch.cuda.synchronize()
+        assert groupnorm_train.variant_launches["general"] == before + 1
+        _assert_bwd_close(got, aligned, torch.float32)
+
+
+def test_a_gn_backward_cluster_launch_captures_in_a_cuda_graph(cuda):
+    x, g, mean, rstd, gamma, beta, coef = _bwd_inputs(cuda, (8, 256, 64, 64), "plain")
+    args = (x, g, mean, rstd, gamma, beta)
+    eager = groupnorm_train.gn_bwd_cuda(*args)
+    assert groupnorm_train.plan_for(x, g, eager[0], 32).cluster == 4
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        groupnorm_train.gn_bwd_cuda(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = groupnorm_train.gn_bwd_cuda(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)

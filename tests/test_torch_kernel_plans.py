@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from pdae_torch import ops
-from pdae_torch.ops import attention, groupnorm
+from pdae_torch.ops import attention, groupnorm, groupnorm_train
 
 GROUPS = 32
 # (channels, H=W, AdaGN, z) of every GN chain of one ShiftUNet evaluation and
@@ -227,3 +227,114 @@ def test_a_small_grid_takes_the_smallest_tile():
     assert (plan.bm, plan.warps, plan.blocks) == (8, 4, 6)
     # with 32-key tiles (rows over 512 bytes) only the 8- and 16-row tiles exist
     assert attention.attention_plan(64, 1024, 256, 4)[:3] == (16, 32, 4)
+
+
+# (channels, H=W, AdaGN and z, dx, launches) of every GN chain of the b32 train
+# step that runs a backward: the shift branch's ResBlocks have AdaGN and z, the
+# trunk's have neither, and one chain's input needs no gradient
+GN_BWD_CHAINS = [
+    (384, 64, False, True, 1), (256, 64, False, True, 2), (256, 64, True, True, 1),
+    (128, 64, False, True, 1), (128, 64, True, True, 3), (512, 32, False, True, 2),
+    (384, 32, False, True, 1), (256, 32, False, True, 1), (256, 32, True, True, 4),
+    (768, 16, False, True, 1), (512, 16, False, True, 2), (512, 16, True, True, 1),
+    (1024, 8, False, True, 2), (256, 16, False, True, 1), (256, 16, True, True, 3),
+    (64, 32, False, True, 1), (768, 8, False, True, 1), (128, 16, False, True, 1),
+    (128, 8, False, True, 1), (128, 4, False, True, 1), (512, 8, False, False, 1),
+    (512, 8, False, True, 2), (512, 8, True, True, 5)]
+
+
+def test_the_train_step_has_23_backward_combinations_and_39_launches():
+    combos = [chain[:4] for chain in GN_BWD_CHAINS]
+    assert len(combos) == len(set(combos)) == 23
+    assert sum(chain[4] for chain in GN_BWD_CHAINS) == 39
+
+
+@pytest.mark.parametrize("channels,side,adagn_z,need_dx,launches", GN_BWD_CHAINS)
+@pytest.mark.parametrize("elt", [4, 2])
+def test_every_train_step_backward_goes_to_the_cluster_variant(channels, side, adagn_z,
+                                                               need_dx, launches, elt):
+    hw = side * side
+    n = channels // GROUPS * hw
+    pair = 2 * n * elt                                   # x and g of one slab
+    plan = groupnorm_train.gn_bwd_plan(n, hw, elt, need_dx)
+    assert plan.variant == "cluster"
+    assert plan.cluster in groupnorm.CLUSTER_SIZES
+    assert plan.cluster * plan.part_bytes == pair        # an even split, read once
+    assert plan.part_bytes % 32 == 0                     # each half 16-byte vectors
+    assert plan.part_bytes <= groupnorm_train.PAIR_BYTES == 65536
+    assert 32 <= plan.threads <= groupnorm_train.MAX_THREADS == 256
+    assert plan.threads & (plan.threads - 1) == 0
+    assert (plan.threads - 32) * 16 < plan.part_bytes // 2   # no warp without a vector
+    # a thread per 128 bytes of the pair: half as many threads would not do
+    per = groupnorm_train.BYTES_PER_THREAD
+    assert plan.threads * per >= plan.part_bytes or plan.threads == 256
+    assert plan.threads == 32 or plan.threads // 2 * per < plan.part_bytes
+    # the smallest cluster that fits: half as many blocks would not
+    assert plan.cluster == 1 or pair // (plan.cluster // 2) > groupnorm_train.PAIR_BYTES
+    # the forward's rule for the split, applied to the pair
+    assert plan.cluster == groupnorm.cluster_plan(
+        n, elt, groupnorm_train.PAIR_BYTES // 2, groupnorm_train.MAX_THREADS).cluster
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(n=12 * 4096, hw=4096, elt=4, need_dx=True, x_ptr=4),     # x 4 bytes off
+    dict(n=12 * 4096, hw=4096, elt=4, need_dx=True, g_ptr=8),     # g 8 bytes off
+    dict(n=12 * 4096, hw=4096, elt=2, need_dx=True, dx_ptr=2),    # dx 2 bytes off
+    dict(n=12 * 4096, hw=4096, elt=4, need_dx=False, x_ptr=12),
+    dict(n=2 * 9, hw=9, elt=4, need_dx=True),                     # H*W no multiple of 4
+    dict(n=4 * 12, hw=12, elt=2, need_dx=True),                   # ... of 8 in bf16
+    dict(n=2 * 384 * 384, hw=384 * 384, elt=4, need_dx=True),     # over 8 parts
+    dict(n=2 * 384 * 384, hw=384 * 384, elt=4, need_dx=False),
+    dict(n=256 * 16, hw=16, elt=4, need_dx=True),                 # 256 channels a group
+], ids=["x_misaligned", "g_misaligned", "dx_misaligned", "x_misaligned_no_dx",
+        "ragged_fp32", "ragged_bf16", "oversized", "oversized_no_dx", "too_many_channels"])
+def test_what_the_backward_cluster_variant_does_not_take_goes_to_the_general_one(kwargs):
+    assert groupnorm_train.gn_bwd_plan(**kwargs) == groupnorm.GENERAL
+
+
+@pytest.mark.parametrize("elt,hw,cluster", [(4, 144, 1), (2, 144, 1), (4, 32768, 8),
+                                            (2, 32768, 4)])
+def test_backward_edge_slabs_that_the_cluster_variant_takes(elt, hw, cluster):
+    """H*W = 144 (12x12, no power of two) and a two-channel slab of 32K
+    elements a row, which takes a cluster of 8 in fp32."""
+    plan = groupnorm_train.gn_bwd_plan(2 * hw, hw, elt, True)
+    assert (plan.variant, plan.cluster) == ("cluster", cluster)
+
+
+@pytest.mark.parametrize("channels,side,cluster,threads", [
+    (384, 64, 8, 256), (256, 64, 4, 256), (128, 64, 2, 256), (384, 32, 2, 256),
+    (256, 32, 1, 256), (512, 16, 1, 256), (1024, 8, 1, 128), (512, 8, 1, 64),
+    (128, 8, 1, 32), (128, 4, 1, 32)])
+def test_backward_plan_at_the_measured_shapes(channels, side, cluster, threads):
+    """fp32: the launches of the rule that made the train step's sum the
+    least in the sweep on the card (the fastest launch at each 64x64 slab)."""
+    plan = groupnorm_train.gn_bwd_plan(channels // GROUPS * side * side, side * side, 4, True)
+    assert (plan.cluster, plan.threads) == (cluster, threads)
+
+
+def test_backward_plan_for_reads_the_three_addresses():
+    n = 2 * 384 * 64 * 64
+    buf = torch.zeros(n + 8)
+    first = -buf.data_ptr() % 16 // 4
+    aligned = buf[first:first + n].view(2, 384, 64, 64)
+    shifted = buf[first + 1:first + 1 + n].view(2, 384, 64, 64)
+    want = groupnorm_train.gn_bwd_plan(12 * 4096, 4096, 4, True)
+    assert groupnorm_train.plan_for(aligned, aligned, aligned, 32) == want
+    assert (want.variant, want.cluster) == ("cluster", 8)
+    for args in ((shifted, aligned, aligned), (aligned, shifted, aligned),
+                 (aligned, aligned, shifted)):
+        assert groupnorm_train.plan_for(*args, 32) == groupnorm.GENERAL
+    # without dx only x and g count
+    assert groupnorm_train.plan_for(aligned, aligned, None, 32) == \
+        groupnorm_train.gn_bwd_plan(12 * 4096, 4096, 4, False)
+
+
+def test_gn_bwd_variant_counters_reset_with_the_launch_counters():
+    groupnorm_train.variant_launches["cluster"] = 3
+    groupnorm_train.variant_launches["general"] = 1
+    ops.reset_launch_counts()
+    assert ops.gn_bwd_variant_counts() == {"cluster": 0, "general": 0}
+    # a CPU tensor takes the plain backward and counts nothing
+    x = torch.randn(1, 32, 4, 4, requires_grad=True)
+    ops.gn_adagn_silu(x, torch.ones(32), torch.zeros(32), groups=32).sum().backward()
+    assert ops.gn_bwd_variant_counts() == {"cluster": 0, "general": 0}

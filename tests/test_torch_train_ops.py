@@ -167,8 +167,10 @@ def _pallas_bwd(x, g, a, b, mean, inv, groups):
             db8.reshape(bsz, 8, c)[:, 0])
 
 
+# 12 and 24 channels a group: the 384- and 768-channel chains' groups, where
+# a kernel with a warp per channel row idles warps
 @pytest.mark.parametrize("variant", ["plain", "adagn", "adagn_z"])
-@pytest.mark.parametrize("channels,groups", [(128, 32), (64, 16)])
+@pytest.mark.parametrize("channels,groups", [(128, 32), (64, 16), (96, 8), (192, 8)])
 def test_plain_backward_matches_the_tpu_kernel(variant, channels, groups):
     x, cot, gs, gb, vecs = _inputs((2, 8, 8, channels), 4)
     zero = jnp.zeros_like(jnp.asarray(vecs[0]))
