@@ -42,10 +42,28 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the cluster variant, every trainable parameter must have moved with a finite
    gradient, every frozen one must be bit-equal to its start, and most of the
    EMA's tensors must have moved (all finite).
-5. ``whole_path``: one full-width ShiftUNet forward at b2, one b2
+5. ``serving_ops``: the service's other ops at the same width, with a seeded
+   random MLPSkipNet (the celeba64 latent DPM: input 512, model_channel 2048,
+   10 layers) and ``Linear(512, 40)`` classifier and latent stats made from
+   the seed: ``generate`` b8 ddim100/ddim100, ``manipulate`` b8
+   (``attribute="Smiling"``, scale 0.3) at ddim100/ddim100, ``autoencode``
+   b8 at dpm20/dpm20, and a ``CoalescingBatcher`` taking one image from each
+   of 8 threads to ``autoencode`` at ddim5/ddim5. Each op's launch counters,
+   reset just before it, must equal what the models' structure and the
+   realized step counts predict, every GN launch on the cluster variant.
+   The kernels phase checks the kernels at the shapes of the b1, b2 and b4
+   buckets too.
+6. ``whole_path``: one full-width ShiftUNet forward at b2, one b2
    ddim5/ddim5 autoencode and one b2 train step (loss and every trainable
    gradient, from the same state, ``t`` and noise) with the kernels against
-   the plain versions (``set_use_kernels(False)``) on the card.
+   the plain versions (``set_use_kernels(False)``) on the card; and at b2,
+   on the service's models, kernels against plain versions: the latent
+   DPM's ``latent_diffusion_sample`` from fixed z_T and x_T at ddim5/ddim5,
+   ``manipulate`` at ddim5/ddim5, ``autoencode`` at dpm5/dpm5 and a ddim5
+   trajectory interpolation at alpha 0.5, each within one uint8 level or,
+   where more, within what the plain path gives against itself when every
+   decoder output moves by the relative size of one kernel forward's error
+   (three seeded draws), and each kernel path bit-equal when repeated.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -61,6 +79,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -71,6 +90,13 @@ LATENT = 512
 BATCH = 8
 STEPS = 100                      # ddim100 encode + ddim100 decode
 TRAIN_BATCH = 32                 # the 64px train batch of the JAX package's bench
+BUCKETS = (1, 2, 4)              # the smaller buckets the batcher forms
+# the celeba64 latent DPM (configs/celeba64_latent.yml) and the manipulation
+# classifier over its 40 CelebA-HQ attributes
+LATENT_CONFIG = {"model": "CELEBA64LatentDenoiseFn", "input_channel": LATENT,
+                 "model_channel": 2048, "num_layers": 10, "time_emb_channel": 64,
+                 "use_norm": True, "dropout": 0.0}
+NUM_CLASSES = 40
 TRAIN_STEPS = 5                  # timed, after one warm-up step
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 FP32_FLOPS = 67e12               # H100 SXM, fp32 outside the tensor cores
@@ -219,9 +245,9 @@ def build_models(seed, device):
     return decoder.to(device).eval(), encoder.to(device).eval(), gen
 
 
-def path_shapes(decoder, encoder, device, train=False):
+def path_shapes(decoder, encoder, device, train=False, batch=BATCH):
     """Count, per input shape, the GN chains and attention blocks of one
-    ShiftUNet evaluation and one encoder pass at batch BATCH. With ``train``
+    ShiftUNet evaluation and one encoder pass at ``batch``. With ``train``
     the pass is the train step's (the encoder's z feeds the decoder, grad
     enabled, at b2 with the batch then written as TRAIN_BATCH), and a chain
     that will run a backward is also counted under ``("gn_bwd", *shape,
@@ -231,7 +257,7 @@ def path_shapes(decoder, encoder, device, train=False):
 
     dec_counts, enc_counts = collections.Counter(), collections.Counter()
     current = [None]
-    batch = TRAIN_BATCH if train else BATCH
+    batch = TRAIN_BATCH if train else batch
 
     def gn_hook(mod, args):
         x = args[0]
@@ -267,11 +293,11 @@ def path_shapes(decoder, encoder, device, train=False):
         else:
             with torch.inference_mode():
                 current[0] = dec_counts
-                decoder(torch.zeros(BATCH, 3, 64, 64, device=device),
-                        torch.zeros(BATCH, dtype=torch.int32, device=device),
-                        torch.zeros(BATCH, LATENT, device=device))
+                decoder(torch.zeros(batch, 3, 64, 64, device=device),
+                        torch.zeros(batch, dtype=torch.int32, device=device),
+                        torch.zeros(batch, LATENT, device=device))
                 current[0] = enc_counts
-                encoder(torch.zeros(BATCH, 3, 64, 64, device=device))
+                encoder(torch.zeros(batch, 3, 64, 64, device=device))
     finally:
         ops.set_use_kernels(None)
         for h in handles:
@@ -628,6 +654,122 @@ def brief(res, launches, train_launches) -> dict:
     return out
 
 
+def launches_of(evals, encoder_passes, dec_counts, enc_counts) -> dict:
+    """The kernel launches of ``evals`` ShiftUNet evaluations and
+    ``encoder_passes`` encoder passes (inference: no backward)."""
+    def per(counts, kind):
+        return sum(v for k, v in counts.items() if k[0] == kind)
+
+    return {"attention": evals * per(dec_counts, "attention")
+            + encoder_passes * per(enc_counts, "attention"),
+            "gn_adagn_silu": evals * per(dec_counts, "gn")
+            + encoder_passes * per(enc_counts, "gn"),
+            "gn_adagn_silu_bwd": 0}
+
+
+def counted(fn):
+    """``fn()`` between a reset and a read of the launch counters, on the
+    host's clock up to a synchronise, with the run's peak device memory."""
+    from pdae_torch import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {"s": seconds, "launches": ops.launch_counts(),
+                 "gn_variants": ops.gn_variant_counts(),
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serving_ops(service, images, dec_counts, enc_counts, seed) -> dict:
+    """``generate``, ``manipulate`` and a dpm20/dpm20 ``autoencode`` at b8,
+    then 8 one-image ``autoencode`` requests through a ``CoalescingBatcher``;
+    each op's record, with the launches its structure predicts."""
+    from pdae_torch.serving import CoalescingBatcher
+
+    gd = service.gd
+    ddim = gd.ddim_schedule(f"ddim{STEPS}").num_steps
+    dpm_encode = gd.solver_tables("dpm20", direction="encode").num_steps
+    dpm_decode = gd.solver_tables("dpm20").num_steps
+    # the first calls build the latent DPM and the classifier: not counted
+    service.generate(BATCH, seed, "ddim2", "ddim2")
+    service.manipulate(images, attribute="Smiling", encode_style="ddim2",
+                       decode_style="ddim2")
+    style = f"ddim{STEPS}"
+    runs = {
+        "generate": (lambda: service.generate(BATCH, seed, style, style),
+                     launches_of(ddim, 0, dec_counts, enc_counts)),
+        "manipulate": (lambda: service.manipulate(images, attribute="Smiling", scale=0.3,
+                                                  encode_style=style, decode_style=style),
+                       launches_of(2 * ddim, 2, dec_counts, enc_counts)),
+        "autoencode_dpm20": (lambda: service.autoencode(images, "dpm20", "dpm20"),
+                             launches_of(dpm_encode + dpm_decode, 1, dec_counts,
+                                         enc_counts)),
+    }
+    records = {"steps": {f"ddim{STEPS}": ddim, "dpm20_encode": dpm_encode,
+                         "dpm20_decode": dpm_decode}}
+    outs = {}
+    for name, (fn, want) in runs.items():
+        out, rec = counted(fn)
+        outs[name] = out
+        rec.update(imgs_per_s=BATCH / rec["s"], launches_expected=want,
+                   shape=list(out.shape), dtype=str(out.dtype))
+        rec["ok"] = (out.shape == images.shape and out.dtype == np.uint8
+                     and rec["launches"] == want
+                     and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"],
+                                                "general": 0})
+        records[name] = rec
+    # every row of generate's draws is its own image
+    distinct = len({o.tobytes() for o in outs["generate"]})
+    records["generate"].update(distinct_images=distinct,
+                               ok=records["generate"]["ok"] and distinct == BATCH)
+
+    # 8 clients, one image each, through the batcher: every encoder pass is
+    # one call, at the bucket it was given
+    small = gd.ddim_schedule("ddim5").num_steps
+    buckets = []
+    hook = service.encoder.register_forward_pre_hook(
+        lambda mod, args: buckets.append(int(args[0].shape[0])))
+    batcher = CoalescingBatcher(service, window_ms=20.0)
+    replies, errors = [None] * BATCH, []
+
+    def client(i):
+        try:
+            replies[i] = batcher.submit("autoencode", images[i:i + 1],
+                                        encode_style="ddim5", decode_style="ddim5")
+        except Exception as e:          # reported below, and fails the phase
+            errors.append(repr(e))
+
+    def run_clients():
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        return [t.is_alive() for t in threads]
+
+    try:
+        alive, rec = counted(run_clients)
+    finally:
+        batcher.close()
+        hook.remove()
+    calls = batcher.stats()["calls"]
+    want = launches_of(2 * small * calls, calls, dec_counts, enc_counts)
+    rec.update(clients=BATCH, calls=calls, buckets=buckets, errors=errors,
+               launches_expected=want)
+    rec["ok"] = (calls < BATCH and not any(alive) and not errors
+                 and len(buckets) == calls and sum(buckets) >= BATCH
+                 and all(r is not None and r.shape == (1, 64, 64, 3)
+                         and r.dtype == np.uint8 for r in replies)
+                 and rec["launches"] == want
+                 and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"], "general": 0})
+    records["batcher_autoencode_ddim5"] = rec
+    return records
+
+
 def summarise(name, source, replaces, results, per_request, per_step, launches,
               train_launches,
               per=f"one b{BATCH} ddim{STEPS}/ddim{STEPS} autoencode request "
@@ -666,15 +808,16 @@ def main(argv=None) -> int:
 
     import pdae_torch
     from pdae_torch import ops
-    from pdae_torch.models import CELEBA64_DPM
+    from pdae_torch.models import CELEBA64_DPM, build_classifier, build_latent_denoise_fn
     from pdae_torch.diffusion import GaussianDiffusion
     from pdae_torch.ops import _build, groupnorm
+    from pdae_torch.data import CELEBAHQ_LABEL_TO_ID
     from pdae_torch.serving import PDAEService
     from pdae_torch.training import (TrainState, make_optimizer,
                                      make_representation_train_step,
                                      trainable_params)
     from pdae_torch.training.state import flat_params
-    from pdae_torch.utils import from_uint8
+    from pdae_torch.utils import from_uint8, to_uint8
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -710,9 +853,17 @@ def main(argv=None) -> int:
     gn_res = {k: check_gn(k, gen, device) for k in both if k[0] == "gn"}
     bwd_res = {k: check_gn_bwd(k, gen, device) for k in both if k[0] == "gn_bwd"}
     edges = check_edges(gen, device)
+    # the shapes of the smaller buckets (the batcher's, and the whole path's
+    # b2), compared and variant-checked, not timed
+    bucket_res = {}
+    for b in BUCKETS:
+        for k in sorted(set().union(*path_shapes(decoder, encoder, device, batch=b))):
+            bucket_res[k] = (check_attention(k[1:], gen, device, timed=False)
+                             if k[0] == "attention" else
+                             check_gn(k, gen, device, timed=False))
     failed = [(r["shape"], k) for r in list(attn_res.values()) + list(gn_res.values())
-              + list(bwd_res.values()) + edges["attention"] + edges["gn_adagn_silu"]
-              + edges["gn_adagn_silu_bwd"]
+              + list(bwd_res.values()) + list(bucket_res.values()) + edges["attention"]
+              + edges["gn_adagn_silu"] + edges["gn_adagn_silu_bwd"]
               for k, v in r["err"].items() if not v["ok"]]
     if not edges["gn_misaligned"]["ok"]:
         failed.append(("gn misaligned", "model_float32"))
@@ -721,6 +872,7 @@ def main(argv=None) -> int:
     # every GN shape of both paths, forward and backward, must go to the
     # cluster variant, in both dtypes
     not_cluster = [(r["shape"], name) for r in list(gn_res.values()) + list(bwd_res.values())
+                   + [v for k, v in bucket_res.items() if k[0] == "gn"]
                    for name, plan in r["variant"].items() if plan["variant"] != "cluster"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
@@ -728,6 +880,7 @@ def main(argv=None) -> int:
                    "attention": list(attn_res.values()),
                    "gn_adagn_silu": list(gn_res.values()),
                    "gn_adagn_silu_bwd": list(bwd_res.values()),
+                   "buckets": list(bucket_res.values()),
                    "edges": edges},
                   f, indent=1)
     emit({"phase": "kernels", "tolerances": {f"{k[0]}/{str(k[1])[6:]}": v
@@ -737,6 +890,7 @@ def main(argv=None) -> int:
                     for k, r in results.items()]
              for name, results in (("attention", attn_res), ("gn_adagn_silu", gn_res),
                                    ("gn_adagn_silu_bwd", bwd_res))},
+          "buckets": [brief(r, 0, 0) for r in bucket_res.values()],
           "edges": {**{k: [brief(r, 0, 0) for r in edges[k]]
                        for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")},
                     **{k: v for k, v in edges.items()
@@ -753,55 +907,55 @@ def main(argv=None) -> int:
               "decoder_config": {"latent_dim": LATENT},
               "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
               "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
-              "image_size": 64, "max_batch": 64,
+              "image_size": 64, "max_batch": 64, "latent_config": LATENT_CONFIG,
+              "num_classes": NUM_CLASSES,
               "encoder_ddim_style": f"ddim{STEPS}", "decoder_ddim_style": f"ddim{STEPS}"}
-    service = PDAEService(config, encoder.state_dict(), decoder.state_dict())
+    # the latent DPM, the classifier and the latent stats, made from the seed
+    torch.manual_seed(args.seed + 3)
+    latent = build_latent_denoise_fn(LATENT_CONFIG)
+    classifier = build_classifier(NUM_CLASSES, LATENT)
+    srs = np.random.RandomState(args.seed + 4)
+    stats = ((0.1 * srs.randn(1, LATENT)).astype(np.float32),
+             srs.uniform(0.5, 1.5, (1, LATENT)).astype(np.float32))
+    service = PDAEService(config, encoder.state_dict(), decoder.state_dict(),
+                          latent_state=latent.state_dict(), latent_stats=stats,
+                          classifier_state=classifier.state_dict())
+    latent = latent.to(device).eval()
+    classifier = classifier.to(device)
     images = np.random.RandomState(args.seed).randint(0, 256, (BATCH, 64, 64, 3),
                                                       np.uint8)
-    want_enc = {"attention": sum(v for k, v in enc_counts.items() if k[0] == "attention"),
-                "gn_adagn_silu": sum(v for k, v in enc_counts.items() if k[0] == "gn"),
-                "gn_adagn_silu_bwd": 0}
-    want_ae = {"attention": sum(v for k, v in per_request.items() if k[0] == "attention"),
-               "gn_adagn_silu": sum(v for k, v in per_request.items() if k[0] == "gn"),
-               "gn_adagn_silu_bwd": 0}
+    want_enc = launches_of(0, 1, dec_counts, enc_counts)
+    want_ae = launches_of(2 * STEPS, 1, dec_counts, enc_counts)
 
     service.autoencode(images, "ddim5", "ddim5")          # warm-up, not counted
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    z = service.encode(images)
-    torch.cuda.synchronize()
-    encode_s = time.perf_counter() - t0
-    enc_launches = ops.launch_counts()
-    enc_variants = ops.gn_variant_counts()
+    z, enc = counted(lambda: service.encode(images))
     if z.shape != (BATCH, LATENT) or z.dtype != np.float32 or not np.isfinite(z).all():
         raise AssertionError(f"encode gave {z.shape} {z.dtype}, finite={np.isfinite(z).all()}")
-
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    recon = service.autoencode(images)
-    torch.cuda.synchronize()
-    autoencode_s = time.perf_counter() - t0
-    ae_launches = ops.launch_counts()
-    ae_variants = ops.gn_variant_counts()
+    recon, ae = counted(lambda: service.autoencode(images))
+    ae_launches = ae["launches"]
     if recon.shape != images.shape or recon.dtype != np.uint8:
         raise AssertionError(f"autoencode gave {recon.shape} {recon.dtype}")
     emit({"phase": "serving", "batch": BATCH, "styles": f"ddim{STEPS}/ddim{STEPS}",
-          "encode_s": encode_s, "autoencode_s": autoencode_s,
-          "autoencode_imgs_per_s": BATCH / autoencode_s,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "encode_launches": enc_launches, "encode_launches_expected": want_enc,
-          "autoencode_launches": ae_launches,
-          "autoencode_launches_expected": want_ae,
-          "encode_gn_variants": enc_variants, "autoencode_gn_variants": ae_variants})
-    if enc_launches != want_enc or ae_launches != want_ae:
+          "encode_s": enc["s"], "autoencode_s": ae["s"],
+          "autoencode_imgs_per_s": BATCH / ae["s"], "peak_mem_gb": ae["peak_mem_gb"],
+          "encode_launches": enc["launches"], "encode_launches_expected": want_enc,
+          "autoencode_launches": ae_launches, "autoencode_launches_expected": want_ae,
+          "encode_gn_variants": enc["gn_variants"],
+          "autoencode_gn_variants": ae["gn_variants"]})
+    if enc["launches"] != want_enc or ae_launches != want_ae:
         raise AssertionError("the launch counters do not match the path's structure")
-    for variants, want in ((enc_variants, want_enc), (ae_variants, want_ae)):
+    for variants, want in ((enc["gn_variants"], want_enc), (ae["gn_variants"], want_ae)):
         if variants != {"cluster": want["gn_adagn_silu"], "general": 0}:
             raise AssertionError(f"GN launches off the cluster variant: {variants}")
 
-    # 4. the representation-learning train step at full width ----------------
+    # 4. the other ops of the service ------------------------------------------
+    op_records = serving_ops(service, images, dec_counts, enc_counts, args.seed)
+    ops_ok = all(r["ok"] for k, r in op_records.items() if k != "steps")
+    emit({"phase": "serving_ops", "batch": BATCH, **op_records, "ok": ops_ok})
+    if not ops_ok:
+        raise AssertionError("an op of the service failed its checks")
+
+    # 5. the representation-learning train step at full width ----------------
     gd = GaussianDiffusion(config["diffusion_config"])
     params = trainable_params(encoder, decoder)
     optimizer = make_optimizer({"name": "Adam", "lr": 1e-4}, flat_params(params))
@@ -876,7 +1030,7 @@ def main(argv=None) -> int:
     if not train_ok:
         raise AssertionError("the train phase failed its checks")
 
-    # 5. whole path: kernels against plain versions on the card ---------------
+    # 6. whole path: kernels against plain versions on the card ---------------
     rs = np.random.RandomState(args.seed + 1)
     x = torch.from_numpy(rs.randn(2, 3, 64, 64).astype(np.float32)).to(device)
     t = torch.tensor([10, 500], dtype=torch.int32, device=device)
@@ -934,19 +1088,91 @@ def main(argv=None) -> int:
     train_cmp_ok = (res["train_step"]["loss_rel_err"] <= TRAIN_LOSS_RTOL
                     and not res["train_step"]["grads_failed"]
                     and sizes[smallest] > 0.0)
+
+    # the latent DPM's sampler, manipulate, a dpm5/dpm5 autoencode and a
+    # trajectory interpolation, kernels against plain versions at b2, each
+    # as the service composes it, on the service's own models (the train
+    # phase has moved the script's) and input tensor: within one uint8
+    # level. A few-step trajectory can carry a rounding-size difference
+    # further (the dpm5/dpm5 autoencode does, at these random weights), so the
+    # control measures how far: the plain path against itself with every
+    # decoder output moved by relative noise of the size that one forward of
+    # the kernels differs by (eps above), three seeded draws. An op passes
+    # within the larger of one level and the control's largest difference,
+    # and its kernel path must repeat bit for bit.
+    z_T = torch.from_numpy(rs.randn(2, LATENT).astype(np.float32)).to(device)
+    x_T = torch.from_numpy(rs.randn(2, 3, 64, 64).astype(np.float32)).to(device)
+    x_s, _ = service._to_model_input(images[:2])
+    mean, std = (torch.from_numpy(a).to(device) for a in stats)
+    weight = classifier.weight.detach().to(device)
+    rho = res["eps"]["max_abs_err"] / scale
+
+    encoder, decoder = service.encoder, service.decoder
+
+    def perturbed(draw):
+        g = torch.Generator(device=device).manual_seed(args.seed + draw)
+
+        def dec(x, t, z):
+            return tuple(o * (1.0 + rho * torch.randn(o.shape, generator=g, device=device))
+                         for o in decoder(x, t, z))
+        return dec
+
+    def new_ops(dec):
+        x_0 = x_s
+        with torch.inference_mode():
+            inferred = gd.representation_learning_ddim_encode("ddim5", encoder, dec, x_0)
+            return {k: v.permute(0, 2, 3, 1).cpu().numpy() for k, v in {
+                "latent_diffusion_sample_ddim5": gd.latent_diffusion_sample(
+                    None, "ddim5", "ddim5", latent, dec, x_T, mean, std,
+                    latent_dim=LATENT, z_T=z_T),
+                "manipulate_ddim5": gd.manipulation_sample(
+                    "ddim5", weight, encoder, dec, x_0, inferred, mean, std,
+                    CELEBAHQ_LABEL_TO_ID["Smiling"], 0.3),
+                "autoencode_dpm5": gd.representation_learning_autoencoding(
+                    "dpm5", "dpm5", encoder, dec, x_0),
+                "interpolation_ddim5": gd.representation_learning_ddim_trajectory_interpolation(
+                    "ddim5", dec, encoder(x_0), encoder(x_0.flip(0)), x_T, 0.5),
+            }.items()}
+
+    def differ(a, b):
+        levels = np.abs(to_uint8(a).astype(int) - to_uint8(b).astype(int))
+        return {"max_uint8_diff": int(levels.max()), "pixels_over_1": int((levels > 1).sum()),
+                "max_abs_err": float(np.abs(a - b).max())}
+
+    kernel_out, kernel_again = new_ops(decoder), new_ops(decoder)
+    ops.set_use_kernels(False)
+    try:
+        plain_out = new_ops(decoder)
+        controls = [new_ops(perturbed(draw)) for draw in range(3)]
+    finally:
+        ops.set_use_kernels(None)
+    res["ops"] = {k: {"kernels_vs_plain": differ(kernel_out[k], plain_out[k]),
+                      "kernels_repeat_bit_equal": bool(np.array_equal(kernel_out[k],
+                                                                      kernel_again[k])),
+                      "control": [differ(c[k], plain_out[k]) for c in controls]}
+                  for k in kernel_out}
+    res["control_relative_noise"] = rho
+    for v in res["ops"].values():
+        v["bound_uint8"] = max(1, max(c["max_uint8_diff"] for c in v["control"]))
+    ops_agree = all(v["kernels_vs_plain"]["max_uint8_diff"] <= v["bound_uint8"]
+                    and v["kernels_repeat_bit_equal"] for v in res["ops"].values())
     ok = res["eps"]["ok"] and res["gradient"]["ok"] and train_cmp_ok and \
-        res["autoencode_ddim5_max_uint8_diff"] <= 1
+        res["autoencode_ddim5_max_uint8_diff"] <= 1 and ops_agree
     emit({"phase": "whole_path", "batch": 2, **res, "ok": ok})
     if not ok:
         raise AssertionError("the kernel path disagrees with the plain path")
 
+    per_op = {name: op_records[name]["launches"]
+              for name in ("generate", "manipulate", "autoencode_dpm20")}
     emit({"kernels": [
-        summarise("attention", "pdae_torch/csrc/attention.cu",
-                  "pdae_tpu/ops/attention.py:40", attn_res, per_request, per_step,
-                  ae_launches["attention"], train_launches["attention"]),
-        summarise("gn_adagn_silu", "pdae_torch/csrc/groupnorm.cu",
-                  "pdae_tpu/ops/groupnorm.py:55", gn_res, per_request, per_step,
-                  ae_launches["gn_adagn_silu"], train_launches["gn_adagn_silu"]),
+        {**summarise("attention", "pdae_torch/csrc/attention.cu",
+                     "pdae_tpu/ops/attention.py:40", attn_res, per_request, per_step,
+                     ae_launches["attention"], train_launches["attention"]),
+         "launches_per_op": {k: v["attention"] for k, v in per_op.items()}},
+        {**summarise("gn_adagn_silu", "pdae_torch/csrc/groupnorm.cu",
+                     "pdae_tpu/ops/groupnorm.py:55", gn_res, per_request, per_step,
+                     ae_launches["gn_adagn_silu"], train_launches["gn_adagn_silu"]),
+         "launches_per_op": {k: v["gn_adagn_silu"] for k, v in per_op.items()}},
         summarise("gn_adagn_silu_bwd", "pdae_torch/csrc/groupnorm_bwd.cu",
                   "pdae_tpu/ops/groupnorm_train.py:196", bwd_res, per_step, per_step,
                   train_launches["gn_adagn_silu_bwd"],

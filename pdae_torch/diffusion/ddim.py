@@ -93,3 +93,40 @@ def shift_ddim_encode_loop(dds: DDIMSchedule, decoder: Callable, z, x_0):
         x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
         x = _step(_entry(dds.alphas_cumprod_next, i), x0, eps)
     return x
+
+
+def shift_ddim_trajectory_interpolation(dds: DDIMSchedule, decoder: Callable,
+                                        z_1, z_2, x_T, alpha: float):
+    """Shift-DDIM sampling with the gradient blended from two latents,
+    ``(1 - alpha) * g(z_1) + alpha * g(z_2)``, at every step; the noise is
+    the ``z_1`` call's. Two decoder calls per step."""
+    x = x_T
+    for i in range(dds.num_steps, 0, -1):
+        t = _t_vec(dds, i, x)
+        eps, gradient_1 = decoder(x, t, z_1)
+        _, gradient_2 = decoder(x, t, z_2)
+        gradient = (1.0 - alpha) * gradient_1 + alpha * gradient_2
+        eps = _shifted_noise(dds, eps, gradient, i)
+        x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
+        x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
+    return x
+
+
+def latent_ddim_sample_loop(dds: DDIMSchedule, latent_denoise_fn: Callable, z_T):
+    """Latent DDIM sampling, ``latent_denoise_fn(z, t)``: the clamped DDIM
+    loop, the path the reference calls (not the unclamped one below)."""
+    return ddim_sample_loop(dds, lambda x, t, _c: latent_denoise_fn(x, t), z_T)
+
+
+def latent_ddim_sample_loop_unclamped(dds: DDIMSchedule,
+                                      latent_denoise_fn: Callable, z_T):
+    """The unclamped variant the reference defines but does not call: the
+    predicted z_0 is not clamped and the step takes the original predicted
+    noise, not one recomputed from z_0."""
+    z = z_T
+    for i in range(dds.num_steps, 0, -1):
+        eps = latent_denoise_fn(z, _t_vec(dds, i, z))
+        sr = float(_entry(dds.sqrt_recip_alphas_cumprod, i))
+        srm1 = float(_entry(dds.sqrt_recip_alphas_cumprod_m1, i))
+        z = _step(_entry(dds.alphas_cumprod_prev, i), sr * z - srm1 * eps, eps)
+    return z

@@ -3,7 +3,9 @@
 from __future__ import annotations
 
 from .blocks import timestep_embedding
+from .classifier import LinearClassifier
 from .encoder import SemanticEncoder, encoder_for_resolution
+from .mlp_skip_net import MLPLNAct, MLPSkipNet
 from .shift_unet import FROZEN_PREFIXES, SHIFT_TRAINABLE_PREFIXES, ShiftUNet
 from .unet import UNet
 
@@ -56,6 +58,26 @@ def build_encoder(config: dict, image_size: int = None) -> SemanticEncoder:
     return encoder_for_resolution(image_size, config["latent_dim"])
 
 
-__all__ = ["CELEBA64_DPM", "UNet", "ShiftUNet", "SemanticEncoder", "timestep_embedding",
+def build_latent_denoise_fn(config: dict) -> MLPSkipNet:
+    """``<DS>LatentDenoiseFn`` -> MLPSkipNet."""
+    name = config.get("model", "MLPSkipNet")
+    if name != "MLPSkipNet" and not name.endswith("LatentDenoiseFn"):
+        raise KeyError(f"unknown latent denoise fn: {name}")
+    return MLPSkipNet(
+        input_channel=config["input_channel"],
+        model_channel=config.get("model_channel", 2048),
+        num_layers=config.get("num_layers", 10),
+        time_emb_channel=config.get("time_emb_channel", 64),
+        use_norm=config.get("use_norm", True),
+        dropout=config.get("dropout", 0.0))
+
+
+def build_classifier(num_classes: int = 40, latent_dim: int = 512) -> LinearClassifier:
+    return LinearClassifier(num_classes=num_classes, latent_dim=latent_dim)
+
+
+__all__ = ["CELEBA64_DPM", "UNet", "ShiftUNet", "SemanticEncoder", "MLPSkipNet",
+           "MLPLNAct", "LinearClassifier", "timestep_embedding",
            "encoder_for_resolution", "build_decoder", "build_encoder",
+           "build_latent_denoise_fn", "build_classifier",
            "SHIFT_TRAINABLE_PREFIXES", "FROZEN_PREFIXES"]

@@ -1,10 +1,10 @@
-"""Batched PDAE inference on one card: ``encode``, ``autoencode``, ``decode``.
+"""Batched PDAE inference on one card: ``encode``, ``autoencode``, ``decode``,
+``generate`` and ``manipulate``, and the ``CoalescingBatcher`` in front.
 
-Port of ``pdae_tpu/serving.py::PDAEService`` for the ops that need only the
-PDAE stage (encoder + ShiftUNet decoder). Images go in and come out NHWC as
-in the JAX service; the models run NCHW on ``device``. Batches are padded to
+Port of ``pdae_tpu/serving.py``. Images go in and come out NHWC as in the JAX
+service; the models run NCHW on ``device``. Batches are padded to
 power-of-two buckets (capped at ``max_batch``) by repeating the first image,
-and trimmed on the way out.
+and trimmed on the way out. Every op takes ``ddim<N>`` and ``dpm<N>`` styles.
 
 The service is built from configs and state dicts held in memory (no
 checkpoint files, no mesh). It runs fp32, as the JAX service builds float32
@@ -15,20 +15,31 @@ process, so convs and matmuls keep full fp32 mantissas.
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .data import CELEBAHQ_LABEL_TO_ID
 from .diffusion import GaussianDiffusion
-from .models import build_decoder, build_encoder
+from .models import (build_classifier, build_decoder, build_encoder,
+                     build_latent_denoise_fn)
 from .utils import to_uint8
 
 
 def _bucket(n: int, max_batch: int) -> int:
     """Next power of two >= n, capped at max_batch."""
     return min(1 << max(0, (n - 1)).bit_length(), max_batch)
+
+
+def _require(op: str, **artifacts) -> None:
+    missing = [name for name, value in artifacts.items() if value is None]
+    if missing:
+        raise ValueError(f"{op} needs {', '.join(missing)}, which this service was "
+                         "not given")
 
 
 class PDAEService:
@@ -38,14 +49,31 @@ class PDAEService:
     pre-trained DPM), ``decoder_config`` and ``encoder_config`` (each with
     ``latent_dim``), optional ``diffusion_config`` (default linear, 1000
     steps), ``image_size``, ``image_channel`` (3), ``max_batch`` (64),
-    ``encoder_ddim_style``/``decoder_ddim_style`` (``ddim100``).
-    ``encoder_state``/``decoder_state`` are state
-    dicts in the reference layout (``pdae_torch.utils.convert``).
-    ``device``: ``cuda`` unless given; without a card it must be given.
+    ``encoder_ddim_style``/``decoder_ddim_style`` (``ddim100``: autoencode,
+    decode, and generate's decode), ``latent_ddim_style`` (``ddim100``:
+    generate's latent loop), ``encode_ddim_style``/``decode_ddim_style``
+    (``ddim500``/``ddim200``: manipulate), ``latent_config`` (the
+    ``latent_denoise_fn_config`` of the latent DPM) and ``num_classes`` (40).
+    ``tp_size``/``sp_size`` above 1 raise: the port serves on one card.
+
+    ``encoder_state``/``decoder_state`` are state dicts in the reference
+    layout (``pdae_torch.utils.convert``). ``generate`` also needs
+    ``latent_config``, ``latent_state`` (an MLPSkipNet state dict) and
+    ``latent_stats``; ``manipulate`` needs ``classifier_state`` and
+    ``latent_stats``. ``latent_stats`` is ``(mean, std)`` of the inferred
+    latents. Those models are built at the first call that needs them; an op
+    whose artifact is missing raises. ``device``: ``cuda`` unless given;
+    without a card it must be given.
     """
 
     def __init__(self, config: dict, encoder_state: dict, decoder_state: dict,
-                 device=None):
+                 device=None, *, latent_state: Optional[dict] = None,
+                 latent_stats=None, classifier_state: Optional[dict] = None):
+        for key in ("tp_size", "sp_size"):
+            if int(config.get(key, 1)) > 1:
+                raise NotImplementedError(
+                    f"{key}={config[key]}: tensor and spatial parallelism are not "
+                    "ported (ROADMAP.md, queue 1 item 15); the port serves on one card")
         self.config = config
         self.device = resolve_device(device)
         self.size = int(config["image_size"])
@@ -62,6 +90,16 @@ class PDAEService:
                              (self.decoder, decoder_state)):
             model.load_state_dict(state, strict=True)
             model.to(self.device).eval()
+        self.latent_dim = int(config["encoder_config"]["latent_dim"])
+        self._latent_state = latent_state
+        self._latent_stats_in = latent_stats
+        self._classifier_state = classifier_state
+        self._latent_model = None
+        self._stats = None
+        self._clf_weight = None
+        # the first generate or manipulate can come from a batcher's worker
+        # thread and a direct caller at once: each lazy build runs once
+        self._init_lock = threading.Lock()
 
     # -- helpers --------------------------------------------------------- #
 
@@ -85,6 +123,42 @@ class PDAEService:
             arr = np.concatenate([arr, np.repeat(arr[:1], b - n, axis=0)], axis=0)
         x = torch.from_numpy(arr).to(self.device).permute(0, 3, 1, 2).contiguous()
         return x, n
+
+    def _latent_stats(self):
+        """(mean, std) on the device; the caller holds the init lock."""
+        if self._stats is None:
+            with torch.inference_mode(False):
+                self._stats = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                                    device=self.device)
+                                    for a in self._latent_stats_in)
+        return self._stats
+
+    def _latent(self):
+        """The latent DPM's denoiser and the latent stats, built once."""
+        with self._init_lock:
+            if self._latent_model is None:
+                _require("generate", latent_config=self.config.get("latent_config"),
+                              latent_state=self._latent_state,
+                              latent_stats=self._latent_stats_in)
+                with torch.inference_mode(False):
+                    model = build_latent_denoise_fn(self.config["latent_config"])
+                    model.load_state_dict(self._latent_state, strict=True)
+                    self._latent_model = model.to(self.device).eval()
+            return self._latent_model, self._latent_stats()
+
+    def _classifier(self):
+        """The classifier's ``[num_classes, latent_dim]`` weight and the
+        latent stats, built once."""
+        with self._init_lock:
+            if self._clf_weight is None:
+                _require("manipulate", classifier_state=self._classifier_state,
+                              latent_stats=self._latent_stats_in)
+                with torch.inference_mode(False):
+                    clf = build_classifier(int(self.config.get("num_classes", 40)),
+                                           self.latent_dim)
+                    clf.load_state_dict(self._classifier_state, strict=True)
+                    self._clf_weight = clf.weight.detach().to(self.device)
+            return self._clf_weight, self._latent_stats()
 
     @staticmethod
     def _to_nhwc(x: torch.Tensor, n: int) -> np.ndarray:
@@ -129,3 +203,177 @@ class PDAEService:
             ds, None, self.decoder, None, x, torch.from_numpy(zz).to(self.device),
             stop_percent=stop_percent)
         return to_uint8(self._to_nhwc(out, n))
+
+    @torch.inference_mode()
+    def generate(self, n: int, seed: int = 0, latent_style: Optional[str] = None,
+                 decode_style: Optional[str] = None) -> np.ndarray:
+        """Unconditional samples through the latent DPM (uint8 NHWC). z_T,
+        then x_T, are drawn at the bucket size from a generator on the device
+        seeded with ``seed``, and the result trimmed to ``n``: the same
+        (n's bucket, seed) gives the same images."""
+        latent_denoise_fn, (mean, std) = self._latent()
+        ls = latent_style or self.config.get("latent_ddim_style", "ddim100")
+        ds = decode_style or self.config.get("decoder_ddim_style", "ddim100")
+        if n < 1:
+            raise ValueError("empty batch")
+        if n > self.max_batch:
+            raise ValueError(f"n {n} exceeds max_batch {self.max_batch}")
+        b = _bucket(n, self.max_batch)
+        latent_dim = int(self.config["latent_config"]["input_channel"])
+        gen = torch.Generator(self.device).manual_seed(int(seed))
+        z_T = torch.randn((b, latent_dim), generator=gen, device=self.device)
+        x_T = torch.randn((b, self.channels, self.size, self.size), generator=gen,
+                          device=self.device)
+        out = self.gd.latent_diffusion_sample(
+            None, ls, ds, latent_denoise_fn, self.decoder, x_T, mean, std,
+            latent_dim=latent_dim, z_T=z_T)
+        return to_uint8(self._to_nhwc(out, n))
+
+    @torch.inference_mode()
+    def manipulate(self, images, attribute: Optional[str] = None, class_id: int = 31,
+                   scale: float = 0.3, encode_style: Optional[str] = None,
+                   decode_style: Optional[str] = None) -> np.ndarray:
+        """Semantic attribute edit (uint8 NHWC): encode x_T, then decode it
+        with the latent moved along the classifier's row for ``attribute``
+        (a CelebA-HQ attribute name) or ``class_id``."""
+        weight, (mean, std) = self._classifier()
+        if attribute is not None:
+            if attribute not in CELEBAHQ_LABEL_TO_ID:
+                raise ValueError(f"unknown attribute {attribute!r}; one of "
+                                 f"{sorted(CELEBAHQ_LABEL_TO_ID)}")
+            class_id = CELEBAHQ_LABEL_TO_ID[attribute]
+        if not 0 <= int(class_id) < weight.shape[0]:
+            raise ValueError(f"class_id {class_id} is not in [0, {weight.shape[0]})")
+        es = encode_style or self.config.get("encode_ddim_style", "ddim500")
+        ds = decode_style or self.config.get("decode_ddim_style", "ddim200")
+        x, n = self._to_model_input(images)
+        x_T = self.gd.representation_learning_ddim_encode(
+            es, self.encoder, self.decoder, x)
+        out = self.gd.manipulation_sample(
+            ds, weight, self.encoder, self.decoder, x, x_T, mean, std,
+            int(class_id), float(scale))
+        return to_uint8(self._to_nhwc(out, n))
+
+
+class CoalescingBatcher:
+    """Merge concurrent per-image requests into single device batches.
+
+    N clients each posting a few images would otherwise make N small calls;
+    the worker thread drains all requests waiting at the end of a short
+    window, groups them by (op, kwargs, per-image shape and dtype),
+    concatenates each group's images, runs one bucketed call per chunk of at
+    most ``max_batch`` images, and splits the results back. It serves the
+    image-list ops (``encode``, ``autoencode``, ``manipulate``); ``generate``
+    takes no batchable input, so callers use the service directly.
+
+    ``submit()`` blocks until the caller's slice is ready and re-raises any
+    op error in the calling thread. ``stats()["calls"]`` counts the service
+    calls made. The service ops enter ``torch.inference_mode`` themselves,
+    so it holds in the worker thread too.
+    """
+
+    OPS = ("encode", "autoencode", "manipulate")
+
+    def __init__(self, service: PDAEService, window_ms: float = 3.0):
+        self.service = service
+        self.window_s = window_ms / 1000.0
+        self._cv = threading.Condition()
+        self._pending = []
+        self._stop = False
+        self._calls = 0
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def submit(self, op: str, images, **kwargs):
+        if op not in self.OPS:
+            raise ValueError(f"op must be one of {self.OPS}, got {op!r}")
+        images = np.asarray(images)
+        slot = {"event": threading.Event()}
+        # the group key holds the per-image shape and dtype: requests of other
+        # geometries, or uint8 beside float inputs, must not share a batch
+        # (the concat would fail, or promotion would skip the uint8 rescale)
+        sig = (op, tuple(sorted(kwargs.items())), images.shape[1:], images.dtype.str)
+        try:
+            hash(sig)        # an unhashable kwarg fails here, in the caller
+        except TypeError as e:
+            raise TypeError(f"non-hashable kwargs for coalescing: {e}")
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("batcher closed")
+            self._pending.append((sig, images, kwargs, slot))
+            self._cv.notify()
+        # bounded waits with a liveness check: if the worker thread is gone,
+        # do not block forever
+        while not slot["event"].wait(timeout=1.0):
+            if not self._worker.is_alive():
+                raise RuntimeError("batcher worker died; request dropped")
+        if "err" in slot:
+            raise slot["err"]
+        return slot["out"]
+
+    def stats(self):
+        with self._cv:
+            return {"calls": self._calls}
+
+    def close(self):
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._worker.join()
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._pending and not self._stop:
+                    self._cv.wait()
+                if self._stop and not self._pending:
+                    return
+            time.sleep(self.window_s)        # let concurrent posts pile up
+            with self._cv:
+                batch, self._pending = self._pending, []
+            try:
+                groups = {}
+                for sig, images, kwargs, slot in batch:
+                    groups.setdefault(sig, []).append((images, kwargs, slot))
+                for sig, entries in groups.items():
+                    # chunk so that no call exceeds the service's bucket cap
+                    cap = self.service.max_batch
+                    i = 0
+                    while i < len(entries):
+                        chunk, n = [], 0
+                        while i < len(entries) and (not chunk
+                                                    or n + len(entries[i][0]) <= cap):
+                            chunk.append(entries[i])
+                            n += len(entries[i][0])
+                            i += 1
+                        self._run_chunk(sig[0], chunk)
+            except BaseException as e:
+                # the worker must never exit with waiters blocked: fail every
+                # slot of this drained batch not yet resolved; an interrupt
+                # then propagates and ends the worker, and blocked submit()
+                # calls notice through the liveness check
+                err = e if isinstance(e, Exception) else RuntimeError(
+                    f"batcher worker interrupted: {e!r}")
+                for _, _, _, slot in batch:
+                    if not slot["event"].is_set():
+                        slot["err"] = err
+                        slot["event"].set()
+                if not isinstance(e, Exception):
+                    raise
+
+    def _run_chunk(self, op, chunk):
+        imgs = np.concatenate([e[0] for e in chunk], axis=0)
+        kwargs = chunk[0][1]
+        try:
+            out = getattr(self.service, op)(imgs, **kwargs)
+            with self._cv:
+                self._calls += 1
+            off = 0
+            for images, _, slot in chunk:
+                slot["out"] = out[off:off + len(images)]
+                off += len(images)
+                slot["event"].set()
+        except Exception as e:       # deliver the failure to every waiter
+            for _, _, slot in chunk:
+                slot["err"] = e
+                slot["event"].set()

@@ -13,12 +13,17 @@ The port's own copy of the flax -> reference-torch maps (the JAX package's
   <group>_J/<sub>                   <group>.J.<sub'>  (middle blocks)
   out_norm, out_conv                out.0, out.2 (and shift_out.*)
   encoder <name>                    encoder.<Sequential index>
+  MLPSkipNet time_embed_0, _1       time_embed.0, time_embed.2
+  MLPSkipNet layers_<i>/<sub>       layers.<i>.<sub> (linear_emb also as
+                                    layers.<i>.cond_layers.1)
+  classifier fc                     weight, bias
 
 Weight layouts: conv [kh,kw,I,O] -> [O,I,kh,kw]; Dense [I,O] -> Linear
-[O,I], or -> conv1d [O,I,1] for the attention qkv/proj_out; GroupNorm
-scale/bias -> weight/bias.
+[O,I], or -> conv1d [O,I,1] for the attention qkv/proj_out; GroupNorm and
+LayerNorm scale/bias -> weight/bias.
 
-``unet_tree``/``encoder_tree`` are the inverse maps (for grads keyed like a
+``unet_tree``/``encoder_tree``/``mlp_skip_net_tree``/``classifier_tree`` are
+the inverse maps (for grads keyed like a
 state dict, and round trips); ``train_state_tensors``/``train_state_trees``
 carry a whole representation-learning train state (params, EMA, Adam
 moments and count) across, as numpy, so both packages can step from the same
@@ -144,6 +149,35 @@ def encoder_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     return _tensors(sd)
 
 
+def mlp_skip_net_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """Flax MLPSkipNet params -> ``MLPSkipNet`` state dict, each
+    ``linear_emb`` under both of its reference keys."""
+    sd: Dict = {}
+    for mod, sub in tree.items():
+        if mod in ("time_embed_0", "time_embed_1"):
+            _put(sd, f"time_embed.{'0' if mod == 'time_embed_0' else '2'}", "linear", sub)
+        elif mod.startswith("layers_"):
+            i = mod[len("layers_"):]
+            for name, leaves in sub.items():
+                kind = "norm" if name == "norm" else "linear"
+                _put(sd, f"layers.{i}.{name}", kind, leaves)
+                if name == "linear_emb":
+                    _put(sd, f"layers.{i}.cond_layers.1", kind, leaves)
+        else:
+            raise KeyError(f"unmapped flax module: {mod}")
+    return _tensors(sd)
+
+
+def classifier_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """Flax LinearClassifier params (``{"fc": ...}``) -> ``LinearClassifier``
+    state dict."""
+    sd: Dict = {}
+    for leaf, value in tree["fc"].items():
+        name, v = _leaf("linear", leaf, value)
+        sd[name] = v
+    return _tensors(sd)
+
+
 # --------------------------------------------------------------------- #
 # the way back: a state dict (or grads keyed like one) in the flax layout
 # --------------------------------------------------------------------- #
@@ -247,6 +281,37 @@ def encoder_tree(sd: Dict) -> Dict:
             tree["final_dense"] = {
                 "kernel": np.ascontiguousarray(w.reshape(w.shape[0], -1).T),
                 "bias": _numpy(leaves["bias"])}
+    return tree
+
+
+def mlp_skip_net_tree(sd: Dict) -> Dict:
+    """``MLPSkipNet`` state dict -> the flax param tree layout: the inverse of
+    ``mlp_skip_net_state_dict``. The ``cond_layers.1`` keys are the
+    ``linear_emb`` tensors again and must equal them."""
+    tree: Dict = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        if parts[0] == "time_embed":
+            _put_back(tree, ({"0": "time_embed_0", "2": "time_embed_1"}[parts[1]],),
+                      "linear", leaf, value)
+        elif parts[0] == "layers" and parts[2:4] == ["cond_layers", "1"]:
+            twin = f"layers.{parts[1]}.linear_emb.{leaf}"
+            if not np.array_equal(_numpy(sd[twin]), _numpy(value)):
+                raise ValueError(f"{key} differs from {twin}")
+        elif parts[0] == "layers" and parts[2] in ("linear", "linear_emb", "norm"):
+            _put_back(tree, (f"layers_{parts[1]}", parts[2]),
+                      "norm" if parts[2] == "norm" else "linear", leaf, value)
+        else:
+            raise KeyError(f"unmapped state-dict key: {key}")
+    return tree
+
+
+def classifier_tree(sd: Dict) -> Dict:
+    """``LinearClassifier`` state dict -> ``{"fc": {"kernel", "bias"}}``."""
+    tree: Dict = {}
+    for leaf, value in sd.items():
+        _put_back(tree, ("fc",), "linear", leaf, value)
     return tree
 
 

@@ -54,3 +54,40 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
 
 def jnp_f32(a):
     return jnp.asarray(np.asarray(a, np.float32))
+
+
+# -- a toy epsilon model (no weights), the same function in both packages -- #
+
+def toy_eps_jax(x, t, condition=None):
+    tt = (t.astype(jnp.float32) / 1000.0).reshape((-1,) + (1,) * (x.ndim - 1))
+    return 0.3 * jnp.tanh(x) + 0.1 * jnp.sin(3.0 * x) * tt
+
+
+def toy_eps_torch(x, t, condition=None):
+    tt = (t.float() / 1000.0).reshape((-1,) + (1,) * (x.dim() - 1))
+    return 0.3 * torch.tanh(x) + 0.1 * torch.sin(3.0 * x) * tt
+
+
+def tiny_shift_decoders(latent: int, seed: int = 5, size: int = 16):
+    """The tiny ShiftUNet (``TINY_DPM``) with perturbed weights in both
+    packages, as ``decoder(x, t, z) -> (eps, gradient)`` callables that both
+    take and give NHWC (the port's is wrapped), so one loop's inputs serve
+    both."""
+    from pdae_tpu.models import ShiftUNet as JaxShiftUNet
+    from pdae_torch.models import ShiftUNet
+    from pdae_torch.utils import unet_state_dict
+
+    model = JaxShiftUNet(latent_dim=latent, **TINY_DPM)
+    params = init_flax(model, jnp.zeros((1, size, size, 3)), jnp.zeros((1,), jnp.int32),
+                       jnp.zeros((1, latent)), seed=seed)
+    port = ShiftUNet(latent_dim=latent, **TINY_DPM).eval()
+    port.load_state_dict(unet_state_dict(params), strict=True)
+
+    def jax_decoder(xx, tt, zz):
+        return model.apply({"params": params}, xx, tt, zz)
+
+    def port_decoder(xx, tt, zz):
+        eps, g = port(xx.permute(0, 3, 1, 2), tt, zz)
+        return eps.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1)
+
+    return jax_decoder, port_decoder

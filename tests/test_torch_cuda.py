@@ -13,7 +13,10 @@ versions (``set_use_kernels(False)``): every gradient within
 variants are held against its plain version directly (dx, dA, dB within
 1e-4 * max(1, max|ref|) + 1e-4 * |ref| in fp32, 3e-2 * max(1, max|ref|) +
 2e-2 * |ref| in bf16, where dx is rounded), and two of its launches on the
-same inputs must be bit-equal. ``chip_smoke.py`` covers every path shape,
+same inputs must be bit-equal. The serving ops (the latent DPM's sampler,
+``manipulate``, a dpm5 autoencode, trajectory interpolation) run at b2
+through the kernels and through the plain versions on a small 64px stack
+and agree within one uint8 level. ``chip_smoke.py`` covers every path shape,
 bf16 and timings.
 """
 
@@ -385,3 +388,94 @@ def test_a_gn_backward_cluster_launch_captures_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert torch.equal(a, b)
+
+
+# -- the serving ops end to end: kernels against the plain versions -------- #
+
+CARD_DPM = dict(input_channel=3, base_channel=32, channel_multiplier=(1, 2),
+                num_residual_blocks_of_a_block=1, attention_resolutions=(2,),
+                num_heads=2, head_channel=-1, use_new_attention_order=False,
+                dropout=0.0)
+
+
+@pytest.fixture(scope="module")
+def card_stack():
+    """A 64px service on the card (the tiny ShiftUNet, the full 64px
+    encoder, a small MLPSkipNet, a 40-class classifier, seeded) and fixed
+    b2 inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
+    import numpy as np
+
+    from pdae_torch.models import (MLPSkipNet, ShiftUNet, build_classifier,
+                                   encoder_for_resolution)
+    from pdae_torch.serving import PDAEService
+
+    torch.manual_seed(0)
+    latent_dim = 16
+    decoder = ShiftUNet(latent_dim=latent_dim, **CARD_DPM)
+    with torch.no_grad():
+        for p in decoder.parameters():
+            if not p.any():
+                p.normal_(std=0.05)
+    latent = MLPSkipNet(latent_dim, 64, 4)
+    rs = np.random.RandomState(1)
+    stats = ((0.1 * rs.randn(1, latent_dim)).astype(np.float32),
+             rs.uniform(0.5, 1.5, (1, latent_dim)).astype(np.float32))
+    config = {"trained_ddpm_config": CARD_DPM, "decoder_config": {"latent_dim": latent_dim},
+              "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": latent_dim},
+              "latent_config": {"input_channel": latent_dim, "model_channel": 64,
+                                "num_layers": 4},
+              "image_size": 64, "max_batch": 4}
+    service = PDAEService(config, encoder_for_resolution(64, latent_dim).state_dict(),
+                          decoder.state_dict(), device="cuda",
+                          latent_state=latent.state_dict(), latent_stats=stats,
+                          classifier_state=build_classifier(40, latent_dim).state_dict())
+    inputs = dict(
+        images=rs.randint(0, 256, (2, 64, 64, 3), np.uint8),
+        z_T=torch.from_numpy(rs.randn(2, latent_dim).astype(np.float32)).cuda(),
+        x_T=torch.from_numpy(rs.randn(2, 3, 64, 64).astype(np.float32)).cuda(),
+        mean=torch.from_numpy(stats[0]).cuda(), std=torch.from_numpy(stats[1]).cuda())
+    return service, latent.cuda().eval(), inputs
+
+
+@pytest.mark.parametrize("op", ["latent_diffusion_sample", "manipulate", "autoencode_dpm5",
+                                "interpolation"])
+def test_serving_ops_kernels_match_plain(cuda, card_stack, op):
+    """Each op at b2 and short styles through the kernels, then through the
+    plain versions: within one uint8 level, as ``chip_smoke.py`` holds them
+    at full width."""
+    import numpy as np
+
+    from pdae_torch.utils import from_uint8, to_uint8
+
+    service, latent, a = card_stack
+    gd = service.gd
+    x_0 = torch.from_numpy(from_uint8(a["images"])).cuda().permute(0, 3, 1, 2).contiguous()
+
+    def as_uint8(t):
+        return to_uint8(t.permute(0, 2, 3, 1).cpu().numpy())
+
+    def run():
+        with torch.inference_mode():
+            if op == "latent_diffusion_sample":
+                return as_uint8(gd.latent_diffusion_sample(
+                    None, "ddim5", "ddim5", latent, service.decoder, a["x_T"], a["mean"],
+                    a["std"], latent_dim=16, z_T=a["z_T"]))
+            if op == "manipulate":
+                return service.manipulate(a["images"], attribute="Smiling",
+                                          encode_style="ddim5", decode_style="ddim5")
+            if op == "autoencode_dpm5":
+                return service.autoencode(a["images"], "dpm5", "dpm5")
+            z = service.encoder(x_0)
+            return as_uint8(gd.representation_learning_ddim_trajectory_interpolation(
+                "ddim5", service.decoder, z, z.flip(0), a["x_T"], 0.5))
+
+    ops.reset_launch_counts()
+    got = run()
+    counts = ops.launch_counts()
+    assert counts["attention"] > 0 and counts["gn_adagn_silu"] > 0, counts
+    ops.set_use_kernels(False)
+    want = run()
+    assert got.shape == want.shape == (2, 64, 64, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

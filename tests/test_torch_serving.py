@@ -8,10 +8,19 @@ The stack is the tiny ShiftUNet (``TINY_DPM``) at 64px with the full-width
 frameworks, and the DDIM encode amplifies that: reconstructions agree with
 JAX's within 1e-2 in [-1, 1] floats (mean under 2e-4), and so at most one
 uint8 level apart.
+
+The ops of the latent and manipulation stages (``generate``,
+``manipulate``) and the ``CoalescingBatcher`` are held to the service's
+rules on a second, cheaper stack (``SMALL_DPM``: attention at 16x16 alone)
+with seeded port weights; their numerics are held to the JAX package's in
+``tests/test_torch_latent.py``.
 """
 
 import ast
 import os
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +35,8 @@ from pdae_tpu.models import encoder_for_resolution as jax_encoder_for_resolution
 from pdae_tpu.utils.image import from_uint8 as jax_from_uint8
 from pdae_tpu.utils.image import to_uint8 as jax_to_uint8
 from pdae_torch import serving
-from pdae_torch.serving import PDAEService
+from pdae_torch.models import MLPSkipNet, ShiftUNet, build_classifier, encoder_for_resolution
+from pdae_torch.serving import CoalescingBatcher, PDAEService
 from pdae_torch.utils import (encoder_state_dict, from_uint8, to_uint8,
                               unet_state_dict)
 
@@ -167,3 +177,278 @@ def test_port_imports_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path} imports {name}"
+
+
+# -- generate, manipulate and the batcher on a cheaper stack --------------- #
+
+SMALL_DPM = dict(TINY_DPM, base_channel=16, attention_resolutions=(4,))
+LATENT_CONFIG = {"model": "CELEBA64LatentDenoiseFn", "input_channel": LATENT,
+                 "model_channel": 64, "num_layers": 4}
+SMALL_CONFIG = {
+    "trained_ddpm_config": SMALL_DPM,
+    "decoder_config": {"latent_dim": LATENT},
+    "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
+    "latent_config": LATENT_CONFIG,
+    "image_size": SIZE, "max_batch": 4,
+    "encoder_ddim_style": "ddim2", "decoder_ddim_style": "ddim2",
+    "latent_ddim_style": "ddim3",
+    "encode_ddim_style": "ddim2", "decode_ddim_style": "ddim2",
+}
+
+
+def _small_artifacts(seed=0, zero_row=None):
+    torch.manual_seed(seed)
+    rs = np.random.RandomState(seed)
+    decoder = ShiftUNet(latent_dim=LATENT, **SMALL_DPM)
+    with torch.no_grad():                # no zero-init branch stays silent
+        for p in decoder.parameters():
+            if not p.any():
+                p.normal_(std=0.02)
+    classifier = build_classifier(40, LATENT)
+    if zero_row is not None:
+        with torch.no_grad():
+            classifier.weight[zero_row] = 0.0
+    stats = ((0.1 * rs.randn(1, LATENT)).astype(np.float32),
+             rs.uniform(0.5, 1.5, (1, LATENT)).astype(np.float32))
+    return (encoder_for_resolution(SIZE, LATENT).state_dict(), decoder.state_dict(),
+            dict(latent_state=MLPSkipNet(LATENT, 64, 4).state_dict(), latent_stats=stats,
+                 classifier_state=classifier.state_dict()))
+
+
+@pytest.fixture(scope="module")
+def small():
+    enc, dec, artifacts = _small_artifacts()
+    return PDAEService(SMALL_CONFIG, enc, dec, device="cpu", **artifacts)
+
+
+def test_generate_is_deterministic_per_seed_and_padding_free(small):
+    a = small.generate(2, seed=7)
+    assert a.shape == (2, SIZE, SIZE, 3) and a.dtype == np.uint8
+    np.testing.assert_array_equal(a, small.generate(2, seed=7))
+    assert not np.array_equal(a, small.generate(2, seed=8))
+    # 3 pads to the bucket of 4: the draws and so the images are the same
+    np.testing.assert_array_equal(small.generate(3, seed=7), small.generate(4, seed=7)[:3])
+    with pytest.raises(ValueError, match="max_batch"):
+        small.generate(5)
+    with pytest.raises(ValueError, match="empty"):
+        small.generate(0)
+
+
+def test_manipulate_by_attribute_or_class_id(small):
+    images = _images(2, seed=3)
+    by_name = small.manipulate(images, attribute="Smiling", scale=0.3)
+    assert by_name.shape == images.shape and by_name.dtype == np.uint8
+    np.testing.assert_array_equal(by_name, small.manipulate(images, class_id=31, scale=0.3))
+    assert not np.array_equal(by_name, small.manipulate(images, class_id=31, scale=0.0))
+    with pytest.raises(ValueError, match="unknown attribute"):
+        small.manipulate(images, attribute="Grumpy")
+    with pytest.raises(ValueError, match="class_id"):
+        small.manipulate(images, class_id=40)
+
+
+def test_a_zero_classifier_row_edits_nothing():
+    """The norm's 1e-12 floor: a zero row is a zero edit, not NaN (a NaN
+    would raise in the service before it became pixels)."""
+    enc, dec, artifacts = _small_artifacts(zero_row=31)
+    service = PDAEService(SMALL_CONFIG, enc, dec, device="cpu", **artifacts)
+    images = _images(1, seed=4)
+    np.testing.assert_array_equal(service.manipulate(images, class_id=31, scale=0.3),
+                                  service.manipulate(images, class_id=31, scale=0.0))
+
+
+def test_a_missing_artifact_raises():
+    enc, dec, _ = _small_artifacts()
+    config = dict(SMALL_CONFIG)
+    del config["latent_config"]
+    service = PDAEService(config, enc, dec, device="cpu")
+    with pytest.raises(ValueError, match="generate needs latent_config, latent_state, "
+                                         "latent_stats"):
+        service.generate(1)
+    with pytest.raises(ValueError, match="manipulate needs classifier_state, latent_stats"):
+        service.manipulate(_images(1))
+    assert service.encode(_images(1)).shape == (1, LATENT)
+
+
+@pytest.mark.parametrize("key", ["tp_size", "sp_size"])
+def test_tensor_or_spatial_parallelism_raises(key):
+    enc, dec, _ = _small_artifacts()
+    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+        PDAEService(dict(SMALL_CONFIG, **{key: 2}), enc, dec, device="cpu")
+    PDAEService(dict(SMALL_CONFIG, **{key: 1}), enc, dec, device="cpu")
+
+
+def test_every_op_takes_dpm_styles(small):
+    images = _images(2, seed=5)
+    for out in (small.autoencode(images, "dpm2", "dpm2"),
+                small.manipulate(images, encode_style="dpm2", decode_style="dpm2"),
+                small.generate(2, latent_style="dpm3", decode_style="dpm2"),
+                small.decode(np.zeros((2, LATENT), np.float32),
+                             np.random.RandomState(0).randn(2, SIZE, SIZE, 3), "dpm2")):
+        assert out.shape == images.shape and out.dtype == np.uint8
+
+
+def test_lazy_builds_run_once(monkeypatch):
+    """Threads that reach the first generate at once build the latent
+    model once (the build sleeps, so all of them arrive inside it)."""
+    enc, dec, artifacts = _small_artifacts()
+    service = PDAEService(SMALL_CONFIG, enc, dec, device="cpu", **artifacts)
+    builds = []
+    real = serving.build_latent_denoise_fn
+
+    def slow_build(config):
+        builds.append(config)
+        time.sleep(0.2)
+        return real(config)
+
+    monkeypatch.setattr(serving, "build_latent_denoise_fn", slow_build)
+    got = [None] * 6
+    threads = [threading.Thread(target=lambda i=i: got.__setitem__(i, service._latent()))
+               for i in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1 and all(g[0] is got[0][0] for g in got)
+
+
+def test_the_batcher_worker_runs_in_inference_mode(small):
+    seen = []
+    hook = small.encoder.register_forward_pre_hook(
+        lambda mod, args: seen.append(torch.is_inference_mode_enabled()))
+    b = CoalescingBatcher(small, window_ms=5.0)
+    try:
+        out = []
+        t = threading.Thread(target=lambda: out.append(b.submit("encode", _images(1))))
+        t.start()
+        t.join(timeout=60)
+        assert out and out[0].shape == (1, LATENT)
+    finally:
+        b.close()
+        hook.remove()
+    assert seen == [True]
+
+
+def test_coalescing_batcher(small):
+    """Concurrent submissions coalesce into shared batches: results match
+    the direct per-request calls, and the service is called fewer times than
+    there were requests."""
+    b = CoalescingBatcher(small, window_ms=150.0)
+    try:
+        reqs = [_images(2, seed=10 + i) for i in range(6)]
+        want = [small.encode(r) for r in reqs]
+        outs = [None] * len(reqs)
+        ts = [threading.Thread(target=lambda i=i: outs.__setitem__(
+            i, b.submit("encode", reqs[i]))) for i in range(len(reqs))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        for got, exp in zip(outs, want):
+            np.testing.assert_allclose(got, exp, atol=1e-5)
+        # 12 images in chunks of at most max_batch 4: far fewer calls
+        assert b.stats()["calls"] < len(reqs), b.stats()
+
+        # kwargs define the group
+        a1 = b.submit("autoencode", _images(1), encode_style="ddim1", decode_style="ddim1")
+        assert a1.shape == (1, SIZE, SIZE, 3)
+        # an oversized request fails in the worker and re-raises in the caller
+        with pytest.raises(ValueError, match="max_batch"):
+            b.submit("encode", _images(5))
+        np.testing.assert_allclose(b.submit("encode", reqs[0]), want[0], atol=1e-5)
+        with pytest.raises(ValueError, match="op must be"):
+            b.submit("generate", reqs[0])
+        with pytest.raises(TypeError, match="non-hashable"):
+            b.submit("encode", reqs[0], attribute=["Male"])
+        # uint8 and float inputs never share a batch (dtype in the group key)
+        u8 = _images(1, seed=20)
+        f32 = u8.astype(np.float32) / 255.0 * 2.0 - 1.0
+        outs2 = [None, None]
+        ts2 = [threading.Thread(target=lambda i=i, r=r: outs2.__setitem__(
+            i, b.submit("encode", r))) for i, r in enumerate((u8, f32))]
+        for t in ts2:
+            t.start()
+        for t in ts2:
+            t.join(timeout=60)
+        np.testing.assert_allclose(outs2[0], outs2[1], atol=1e-5)
+        np.testing.assert_allclose(outs2[0], small.encode(u8), atol=1e-5)
+    finally:
+        b.close()
+
+
+def test_batcher_delivers_an_error_to_every_waiter(small):
+    b = CoalescingBatcher(small, window_ms=150.0)
+    try:
+        errors = [None] * 3
+
+        def worker(i):
+            try:
+                b.submit("autoencode", _images(1, seed=i), encode_style="bogus5")
+            except ValueError as e:
+                errors[i] = e
+
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(3)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert all(isinstance(e, ValueError) for e in errors), errors
+        assert b.stats()["calls"] == 0
+    finally:
+        b.close()
+
+
+def test_a_dead_batcher_worker_fails_its_waiters(small, monkeypatch):
+    """An interrupt in the worker fails the drained requests, ends the
+    worker, and a later submit notices it through the liveness check."""
+    class Interrupt(BaseException):
+        pass
+
+    def interrupted(op, chunk):
+        raise Interrupt()
+
+    monkeypatch.setattr(threading, "excepthook", lambda args: None)
+    b = CoalescingBatcher(small, window_ms=5.0)
+    monkeypatch.setattr(b, "_run_chunk", interrupted)
+    with pytest.raises(RuntimeError, match="interrupted"):
+        b.submit("encode", _images(1))
+    b._worker.join(timeout=10)
+    assert not b._worker.is_alive()
+    with pytest.raises(RuntimeError, match="worker died"):
+        b.submit("encode", _images(1))
+
+
+def test_batcher_thread_hammer(small):
+    """50 concurrent submissions across mixed ops, kwargs and sizes: every
+    caller gets its own result back, and no waiter hangs."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    b = CoalescingBatcher(small, window_ms=20.0)
+    try:
+        rs = np.random.RandomState(42)
+        jobs = []
+        for i in range(50):
+            imgs = rs.randint(0, 256, (int(rs.randint(1, 4)), SIZE, SIZE, 3), np.uint8)
+            op = "autoencode" if i % 5 == 0 else "encode"
+            kwargs = {} if op == "encode" else {"encode_style": "ddim1",
+                                                "decode_style": "ddim1"}
+            jobs.append((op, imgs, kwargs))
+        want = [getattr(small, op)(imgs, **kw) for op, imgs, kw in jobs]
+        outs = [None] * len(jobs)
+        ts = [threading.Thread(target=lambda i=i: outs.__setitem__(
+            i, b.submit(jobs[i][0], jobs[i][1], **jobs[i][2]))) for i in range(len(jobs))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in ts)
+        for i, ((op, imgs, kw), got, exp) in enumerate(zip(jobs, outs, want)):
+            assert got.shape == exp.shape, (i, op)
+            if op == "encode":
+                np.testing.assert_allclose(got, exp, atol=1e-4, err_msg=str(i))
+            else:
+                assert np.abs(got.astype(int) - exp.astype(int)).max() <= 1, i
+        assert b.stats()["calls"] < len(jobs)
+    finally:
+        sys.setswitchinterval(old)
+        b.close()
