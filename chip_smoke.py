@@ -65,6 +65,27 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    decoder output moves by the relative size of one kernel forward's error
    (three seeded draws), and each kernel path bit-equal when repeated.
 
+7. ``trainer``: ``RepresentationLearningTrainer`` at full width from a config
+   dict (the celeba64 PDAE over the ``CELEBA64_DPM`` trunk, latent 512,
+   SYNTHETIC 64px RGB of 320 preloaded items, b32, Adam lr 1e-4, EMA 0.9999,
+   fp32 with TF32 off, ``cudnn.deterministic``), the trunk grafted from a
+   seeded celeba64 UNet that the port's ``save_checkpoint`` wrote under
+   ``ema_denoise_fn``. Run A trains 6 steps, saving ``latest.ckpt`` at 3 and
+   6 and writing an 8-image ddim100 eval grid at 6; every loss must be
+   finite, every step's launches must equal the train phase's structure
+   counts (GN on the cluster variant), the eval's those of 100 b8 ShiftUNet
+   evaluations and an encoder pass, the trunk must equal the DPM at start and
+   end, the grid must have ``make_grid``'s size. Run B, a fresh trainer,
+   resumes a copy of A's step-3 file: its state must equal the file bit for
+   bit, and after training to 6 its params, EMA and Adam moments must equal
+   A's bit for bit. The phase prints the trainer's step against the bare step
+   (the train phase's, and one under the same deterministic algorithms), the
+   loop's wait per save and the background write's seconds, the checkpoint's
+   bytes, the eval's seconds and peak memory; it fails if ``yaml`` or
+   ``msgpack`` was imported, or ``PIL`` other than through TensorFlow. The
+   checkpoints (1.67 GB each) are deleted at the end; ``metrics.jsonl`` and
+   the grid stay under ``chiprun_out/trainer/``.
+
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -77,6 +98,7 @@ import collections
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import threading
@@ -796,6 +818,216 @@ def summarise(name, source, replaces, results, per_request, per_step, launches,
             "train_step_ms": total("ms", per_step)}
 
 
+def png_size(path) -> tuple:
+    """(height, width) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
+    """``RepresentationLearningTrainer`` at full width from a config dict:
+    run A trains 6 steps (saves at 3 and 6, an eval grid at 6), run B resumes
+    a copy of A's step-3 checkpoint and trains to 6. cuDNN runs deterministic
+    algorithms for both, so B must end bit-equal to A."""
+    import shutil
+
+    from pdae_torch import ops
+    from pdae_torch.models import CELEBA64_DPM, UNet
+    from pdae_torch.training import RepresentationLearningTrainer
+    from pdae_torch.utils import load_checkpoint, save_checkpoint, unet_tree
+    from pdae_torch.utils.image import make_grid
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # the DPM to graft: a seeded celeba64 UNet, written by the port
+    gen = torch.Generator().manual_seed(seed + 5)
+    torch.manual_seed(seed + 5)
+    unet = UNet(**CELEBA64_DPM)
+    perturb_zero_params(unet, gen)
+    dpm_tree = unet_tree(unet.state_dict())
+    dpm_path = os.path.join(root, "dpm.ckpt")
+    save_checkpoint(dpm_path, {"step": np.asarray(0, np.int32), "ema_denoise_fn": dpm_tree})
+    dpm_sd = {k: v.to(device) for k, v in unet.state_dict().items()}
+    del unet
+    config = {
+        "train_dataset_config": {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
+                                 "length": 320, "preload": True, "latent_dim": LATENT},
+        "eval_dataset_config": {},
+        "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
+        "trained_ddpm_config": {"denoise_fn_config": {"model": "UNet", **CELEBA64_DPM}},
+        "trained_ddpm_checkpoint": dpm_path,
+        "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
+        "decoder_config": {"model": "CELEBA64Decoder", "latent_dim": LATENT},
+        "dataloader_config": {"train": {"num_workers": 4, "batch_size": TRAIN_BATCH},
+                              "eval": {"num_generations": BATCH}},
+        "optimizer_config": {"lr": 1e-4, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
+                             "weight_decay": 0.0, "enable_amp": False},
+        "runner_config": {"display_steps": 1, "evaluate_every_steps": 6,
+                          "save_latest_every_steps": 3,
+                          "save_checkpoint_every_steps": 10000, "num_iterations": 1,
+                          "ema_every": 1, "ema_decay": 0.9999}}
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        run_a = RepresentationLearningTrainer(config=config, run_path=os.path.join(root, "a"),
+                                              seed=seed)
+        build_s = time.perf_counter() - t0
+        trunk = [k for k in run_a.decoder.state_dict() if k in dpm_sd]
+        grafted = all(torch.equal(run_a.decoder.state_dict()[k], dpm_sd[k]) for k in trunk)
+        step3 = os.path.join(root, "step3.ckpt")
+        records = {"launches": [], "gn": [], "gn_bwd": [], "s": [], "loss": []}
+        inner_step, inner_eval = run_a.train_step, run_a.evaluate
+
+        def counted_step(batch):
+            if run_a.step == 5:
+                # keep A's step-3 file for run B (a hard link: the save at 6
+                # renames a new file over latest.ckpt); outside the timing
+                run_a._join_save()
+                latest = os.path.join(root, "a", "checkpoints", "latest.ckpt")
+                try:
+                    os.link(latest, step3)
+                except OSError:
+                    shutil.copyfile(latest, step3)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            s0 = time.perf_counter()
+            out = inner_step(batch)
+            torch.cuda.synchronize()
+            records["s"].append(time.perf_counter() - s0)
+            records["launches"].append(ops.launch_counts())
+            records["gn"].append(ops.gn_variant_counts())
+            records["gn_bwd"].append(ops.gn_bwd_variant_counts())
+            records["loss"].append(float(out["prediction_loss"]))
+            return out
+
+        eval_rec = {}
+
+        def counted_eval(step):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            s0 = time.perf_counter()
+            inner_eval(step)
+            torch.cuda.synchronize()
+            eval_rec["run"] = {"s": time.perf_counter() - s0, "launches": ops.launch_counts(),
+                               "gn_variants": ops.gn_variant_counts()}
+
+        run_a.train_step, run_a.evaluate = counted_step, counted_eval
+        t0 = time.perf_counter()
+        assert run_a.train(max_steps=6) == 6
+        loop_s = time.perf_counter() - t0
+        trunk_kept = all(torch.equal(run_a.decoder.state_dict()[k], dpm_sd[k]) for k in trunk)
+        latest_a = os.path.join(root, "a", "checkpoints", "latest.ckpt")
+        steps_on_file = [int(load_checkpoint(p)["step"]) for p in (step3, latest_a)]
+        grid_path = os.path.join(root, "a", "samples", "sample0k.png")
+        grid_want = make_grid(np.zeros((2 * BATCH, 64, 64, 3), np.uint8), nrow=2).shape[:2]
+        grid_got = png_size(grid_path) if os.path.exists(grid_path) else None
+        with open(os.path.join(root, "a", "metrics.jsonl")) as f:
+            metric_steps = [json.loads(line)["step"] for line in f]
+
+        # run B: a fresh trainer resumes A's step-3 file and trains to 6
+        os.makedirs(os.path.join(root, "b", "checkpoints"))
+        shutil.copyfile(step3, os.path.join(root, "b", "checkpoints", "latest.ckpt"))
+        config_b = {**config, "runner_config": {**config["runner_config"],
+                                                "evaluate_every_steps": 10000}}
+        t0 = time.perf_counter()
+        run_b = RepresentationLearningTrainer(config=config_b, run_path=os.path.join(root, "b"),
+                                              resume="latest", seed=seed)
+        resume_s = time.perf_counter() - t0
+        raw = load_checkpoint(step3)
+        loaded = run_b.state_dict()
+        flat_loaded, flat_raw = _flat(loaded), _flat({k: raw[k] for k in loaded})
+        loaded_equal = (run_b.start_step == 3 and sorted(flat_loaded) == sorted(flat_raw)
+                        and all(np.array_equal(np.asarray(v), np.asarray(flat_raw[k]))
+                                for k, v in flat_loaded.items()))
+        del flat_loaded, flat_raw
+        del raw, loaded
+        assert run_b.train(max_steps=6) == 6
+        mismatched = [f"{g}.{k}" for g in ("encoder", "shift")
+                      for k, p in run_a.state.params[g].items()
+                      if not torch.equal(p, run_b.state.params[g][k])
+                      or not torch.equal(run_a.state.ema_params[g][k],
+                                         run_b.state.ema_params[g][k])
+                      or not all(torch.equal(run_a.optimizer.state[p][m],
+                                             run_b.optimizer.state[run_b.state.params[g][k]][m])
+                                 for m in ("exp_avg", "exp_avg_sq", "step"))]
+        ckpt_bytes = os.path.getsize(latest_a)
+        # the bare step under the same deterministic algorithms, on B's
+        # state after the comparison
+        batch = next(run_b._batch_iterator(6))
+        bare = []
+        for i in range(4):
+            g = torch.Generator(device=device).manual_seed(seed + i)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            run_b._step_fn(run_b.state, batch["x_0"], g)
+            torch.cuda.synchronize()
+            bare.append(time.perf_counter() - s0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        saves = run_a.save_seconds + run_b.save_seconds
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+    for name in ("step3.ckpt", "dpm.ckpt", "a/checkpoints/latest.ckpt",
+                 "b/checkpoints/latest.ckpt"):
+        path = os.path.join(root, name)
+        if os.path.exists(path):
+            os.unlink(path)
+    trainer_step_s = sum(records["s"][1:]) / len(records["s"][1:])
+    modules = ("yaml", "msgpack", "PIL", "tensorboard", "tensorflow")
+    loaded_modules = {m: m in sys.modules for m in modules}
+    import importlib.util
+    available = {m: importlib.util.find_spec(m) is not None for m in modules}
+    rec = {
+        "config": "celeba64 PDAE, CELEBA64_DPM trunk, latent 512, SYNTHETIC 64px RGB "
+                  "length 320 preload, b32, Adam lr 1e-4, EMA 0.9999, linear 1000, fp32, "
+                  "TF32 off, cudnn.deterministic",
+        "build_s": build_s, "resume_build_s": resume_s, "loop_s_run_a": loop_s,
+        "losses": records["loss"], "step_s": records["s"],
+        "trainer_step_s": trainer_step_s, "bare_step_s_deterministic": sum(bare[1:]) / 3,
+        "bare_step_s_train_phase": bare_step_s,
+        "trainer_vs_bare_deterministic": trainer_step_s / (sum(bare[1:]) / 3),
+        "save_wait_s": [r[0] for r in saves], "save_write_s": [r[1] for r in saves],
+        "checkpoint_bytes": ckpt_bytes, "eval_s": eval_rec["run"]["s"],
+        "eval_launches": eval_rec["run"]["launches"], "eval_launches_expected": want_eval,
+        "eval_gn_variants": eval_rec["run"]["gn_variants"],
+        "launches_per_step": records["launches"][-1], "launches_expected": want_step,
+        "peak_mem_gb": peak, "trunk_grafted": grafted, "trunk_unchanged": trunk_kept,
+        "checkpoint_steps": steps_on_file, "grid_hw": grid_got, "grid_hw_expected": grid_want,
+        "metrics_steps": metric_steps, "resume_loaded_equal": loaded_equal,
+        "resume_mismatched": mismatched[:5], "modules_loaded": loaded_modules,
+        "modules_available": available, "phase_s": time.perf_counter() - phase_t0}
+    rec["ok"] = bool(
+        all(math.isfinite(v) for v in records["loss"]) and len(records["loss"]) == 6
+        and all(c == want_step for c in records["launches"])
+        and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+                for v in records["gn"])
+        and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+                for v in records["gn_bwd"])
+        and eval_rec["run"]["launches"] == want_eval
+        and eval_rec["run"]["gn_variants"] == {"cluster": want_eval["gn_adagn_silu"],
+                                               "general": 0}
+        and grafted and trunk_kept and steps_on_file == [3, 6]
+        and grid_got == grid_want and metric_steps == [1, 2, 3, 4, 5, 6]
+        and loaded_equal and not mismatched
+        and not loaded_modules["yaml"] and not loaded_modules["msgpack"]
+        and (not loaded_modules["PIL"] or loaded_modules["tensorflow"]))
+    return rec
+
+
+def _flat(tree, prefix=""):
+    """``{"a/b/c": leaf}`` of a nested dict; an empty dict stays a leaf."""
+    if isinstance(tree, dict) and tree:
+        return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1162,8 +1394,17 @@ def main(argv=None) -> int:
     if not ok:
         raise AssertionError("the kernel path disagrees with the plain path")
 
+    # 7. the representation-learning trainer at full width ---------------------
+    trainer = trainer_phase(args.seed, device, want_step,
+                            launches_of(STEPS, 1, dec_counts, enc_counts), mean_step_s)
+    emit({"phase": "trainer", **trainer})
+    if not trainer["ok"]:
+        raise AssertionError("the trainer phase failed its checks")
+
     per_op = {name: op_records[name]["launches"]
               for name in ("generate", "manipulate", "autoencode_dpm20")}
+    per_op["trainer_step"] = trainer["launches_per_step"]
+    per_op["trainer_eval"] = trainer["eval_launches"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
                      "pdae_tpu/ops/attention.py:40", attn_res, per_request, per_step,
@@ -1173,11 +1414,12 @@ def main(argv=None) -> int:
                      "pdae_tpu/ops/groupnorm.py:55", gn_res, per_request, per_step,
                      ae_launches["gn_adagn_silu"], train_launches["gn_adagn_silu"]),
          "launches_per_op": {k: v["gn_adagn_silu"] for k, v in per_op.items()}},
-        summarise("gn_adagn_silu_bwd", "pdae_torch/csrc/groupnorm_bwd.cu",
-                  "pdae_tpu/ops/groupnorm_train.py:196", bwd_res, per_step, per_step,
-                  train_launches["gn_adagn_silu_bwd"],
-                  train_launches["gn_adagn_silu_bwd"],
-                  per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
+        {**summarise("gn_adagn_silu_bwd", "pdae_torch/csrc/groupnorm_bwd.cu",
+                     "pdae_tpu/ops/groupnorm_train.py:196", bwd_res, per_step, per_step,
+                     train_launches["gn_adagn_silu_bwd"],
+                     train_launches["gn_adagn_silu_bwd"],
+                     per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
+         "launches_per_op": {"trainer_step": trainer["launches_per_step"]["gn_adagn_silu_bwd"]}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

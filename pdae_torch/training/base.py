@@ -1,0 +1,395 @@
+"""Base trainer: run dir, config snapshot, data plumbing, logging,
+checkpoint cadence and the step loop. The port of ``pdae_tpu/training/base.py``
+for one process on one device.
+
+Run dir layout as the JAX package's: ``checkpoints/`` (``latest.ckpt`` and
+``save-{N}k.ckpt``), ``samples/``, ``config.yml`` (written as JSON text),
+``metrics.jsonl`` and ``tb/`` where ``torch.utils.tensorboard`` imports.
+
+Resume is bitwise: the checkpoint restores params, EMA, Adam moments and the
+step; the batch stream is fast-forwarded to the batch an uninterrupted run
+would take at that step; and every random draw of a step comes from a
+generator seeded with (seed, step) (``utils/rng.py``).
+
+A checkpoint is taken without waiting for the disk: ``save`` copies every
+tensor the step updates in place to the host before it returns, and a
+background thread relays the copies out to the flax layout, serialises and
+writes them; a write that failed re-raises at the next save or at the end of
+``train``.
+
+Not ported yet, and refused by name rather than ignored: sharded params and
+checkpoints, the device-resident corpus, ``transfer_uint8``, remat, bf16
+compute and profiler traces. ``steps_per_dispatch`` keeps the JAX trainer's
+cadence check, and each step still runs as one call: eager torch has no fused
+multi-step program.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import shutil
+import signal
+import threading
+import time
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+
+from .. import resolve_device
+from ..data import Loader, build_dataset, prefetch_to_device
+from ..utils import (is_sharded_checkpoint, load_checkpoint, load_yaml,
+                     save_checkpoint, save_yaml, snapshot_path)
+from ..utils.config import overlay_eval_dataset_config
+from ..utils.image import png_bytes
+
+
+class Meters:
+    def __init__(self):
+        self.totals = collections.defaultdict(float)
+        self.counts = collections.defaultdict(int)
+
+    def add(self, name, dt):
+        self.totals[name] += dt
+        self.counts[name] += 1
+
+    def summary(self):
+        return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}
+
+    def reset(self):
+        self.totals.clear()
+        self.counts.clear()
+
+
+class Logger:
+    """metrics.jsonl, and TensorBoard where ``torch.utils.tensorboard``
+    imports."""
+
+    def __init__(self, run_path: str, purge_step: int = 0):
+        self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            pass
+        else:
+            os.makedirs(os.path.join(run_path, "tb"), exist_ok=True)
+            self._tb = SummaryWriter(os.path.join(run_path, "tb"), purge_step=purge_step)
+        self._jsonl = open(os.path.join(run_path, "metrics.jsonl"), "a")
+
+    def scalars(self, step: int, values: Dict[str, float]):
+        if self._tb is not None:
+            for k, v in values.items():
+                self._tb.add_scalar(k, v, step)
+        self._jsonl.write(json.dumps({"step": step, **values}) + "\n")
+        self._jsonl.flush()
+
+    def image(self, step: int, name: str, img_hwc_uint8: np.ndarray):
+        """The image as a TensorBoard image summary, PNG-encoded by
+        ``utils.image.png_bytes`` (``SummaryWriter.add_image`` would import
+        PIL to encode it)."""
+        if self._tb is None:
+            return
+        from tensorboard.compat.proto.summary_pb2 import Summary
+        h, w, c = img_hwc_uint8.shape
+        image = Summary.Image(height=h, width=w, colorspace=c,
+                              encoded_image_string=png_bytes(img_hwc_uint8))
+        self._tb.file_writer.add_summary(
+            Summary(value=[Summary.Value(tag=name, image=image)]), step)
+
+
+def _ours_ckpt_dir(p: str) -> bool:
+    """A directory a save may replace: a sharded checkpoint (a JAX run's), a
+    torn one (shard files without the manifest), or an empty one."""
+    if is_sharded_checkpoint(p):
+        return True
+    try:
+        entries = os.listdir(p)
+    except OSError:
+        return False
+    return all(e == "manifest.msgpack" or e.endswith(".tmp")
+               or (e.startswith("shard-") and e.endswith(".msgpack")) for e in entries)
+
+
+def refuse_unported(config: dict) -> None:
+    """Raise, naming the ROADMAP item that will lift it, for every option of
+    the JAX trainer that the port does not run yet."""
+    rc = config.get("runner_config") or {}
+    checks = [
+        (rc.get("param_sharding", "replicated") != "replicated",
+         f"runner_config.param_sharding={rc.get('param_sharding')!r}", 15),
+        (rc.get("checkpoint_format", "full") == "sharded",
+         "runner_config.checkpoint_format='sharded'", 15),
+        (bool(rc.get("remat")), f"runner_config.remat={rc.get('remat')!r}", 5),
+        (rc.get("compute_dtype") == "bfloat16", "runner_config.compute_dtype='bfloat16'",
+         17),
+        (bool((config.get("optimizer_config") or {}).get("enable_amp")),
+         "optimizer_config.enable_amp=true", 17),
+        (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
+    ]
+    for key in ("train_dataset_config", "eval_dataset_config"):
+        ds = config.get(key) or {}
+        checks += [(bool(ds.get("device_resident")), f"{key}.device_resident=true", 14),
+                   (bool(ds.get("transfer_uint8")), f"{key}.transfer_uint8=true", 14)]
+    for bad, what, item in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 "
+                                      f"item {item})")
+    if rc.get("checkpoint_format", "full") not in ("full", "sharded"):
+        raise ValueError(f"runner_config.checkpoint_format must be 'full' or 'sharded', "
+                         f"got {rc['checkpoint_format']!r}")
+    if rc.get("compute_dtype") not in (None, "float32", "bfloat16"):
+        raise ValueError(f"runner_config.compute_dtype must be 'float32' or 'bfloat16', "
+                         f"got {rc['compute_dtype']!r}")
+
+
+class BaseTrainer:
+    """Drive a train step over an endless batch stream on one device.
+
+    ``device``: ``cuda`` unless the caller names another; without a card it
+    must be given."""
+
+    def __init__(self, config: Optional[dict] = None, config_path: Optional[str] = None,
+                 run_path: str = "./runs/dev", resume: Optional[str] = None,
+                 seed: int = 0, device=None):
+        assert config is not None or config_path is not None
+        self.config = config if config is not None else load_yaml(config_path)
+        refuse_unported(self.config)
+        self.device = resolve_device(device)
+        self.run_path = run_path
+        self.seed = seed
+        self.runner_config = self.config["runner_config"]
+        self.dataloader_config = self.config.get("dataloader_config", {})
+        self.save_seconds = []      # (loop's wait, background write) per save
+        self._save_thread = None
+        self._save_error = None
+
+        os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
+        os.makedirs(os.path.join(run_path, "samples"), exist_ok=True)
+        save_yaml(self.config, os.path.join(run_path, "config.yml"))
+
+        self._build_datasets()
+        self._build()          # subclass: models, state, step
+
+        self.start_step = 0
+        latest = os.path.join(run_path, "checkpoints", "latest.ckpt")
+        if resume:
+            path = resume if os.path.exists(resume) else latest
+            if not os.path.exists(path) and os.path.exists(path + ".swap"):
+                # a save replacing a sharded directory stopped between
+                # dropping the directory and renaming the new file in
+                os.replace(path + ".swap", path)
+            raw = load_checkpoint(path)
+            self.load_state_dict(raw)
+            self.start_step = int(raw["step"])
+        self.logger = Logger(run_path, purge_step=self.start_step)
+
+    # -- data ----------------------------------------------------------- #
+
+    def _build_datasets(self):
+        self.train_dataset = build_dataset(self.config["train_dataset_config"])
+        self.eval_dataset = build_dataset(overlay_eval_dataset_config(self.config))
+        dl = self.dataloader_config.get("train", {})
+        # the batch of one optimizer step: batch_size * num_iterations
+        # micro-batches (gradient accumulation)
+        self.micro_batch = int(dl.get("batch_size", 32))
+        self.num_iterations = int(self.runner_config.get("num_iterations", 1))
+        self.loader = Loader(self.train_dataset,
+                             batch_size=self.micro_batch * self.num_iterations,
+                             shuffle=True, seed=self.seed,
+                             num_workers=int(dl.get("num_workers", 4)))
+
+    def _step_batch_keys(self):
+        """The batch keys the step reads (None: all); the rest stay on the
+        host."""
+        return None
+
+    def _batch_iterator(self, start_step: int = 0) -> Iterator[dict]:
+        """The batch stream on the device, fast-forwarded so that step N takes
+        the batch an uninterrupted run would."""
+        epoch, offset = divmod(start_step, self.loader.batches_per_epoch())
+        return prefetch_to_device(
+            self.loader.infinite(start_epoch=epoch, skip_batches=offset),
+            self.device, size=2, keys=self._step_batch_keys())
+
+    # -- subclass hooks -------------------------------------------------- #
+
+    def _build(self):
+        raise NotImplementedError
+
+    @property
+    def step(self) -> int:
+        raise NotImplementedError
+
+    def train_step(self, batch) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def evaluate(self, step: int):
+        pass
+
+    def snapshot_state(self) -> Any:
+        """Host copies of the state, taken now (the step updates tensors in
+        place)."""
+        raise NotImplementedError
+
+    def checkpoint_tree(self, snapshot) -> Dict[str, Any]:
+        """The checkpoint's trees (flax layout, numpy) from a snapshot."""
+        raise NotImplementedError
+
+    def load_state_dict(self, raw) -> None:
+        raise NotImplementedError
+
+    def state_dict(self) -> Dict[str, Any]:
+        return self.checkpoint_tree(self.snapshot_state())
+
+    # -- checkpointing --------------------------------------------------- #
+
+    def save(self, step: int, snapshot: bool = False):
+        """Checkpoint ``latest.ckpt`` (and ``save-{N}k.ckpt`` when
+        ``snapshot``). The host copy happens here; the relayout, the
+        serialisation and the atomic writes run in a background thread."""
+        t0 = time.perf_counter()
+        snap = self.snapshot_state()
+        self._join_save()
+        paths = [os.path.join(self.run_path, "checkpoints", "latest.ckpt")]
+        if snapshot:
+            paths.append(snapshot_path(self.run_path, step))
+        record = [0.0, None]
+
+        def tree():
+            return {"step": np.asarray(step, np.int32), **self.checkpoint_tree(snap)}
+
+        file_paths = []
+        for p in paths:
+            if os.path.isdir(p):
+                # a sharded checkpoint of a JAX run: write the file beside it
+                # first, then drop the directory and rename, so no moment
+                # leaves the run without a checkpoint
+                if not _ours_ckpt_dir(p):
+                    raise ValueError(f"checkpoint target {p} is a directory but not "
+                                     "a sharded checkpoint; refusing to overwrite")
+                save_checkpoint(p + ".swap", tree())
+                shutil.rmtree(p)
+                os.replace(p + ".swap", p)
+            else:
+                file_paths.append(p)
+        record[0] = time.perf_counter() - t0
+        self.save_seconds.append(record)
+        if not file_paths:
+            return
+
+        def write():
+            w0 = time.perf_counter()
+            sd = tree()
+            for p in file_paths:
+                save_checkpoint(p, sd)
+            record[1] = time.perf_counter() - w0
+
+        self._spawn_save(write)
+
+    def _spawn_save(self, fn):
+        """Run ``fn`` in a background thread; an exception is kept and
+        re-raised by the next ``_join_save``."""
+        def runner():
+            try:
+                fn()
+            except BaseException as e:   # re-raised on join
+                self._save_error = e
+
+        self._save_error = None
+        self._save_thread = threading.Thread(target=runner, daemon=False)
+        self._save_thread.start()
+
+    def _join_save(self):
+        t = self._save_thread
+        if t is not None:
+            t.join()
+            self._save_thread = None
+            err, self._save_error = self._save_error, None
+            if err is not None:
+                raise RuntimeError("background checkpoint write failed") from err
+
+    # -- loop ------------------------------------------------------------ #
+
+    def train(self, max_steps: Optional[int] = None, save_on_exit: bool = True) -> int:
+        rc = self.runner_config
+        display = int(rc.get("display_steps", 100))
+        eval_every = int(rc.get("evaluate_every_steps", 5000))
+        save_latest = int(rc.get("save_latest_every_steps", 1000))
+        save_snap = int(rc.get("save_checkpoint_every_steps", 10000))
+        k = int(rc.get("steps_per_dispatch", 1))
+        if k > 1:
+            # the JAX trainer scans k steps into one program and its
+            # cadences must land on chunk ends; the port keeps the check so
+            # that a config one package refuses the other refuses too
+            for name, val in (("display_steps", display),
+                              ("evaluate_every_steps", eval_every),
+                              ("save_latest_every_steps", save_latest),
+                              ("save_checkpoint_every_steps", save_snap)):
+                if val % k:
+                    raise ValueError(f"runner_config.{name}={val} must be a multiple "
+                                     f"of steps_per_dispatch={k}")
+        # continue from the live step, not the resume-time one: a second
+        # train() call picks up where the first stopped
+        step = self.step
+        meters = Meters()
+        losses = collections.defaultdict(list)
+        it = self._batch_iterator(step)
+        last_saved = step
+        stop = {"flag": False}
+
+        def _graceful(signum, frame):
+            stop["flag"] = True
+
+        old_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, _graceful)
+            except ValueError:       # not the main thread
+                pass
+        t_end = time.perf_counter()
+        window_steps = 0
+        first_window = True     # the first window holds the warm-up
+        try:
+            while (max_steps is None or step < max_steps) and not stop["flag"]:
+                t0 = time.perf_counter()
+                batch = next(it)
+                t1 = time.perf_counter()
+                metrics = self.train_step(batch)
+                step += 1
+                window_steps += 1
+                # device scalars every step; one host sync per display window
+                for name, v in metrics.items():
+                    losses[name].append(v)
+                meters.add("load_data", t1 - t0)
+                if step % display == 0:
+                    avg = {name: float(np.mean([float(x) for x in v]))
+                           for name, v in losses.items()}
+                    window = time.perf_counter() - t_end
+                    rate = 0.0 if first_window else window_steps / window
+                    self.logger.scalars(step, {
+                        **avg, "steps_per_sec": rate,
+                        "time/step": window / max(window_steps, 1),
+                        "time/load_data": meters.summary().get("load_data", 0.0)})
+                    print(f"step {step}: " + " ".join(f"{n}={v:.5f}" for n, v in avg.items())
+                          + f" ({rate:.2f} it/s)", flush=True)
+                    losses.clear()
+                    meters.reset()
+                    first_window = False
+                    window_steps = 0
+                    t_end = time.perf_counter()
+                if step % save_latest == 0 or step % save_snap == 0:
+                    # one save covers both cadences
+                    self.save(step, snapshot=step % save_snap == 0)
+                    last_saved = step
+                if step % eval_every == 0:
+                    self.evaluate(step)
+            # the final save, on a normal exit only: after an exception the
+            # last good checkpoint must stay as it is
+            if step != last_saved and save_on_exit:
+                self.save(step)
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+            self._join_save()
+        return step

@@ -34,3 +34,12 @@ def trainable_params(encoder, decoder) -> Dict[str, Dict]:
     keys them."""
     shift, _ = split_shift_unet(dict(decoder.named_parameters()))
     return {"encoder": dict(encoder.named_parameters()), "shift": shift}
+
+
+def split_shift_tree(tree: Dict) -> Tuple[Dict, Dict]:
+    """A ShiftUNet in the flax layout (a checkpoint's ``decoder``, keyed
+    ``shift_out_norm``, ``input_blocks_0_0``, ...) -> (trainable shift
+    branch, frozen trunk)."""
+    shift = {k: v for k, v in tree.items() if k.startswith(SHIFT_TRAINABLE_PREFIXES)}
+    trunk = {k: v for k, v in tree.items() if not k.startswith(SHIFT_TRAINABLE_PREFIXES)}
+    return shift, trunk

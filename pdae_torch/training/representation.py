@@ -1,0 +1,216 @@
+"""PDAE representation learning: the semantic encoder and the ShiftUNet's
+gradient branch trained on a frozen pre-trained DPM. The port of
+``pdae_tpu/training/representation.py``.
+
+* The models are built from the config and initialised from the seed
+  (``utils/rng.py``'s ``INIT`` stream), then the DPM checkpoint of
+  ``trained_ddpm_checkpoint`` (either package's, key ``ema_denoise_fn``) is
+  grafted into the trunk with ``strict=False`` semantics.
+* Each step is ``make_representation_train_step`` (trunk in eval mode, shift
+  branch in train mode, Adam/AdamW, EMA every ``ema_every`` steps), its t,
+  noise and dropout drawn from generators seeded with (seed, step).
+* ``evaluate`` decodes a shift-DDIM grid of ``num_generations`` eval images
+  with the EMA weights (swapped in for the call by
+  ``torch.func.functional_call``; the trained tensors are never touched) and
+  writes ``samples/sample{N}k.png`` with the ground truths interleaved.
+* Checkpoints hold ``encoder``, ``ema_encoder``, ``decoder`` (trunk and
+  shift branch), ``ema_decoder`` (trunk and EMA shift branch), ``optimizer``
+  (optax's layout) and ``step``, every tree in the flax layout, so
+  ``pdae_tpu``'s trainer resumes from the port's files and the port from its.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..diffusion import GaussianDiffusion
+from ..models import build_decoder, build_encoder
+from ..utils import (encoder_state_dict, encoder_tree, optimizer_moments,
+                     optimizer_tree, restore_into, save_image_grid, to_uint8,
+                     unet_state_dict, unet_tree)
+from ..utils.image import make_grid
+from ..utils.rng import DROPOUT, EVAL, INIT, TRAIN, generator, stream_seed
+from .artifacts import graft_ddpm_into_decoder, load_ddpm_params, resolve_model_config
+from .base import BaseTrainer
+from .partition import split_shift_tree, trainable_params
+from .state import TrainState, flat_params, make_optimizer
+from .steps import make_representation_train_step
+
+def _copy_tree(tree):
+    return ({k: _copy_tree(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else np.array(tree))
+
+
+class _EvalSampler(nn.Module):
+    """The eval sampling loop as one module over the trained encoder and
+    decoder, so ``functional_call`` swaps the EMA weights in once for the
+    whole loop."""
+
+    def __init__(self, gd, encoder, decoder, ddim_style):
+        super().__init__()
+        self.gd, self.ddim_style = gd, ddim_style
+        self.encoder, self.decoder = encoder, decoder
+
+    def forward(self, x_0, x_T):
+        return self.gd.representation_learning_ddim_sample(
+            self.ddim_style, self.encoder, self.decoder, x_0, x_T)
+
+
+class RepresentationLearningTrainer(BaseTrainer):
+
+    def _build(self):
+        cfg = self.config
+        self.gd = GaussianDiffusion(cfg["diffusion_config"])
+        ds_cfg = cfg["train_dataset_config"]
+        size = int(ds_cfg["image_size"])
+        ddpm_model_cfg = resolve_model_config(cfg["trained_ddpm_config"])
+        # initialised on the CPU from the seed, so the init is the same on
+        # every machine; the global torch RNG is left as it was
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(stream_seed(self.seed, INIT, 0))
+            self.encoder = build_encoder(cfg["encoder_config"], image_size=size)
+            torch.manual_seed(stream_seed(self.seed, INIT, 1))
+            self.decoder = build_decoder(cfg["decoder_config"], ddpm_model_cfg)
+        ckpt = cfg.get("trained_ddpm_checkpoint")
+        if ckpt:
+            tree = graft_ddpm_into_decoder(self.decoder, load_ddpm_params(ckpt))
+        else:
+            tree = unet_tree(self.decoder.state_dict())
+        # the trunk never changes: its checkpoint tree is made once here
+        # (and again when a checkpoint loads), not at every save
+        self._trunk_tree = _copy_tree(split_shift_tree(tree)[1])
+        self.encoder.to(self.device)
+        self.decoder.to(self.device)
+        self._dropout = any(isinstance(m, nn.Dropout) and m.p > 0
+                            for m in self.decoder.modules())
+
+        params = trainable_params(self.encoder, self.decoder)
+        self.optimizer_config = cfg["optimizer_config"]
+        self.optimizer = make_optimizer(self.optimizer_config, flat_params(params))
+        self.state = TrainState.create(params, self.optimizer)
+        rc = self.runner_config
+        self._step_fn = make_representation_train_step(
+            self.gd, self.encoder, self.decoder, self.optimizer,
+            ema_decay=float(rc.get("ema_decay", 0.9999)),
+            num_iters=self.num_iterations, device=self.device,
+            ema_every=int(rc.get("ema_every", 1)))
+        self.eval_seconds = []
+
+    @property
+    def step(self) -> int:
+        return int(self.state.step)
+
+    def _step_batch_keys(self):
+        return ("x_0",)
+
+    def train_step(self, batch):
+        step = self.state.step
+        gen = generator(self.seed, TRAIN, step, self.device)
+        if not self._dropout:
+            return {"prediction_loss": self._step_fn(self.state, batch["x_0"], gen)}
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(stream_seed(self.seed, DROPOUT, step))
+            return {"prediction_loss": self._step_fn(self.state, batch["x_0"], gen)}
+
+    def evaluate(self, step: int, ddim_style: str = "ddim100"):
+        t0 = time.perf_counter()
+        n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
+        items = [self.eval_dataset[i] for i in range(min(n, len(self.eval_dataset)))]
+        eval_batch = type(self.eval_dataset).collate_fn(items)
+        x_0 = torch.from_numpy(eval_batch["x_0"]).to(self.device).permute(0, 3, 1, 2).contiguous()
+        x_T = torch.randn(x_0.shape, device=self.device,
+                          generator=generator(self.seed, EVAL, step, self.device))
+        ema = {**{f"encoder.{k}": v for k, v in self.state.ema_params["encoder"].items()},
+               **{f"decoder.{k}": v for k, v in self.state.ema_params["shift"].items()}}
+        sampler = _EvalSampler(self.gd, self.encoder, self.decoder, ddim_style)
+        self.encoder.eval()
+        self.decoder.eval()
+        try:
+            with torch.inference_mode():
+                imgs = torch.func.functional_call(sampler, ema, (x_0, x_T))
+        finally:
+            self.encoder.train()
+            self.decoder.train()
+        grid = to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+        path = os.path.join(self.run_path, "samples", f"sample{step // 1000}k.png")
+        save_image_grid(grid, path, gts=eval_batch["gts"][:grid.shape[0]])
+        self.logger.image(step, "result", make_grid(grid))
+        self.eval_seconds.append(time.perf_counter() - t0)
+
+    # -- checkpoints ------------------------------------------------------ #
+
+    def _groups(self):
+        """Every tensor the step changes, by group and name."""
+        params, ema = self.state.params, self.state.ema_params
+        groups = {"encoder": params["encoder"], "shift": params["shift"],
+                  "ema_encoder": ema["encoder"], "ema_shift": ema["shift"]}
+        moments = self.optimizer.state
+        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            for g in ("encoder", "shift"):
+                groups[f"{name}_{g}"] = {k: (moments[p][key] if p in moments else None)
+                                         for k, p in params[g].items()}
+        return groups
+
+    def snapshot_state(self):
+        """Host copies of params, EMA and Adam moments: every tensor goes
+        into one flat device buffer, which crosses to the host in one copy
+        (pinned on a card), so the copy is done when this returns and the
+        step may change the tensors again."""
+        groups = self._groups()
+        moments = self.optimizer.state
+        count = int(next(iter(moments.values()))["step"]) if moments else 0
+        # (group, name, tensor or None: no Adam state before the first step)
+        order = [(g, k, t, self.state.params[g.rsplit("_", 1)[-1]][k])
+                 for g, named in groups.items() for k, t in named.items()]
+        with torch.no_grad():
+            flat = torch.cat([t.detach().reshape(-1) if t is not None
+                              else torch.zeros(like.numel(), device=like.device)
+                              for _, _, t, like in order])
+            if flat.device.type == "cuda":
+                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                host.copy_(flat)
+            else:
+                host = flat            # torch.cat made a fresh copy
+        out = {g: {} for g in groups}
+        offset = 0
+        for g, k, _, like in order:
+            out[g][k] = host[offset:offset + like.numel()].view(like.shape)
+            offset += like.numel()
+        return {"count": count, "groups": out, "trunk": self._trunk_tree}
+
+    def checkpoint_tree(self, snap):
+        g = snap["groups"]
+        return {
+            "encoder": encoder_tree(g["encoder"]),
+            "ema_encoder": encoder_tree(g["ema_encoder"]),
+            "decoder": {**snap["trunk"], **unet_tree(g["shift"])},
+            "ema_decoder": {**snap["trunk"], **unet_tree(g["ema_shift"])},
+            "optimizer": optimizer_tree(
+                self.optimizer_config, snap["count"],
+                {"encoder": g["mu_encoder"], "shift": g["mu_shift"]},
+                {"encoder": g["nu_encoder"], "shift": g["nu_shift"]}),
+        }
+
+    def load_state_dict(self, raw):
+        keys = ("encoder", "ema_encoder", "decoder", "ema_decoder", "optimizer")
+        template = self.state_dict()
+        restore_into({k: template[k] for k in keys}, raw)
+        shift, trunk = split_shift_tree(raw["decoder"])
+        ema_shift, _ = split_shift_tree(raw["ema_decoder"])
+        moments = optimizer_moments(self.optimizer_config, raw["optimizer"])
+        self.decoder.load_state_dict(unet_state_dict(raw["decoder"]), strict=True)
+        self.state.load_converted({
+            "step": int(raw["step"]),
+            "params": {"encoder": encoder_state_dict(raw["encoder"]),
+                       "shift": unet_state_dict(shift)},
+            "ema_params": {"encoder": encoder_state_dict(raw["ema_encoder"]),
+                           "shift": unet_state_dict(ema_shift)},
+            **moments})
+        # the trunk comes from the checkpoint, not from the graft
+        self._trunk_tree = _copy_tree(trunk)

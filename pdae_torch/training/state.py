@@ -9,20 +9,13 @@ references to the modules' parameters, not copies.
 
 from __future__ import annotations
 
-import ast
 import dataclasses
 from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
 
-
-def parse_adam_betas(value) -> tuple:
-    """'(0.9, 0.999)' -> (0.9, 0.999); already-parsed sequences pass through."""
-    if isinstance(value, str):
-        value = ast.literal_eval(value)
-    b1, b2 = value
-    return (float(b1), float(b2))
+from ..utils.config import parse_adam_betas
 
 
 def flat_params(params: Dict[str, Dict]) -> list:

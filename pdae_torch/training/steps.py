@@ -11,12 +11,12 @@ at 128px) is not ported.
 from __future__ import annotations
 
 from .. import resolve_device
-from .state import accumulate_grads, ema_update, flat_params
+from .state import accumulate_grads, flat_params, maybe_ema_update
 
 
 def make_representation_train_step(gd, encoder, decoder, optimizer,
                                    ema_decay: float = 0.9999, num_iters: int = 1,
-                                   device=None):
+                                   device=None, ema_every: int = 1):
     """``step(state, x_0, generator, *, t=None, noise=None) -> loss``.
 
     ``state`` is a ``TrainState`` over ``trainable_params(encoder, decoder)``
@@ -24,8 +24,10 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
     parameters and the optimizer in place and returns the detached loss.
     ``x_0`` is NCHW in [-1, 1]. ``t`` and ``noise`` are drawn from
     ``generator`` unless injected. ``num_iters`` > 1 splits the batch into
-    that many micro-batches (the trainer's ``num_iterations``). The models
-    must lie on ``device``: ``cuda`` unless the caller names another.
+    that many micro-batches (the trainer's ``num_iterations``). The EMA moves
+    after the steps whose new count is a multiple of ``ema_every``
+    (``runner_config.ema_every``; 1: every step). The models must lie on
+    ``device``: ``cuda`` unless the caller names another.
     """
     device = resolve_device(device)
     for model in (encoder, decoder):
@@ -52,7 +54,8 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
-        ema_update(state.ema_params, state.params, ema_decay)
+        maybe_ema_update(state.step + 1, state.ema_params, state.params, ema_decay,
+                         ema_every)
         state.step += 1
         return loss
 

@@ -23,11 +23,14 @@ Weight layouts: conv [kh,kw,I,O] -> [O,I,kh,kw]; Dense [I,O] -> Linear
 LayerNorm scale/bias -> weight/bias.
 
 ``unet_tree``/``encoder_tree``/``mlp_skip_net_tree``/``classifier_tree`` are
-the inverse maps (for grads keyed like a
-state dict, and round trips); ``train_state_tensors``/``train_state_trees``
-carry a whole representation-learning train state (params, EMA, Adam
-moments and count) across, as numpy, so both packages can step from the same
-state.
+the inverse maps (for grads keyed like a state dict, and round trips);
+``unet_tree``/``unet_state_dict`` map a whole ShiftUNet, trunk plus shift
+branch, as a checkpoint's ``decoder`` holds it. ``train_state_tensors``/
+``train_state_trees`` carry a whole representation-learning train state
+(params, EMA, Adam moments and count) across, as numpy, so both packages can
+step from the same state; ``optimizer_tree``/``optimizer_moments`` map Adam's
+count and moments to and from a checkpoint's ``optimizer`` subtree in optax's
+layout.
 """
 
 from __future__ import annotations
@@ -83,7 +86,12 @@ def _put(sd: Dict, prefix: str, kind: str, leaves: Dict) -> None:
 
 
 def _tensors(sd: Dict) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    out = {}
+    for k, v in sd.items():
+        v = np.ascontiguousarray(v)
+        # arrays restored from a checkpoint are read-only views of its bytes
+        out[k] = torch.from_numpy(v if v.flags.writeable else v.copy())
+    return out
 
 
 def unet_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
@@ -319,6 +327,18 @@ def classifier_tree(sd: Dict) -> Dict:
 # a whole train state, so both packages can step from the same point
 # --------------------------------------------------------------------- #
 
+def _groups_tensors(tree: Dict) -> Dict:
+    """``{"encoder": flax tree, "shift": flax tree}`` -> the port's state dicts."""
+    return {"encoder": encoder_state_dict(tree["encoder"]),
+            "shift": unet_state_dict(tree["shift"])}
+
+
+def _groups_trees(groups: Dict) -> Dict:
+    """``{"encoder": state dict, "shift": state dict}`` -> flax trees."""
+    return {"encoder": encoder_tree(groups["encoder"]),
+            "shift": unet_tree(groups["shift"])}
+
+
 def train_state_tensors(state: Dict) -> Dict:
     """A ``pdae_tpu`` representation-learning train state, given as numpy,
     in the port's layout.
@@ -328,14 +348,10 @@ def train_state_tensors(state: Dict) -> Dict:
     ``params``, optax's ``ScaleByAdamState``) and ``"count"``. Every tree
     goes through the relayout of the weights (moments and EMA have the
     weights' shapes). The result feeds ``TrainState.load_converted``."""
-    def relayout(tree):
-        return {"encoder": encoder_state_dict(tree["encoder"]),
-                "shift": unet_state_dict(tree["shift"])}
-
-    out = {"step": int(state["step"]), "params": relayout(state["params"]),
-           "ema_params": relayout(state["ema_params"])}
+    out = {"step": int(state["step"]), "params": _groups_tensors(state["params"]),
+           "ema_params": _groups_tensors(state["ema_params"])}
     if "mu" in state:
-        out.update(mu=relayout(state["mu"]), nu=relayout(state["nu"]),
+        out.update(mu=_groups_tensors(state["mu"]), nu=_groups_tensors(state["nu"]),
                    count=int(state["count"]))
     return out
 
@@ -343,19 +359,74 @@ def train_state_tensors(state: Dict) -> Dict:
 def train_state_trees(state) -> Dict:
     """The way back: a ``pdae_torch.training.TrainState`` as numpy trees in
     the flax layout, keyed as ``train_state_tensors`` takes them."""
-    def back(groups):
-        return {"encoder": encoder_tree(groups["encoder"]),
-                "shift": unet_tree(groups["shift"])}
-
-    out = {"step": int(state.step), "params": back(state.params),
-           "ema_params": back(state.ema_params)}
+    out = {"step": int(state.step), "params": _groups_trees(state.params),
+           "ema_params": _groups_trees(state.ema_params)}
     moments = state.optimizer.state
     if moments:
         named = {g: {k: moments[p] for k, p in group.items()}
                  for g, group in state.params.items()}
-        out["mu"] = back({g: {k: m["exp_avg"] for k, m in group.items()}
-                          for g, group in named.items()})
-        out["nu"] = back({g: {k: m["exp_avg_sq"] for k, m in group.items()}
-                          for g, group in named.items()})
+        out["mu"] = _groups_trees({g: {k: m["exp_avg"] for k, m in group.items()}
+                                   for g, group in named.items()})
+        out["nu"] = _groups_trees({g: {k: m["exp_avg_sq"] for k, m in group.items()}
+                                   for g, group in named.items()})
         out["count"] = int(next(iter(moments.values()))["step"])
     return out
+
+
+# --------------------------------------------------------------------- #
+# the optimizer subtree of a checkpoint, in optax's layout
+# --------------------------------------------------------------------- #
+
+def _optax_layout(optimizer_config: dict, adam):
+    """``flax.serialization.to_state_dict`` of the optax state that
+    ``make_optimizer(optimizer_config)`` builds, with ``adam`` where its
+    ``ScaleByAdamState`` sits and ``{}`` for each empty state:
+
+    * Adam: ``chain(scale_by_adam, scale_by_learning_rate)`` ->
+      ``{"0": adam, "1": {}}``;
+    * Adam with ``weight_decay > 0``: ``chain(add_decayed_weights, adam)`` ->
+      ``{"0": {}, "1": {"0": adam, "1": {}}}``;
+    * AdamW: ``chain(scale_by_adam, add_decayed_weights,
+      scale_by_learning_rate)`` -> ``{"0": adam, "1": {}, "2": {}}``.
+    """
+    name = optimizer_config.get("name", "Adam")
+    if name == "AdamW":
+        return {"0": adam, "1": {}, "2": {}}
+    if name != "Adam":
+        raise ValueError(f"optimizer_config.name must be 'Adam' or 'AdamW', got {name!r}")
+    if float(optimizer_config.get("weight_decay", 0.0)) > 0:
+        return {"0": {}, "1": {"0": adam, "1": {}}}
+    return {"0": adam, "1": {}}
+
+
+def optimizer_tree(optimizer_config: dict, count: int, mu: Dict, nu: Dict) -> Dict:
+    """The checkpoint's ``optimizer`` subtree in optax's layout from Adam's
+    ``count`` and moments ``mu``/``nu`` (``{"encoder": {name: tensor},
+    "shift": {name: tensor}}``, keyed as ``trainable_params``)."""
+    return _optax_layout(optimizer_config, {
+        "count": np.asarray(int(count), np.int32), "mu": _groups_trees(mu),
+        "nu": _groups_trees(nu)})
+
+
+def optimizer_moments(optimizer_config: dict, tree: Dict) -> Dict:
+    """The inverse of ``optimizer_tree``: ``{"count": int, "mu": {"encoder":
+    state dict, "shift": state dict}, "nu": ...}``. Raises when ``tree`` is
+    not the layout of ``optimizer_config``'s optimizer (an AdamW state given
+    to an Adam run, a chain where none is configured)."""
+    marker = "adam"
+
+    def find(want, got, path):
+        if want is marker:
+            if isinstance(got, dict) and {"count", "mu", "nu"} <= set(got):
+                return got
+        elif isinstance(got, dict) and sorted(got) == sorted(want):
+            found = [find(want[k], got[k], f"{path}/{k}") for k in want]
+            return next((f for f in found if f is not None), None)
+        raise ValueError(
+            f"the checkpoint's optimizer state at '{path}' is not in the layout of "
+            f"{optimizer_config.get('name', 'Adam')} with weight_decay "
+            f"{optimizer_config.get('weight_decay', 0.0)}")
+
+    adam = find(_optax_layout(optimizer_config, marker), tree, "optimizer")
+    return {"count": int(np.asarray(adam["count"])), "mu": _groups_tensors(adam["mu"]),
+            "nu": _groups_tensors(adam["nu"])}

@@ -1,0 +1,34 @@
+"""Seeds of the port's random streams.
+
+The JAX package folds the step into a ``jax.random`` key; those streams
+cannot be reproduced in torch, so the port seeds a ``torch.Generator`` per
+use instead. Every seed is a pure function of (seed, stream, step), so a run
+resumed at step N draws what an uninterrupted run draws there:
+
+    stream_seed(seed, stream, step) =
+        SeedSequence([BASE_SEED + seed, stream, step]).generate_state(2, uint64)[0]
+        mod 2**63
+
+``INIT`` seeds the models' initialisation (``step`` is 0 for the encoder and
+1 for the decoder), ``TRAIN`` each train step's draws of t and noise,
+``DROPOUT`` its dropout masks (where the decoder has dropout), ``EVAL`` the
+x_T of the eval grid at a step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BASE_SEED = 666666666
+INIT, TRAIN, EVAL, DROPOUT = 0, 1, 2, 3
+
+
+def stream_seed(seed: int, stream: int, step: int = 0) -> int:
+    state = np.random.SeedSequence([BASE_SEED + int(seed), int(stream), int(step)])
+    return int(state.generate_state(2, np.uint64)[0]) & ((1 << 63) - 1)
+
+
+def generator(seed: int, stream: int, step: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``stream_seed``."""
+    return torch.Generator(device=device).manual_seed(stream_seed(seed, stream, step))

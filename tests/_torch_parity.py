@@ -91,3 +91,78 @@ def tiny_shift_decoders(latent: int, seed: int = 5, size: int = 16):
         return eps.permute(0, 2, 3, 1), g.permute(0, 2, 3, 1)
 
     return jax_decoder, port_decoder
+
+
+# -- the tiny representation-learning run of the trainer tests ------------ #
+
+# the stage-1 DPM and stage-2 PDAE of tests/test_training_pipeline.py:
+# SYNTHETIC 16px gray, a two-level UNet of 8 channels, 20 timesteps, b8
+TRAINER_DPM = {
+    "model": "UNet", "input_channel": 1, "base_channel": 8,
+    "channel_multiplier": [1, 2], "num_residual_blocks_of_a_block": 1,
+    "attention_resolutions": [2], "num_heads": 1, "head_channel": -1,
+    "use_new_attention_order": False, "dropout": 0.0,
+}
+TRAINER_DS = {"name": "SYNTHETIC", "image_size": 16, "image_channel": 1, "length": 32}
+TRAINER_RUNNER = {"display_steps": 1, "evaluate_every_steps": 100000,
+                  "save_latest_every_steps": 100000,
+                  "save_checkpoint_every_steps": 100000, "num_iterations": 1,
+                  "ema_every": 1, "ema_decay": 0.9, "compile": False}
+TRAINER_OPT = {"lr": 1e-3, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
+               "weight_decay": 0.0, "enable_amp": False}
+TRAINER_LATENT = 16
+
+
+def tiny_pdae_config(ddpm_checkpoint=None, **runner):
+    """A stage-2 config both packages' ``RepresentationLearningTrainer``
+    read; ``runner`` overrides keys of ``runner_config``."""
+    cfg = {
+        "train_dataset_config": {**TRAINER_DS, "latent_dim": TRAINER_LATENT},
+        "eval_dataset_config": {},
+        "diffusion_config": {"timesteps": 20, "betas_type": "linear"},
+        "trained_ddpm_config": {"denoise_fn_config": TRAINER_DPM},
+        "encoder_config": {"model": "CELEBA64Encoder_TINY", "latent_dim": TRAINER_LATENT},
+        "decoder_config": {"model": "ShiftUNet", "latent_dim": TRAINER_LATENT},
+        "dataloader_config": {"train": {"num_workers": 1, "batch_size": 8},
+                              "eval": {"num_generations": 2}},
+        "optimizer_config": dict(TRAINER_OPT),
+        "runner_config": {**TRAINER_RUNNER, **runner},
+    }
+    if ddpm_checkpoint is not None:
+        cfg["trained_ddpm_checkpoint"] = ddpm_checkpoint
+    return cfg
+
+
+def patch_tiny_encoders(monkeypatch, jax_too=False):
+    """Both packages' trainers build the two-stage encoder of 8 and 16
+    channels at 16px gray (no shipped encoder is that small)."""
+    import pdae_torch.training.representation as port_rep
+    from pdae_torch.models import SemanticEncoder
+
+    def port_encoder(config, image_size=None):
+        return SemanticEncoder(config["latent_dim"], channels=(8, 16), attn_after_stage=2,
+                               image_size=image_size, input_channel=1)
+
+    monkeypatch.setattr(port_rep, "build_encoder", port_encoder)
+    if jax_too:
+        import pdae_tpu.training.representation as jax_rep
+        from pdae_tpu.models.encoder import SemanticEncoder as JaxSemanticEncoder
+
+        def jax_encoder(config, image_size=None, dtype=jnp.float32):
+            return JaxSemanticEncoder(config["latent_dim"], channels=(8, 16),
+                                      attn_after_stage=2, dtype=dtype)
+
+        monkeypatch.setattr(jax_rep, "build_encoder", jax_encoder)
+
+
+def assert_trees_bitwise(got, want, path=""):
+    """Two nested dicts of arrays with the same keys, dtypes, shapes and bits."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and sorted(got) == sorted(want), (path, sorted(got),
+                                                                       sorted(want))
+        for k in want:
+            assert_trees_bitwise(got[k], want[k], f"{path}/{k}")
+        return
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, (path, got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want, err_msg=path)

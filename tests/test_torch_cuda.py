@@ -16,8 +16,9 @@ variants are held against its plain version directly (dx, dA, dB within
 same inputs must be bit-equal. The serving ops (the latent DPM's sampler,
 ``manipulate``, a dpm5 autoencode, trajectory interpolation) run at b2
 through the kernels and through the plain versions on a small 64px stack
-and agree within one uint8 level. ``chip_smoke.py`` covers every path shape,
-bf16 and timings.
+and agree within one uint8 level. The representation trainer takes 2 steps
+through the kernels, saves, and a resumed trainer holds the same tensors bit
+for bit. ``chip_smoke.py`` covers every path shape, bf16 and timings.
 """
 
 import pytest
@@ -479,3 +480,41 @@ def test_serving_ops_kernels_match_plain(cuda, card_stack, op):
     want = run()
     assert got.shape == want.shape == (2, 64, 64, 3)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_trainer_steps_saves_and_resumes_on_the_card(cuda, tmp_path):
+    """The representation trainer on the card (64px encoder over the tiny
+    ShiftUNet, SYNTHETIC b2): 2 steps through the three kernels, a save, and a
+    resumed trainer that holds the same tensors bit for bit."""
+    from pdae_torch.training import RepresentationLearningTrainer
+
+    config = {
+        "train_dataset_config": {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
+                                 "length": 8},
+        "diffusion_config": {"timesteps": 20, "betas_type": "linear"},
+        "trained_ddpm_config": {"denoise_fn_config": CARD_DPM},
+        "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": 16},
+        "decoder_config": {"model": "ShiftUNet", "latent_dim": 16},
+        "dataloader_config": {"train": {"num_workers": 1, "batch_size": 2}},
+        "optimizer_config": {"lr": 1e-3},
+        "runner_config": {"display_steps": 1, "evaluate_every_steps": 100000,
+                          "save_latest_every_steps": 2, "ema_decay": 0.9}}
+    run = str(tmp_path / "run")
+    trainer = RepresentationLearningTrainer(config=config, run_path=run)
+    assert trainer.device.type == "cuda"
+    ops.reset_launch_counts()
+    assert trainer.train(max_steps=2) == 2
+    counts = ops.launch_counts()
+    assert all(v > 0 for v in counts.values()), counts
+    resumed = RepresentationLearningTrainer(config=config, run_path=run, resume="latest")
+    assert resumed.start_step == 2
+    for group in ("encoder", "shift"):
+        for key, p in trainer.state.params[group].items():
+            q = resumed.state.params[group][key]
+            assert q.device.type == "cuda" and torch.equal(p, q), key
+            assert torch.equal(trainer.state.ema_params[group][key],
+                               resumed.state.ema_params[group][key])
+            for m in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(trainer.optimizer.state[p][m], resumed.optimizer.state[q][m])
+    for key, value in trainer.decoder.state_dict().items():
+        assert torch.equal(value, resumed.decoder.state_dict()[key]), key

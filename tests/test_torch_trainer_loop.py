@@ -1,0 +1,391 @@
+"""The port's trainer loop on the CPU: bitwise resume, the background
+checkpoint write, SIGINT, ``ema_every``, ``num_iterations``, the cadence
+check, the refusals, the eval grid and ``python -m pdae_torch.train``.
+
+The run is the tiny one of ``tests/test_torch_trainer.py`` (SYNTHETIC 16px
+gray, a two-level UNet of 8 channels, a two-stage encoder), its DPM trunk
+grafted from a checkpoint the port itself wrote from a seeded UNet.
+"""
+
+import copy
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (TRAINER_DPM, assert_trees_bitwise, patch_tiny_encoders,
+                           tiny_pdae_config)
+from pdae_torch.models import UNet
+from pdae_torch.training import RepresentationLearningTrainer, maybe_ema_update
+from pdae_torch.training import base as base_mod
+from pdae_torch.training.partition import split_shift_tree
+from pdae_torch.utils import load_checkpoint, save_checkpoint, to_uint8, unet_tree
+from pdae_torch.utils.image import make_grid
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def port_dpm(tmp_path_factory):
+    """A DPM checkpoint written by the port: a seeded UNet under
+    ``ema_denoise_fn`` in the flax layout."""
+    torch.manual_seed(3)
+    geometry = {k: v for k, v in TRAINER_DPM.items() if k != "model"}
+    tree = unet_tree(UNet(**geometry).state_dict())
+    path = str(tmp_path_factory.mktemp("dpm") / "dpm.ckpt")
+    save_checkpoint(path, {"step": np.asarray(0, np.int32), "ema_denoise_fn": tree})
+    return path, tree
+
+
+def _trainer(run, cfg, **kw):
+    return RepresentationLearningTrainer(config=cfg, run_path=str(run), device="cpu", **kw)
+
+
+def _losses(run):
+    with open(os.path.join(str(run), "metrics.jsonl")) as f:
+        return [(r["step"], r["prediction_loss"]) for r in map(json.loads, f)]
+
+
+def test_graft_of_a_port_dpm(port_dpm, tmp_path, monkeypatch):
+    path, tree = port_dpm
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(path))
+    trunk = split_shift_tree(unet_tree(tr.decoder.state_dict()))[1]
+    assert_trees_bitwise(trunk, tree)
+
+
+def test_resume_is_bitwise(port_dpm, tmp_path, monkeypatch):
+    """4 straight steps against 2, a resume and 2 more: the same state and
+    the same losses in metrics.jsonl. 24 items at b8 are 3 batches an epoch,
+    so the resumed run crosses an epoch end."""
+    patch_tiny_encoders(monkeypatch)
+    cfg = tiny_pdae_config(port_dpm[0])
+    cfg["train_dataset_config"]["length"] = 24
+    straight = _trainer(tmp_path / "a", cfg)
+    straight.train(max_steps=4)
+    first = _trainer(tmp_path / "b", cfg)
+    assert first.train(max_steps=2) == 2
+    resumed = _trainer(tmp_path / "b", cfg, resume="latest")
+    assert resumed.start_step == 2
+    assert_trees_bitwise(resumed.state_dict(), first.state_dict())
+    assert resumed.train(max_steps=4) == 4
+    assert_trees_bitwise(resumed.state_dict(), straight.state_dict())
+    assert _losses(tmp_path / "b") == _losses(tmp_path / "a")
+    assert [s for s, _ in _losses(tmp_path / "a")] == [1, 2, 3, 4]
+    assert_trees_bitwise(load_checkpoint(str(tmp_path / "b" / "checkpoints" / "latest.ckpt")),
+                         load_checkpoint(str(tmp_path / "a" / "checkpoints" / "latest.ckpt")))
+
+
+def test_a_save_holds_its_step_while_the_next_runs(port_dpm, tmp_path, monkeypatch):
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0]))
+    tr.train(max_steps=1, save_on_exit=False)
+    want = copy.deepcopy(tr.state_dict())
+    go = threading.Event()
+    real = base_mod.save_checkpoint
+
+    def slow(path, tree):
+        go.wait(30)
+        real(path, tree)
+
+    monkeypatch.setattr(base_mod, "save_checkpoint", slow)
+    tr.save(1)
+    # the next step changes params, EMA and moments in place while the
+    # write waits
+    tr.train_step(next(tr._batch_iterator(1)))
+    moved = tr.state_dict()
+    go.set()
+    tr._join_save()
+    raw = load_checkpoint(str(tmp_path / "run" / "checkpoints" / "latest.ckpt"))
+    assert int(raw["step"]) == 1
+    assert_trees_bitwise({k: raw[k] for k in want}, want)
+    for key in ("decoder", "ema_decoder"):
+        assert not np.array_equal(moved[key]["shift_out_conv"]["kernel"],
+                                  want[key]["shift_out_conv"]["kernel"])
+    assert tr.save_seconds[-1][1] is not None
+
+
+def test_a_failed_write_reraises(port_dpm, tmp_path, monkeypatch):
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0]))
+
+    def broken(path, tree):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(base_mod, "save_checkpoint", broken)
+    with pytest.raises(RuntimeError, match="background checkpoint write failed") as e:
+        tr.train(max_steps=1)
+    assert isinstance(e.value.__cause__, OSError)
+
+
+def test_sigint_saves_and_stops(port_dpm, tmp_path, monkeypatch):
+    patch_tiny_encoders(monkeypatch)
+    cfg = tiny_pdae_config(port_dpm[0])
+    tr = _trainer(tmp_path / "run", cfg)
+    inner = tr.train_step
+    count = {"n": 0}
+
+    def wrapped(batch):
+        count["n"] += 1
+        if count["n"] == 2:
+            os.kill(os.getpid(), signal.SIGINT)
+        return inner(batch)
+
+    tr.train_step = wrapped
+    assert tr.train(max_steps=50) == 2
+    assert os.path.exists(tmp_path / "run" / "checkpoints" / "latest.ckpt")
+    assert _trainer(tmp_path / "run", cfg, resume="latest").start_step == 2
+
+
+def test_ema_every_gating(port_dpm, tmp_path, monkeypatch):
+    ema, params = {"g": {"w": torch.zeros(3)}}, {"g": {"w": torch.ones(3)}}
+    maybe_ema_update(2, ema, params, 0.5, 2)
+    assert torch.equal(ema["g"]["w"], torch.full((3,), 0.5))
+    maybe_ema_update(3, ema, params, 0.5, 2)
+    assert torch.equal(ema["g"]["w"], torch.full((3,), 0.5))
+    # in the trainer: the EMA moves after step 2 and not after step 1
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0], ema_every=2))
+    ema = ("ema_encoder", "ema_decoder")
+    start = copy.deepcopy({k: tr.state_dict()[k] for k in ema})
+    tr.train(max_steps=1, save_on_exit=False)
+    assert_trees_bitwise({k: tr.state_dict()[k] for k in ema}, start)
+    tr.train(max_steps=2, save_on_exit=False)
+    # the shift branch's output conv moves at every step (its gradient is
+    # not zero at the zero init, unlike the encoder's)
+    assert not np.array_equal(tr.state_dict()["ema_decoder"]["shift_out_conv"]["kernel"],
+                              start["ema_decoder"]["shift_out_conv"]["kernel"])
+
+
+def test_num_iterations_splits_the_batch(port_dpm, tmp_path, monkeypatch):
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0], num_iterations=2))
+    assert tr.loader.batch_size == 16
+    assert tr.train(max_steps=1) == 1
+    assert all(torch.isfinite(p).all() for p in tr.encoder.parameters())
+
+
+def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypatch):
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "bad", tiny_pdae_config(port_dpm[0], steps_per_dispatch=4,
+                                                      display_steps=3))
+    with pytest.raises(ValueError, match="display_steps=3 must be a multiple of "
+                                         "steps_per_dispatch=4"):
+        tr.train(max_steps=1)
+    tr = _trainer(tmp_path / "ok", tiny_pdae_config(port_dpm[0], steps_per_dispatch=2,
+                                                     display_steps=2))
+    assert tr.train(max_steps=2) == 2
+
+
+REFUSALS = {
+    "param_sharding": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
+    "checkpoint_format": ({"runner_config": {"checkpoint_format": "sharded"}}, 15),
+    "device_resident": ({"train_dataset_config": {"device_resident": True}}, 14),
+    "transfer_uint8": ({"train_dataset_config": {"transfer_uint8": True}}, 14),
+    "remat": ({"runner_config": {"remat": "skips"}}, 5),
+    "compute_dtype": ({"runner_config": {"compute_dtype": "bfloat16"}}, 17),
+    "enable_amp": ({"optimizer_config": {"enable_amp": True}}, 17),
+    "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_unported_options_are_refused_by_name(name, tmp_path):
+    change, item = REFUSALS[name]
+    cfg = tiny_pdae_config()
+    for section, values in change.items():
+        cfg[section].update(values)
+    with pytest.raises(NotImplementedError, match=f"{name}.*item {item}\\)"):
+        _trainer(tmp_path / "run", cfg)
+    assert not os.path.exists(tmp_path / "run")
+
+
+@pytest.mark.parametrize("key,item", [("denoise_fn_config", 9),
+                                      ("latent_denoise_fn_config", 10),
+                                      ("inferred_latents", 11)])
+def test_other_trainers_are_refused_by_name(key, item):
+    from pdae_torch.train import pick_trainer
+    with pytest.raises(SystemExit, match=f"item {item}"):
+        pick_trainer({key: {}})
+    assert pick_trainer(tiny_pdae_config()) is RepresentationLearningTrainer
+
+
+def test_eval_grid_decodes_with_the_ema_weights(port_dpm, tmp_path, monkeypatch):
+    from pdae_torch.utils.rng import EVAL, generator
+    from PIL import Image
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0], evaluate_every_steps=2))
+    tr.train(max_steps=2)
+    before = copy.deepcopy(tr.state_dict())
+    tr.evaluate(2, ddim_style="ddim4")
+    assert_trees_bitwise(tr.state_dict(), before)        # the live weights stay
+    read = np.asarray(Image.open(tmp_path / "run" / "samples" / "sample0k.png"))
+    # the same grid from copies of the models holding the EMA weights
+    enc, dec = copy.deepcopy(tr.encoder).eval(), copy.deepcopy(tr.decoder).eval()
+    with torch.no_grad():
+        for model, group in ((enc, "encoder"), (dec, "shift")):
+            named = dict(model.named_parameters())
+            for k, v in tr.state.ema_params[group].items():
+                named[k].copy_(v)
+    items = [tr.eval_dataset[i] for i in range(2)]
+    x_0 = torch.from_numpy(np.stack([i["x_0"] for i in items])).permute(0, 3, 1, 2).contiguous()
+    x_T = torch.randn(x_0.shape, generator=generator(0, EVAL, 2, "cpu"))
+    with torch.no_grad():
+        imgs = tr.gd.representation_learning_ddim_sample("ddim4", enc, dec, x_0, x_T)
+    stacked = []
+    for g, im in zip([i["gt"] for i in items], to_uint8(imgs.permute(0, 2, 3, 1).numpy())):
+        stacked += [g, im]
+    np.testing.assert_array_equal(read, make_grid(np.stack(stacked), nrow=2)[..., 0])
+
+
+def test_train_entry_point(tmp_path):
+    """``python -m pdae_torch.train`` on the CPU from a YAML config (the
+    64px encoder over a 3-channel tiny DPM, SYNTHETIC b2), then its
+    ``main`` with ``--resume latest``."""
+    yaml = pytest.importorskip("yaml")
+    dpm = dict(TRAINER_DPM, input_channel=3)
+    cfg = tiny_pdae_config()
+    cfg["trained_ddpm_config"] = {"denoise_fn_config": dpm}
+    cfg["train_dataset_config"] = {"name": "SYNTHETIC", "image_size": 64,
+                                   "image_channel": 3, "length": 6, "latent_dim": 16}
+    cfg["encoder_config"] = {"model": "CELEBA64Encoder", "latent_dim": 16}
+    cfg["dataloader_config"]["train"]["batch_size"] = 2
+    config_path = str(tmp_path / "config.yml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run = str(tmp_path / "run")
+    env = {**os.environ, "PYTHONPATH": ROOT}
+
+    def cli(*args):
+        return subprocess.run([sys.executable, "-m", "pdae_torch.train", "--config_path",
+                               config_path, "--run_path", run, "--device", "cpu", *args],
+                              cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                              timeout=300)
+
+    out = cli("--max_steps", "4", "--set", "runner_config.save_latest_every_steps=3")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "trainer: RepresentationLearningTrainer" in out.stdout
+    assert int(load_checkpoint(os.path.join(run, "checkpoints", "latest.ckpt"))["step"]) == 4
+    # the resume through main() in this process: the same code, one interpreter
+    # start (and its TensorBoard import) fewer
+    from pdae_torch.train import main
+    assert main(["--config_path", config_path, "--run_path", run, "--device", "cpu",
+                 "--resume", "latest", "--max_steps", "6"]) == 0
+    assert int(load_checkpoint(os.path.join(run, "checkpoints", "latest.ckpt"))["step"]) == 6
+    assert [s for s, _ in _losses(run)] == [1, 2, 3, 4, 5, 6]
+    with open(os.path.join(run, "config.yml")) as f:
+        assert json.load(f)["runner_config"]["save_latest_every_steps"] == 100000
+
+
+def test_the_trainer_path_needs_no_yaml_msgpack_or_pil(tmp_path):
+    """A run from a config dict (train, eval grid, checkpoint, resume)
+    imports none of ``yaml``, ``msgpack`` and ``PIL``, which the card's
+    machine is not known to have, TensorBoard's image summary included.
+    TensorFlow is made unimportable in the child, as on the card's machine
+    (here TensorBoard would import it, and it imports PIL)."""
+    dpm = dict(TRAINER_DPM, input_channel=3)
+    cfg = tiny_pdae_config()
+    cfg["trained_ddpm_config"] = {"denoise_fn_config": dpm}
+    cfg["train_dataset_config"] = {"name": "SYNTHETIC", "image_size": 64,
+                                   "image_channel": 3, "length": 4, "latent_dim": 16}
+    cfg["encoder_config"] = {"model": "CELEBA64Encoder", "latent_dim": 16}
+    cfg["dataloader_config"]["train"]["batch_size"] = 2
+    script = f"""
+import json, sys
+sys.modules["tensorflow"] = None
+from pdae_torch.training import RepresentationLearningTrainer
+cfg = json.loads({json.dumps(json.dumps(cfg))})
+run = {json.dumps(str(tmp_path / "run"))}
+tr = RepresentationLearningTrainer(config=cfg, run_path=run, device="cpu")
+tr.train(max_steps=2)
+tr.evaluate(2, ddim_style="ddim2")
+RepresentationLearningTrainer(config=cfg, run_path=run, device="cpu", resume="latest")
+import importlib.util                    # where TensorBoard is, the image went there
+assert (tr.logger._tb is not None) == (importlib.util.find_spec("tensorboard") is not None)
+print(json.dumps(sorted(m for m in ("yaml", "msgpack", "PIL") if m in sys.modules)))
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                         env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert os.path.exists(tmp_path / "run" / "samples" / "sample0k.png")
+
+
+def test_a_save_replaces_a_sharded_latest(port_dpm, tmp_path, monkeypatch):
+    """A run dir whose ``latest.ckpt`` is a sharded directory (a JAX run's)
+    gets a file in its place, a resume heals a replacement cut short, and a
+    directory of anything else is refused."""
+    from pdae_tpu.utils import save_sharded_checkpoint
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0]))
+    latest = tmp_path / "run" / "checkpoints" / "latest.ckpt"
+    save_sharded_checkpoint(str(latest), {"w": np.ones(4, np.float32)})
+    assert latest.is_dir()
+    tr.save(0)
+    tr._join_save()
+    assert latest.is_file() and int(load_checkpoint(str(latest))["step"]) == 0
+    # a save that stopped between dropping the directory and the rename
+    # leaves the new file as latest.ckpt.swap; a resume takes it
+    os.replace(latest, str(latest) + ".swap")
+    assert _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0]),
+                    resume="latest").start_step == 0
+    assert latest.is_file()
+    os.unlink(latest)
+    os.makedirs(latest)
+    (latest / "notes.txt").write_text("not a checkpoint")
+    with pytest.raises(ValueError, match="refusing to overwrite"):
+        tr.save(0)
+
+
+def test_snapshot_cadence_and_no_final_save_after_an_error(port_dpm, tmp_path, monkeypatch):
+    """One save covers both cadences (``save-0k.ckpt`` beside ``latest.ckpt``
+    at step 2), and a run that raises leaves its last good checkpoint."""
+    patch_tiny_encoders(monkeypatch)
+    cfg = tiny_pdae_config(port_dpm[0], save_checkpoint_every_steps=2)
+    tr = _trainer(tmp_path / "run", cfg)
+    saves = []
+    inner_save = tr.save
+    monkeypatch.setattr(tr, "save", lambda step, snapshot=False: (
+        saves.append((step, snapshot)), inner_save(step, snapshot))[1])
+    inner = tr.train_step
+
+    def failing(batch):
+        if tr.step == 3:
+            raise RuntimeError("step failed")
+        return inner(batch)
+
+    tr.train_step = failing
+    with pytest.raises(RuntimeError, match="step failed"):
+        tr.train(max_steps=10)
+    assert saves == [(2, True)]
+    ckpts = tmp_path / "run" / "checkpoints"
+    assert sorted(os.listdir(ckpts)) == ["latest.ckpt", "save-0k.ckpt"]
+    for name in ("latest.ckpt", "save-0k.ckpt"):
+        assert int(load_checkpoint(str(ckpts / name))["step"]) == 2
+
+
+def test_tensorboard_image_summary_reads_back(tmp_path):
+    """The eval grid's TensorBoard summary is a PNG made without PIL that
+    TensorBoard reads back as the same pixels."""
+    pytest.importorskip("tensorboard")
+    import io
+    from PIL import Image
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    logger = base_mod.Logger(str(tmp_path))
+    img = np.random.RandomState(0).randint(0, 256, (10, 12, 3)).astype(np.uint8)
+    logger.image(5, "result", img)
+    logger._tb.flush()
+    events = EventAccumulator(str(tmp_path / "tb"))
+    events.Reload()
+    [event] = events.Images("result")
+    assert (event.step, event.width, event.height) == (5, 12, 10)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(event.encoded_image_string))),
+                                  img)
