@@ -83,8 +83,28 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    loop's wait per save and the background write's seconds, the checkpoint's
    bytes, the eval's seconds and peak memory; it fails if ``yaml`` or
    ``msgpack`` was imported, or ``PIL`` other than through TensorFlow. The
-   checkpoints (1.67 GB each) are deleted at the end; ``metrics.jsonl`` and
-   the grid stay under ``chiprun_out/trainer/``.
+   checkpoints (1.67 GB each) are deleted when the script ends;
+   ``metrics.jsonl`` and the grid stay under ``chiprun_out/trainer/``.
+8. ``samplers``: the sampler suite (``pdae_torch.sampling``) and
+   ``PDAEService.from_config`` on the trainer phase's files, as a user
+   would run them: its ``config.yml``, step-6 ``latest.ckpt`` and seeded DPM,
+   beside a seeded celeba64 MLPSkipNet and ``Linear(512, 40)`` that the phase
+   writes under ``ema_latent_denoise_fn`` and ``ema_classifier``; SYNTHETIC
+   64px images; fp32, TF32 off. ``InferLatents`` (64 images, b32) writes the
+   stats the later steps read, held to a direct encoder pass; the
+   ``AutoencodingEval`` (32 images, b16, dpm20/dpm20) prints SSIM, MSE,
+   seconds and imgs/s, runs again on the plain versions (each
+   reconstruction within the larger of one uint8 level and the whole_path
+   phase's control) and predicts the reference styles' time from its time
+   per evaluation; ``from_config`` serves a b8 dpm20 ``autoencode``,
+   ``generate`` and ``manipulate`` bit-equal to the service built in memory
+   from the same trees (``cudnn.deterministic``); every other sampler runs
+   once at ddim20/dpm20 styles, ``gap_measure`` and ``autoencoding_example``
+   (whose DDPM row runs every step) under a 100-step schedule, each PNG of
+   its layout's size, and ``denoise_one_step`` once more through
+   ``python -m pdae_torch.sample``. Each run's model calls and kernel
+   launches must equal the structure's, every GN launch on the cluster
+   variant.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -974,11 +994,9 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
         saves = run_a.save_seconds + run_b.save_seconds
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
-    for name in ("step3.ckpt", "dpm.ckpt", "a/checkpoints/latest.ckpt",
-                 "b/checkpoints/latest.ckpt"):
-        path = os.path.join(root, name)
-        if os.path.exists(path):
-            os.unlink(path)
+    # A's step-6 file and the DPM stay for the samplers phase
+    for name in ("step3.ckpt", "b/checkpoints/latest.ckpt"):
+        os.unlink(os.path.join(root, name))
     trainer_step_s = sum(records["s"][1:]) / len(records["s"][1:])
     modules = ("yaml", "msgpack", "PIL", "tensorboard", "tensorflow")
     loaded_modules = {m: m in sys.modules for m in modules}
@@ -1026,6 +1044,385 @@ def _flat(tree, prefix=""):
     if isinstance(tree, dict) and tree:
         return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
     return {prefix: tree}
+
+
+def per_call(model, *inputs) -> dict:
+    """The kernel launches one call of ``model`` makes: its GN chains and
+    attention blocks, counted with hooks on a plain-path call."""
+    from pdae_torch import ops
+    from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
+
+    counts = collections.Counter()
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args, kind="gn_adagn_silu" if isinstance(m, GNSiluChain) else "attention":
+        counts.update([kind]))
+        for m in model.modules() if isinstance(m, (GNSiluChain, AttentionBlock))]
+    ops.set_use_kernels(False)
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        ops.set_use_kernels(None)
+        for h in handles:
+            h.remove()
+    return {"attention": counts["attention"], "gn_adagn_silu": counts["gn_adagn_silu"],
+            "gn_adagn_silu_bwd": 0}
+
+
+def grid_hw(n, nrow=None) -> tuple:
+    """(height, width) of ``make_grid`` over n 64px images."""
+    from pdae_torch.utils import make_grid
+    return make_grid(np.zeros((n, 64, 64, 3), np.uint8), nrow=nrow).shape[:2]
+
+
+def rows_hw(*lengths) -> tuple:
+    """(height, width) of ``paste_rows`` over rows of these lengths."""
+    sizes = [grid_hw(n, nrow=n) for n in lengths]
+    return sum(h for h, _ in sizes), max(w for _, w in sizes)
+
+
+HEAVY_FILES = ("trainer/dpm.ckpt", "trainer/step3.ckpt", "trainer/a/checkpoints/latest.ckpt",
+               "trainer/b/checkpoints/latest.ckpt", "samplers/latent.ckpt")
+
+
+def drop_heavy_files() -> None:
+    """Delete the checkpoints of the trainer and samplers phases (1.67 GB a
+    stage checkpoint, 0.17 GB the latent DPM's): what the script leaves under
+    ``chiprun_out/`` stays small."""
+    for name in HEAVY_FILES:
+        path = os.path.join(OUT_DIR, name)
+        if os.path.exists(path):
+            os.unlink(path)
+
+
+def samplers_phase(seed, device, dec_counts, enc_counts, rho) -> dict:
+    """The sampler suite and the file-built service on the trainer phase's
+    files (its run config, step-6 checkpoint and DPM), with a seeded celeba64
+    MLPSkipNet and ``Linear(512, 40)`` written beside them: InferLatents
+    (whose stats the later steps read), AutoencodingEval through the kernels
+    and through the plain versions, ``PDAEService.from_config`` against the
+    in-memory service on the same trees, then every other sampler once and
+    one through ``python -m pdae_torch.sample``. Every model call and kernel
+    launch of each run is counted and held to the structure's."""
+    import shutil
+
+    from pdae_torch import ops
+    from pdae_torch.diffusion import GaussianDiffusion
+    from pdae_torch.models import (CELEBA64_DPM, UNet, build_classifier,
+                                   build_latent_denoise_fn)
+    from pdae_torch.sampling import SAMPLERS, SamplerContext
+    from pdae_torch.serving import PDAEService
+    from pdae_torch.utils import (classifier_state_dict, classifier_tree, encoder_state_dict,
+                                  load_checkpoint, mlp_skip_net_state_dict, mlp_skip_net_tree,
+                                  save_checkpoint, save_yaml, to_uint8, unet_state_dict)
+
+    phase_t0 = time.perf_counter()
+    trainer = os.path.join(OUT_DIR, "trainer")
+    root = os.path.join(OUT_DIR, "samplers")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def path(name):
+        return os.path.join(root, name)
+
+    # the later stages' artifacts, made from the seed
+    gen = torch.Generator().manual_seed(seed + 6)
+    torch.manual_seed(seed + 6)
+    latent = build_latent_denoise_fn(LATENT_CONFIG)
+    classifier = build_classifier(NUM_CLASSES, LATENT)
+    perturb_zero_params(latent, gen)
+    perturb_zero_params(classifier, gen)
+    save_yaml({"latent_denoise_fn_config": LATENT_CONFIG}, path("latent.yml"))
+    save_checkpoint(path("latent.ckpt"),
+                    {"ema_latent_denoise_fn": mlp_skip_net_tree(latent.state_dict())})
+    save_checkpoint(path("classifier.ckpt"),
+                    {"ema_classifier": classifier_tree(classifier.state_dict())})
+    diffusion = {"timesteps": 1000, "betas_type": "linear"}
+    save_yaml({"denoise_fn_config": {"model": "UNet", **CELEBA64_DPM},
+               "diffusion_config": diffusion}, path("dpm.yml"))
+    del latent, classifier
+    dataset = {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3, "length": 64}
+    base = {"config_path": os.path.join(trainer, "a", "config.yml"),
+            "checkpoint_path": os.path.join(trainer, "a", "checkpoints", "latest.ckpt"),
+            "dataset_config": dataset, "latent_config_path": path("latent.yml"),
+            "latent_checkpoint_path": path("latent.ckpt"),
+            "inferred_latents_path": path("synthetic.ckpt"),
+            "classifier_checkpoint_path": path("classifier.ckpt"), "num_classes": NUM_CLASSES}
+    short = {"timesteps": 100, "betas_type": "linear"}     # the depth cut
+    gd, gd_short = GaussianDiffusion(diffusion), GaussianDiffusion(short)
+
+    def steps(style, g=gd, direction="decode"):
+        if style.startswith("dpm"):
+            return g.solver_tables(style, direction=direction).num_steps
+        return g.ddim_schedule(style).num_steps
+
+    unet_call = per_call(UNet(**CELEBA64_DPM).to(device).eval(),
+                         torch.zeros(1, 3, 64, 64, device=device),
+                         torch.zeros(1, dtype=torch.int32, device=device))
+    structure = {"ShiftUNet": launches_of(1, 0, dec_counts, enc_counts),
+                 "SemanticEncoder": launches_of(0, 1, dec_counts, enc_counts),
+                 "UNet": unet_call}
+    top = tuple(structure)
+
+    def run(name, fn, want_calls):
+        """``fn()`` counted: the top-level model calls (forward pre-hook on
+        every module) and the kernel launches, each held to the structure."""
+        calls = collections.Counter()
+
+        def hook(mod, args):
+            if type(mod).__name__ in top:
+                calls[type(mod).__name__] += 1
+
+        handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+        try:
+            out, rec = counted(fn)
+        finally:
+            handle.remove()
+        want = {k: sum(n * structure[m][k] for m, n in want_calls.items())
+                for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")}
+        rec.update(calls=dict(calls), calls_expected=want_calls, launches_expected=want)
+        rec["ok"] = (dict(calls) == {m: n for m, n in want_calls.items() if n}
+                     and rec["launches"] == want
+                     and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"],
+                                                "general": 0})
+        return out, rec
+
+    records = {"config": "the trainer phase's celeba64 run (config.yml, step-6 latest.ckpt, "
+                         "its seeded DPM), a seeded celeba64 MLPSkipNet and Linear(512, 40); "
+                         "SYNTHETIC 64px RGB, 64 images; fp32, TF32 off",
+               "depth_cut": "gap_measure and autoencoding_example (its DDPM row runs every "
+                            "step) under a 100-step linear schedule; every other sampler on "
+                            "the run's 1000 steps; styles ddim20/dpm20; interpolation at 3 "
+                            "alphas"}
+
+    # 1. InferLatents: the stats the later steps read ----------------------------
+    cfg = dict(base, batch_size=32, output_path=path("synthetic.ckpt"))
+    out, rec = run("infer_latents", lambda: SAMPLERS["infer_latents"](cfg).start(),
+                   {"SemanticEncoder": 2})
+    stats = load_checkpoint(out)
+    ctx = SamplerContext(cfg)
+    ctx.build_pdae()
+    with torch.inference_mode():
+        ds = ctx.dataset()
+        x = torch.from_numpy(np.stack([ds[i]["x_0"] for i in range(64)])).to(device)
+        z = ctx.encoder(x.permute(0, 3, 1, 2).contiguous()).cpu().numpy().astype(np.float64)
+    direct = {"mean": z.mean(0), "std": z.std(0, ddof=1)}
+    rel = {k: float(np.abs(stats[k] - direct[k]).max() / np.abs(direct[k]).max())
+           for k in ("mean", "std")}
+    rec.update(shape=[list(np.shape(stats[k])) for k in ("mean", "std")],
+               finite=bool(all(np.isfinite(stats[k]).all() for k in ("mean", "std"))),
+               rel_err_vs_direct_b64_pass=rel)
+    rec["ok"] = (rec["ok"] and rec["finite"] and rec["shape"] == [[LATENT], [LATENT]]
+                 and max(rel.values()) <= 1e-5)
+    records["infer_latents"] = rec
+    del ctx, x
+
+    # 2. AutoencodingEval, through the kernels and through the plain versions -----
+    eval_cfg = dict(base, batch_size=16, max_samples=32, encoder_ddim_style="dpm20",
+                    decoder_ddim_style="dpm20")
+    per_batch = steps("dpm20", direction="encode") + steps("dpm20")
+    inner = GaussianDiffusion.representation_learning_autoencoding
+
+    def evaluator(decoder_wrap=None):
+        """An AutoencodingEval with its models built (outside any timing):
+        calling it runs the eval and returns its metrics and reconstructions
+        (NHWC, [-1, 1])."""
+        sampler = SAMPLERS["autoencoding_eval"](eval_cfg)
+        sampler.ctx.build_pdae()
+        if decoder_wrap is not None:
+            sampler.ctx.decoder = decoder_wrap(sampler.ctx.decoder)
+
+        def evaluate():
+            captured = []
+
+            def capture(self, *args, **kwargs):
+                out = inner(self, *args, **kwargs)
+                captured.append(out.permute(0, 2, 3, 1).cpu().numpy())
+                return out
+
+            GaussianDiffusion.representation_learning_autoencoding = capture
+            try:
+                metrics = sampler.start()
+            finally:
+                GaussianDiffusion.representation_learning_autoencoding = inner
+            return metrics, np.concatenate(captured)
+        return evaluate
+
+    (res_k, recon_k), rec = run("autoencoding_eval", evaluator(),
+                                {"ShiftUNet": 2 * per_batch, "SemanticEncoder": 2})
+    ops.set_use_kernels(False)
+    try:
+        evaluate = evaluator()
+        t0 = time.perf_counter()
+        res_p, recon_p = evaluate()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        ops.set_use_kernels(None)
+
+    def levels(a, b):
+        return int(np.abs(to_uint8(a).astype(int) - to_uint8(b).astype(int)).max())
+
+    diff = levels(recon_k, recon_p)
+    control = []
+    if diff > 1:
+        # the plain path against itself, every decoder output moved by the
+        # relative size of one kernel forward's error (the whole_path phase's
+        # control), three seeded draws
+        def perturbed(draw):
+            g = torch.Generator(device=device).manual_seed(seed + draw)
+
+            def wrap(decoder):
+                def dec(x, t, z):
+                    return tuple(o * (1.0 + rho * torch.randn(o.shape, generator=g,
+                                                              device=device))
+                                 for o in decoder(x, t, z))
+                return dec
+            return wrap
+
+        ops.set_use_kernels(False)
+        try:
+            control = [levels(evaluator(perturbed(draw))()[1], recon_p) for draw in range(3)]
+        finally:
+            ops.set_use_kernels(None)
+    s_per_eval = rec["s"] / (2 * per_batch)
+    rec.update(batch=16, images=32, styles="dpm20/dpm20", ssim=res_k["ssim"],
+               mse=res_k["mse"], plain_ssim=res_p["ssim"], plain_mse=res_p["mse"],
+               ssim_diff=res_k["ssim"] - res_p["ssim"], mse_diff=res_k["mse"] - res_p["mse"],
+               imgs_per_s=32 / rec["s"], plain_s=plain_s, evals_per_batch=per_batch,
+               s_per_eval_b16=s_per_eval, max_uint8_diff_vs_plain=diff,
+               control_max_uint8_diff=control or "not run: within one level",
+               bound_uint8=max([1] + control),
+               predicted_ddim1000_ddim100_s_per_b16_batch=1100 * s_per_eval,
+               metrics_finite=all(math.isfinite(v) for r in (res_k, res_p)
+                                  for v in r.values()))
+    rec["ok"] = (rec["ok"] and diff <= rec["bound_uint8"] and rec["metrics_finite"]
+                 and recon_k.shape == (32, 64, 64, 3))
+    records["autoencoding_eval"] = rec
+    del recon_k, recon_p
+
+    # 3. the service from the files against the one built in memory ---------------
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        svc_cfg = dict(base, max_batch=64)
+        t0 = time.perf_counter()
+        from_files = PDAEService.from_config(svc_cfg)
+        build_s = time.perf_counter() - t0
+        raw = load_checkpoint(base["checkpoint_path"])
+        geo = SamplerContext(svc_cfg).pdae_geometry()
+        in_memory = PDAEService(
+            {**svc_cfg, **{k: geo[k] for k in ("trained_ddpm_config", "encoder_config",
+                                              "decoder_config", "image_size")},
+             "diffusion_config": diffusion, "latent_config": LATENT_CONFIG},
+            encoder_state_dict(raw["ema_encoder"]), unet_state_dict(raw["ema_decoder"]),
+            latent_state=mlp_skip_net_state_dict(
+                load_checkpoint(path("latent.ckpt"))["ema_latent_denoise_fn"]),
+            latent_stats=(stats["mean"], stats["std"]),
+            classifier_state=classifier_state_dict(
+                load_checkpoint(path("classifier.ckpt"))["ema_classifier"]))
+        del raw
+        images = np.random.RandomState(seed + 7).randint(0, 256, (BATCH, 64, 64, 3),
+                                                         np.uint8)
+        service_ops = {
+            "autoencode_dpm20": (lambda s: s.autoencode(images, "dpm20", "dpm20"),
+                                 {"ShiftUNet": steps("dpm20", direction="encode")
+                                  + steps("dpm20"), "SemanticEncoder": 1}),
+            "generate_dpm20": (lambda s: s.generate(BATCH, 0, "dpm20", "dpm20"),
+                               {"ShiftUNet": steps("dpm20")}),
+            "manipulate_dpm20": (lambda s: s.manipulate(images, attribute="Smiling",
+                                                        encode_style="dpm20",
+                                                        decode_style="dpm20"),
+                                 {"ShiftUNet": steps("dpm20", direction="encode")
+                                  + steps("dpm20"), "SemanticEncoder": 2}),
+        }
+        svc = {"build_s": build_s}
+        for name, (op, want_calls) in service_ops.items():
+            got, rec = run(name, lambda: op(from_files), want_calls)
+            want = op(in_memory)
+            rec.update(bit_equal_to_in_memory=bool(np.array_equal(got, want)),
+                       shape=list(got.shape), dtype=str(got.dtype))
+            rec["ok"] = (rec["ok"] and rec["bit_equal_to_in_memory"]
+                         and got.shape == (BATCH, 64, 64, 3) and got.dtype == np.uint8)
+            svc[name] = rec
+        svc["ok"] = all(v["ok"] for k, v in svc.items() if isinstance(v, dict))
+        records["from_config"] = svc
+        del from_files, in_memory
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+
+    # 4. every other sampler once ------------------------------------------------
+    alphas = [0.0, 0.5, 1.0]
+    scales = [-0.3, -0.1, 0.1, 0.3]
+    ddim20 = steps("ddim20")
+    others = {
+        "test_dpms": ({"config_path": path("dpm.yml"),
+                       "checkpoint_path": os.path.join(trainer, "dpm.ckpt"),
+                       "image_size": 64, "image_channel": 3, "num_samples": 9,
+                       "ddim_style": "ddim20"},
+                      {"UNet": ddim20}, grid_hw(9, 3)),
+        "autoencoding_example": (dict(base, image_index=0, encoder_ddim_style="ddim20",
+                                      decoder_ddim_style="ddim20", diffusion_config=short),
+                                 {"ShiftUNet": 3 * steps("ddim20", gd_short)
+                                  + short["timesteps"], "SemanticEncoder": 3},
+                                 grid_hw(12, 12)),
+        "denoise_one_step": (dict(base, image_index=0),
+                             {"ShiftUNet": 1, "SemanticEncoder": 1}, rows_hw(6, 6)),
+        "interpolation": (dict(base, image_index_1=0, image_index_2=1, ddim_style="ddim20",
+                               alphas=alphas),
+                          {"ShiftUNet": ddim20 + 3 * ddim20 * len(alphas),
+                           "SemanticEncoder": 1},
+                          rows_hw(len(alphas) + 2, len(alphas) + 2)),
+        "manipulation": (dict(base, image_index=0, encode_ddim_style="ddim20",
+                              decode_ddim_style="ddim20", scale_list=scales),
+                         {"ShiftUNet": ddim20 * (1 + len(scales)),
+                          "SemanticEncoder": 1 + len(scales)},
+                         grid_hw(len(scales) + 1, len(scales) + 1)),
+        "unconditional_sample": (dict(base, num_samples=8, latent_ddim_style="ddim20",
+                                      decoder_ddim_style="ddim20"),
+                                 {"ShiftUNet": ddim20}, grid_hw(8)),
+        "gap_measure": (dict(base, batch_size=2, num_samples=2, diffusion_config=short),
+                        {"ShiftUNet": short["timesteps"], "SemanticEncoder": 1}, None),
+    }
+    for name, (cfg, want_calls, hw) in others.items():
+        cfg = dict(cfg, output_path=path(f"{name}.png"))
+        out, rec = run(name, lambda: SAMPLERS[name](cfg).start(), want_calls)
+        if name == "gap_measure":
+            gap, ae_gap = out
+            written = [p for p in (cfg["output_path"], cfg["output_path"] + ".npz")
+                       if os.path.exists(p)]
+            rec.update(curve_len=[len(gap), len(ae_gap)], written=written,
+                       gap_first_last=[float(gap[0]), float(gap[-1])],
+                       ae_gap_first_last=[float(ae_gap[0]), float(ae_gap[-1])])
+            rec["ok"] = (rec["ok"] and rec["curve_len"] == [short["timesteps"]] * 2
+                         and bool(np.isfinite(gap).all() and np.isfinite(ae_gap).all())
+                         and len(written) == 1)
+        else:
+            rec.update(png_hw=png_size(out) if os.path.exists(out) else None,
+                       png_hw_expected=list(hw))
+            rec["ok"] = rec["ok"] and rec["png_hw"] is not None and \
+                list(rec["png_hw"]) == list(hw)
+        records[name] = rec
+
+    # one sampler end to end through the CLI, in a process of its own
+    cli_cfg = path("denoise_one_step_cli.yml")
+    save_yaml(dict(base, image_index=1), cli_cfg)
+    cli_out = path("denoise_one_step_cli.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pdae_torch.sample", "--sampler",
+                           "denoise_one_step", "--config", cli_cfg, "--set",
+                           f"output_path={cli_out}"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    records["cli_denoise_one_step"] = {
+        "s": time.perf_counter() - t0, "returncode": proc.returncode,
+        "stdout_tail": proc.stdout.strip().splitlines()[-1:],
+        "stderr_tail": proc.stderr.strip().splitlines()[-3:],
+        "png_hw": png_size(cli_out) if os.path.exists(cli_out) else None,
+        "ok": proc.returncode == 0 and os.path.exists(cli_out)
+        and list(png_size(cli_out)) == list(rows_hw(6, 6))}
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict))
+    return records
 
 
 def main(argv=None) -> int:
@@ -1401,10 +1798,21 @@ def main(argv=None) -> int:
     if not trainer["ok"]:
         raise AssertionError("the trainer phase failed its checks")
 
+    # 8. the sampler suite and the service built from the trainer's files -----
+    samplers = samplers_phase(args.seed, device, dec_counts, enc_counts,
+                              res["control_relative_noise"])
+    emit({"phase": "samplers", **samplers})
+    if not samplers["ok"]:
+        raise AssertionError("the samplers phase failed its checks")
+
     per_op = {name: op_records[name]["launches"]
               for name in ("generate", "manipulate", "autoencode_dpm20")}
     per_op["trainer_step"] = trainer["launches_per_step"]
     per_op["trainer_eval"] = trainer["eval_launches"]
+    per_op.update({f"sampler_{k}": v["launches"] for k, v in samplers.items()
+                   if isinstance(v, dict) and "launches" in v})
+    per_op.update({f"from_config_{k}": v["launches"]
+                   for k, v in samplers["from_config"].items() if isinstance(v, dict)})
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
                      "pdae_tpu/ops/attention.py:40", attn_res, per_request, per_step,
@@ -1429,4 +1837,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        drop_heavy_files()
+    sys.exit(code)

@@ -2,9 +2,10 @@
 
 The port of ``pdae_tpu`` (JAX on a TPU), which stays beside it as the
 reference. Module names mirror the JAX package's. The modules run NCHW; the
-public entry points (``serving.PDAEService``) take and return NHWC as the JAX
-service does. Every TPU kernel on the ported path is a hand-written CUDA
-kernel under ``csrc/``, built with nvcc at first use (``ops/_build.py``).
+public entry points (``serving.PDAEService``, the samplers of ``sampling``)
+take and write NHWC images as the JAX package's do. Every TPU kernel on the
+ported path is a hand-written CUDA kernel under ``csrc/``, built with nvcc at
+first use (``ops/_build.py``).
 
 This package imports neither JAX nor ``pdae_tpu``.
 """

@@ -163,6 +163,9 @@ class GaussianDiffusion:
         return ddim_lib.ddim_encode_loop(
             self.ddim_schedule(ddim_style), denoise_fn, x_0, condition)
 
+    def test_pretrained_dpms(self, ddim_style, denoise_fn, x_T, condition=None):
+        return self.ddim_sample(ddim_style, denoise_fn, x_T, condition)
+
     # -- regular diffusion ------------------------------------------------- #
 
     def regular_train_one_batch(self, generator, denoise_fn, x_0, condition=None,

@@ -38,6 +38,15 @@ def _filter(config: dict, keys) -> dict:
     return out
 
 
+def build_denoise_fn(config: dict) -> UNet:
+    """``UNet``, ``MNISTDenoiseFn`` or ``<DS>DenoiseFn`` -> UNet (a pre-trained
+    DPM's model config)."""
+    name = config.get("model", "UNet")
+    if name not in ("UNet", "MNISTDenoiseFn") and not name.endswith("DenoiseFn"):
+        raise KeyError(f"unknown denoise_fn model: {name}")
+    return UNet(**_filter(config, _UNET_KEYS))
+
+
 def build_decoder(config: dict, trained_ddpm_config: dict) -> ShiftUNet:
     """``<DS>Decoder`` -> ShiftUNet: the UNet geometry comes from the
     pre-trained DPM config, ``latent_dim`` from the decoder config."""
@@ -78,6 +87,6 @@ def build_classifier(num_classes: int = 40, latent_dim: int = 512) -> LinearClas
 
 __all__ = ["CELEBA64_DPM", "UNet", "ShiftUNet", "SemanticEncoder", "MLPSkipNet",
            "MLPLNAct", "LinearClassifier", "timestep_embedding",
-           "encoder_for_resolution", "build_decoder", "build_encoder",
+           "encoder_for_resolution", "build_denoise_fn", "build_decoder", "build_encoder",
            "build_latent_denoise_fn", "build_classifier",
            "SHIFT_TRAINABLE_PREFIXES", "FROZEN_PREFIXES"]

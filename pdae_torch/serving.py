@@ -6,11 +6,13 @@ service; the models run NCHW on ``device``. Batches are padded to
 power-of-two buckets (capped at ``max_batch``) by repeating the first image,
 and trimmed on the way out. Every op takes ``ddim<N>`` and ``dpm<N>`` styles.
 
-The service is built from configs and state dicts held in memory (no
-checkpoint files, no mesh). It runs fp32, as the JAX service builds float32
-models, with TF32 off: the constructor sets ``torch.backends.cudnn.allow_tf32``
-and ``torch.backends.cuda.matmul.allow_tf32`` to ``False`` for the whole
-process, so convs and matmuls keep full fp32 mantissas.
+The service is built from configs and state dicts held in memory, or with
+``PDAEService.from_config`` from the checkpoint files a sampler config names
+(the JAX service's constructor). It runs fp32, as the JAX service builds
+float32 models, with TF32 off: the constructor sets
+``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``
+to ``False`` for the whole process, so convs and matmuls keep full fp32
+mantissas.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from .data import CELEBAHQ_LABEL_TO_ID
 from .diffusion import GaussianDiffusion
 from .models import (build_classifier, build_decoder, build_encoder,
                      build_latent_denoise_fn)
+from .sampling import SamplerContext
+from .sampling.context import DEFAULT_DIFFUSION
 from .utils import to_uint8
 
 
@@ -64,6 +68,11 @@ class PDAEService:
     latents. Those models are built at the first call that needs them; an op
     whose artifact is missing raises. ``device``: ``cuda`` unless given;
     without a card it must be given.
+
+    ``fused_upsample`` (``on``, ``off`` or ``auto``; the JAX service pins an
+    XLA rewrite of the decoders' upsample convs with it) is checked and
+    ignored: the port computes nearest-up then a 3x3 conv, one numerics for
+    every bucket.
     """
 
     def __init__(self, config: dict, encoder_state: dict, decoder_state: dict,
@@ -74,6 +83,9 @@ class PDAEService:
                 raise NotImplementedError(
                     f"{key}={config[key]}: tensor and spatial parallelism are not "
                     "ported (ROADMAP.md, queue 1 item 15); the port serves on one card")
+        fused = str(config.get("fused_upsample", "auto")).lower()
+        if fused not in ("on", "off", "auto", "true", "false", "1", "0"):
+            raise ValueError(f"fused_upsample must be on|off|auto, got {fused!r}")
         self.config = config
         self.device = resolve_device(device)
         self.size = int(config["image_size"])
@@ -81,8 +93,7 @@ class PDAEService:
         self.max_batch = int(config.get("max_batch", 64))
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.gd = GaussianDiffusion(config.get(
-            "diffusion_config", {"timesteps": 1000, "betas_type": "linear"}))
+        self.gd = GaussianDiffusion(config.get("diffusion_config", DEFAULT_DIFFUSION))
         self.encoder = build_encoder(config["encoder_config"], image_size=self.size)
         self.decoder = build_decoder(config["decoder_config"],
                                      config["trained_ddpm_config"])
@@ -97,9 +108,52 @@ class PDAEService:
         self._latent_model = None
         self._stats = None
         self._clf_weight = None
+        # what builds each lazy artifact: from the arguments here, or from
+        # files (``from_config``)
+        self._load_latent = self._latent_from_state
+        self._load_stats = self._stats_from_arrays
+        self._load_classifier = self._classifier_from_state
         # the first generate or manipulate can come from a batcher's worker
         # thread and a direct caller at once: each lazy build runs once
         self._init_lock = threading.Lock()
+
+    @classmethod
+    def from_config(cls, config: dict, device=None) -> "PDAEService":
+        """The service of the PDAE stage at ``config_path``/``checkpoint_path``
+        (its EMA encoder and decoder), with the keys of the JAX service:
+        ``trained_ddpm_config_path``, ``latent_config_path`` and
+        ``latent_checkpoint_path`` plus ``inferred_latents_path``
+        (``generate``), ``classifier_checkpoint_path`` plus
+        ``inferred_latents_path`` (``manipulate``), ``num_classes``,
+        ``image_size``/``image_channel``, ``diffusion_config``, ``max_batch``
+        and the styles, read through ``SamplerContext``. The latent DPM, the
+        stats and the classifier are read at the first op that needs them."""
+        ctx = SamplerContext(config, device)
+        geo = ctx.pdae_geometry()
+        encoder_state, decoder_state = ctx.pdae_states()
+        service = cls({**config, "trained_ddpm_config": geo["trained_ddpm_config"],
+                       "encoder_config": geo["encoder_config"],
+                       "decoder_config": geo["decoder_config"],
+                       "diffusion_config": ctx.diffusion_config,
+                       "image_size": geo["image_size"],
+                       "image_channel": geo["image_channel"]},
+                      encoder_state, decoder_state, ctx.device)
+
+        def needs(op, *keys):
+            _require(op, **{k: config.get(k) for k in keys})
+
+        def latent():
+            needs("generate", "latent_config_path", "latent_checkpoint_path",
+                  "inferred_latents_path")
+            return ctx.build_latent()
+
+        def classifier():
+            needs("manipulate", "classifier_checkpoint_path", "inferred_latents_path")
+            return ctx.classifier_weight()
+
+        service._load_latent, service._load_stats = latent, ctx.latent_stats
+        service._load_classifier = classifier
+        return service
 
     # -- helpers --------------------------------------------------------- #
 
@@ -124,26 +178,37 @@ class PDAEService:
         x = torch.from_numpy(arr).to(self.device).permute(0, 3, 1, 2).contiguous()
         return x, n
 
+    def _latent_from_state(self) -> torch.nn.Module:
+        _require("generate", latent_config=self.config.get("latent_config"),
+                 latent_state=self._latent_state, latent_stats=self._latent_stats_in)
+        model = build_latent_denoise_fn(self.config["latent_config"])
+        model.load_state_dict(self._latent_state, strict=True)
+        return model.to(self.device).eval()
+
+    def _stats_from_arrays(self):
+        return tuple(torch.as_tensor(np.array(a, np.float32), device=self.device)
+                     for a in self._latent_stats_in)
+
+    def _classifier_from_state(self) -> torch.Tensor:
+        _require("manipulate", classifier_state=self._classifier_state,
+                 latent_stats=self._latent_stats_in)
+        clf = build_classifier(int(self.config.get("num_classes", 40)), self.latent_dim)
+        clf.load_state_dict(self._classifier_state, strict=True)
+        return clf.weight.detach().to(self.device)
+
     def _latent_stats(self):
         """(mean, std) on the device; the caller holds the init lock."""
         if self._stats is None:
             with torch.inference_mode(False):
-                self._stats = tuple(torch.as_tensor(np.asarray(a, np.float32),
-                                                    device=self.device)
-                                    for a in self._latent_stats_in)
+                self._stats = self._load_stats()
         return self._stats
 
     def _latent(self):
         """The latent DPM's denoiser and the latent stats, built once."""
         with self._init_lock:
             if self._latent_model is None:
-                _require("generate", latent_config=self.config.get("latent_config"),
-                              latent_state=self._latent_state,
-                              latent_stats=self._latent_stats_in)
                 with torch.inference_mode(False):
-                    model = build_latent_denoise_fn(self.config["latent_config"])
-                    model.load_state_dict(self._latent_state, strict=True)
-                    self._latent_model = model.to(self.device).eval()
+                    self._latent_model = self._load_latent()
             return self._latent_model, self._latent_stats()
 
     def _classifier(self):
@@ -151,13 +216,8 @@ class PDAEService:
         latent stats, built once."""
         with self._init_lock:
             if self._clf_weight is None:
-                _require("manipulate", classifier_state=self._classifier_state,
-                              latent_stats=self._latent_stats_in)
                 with torch.inference_mode(False):
-                    clf = build_classifier(int(self.config.get("num_classes", 40)),
-                                           self.latent_dim)
-                    clf.load_state_dict(self._classifier_state, strict=True)
-                    self._clf_weight = clf.weight.detach().to(self.device)
+                    self._clf_weight = self._load_classifier()
             return self._clf_weight, self._latent_stats()
 
     @staticmethod
@@ -219,7 +279,7 @@ class PDAEService:
         if n > self.max_batch:
             raise ValueError(f"n {n} exceeds max_batch {self.max_batch}")
         b = _bucket(n, self.max_batch)
-        latent_dim = int(self.config["latent_config"]["input_channel"])
+        latent_dim = latent_denoise_fn.input_channel
         gen = torch.Generator(self.device).manual_seed(int(seed))
         z_T = torch.randn((b, latent_dim), generator=gen, device=self.device)
         x_T = torch.randn((b, self.channels, self.size, self.size), generator=gen,

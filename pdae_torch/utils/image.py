@@ -8,7 +8,7 @@ import math
 import os
 import struct
 import zlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -89,3 +89,20 @@ def save_image_grid(images: np.ndarray, path: str, nrow: Optional[int] = None,
     grid = make_grid(images, nrow=nrow)
     write_png(path, grid)
     return grid
+
+
+def paste_rows(rows: Sequence[np.ndarray], path: str) -> np.ndarray:
+    """Paste ``[N,H,W,C]`` uint8 rows, each tiled in one line, top to bottom
+    into one PNG; a row narrower than the widest is padded with white on the
+    right. Returns the image written."""
+    row_imgs = [make_grid(r, nrow=r.shape[0]) for r in rows]
+    wmax = max(r.shape[1] for r in row_imgs)
+    padded = []
+    for r in row_imgs:
+        if r.shape[1] < wmax:
+            pad = np.full((r.shape[0], wmax - r.shape[1], r.shape[2]), 255, np.uint8)
+            r = np.concatenate([r, pad], axis=1)
+        padded.append(r)
+    merged = np.concatenate(padded, axis=0)
+    write_png(path, merged)
+    return merged

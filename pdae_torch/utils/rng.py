@@ -12,7 +12,8 @@ resumed at step N draws what an uninterrupted run draws there:
 ``INIT`` seeds the models' initialisation (``step`` is 0 for the encoder and
 1 for the decoder), ``TRAIN`` each train step's draws of t and noise,
 ``DROPOUT`` its dropout masks (where the decoder has dropout), ``EVAL`` the
-x_T of the eval grid at a step.
+x_T of the eval grid at a step, ``SAMPLE`` each draw of a sampler
+(``step`` is the draw's salt, ``sampling/samplers.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 BASE_SEED = 666666666
-INIT, TRAIN, EVAL, DROPOUT = 0, 1, 2, 3
+INIT, TRAIN, EVAL, DROPOUT, SAMPLE = 0, 1, 2, 3, 4
 
 
 def stream_seed(seed: int, stream: int, step: int = 0) -> int:

@@ -18,7 +18,9 @@ same inputs must be bit-equal. The serving ops (the latent DPM's sampler,
 through the kernels and through the plain versions on a small 64px stack
 and agree within one uint8 level. The representation trainer takes 2 steps
 through the kernels, saves, and a resumed trainer holds the same tensors bit
-for bit. ``chip_smoke.py`` covers every path shape, bf16 and timings.
+for bit. ``AutoencodingEval`` and ``PDAEService.from_config`` on files the
+port writes run on the card and on the CPU and agree (reconstructions within
+1e-2, served images within one uint8 level). ``chip_smoke.py`` covers every path shape, bf16 and timings.
 """
 
 import pytest
@@ -518,3 +520,129 @@ def test_trainer_steps_saves_and_resumes_on_the_card(cuda, tmp_path):
                 assert torch.equal(trainer.optimizer.state[p][m], resumed.optimizer.state[q][m])
     for key, value in trainer.decoder.state_dict().items():
         assert torch.equal(value, resumed.decoder.state_dict()[key]), key
+
+
+@pytest.fixture(scope="module")
+def card_files(tmp_path_factory):
+    """Checkpoint files and run configs that the port writes for a 64px stack
+    (the tiny ShiftUNet, the full 64px encoder, a small MLPSkipNet, a
+    40-class classifier, seeded), and a sampler config naming them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
+    import numpy as np
+
+    from pdae_torch.models import (MLPSkipNet, ShiftUNet, build_classifier,
+                                   encoder_for_resolution)
+    from pdae_torch.utils import (classifier_tree, encoder_tree, mlp_skip_net_tree,
+                                  save_checkpoint, save_yaml, unet_tree)
+
+    root = tmp_path_factory.mktemp("card_files")
+    torch.manual_seed(1)
+    decoder = ShiftUNet(latent_dim=16, **CARD_DPM)
+    with torch.no_grad():
+        for p in decoder.parameters():
+            if not p.any():
+                p.normal_(std=0.05)
+    dataset = {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3, "length": 6}
+    latent_config = {"input_channel": 16, "model_channel": 64, "num_layers": 4}
+    save_yaml({"train_dataset_config": dataset,
+               "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
+               "trained_ddpm_config": {"denoise_fn_config": CARD_DPM},
+               "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": 16},
+               "decoder_config": {"model": "ShiftUNet", "latent_dim": 16}},
+              str(root / "run.yml"))
+    save_checkpoint(str(root / "run.ckpt"),
+                    {"ema_encoder": encoder_tree(encoder_for_resolution(64, 16).state_dict()),
+                     "ema_decoder": unet_tree(decoder.state_dict())})
+    save_yaml({"latent_denoise_fn_config": latent_config}, str(root / "latent.yml"))
+    save_checkpoint(str(root / "latent.ckpt"), {"ema_latent_denoise_fn": mlp_skip_net_tree(
+        MLPSkipNet(16, 64, 4).state_dict())})
+    save_checkpoint(str(root / "classifier.ckpt"), {"ema_classifier": classifier_tree(
+        build_classifier(40, 16).state_dict())})
+    rs = np.random.RandomState(2)
+    save_checkpoint(str(root / "stats.ckpt"),
+                    {"mean": (0.1 * rs.randn(16)).astype(np.float32),
+                     "std": rs.uniform(0.5, 1.5, 16).astype(np.float32)})
+    return {"config_path": str(root / "run.yml"), "checkpoint_path": str(root / "run.ckpt"),
+            "latent_config_path": str(root / "latent.yml"),
+            "latent_checkpoint_path": str(root / "latent.ckpt"),
+            "classifier_checkpoint_path": str(root / "classifier.ckpt"),
+            "inferred_latents_path": str(root / "stats.ckpt"), "dataset_config": dataset,
+            "max_batch": 4}
+
+
+def test_autoencoding_eval_on_the_card_matches_the_cpu(cuda, card_files, monkeypatch):
+    """The eval through the kernels on the card against the plain versions on
+    the CPU: reconstructions within 1e-2 (the DDIM encode amplifies a
+    model-level difference), each run's metrics within 1e-6 of the CPU
+    metric of its own reconstructions, so the two runs' metrics within 1e-6
+    plus what the reconstructions' difference moves the CPU metric by."""
+    import numpy as np
+
+    from pdae_torch.data import build_dataset
+    from pdae_torch.diffusion import GaussianDiffusion
+    from pdae_torch.metrics import mse, ssim
+    from pdae_torch.sampling import SAMPLERS
+
+    inner = GaussianDiffusion.representation_learning_autoencoding
+    captured = []
+
+    def capture(self, *args, **kwargs):
+        out = inner(self, *args, **kwargs)
+        captured[-1].append(out.cpu())
+        return out
+
+    monkeypatch.setattr(GaussianDiffusion, "representation_learning_autoencoding", capture)
+    config = dict(card_files, encoder_ddim_style="ddim5", decoder_ddim_style="ddim5",
+                  batch_size=4, max_samples=6)
+    results = {}
+    for device in ("cuda", "cpu"):
+        captured.append([])
+        ops.reset_launch_counts()
+        results[device] = SAMPLERS["autoencoding_eval"](config, device=device).start()
+        if device == "cuda":
+            counts = ops.launch_counts()
+            assert counts["attention"] > 0 and counts["gn_adagn_silu"] > 0, counts
+    card, cpu = (torch.cat(c)[:6] for c in captured)
+    torch.testing.assert_close(card, cpu, atol=1e-2, rtol=0)
+    ds = build_dataset(card_files["dataset_config"])
+    x_0 = torch.from_numpy(np.stack([ds[i]["x_0"] for i in range(6)])).permute(0, 3, 1, 2)
+    b = (x_0 + 1) / 2
+
+    def cpu_metrics(recon):
+        a = (recon + 1) / 2
+        return {"ssim": float(ssim(a, b, size_average=False).double().mean()),
+                "mse": float(mse(a.numpy(), b.numpy()).mean())}
+
+    own = {"cuda": cpu_metrics(card), "cpu": cpu_metrics(cpu)}
+    for k in ("ssim", "mse"):
+        for device in ("cuda", "cpu"):
+            assert abs(results[device][k] - own[device][k]) <= 1e-6, (device, k)
+        assert abs(results["cuda"][k] - results["cpu"][k]) <= \
+            2e-6 + abs(own["cuda"][k] - own["cpu"][k]), k
+
+
+def test_from_config_on_the_card_matches_the_cpu(cuda, card_files):
+    """The service built from files on the card (kernels) and on the CPU
+    (plain versions): ``encode`` within rtol 1e-4, ``autoencode`` and
+    ``manipulate`` within one uint8 level."""
+    import numpy as np
+
+    from pdae_torch.serving import PDAEService
+
+    config = dict(card_files, encoder_ddim_style="ddim5", decoder_ddim_style="ddim5",
+                  encode_ddim_style="ddim5", decode_ddim_style="ddim5")
+    card = PDAEService.from_config(config)
+    cpu = PDAEService.from_config(config, device="cpu")
+    assert card.device.type == "cuda"
+    images = np.random.RandomState(3).randint(0, 256, (2, 64, 64, 3), np.uint8)
+    ops.reset_launch_counts()
+    np.testing.assert_allclose(card.encode(images), cpu.encode(images), rtol=1e-4, atol=1e-5)
+    for op in (lambda s: s.autoencode(images),
+               lambda s: s.manipulate(images, attribute="Smiling", scale=0.3)):
+        got, want = op(card), op(cpu)
+        assert got.shape == want.shape == (2, 64, 64, 3)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    counts = ops.launch_counts()
+    assert counts["attention"] > 0 and counts["gn_adagn_silu"] > 0, counts
+    assert card.generate(2, seed=0).shape == (2, 64, 64, 3)
