@@ -104,7 +104,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    its layout's size, and ``denoise_one_step`` once more through
    ``python -m pdae_torch.sample``. Each run's model calls and kernel
    launches must equal the structure's, every GN launch on the cluster
-   variant.
+   variant. Every attention and GN input shape those runs give (b2, b3,
+   b5, b9, b16 ... as each sampler batches) is then held to the plain
+   versions in fp32 and bf16 and must plan the cluster variant, as the
+   kernels phase holds its shapes; the shapes it already compared are not
+   compared again (full table in ``chiprun_out/chip_smoke_sampler_shapes.json``).
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -1095,7 +1099,7 @@ def drop_heavy_files() -> None:
             os.unlink(path)
 
 
-def samplers_phase(seed, device, dec_counts, enc_counts, rho) -> dict:
+def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     """The sampler suite and the file-built service on the trainer phase's
     files (its run config, step-6 checkpoint and DPM), with a seeded celeba64
     MLPSkipNet and ``Linear(512, 40)`` written beside them: InferLatents
@@ -1103,10 +1107,13 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho) -> dict:
     and through the plain versions, ``PDAEService.from_config`` against the
     in-memory service on the same trees, then every other sampler once and
     one through ``python -m pdae_torch.sample``. Every model call and kernel
-    launch of each run is counted and held to the structure's."""
+    launch of each run is counted and held to the structure's, and every
+    kernel input shape the runs give that is not in ``compared`` (the shapes
+    the kernels phase held to the plain versions) is compared here."""
     import shutil
 
     from pdae_torch import ops
+    from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
     from pdae_torch.diffusion import GaussianDiffusion
     from pdae_torch.models import (CELEBA64_DPM, UNet, build_classifier,
                                    build_latent_denoise_fn)
@@ -1163,15 +1170,25 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho) -> dict:
                  "SemanticEncoder": launches_of(0, 1, dec_counts, enc_counts),
                  "UNet": unet_call}
     top = tuple(structure)
+    # every kernel input shape the counted runs give, keyed as path_shapes
+    # keys them, with the runs that gave it
+    seen = collections.defaultdict(set)
 
     def run(name, fn, want_calls):
         """``fn()`` counted: the top-level model calls (forward pre-hook on
-        every module) and the kernel launches, each held to the structure."""
+        every module) and the kernel launches, each held to the structure;
+        the kernels' input shapes go into ``seen``."""
         calls = collections.Counter()
 
         def hook(mod, args):
             if type(mod).__name__ in top:
                 calls[type(mod).__name__] += 1
+            elif isinstance(mod, GNSiluChain):
+                seen[("gn", *args[0].shape, len(args) > 1 and args[1] is not None,
+                      len(args) > 3 and args[3] is not None)].add(name)
+            elif isinstance(mod, AttentionBlock):
+                b, c, h, w = args[0].shape
+                seen[("attention", b, mod.num_heads, h * w, c // mod.num_heads)].add(name)
 
         handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
         try:
@@ -1420,6 +1437,32 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho) -> dict:
         "png_hw": png_size(cli_out) if os.path.exists(cli_out) else None,
         "ok": proc.returncode == 0 and os.path.exists(cli_out)
         and list(png_size(cli_out)) == list(rows_hw(6, 6))}
+
+    # 5. every kernel shape of those runs against the plain versions -----------
+    # (compared, not timed; the shapes the kernels phase compared are not
+    # compared again)
+    shape_gen = torch.Generator().manual_seed(seed + 8)
+    new = sorted(k for k in seen if k not in compared)
+    shape_res = [dict(check_attention(k[1:], shape_gen, device, timed=False)
+                      if k[0] == "attention" else
+                      check_gn(k, shape_gen, device, timed=False),
+                      runs=sorted(seen[k])) for k in new]
+    with open(os.path.join(OUT_DIR, "chip_smoke_sampler_shapes.json"), "w") as f:
+        json.dump(shape_res, f, indent=1)
+    disagree = [(r["shape"], k) for r in shape_res for k, v in r["err"].items()
+                if not v["ok"]]
+    off_cluster = [(r["shape"], k) for r in shape_res
+                   for k, plan in r.get("variant", {}).items()
+                   if plan["variant"] != "cluster"]
+    records["kernel_shapes"] = {
+        "batches": sorted({k[1] for k in seen}),
+        "shapes": len(seen), "compared_in_kernels_phase": len(seen) - len(new),
+        "compared_here": len(new),
+        "max_abs_err_fp32": max((v["max_abs_err"] for r in shape_res
+                                 for k, v in r["err"].items() if "float32" in k),
+                                default=0.0),
+        "disagree": disagree, "off_cluster_variant": off_cluster,
+        "ok": bool(seen) and not disagree and not off_cluster}
     records["phase_s"] = time.perf_counter() - phase_t0
     records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict))
     return records
@@ -1800,7 +1843,8 @@ def main(argv=None) -> int:
 
     # 8. the sampler suite and the service built from the trainer's files -----
     samplers = samplers_phase(args.seed, device, dec_counts, enc_counts,
-                              res["control_relative_noise"])
+                              res["control_relative_noise"],
+                              set(both) | set(bucket_res))
     emit({"phase": "samplers", **samplers})
     if not samplers["ok"]:
         raise AssertionError("the samplers phase failed its checks")

@@ -62,7 +62,6 @@ class MLPSkipNet(nn.Module):
                  num_layers: int = 10, time_emb_channel: int = 64,
                  use_norm: bool = True, dropout: float = 0.0):
         super().__init__()
-        self.input_channel = input_channel
         self.time_emb_channel = time_emb_channel
         self.time_embed = nn.Sequential(nn.Linear(time_emb_channel, input_channel),
                                         nn.SiLU(),

@@ -152,29 +152,39 @@ class SamplerContext:
 
     # -- the latent DPM ------------------------------------------------------- #
 
+    def latent_config(self) -> dict:
+        """The latent DPM's ``latent_denoise_fn_config``."""
+        return _load_cfg(self.config["latent_config_path"])["latent_denoise_fn_config"]
+
+    def latent_state(self) -> dict:
+        """The state dict of ``ema_latent_denoise_fn``."""
+        path = self.config["latent_checkpoint_path"]
+        return mlp_skip_net_state_dict(
+            _stage(load_checkpoint(path), "ema_latent_denoise_fn", path))
+
     def build_latent(self) -> torch.nn.Module:
         """Sets and returns ``.latent_denoise_fn`` ((z, t) -> eps), and
         ``.latent_input_channel``."""
         if self.latent_denoise_fn is None:
-            lat_cfg = _load_cfg(self.config["latent_config_path"])["latent_denoise_fn_config"]
-            path = self.config["latent_checkpoint_path"]
-            state = mlp_skip_net_state_dict(
-                _stage(load_checkpoint(path), "ema_latent_denoise_fn", path))
+            lat_cfg = self.latent_config()
             self.latent_input_channel = int(lat_cfg["input_channel"])
-            self.latent_denoise_fn = _loaded(build_latent_denoise_fn(lat_cfg), state,
-                                             self.device)
+            self.latent_denoise_fn = _loaded(build_latent_denoise_fn(lat_cfg),
+                                             self.latent_state(), self.device)
         return self.latent_denoise_fn
 
     # -- the classifier and the latent stats ---------------------------------- #
 
+    def classifier_state(self) -> dict:
+        """The state dict of ``ema_classifier``."""
+        path = self.config["classifier_checkpoint_path"]
+        return classifier_state_dict(_stage(load_checkpoint(path), "ema_classifier", path))
+
     def classifier_weight(self) -> torch.Tensor:
         """The ``[num_classes, latent_dim]`` weight of ``ema_classifier``."""
-        path = self.config["classifier_checkpoint_path"]
-        state = classifier_state_dict(_stage(load_checkpoint(path), "ema_classifier", path))
         latent_dim = (int(self._pdae_cfg["encoder_config"]["latent_dim"])
                       if self._pdae_cfg is not None else 512)
         clf = build_classifier(int(self.config.get("num_classes", 40)), latent_dim)
-        return _loaded(clf, state, self.device).weight.detach()
+        return _loaded(clf, self.classifier_state(), self.device).weight.detach()
 
     def latent_stats(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(mean, std)`` of the inferred latents, fp32 on the device."""

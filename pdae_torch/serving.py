@@ -31,7 +31,7 @@ from .models import (build_classifier, build_decoder, build_encoder,
                      build_latent_denoise_fn)
 from .sampling import SamplerContext
 from .sampling.context import DEFAULT_DIFFUSION
-from .utils import to_uint8
+from .utils import load_checkpoint, to_uint8
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -108,11 +108,6 @@ class PDAEService:
         self._latent_model = None
         self._stats = None
         self._clf_weight = None
-        # what builds each lazy artifact: from the arguments here, or from
-        # files (``from_config``)
-        self._load_latent = self._latent_from_state
-        self._load_stats = self._stats_from_arrays
-        self._load_classifier = self._classifier_from_state
         # the first generate or manipulate can come from a batcher's worker
         # thread and a direct caller at once: each lazy build runs once
         self._init_lock = threading.Lock()
@@ -126,34 +121,29 @@ class PDAEService:
         (``generate``), ``classifier_checkpoint_path`` plus
         ``inferred_latents_path`` (``manipulate``), ``num_classes``,
         ``image_size``/``image_channel``, ``diffusion_config``, ``max_batch``
-        and the styles, read through ``SamplerContext``. The latent DPM, the
-        stats and the classifier are read at the first op that needs them."""
+        and the styles, read through ``SamplerContext``. The files a key
+        names are read here; the models are built at the first op that needs
+        them, and an op whose files were not named raises."""
         ctx = SamplerContext(config, device)
         geo = ctx.pdae_geometry()
         encoder_state, decoder_state = ctx.pdae_states()
-        service = cls({**config, "trained_ddpm_config": geo["trained_ddpm_config"],
-                       "encoder_config": geo["encoder_config"],
-                       "decoder_config": geo["decoder_config"],
-                       "diffusion_config": ctx.diffusion_config,
-                       "image_size": geo["image_size"],
-                       "image_channel": geo["image_channel"]},
-                      encoder_state, decoder_state, ctx.device)
-
-        def needs(op, *keys):
-            _require(op, **{k: config.get(k) for k in keys})
-
-        def latent():
-            needs("generate", "latent_config_path", "latent_checkpoint_path",
-                  "inferred_latents_path")
-            return ctx.build_latent()
-
-        def classifier():
-            needs("manipulate", "classifier_checkpoint_path", "inferred_latents_path")
-            return ctx.classifier_weight()
-
-        service._load_latent, service._load_stats = latent, ctx.latent_stats
-        service._load_classifier = classifier
-        return service
+        later = {}
+        if config.get("latent_checkpoint_path"):
+            later["latent_state"] = ctx.latent_state()
+        if config.get("classifier_checkpoint_path"):
+            later["classifier_state"] = ctx.classifier_state()
+        if config.get("inferred_latents_path"):
+            stats = load_checkpoint(config["inferred_latents_path"])
+            later["latent_stats"] = (stats["mean"], stats["std"])
+        service_config = {**config, "trained_ddpm_config": geo["trained_ddpm_config"],
+                          "encoder_config": geo["encoder_config"],
+                          "decoder_config": geo["decoder_config"],
+                          "diffusion_config": ctx.diffusion_config,
+                          "image_size": geo["image_size"],
+                          "image_channel": geo["image_channel"]}
+        if config.get("latent_config_path"):
+            service_config["latent_config"] = ctx.latent_config()
+        return cls(service_config, encoder_state, decoder_state, ctx.device, **later)
 
     # -- helpers --------------------------------------------------------- #
 
@@ -178,37 +168,26 @@ class PDAEService:
         x = torch.from_numpy(arr).to(self.device).permute(0, 3, 1, 2).contiguous()
         return x, n
 
-    def _latent_from_state(self) -> torch.nn.Module:
-        _require("generate", latent_config=self.config.get("latent_config"),
-                 latent_state=self._latent_state, latent_stats=self._latent_stats_in)
-        model = build_latent_denoise_fn(self.config["latent_config"])
-        model.load_state_dict(self._latent_state, strict=True)
-        return model.to(self.device).eval()
-
-    def _stats_from_arrays(self):
-        return tuple(torch.as_tensor(np.array(a, np.float32), device=self.device)
-                     for a in self._latent_stats_in)
-
-    def _classifier_from_state(self) -> torch.Tensor:
-        _require("manipulate", classifier_state=self._classifier_state,
-                 latent_stats=self._latent_stats_in)
-        clf = build_classifier(int(self.config.get("num_classes", 40)), self.latent_dim)
-        clf.load_state_dict(self._classifier_state, strict=True)
-        return clf.weight.detach().to(self.device)
-
     def _latent_stats(self):
         """(mean, std) on the device; the caller holds the init lock."""
         if self._stats is None:
             with torch.inference_mode(False):
-                self._stats = self._load_stats()
+                self._stats = tuple(torch.as_tensor(np.array(a, np.float32),
+                                                    device=self.device)
+                                    for a in self._latent_stats_in)
         return self._stats
 
     def _latent(self):
         """The latent DPM's denoiser and the latent stats, built once."""
         with self._init_lock:
             if self._latent_model is None:
+                _require("generate", latent_config=self.config.get("latent_config"),
+                         latent_state=self._latent_state,
+                         latent_stats=self._latent_stats_in)
                 with torch.inference_mode(False):
-                    self._latent_model = self._load_latent()
+                    model = build_latent_denoise_fn(self.config["latent_config"])
+                    model.load_state_dict(self._latent_state, strict=True)
+                    self._latent_model = model.to(self.device).eval()
             return self._latent_model, self._latent_stats()
 
     def _classifier(self):
@@ -216,8 +195,13 @@ class PDAEService:
         latent stats, built once."""
         with self._init_lock:
             if self._clf_weight is None:
+                _require("manipulate", classifier_state=self._classifier_state,
+                         latent_stats=self._latent_stats_in)
                 with torch.inference_mode(False):
-                    self._clf_weight = self._load_classifier()
+                    clf = build_classifier(int(self.config.get("num_classes", 40)),
+                                           self.latent_dim)
+                    clf.load_state_dict(self._classifier_state, strict=True)
+                    self._clf_weight = clf.weight.detach().to(self.device)
             return self._clf_weight, self._latent_stats()
 
     @staticmethod
@@ -279,7 +263,7 @@ class PDAEService:
         if n > self.max_batch:
             raise ValueError(f"n {n} exceeds max_batch {self.max_batch}")
         b = _bucket(n, self.max_batch)
-        latent_dim = latent_denoise_fn.input_channel
+        latent_dim = int(self.config["latent_config"]["input_channel"])
         gen = torch.Generator(self.device).manual_seed(int(seed))
         z_T = torch.randn((b, latent_dim), generator=gen, device=self.device)
         x_T = torch.randn((b, self.channels, self.size, self.size), generator=gen,

@@ -93,19 +93,23 @@ def test_from_config_equals_the_in_memory_service_bit_for_bit(files, services):
         np.testing.assert_array_equal(op(port), op(in_memory))
 
 
-def test_from_config_reads_the_latent_files_at_the_first_op_that_needs_them(files):
+def test_from_config_builds_the_latent_models_at_the_first_op_that_needs_them(files):
     config = dict(files.config, latent_ddim_style="ddim2", decoder_ddim_style="ddim2")
     service = PDAEService.from_config(config, device="cpu")
     assert service._latent_model is None and service._stats is None
     assert service._clf_weight is None
     assert service.generate(1).shape == (1, SIZE, SIZE, 3)
     assert service._latent_model is not None and service._clf_weight is None
-    for key in ("latent_checkpoint_path", "inferred_latents_path"):
+    for key, artifact in (("latent_config_path", "latent_config"),
+                          ("latent_checkpoint_path", "latent_state"),
+                          ("inferred_latents_path", "latent_stats")):
         partial = {k: v for k, v in config.items() if k != key}
-        with pytest.raises(ValueError, match=f"generate needs {key}"):
-            PDAEService.from_config(partial, device="cpu").generate(1)
+        service = PDAEService.from_config(partial, device="cpu")
+        service.encode(_images(1))
+        with pytest.raises(ValueError, match=f"generate needs {artifact}"):
+            service.generate(1)
     partial = {k: v for k, v in config.items() if k != "classifier_checkpoint_path"}
-    with pytest.raises(ValueError, match="manipulate needs classifier_checkpoint_path"):
+    with pytest.raises(ValueError, match="manipulate needs classifier_state"):
         PDAEService.from_config(partial, device="cpu").manipulate(_images(1))
 
 
