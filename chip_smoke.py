@@ -110,6 +110,31 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    kernels phase holds its shapes; the shapes it already compared are not
    compared again (full table in ``chiprun_out/chip_smoke_sampler_shapes.json``).
 
+9. ``stages``: the regular, latent and manipulation trainers through
+   ``pdae_torch.train``'s code (``pick_trainer``, the trainer, its loop) from
+   config dicts of ``configs/dpm_celeba64.yml`` (the full-width celeba64 UNet,
+   b32, Adam), ``configs/celeba64_latent.yml`` (MLPSkipNet 512 -> 2048, 10
+   layers, b128, AdamW; over the trainer phase's step-6 PDAE and the samplers
+   phase's InferLatents stats) and ``configs/celebahq_manipulation.yml``
+   (``Linear(512, 40)`` at 128px, b128; over a seeded PDAE of the
+   ``configs/dpm_celebahq.yml`` trunk and the 128px encoder that the phase
+   writes), each on SYNTHETIC data that is uint8 and device-resident (the
+   regular corpus flipped on the card). Each: run A 6 steps (saves at 3 and 6,
+   the eval at 6: an 8-image ddim100 grid, a ddim100/ddim100 latent sample
+   of 8, a ddim100/ddim100 manipulation where the trainer's default is
+   ddim500/ddim200), run B resumed from A's step-3 file to 6 and bit-equal to
+   A (``cudnn.deterministic``); for the latent and manipulation stages run
+   P with ``latent_train_source: precomputed`` (the corpus encoded once in
+   chunks of 512), each loss within 1e-5 of A's. Every step's launches equal
+   the structure's (GN forward and backward on the cluster variant), every
+   eval's too; step seconds, peak memory, save waits and writes, eval seconds
+   and a profiled step's device idle share are printed. Every kernel key
+   the runs give that no earlier phase compared (the plain UNet's GN backward
+   with AdaGN and no z, b128 and b512 encoder passes, the 128px models) is
+   held to the plain versions in fp32 and bf16 and its variant recorded; the
+   regular step's kernel time per step is summed from the per-shape times
+   (``chiprun_out/chip_smoke_stage_shapes.json``).
+
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
 and, last, ``{"ok": true, "device": {...}}``.
@@ -362,7 +387,8 @@ def check_attention(shape, gen, device, timed=True):
         name = str(dtype).split(".")[-1]
         if (d * dtype.itemsize) % 16:
             continue                 # the wrapper refuses it: see check_edges
-        q, k, v = (torch.randn(shape, generator=gen).to(device, dtype) for _ in range(3))
+        q, k, v = (torch.randn(shape, generator=gen, device=gen.device).to(device, dtype)
+                   for _ in range(3))
         got = attention.attention_cuda(q, k, v)
         torch.cuda.synchronize()
         plan = attention.attention_plan(b * h, t, d, q.element_size())
@@ -390,13 +416,17 @@ def check_attention(shape, gen, device, timed=True):
 
 
 def gn_coefficients(shape, has_st, has_z, gen, device, dtype):
+    """A GN chain's inputs, drawn from ``gen`` on its own device (a CUDA
+    generator draws the large slabs where they are used)."""
     b, c = shape[:2]
-    x = torch.randn(shape, generator=gen).to(device, dtype)
-    gamma = (1 + 0.1 * torch.randn(c, generator=gen)).to(device)
-    beta = (0.1 * torch.randn(c, generator=gen)).to(device)
+    x = torch.randn(shape, generator=gen, device=gen.device).to(device, dtype)
+    gamma = (1 + 0.1 * torch.randn(c, generator=gen, device=gen.device)).to(device)
+    beta = (0.1 * torch.randn(c, generator=gen, device=gen.device)).to(device)
     # the halves of one [B, 2C] Linear output, strided as the ResBlocks pass them
-    st = (0.1 * torch.randn(b, 2 * c, generator=gen)).to(device, dtype).chunk(2, dim=1)
-    zz = (0.1 * torch.randn(b, 2 * c, generator=gen)).to(device, dtype).chunk(2, dim=1)
+    st = (0.1 * torch.randn(b, 2 * c, generator=gen, device=gen.device)).to(
+        device, dtype).chunk(2, dim=1)
+    zz = (0.1 * torch.randn(b, 2 * c, generator=gen, device=gen.device)).to(
+        device, dtype).chunk(2, dim=1)
     return (x, gamma, beta, *(st if has_st else (None, None)),
             *(zz if has_z else (None, None)))
 
@@ -505,7 +535,7 @@ def check_gn_bwd(key, gen, device, timed=True):
     for dtype in (torch.float32, torch.bfloat16):
         args = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
         x, gamma, beta, coef = args[0], args[1], args[2], args[3:]
-        g = torch.randn(shape, generator=gen).to(device, dtype)
+        g = torch.randn(shape, generator=gen, device=gen.device).to(device, dtype)
         out, mean, rstd = groupnorm.gn_cuda(*args, groups=groups, save_stats=True)
         torch.cuda.synchronize()
         if not torch.equal(out, groupnorm.gn_cuda(*args, groups=groups)):
@@ -1090,11 +1120,13 @@ HEAVY_FILES = ("trainer/dpm.ckpt", "trainer/step3.ckpt", "trainer/a/checkpoints/
 
 
 def drop_heavy_files() -> None:
-    """Delete the checkpoints of the trainer and samplers phases (1.67 GB a
-    stage checkpoint, 0.17 GB the latent DPM's): what the script leaves under
-    ``chiprun_out/`` stays small."""
-    for name in HEAVY_FILES:
-        path = os.path.join(OUT_DIR, name)
+    """Delete the checkpoints of the trainer, samplers and stages phases
+    (1.67 GB a PDAE checkpoint, 0.17-1 GB the others): what the script
+    leaves under ``chiprun_out/`` stays small."""
+    paths = [os.path.join(OUT_DIR, name) for name in HEAVY_FILES]
+    for parent, _, names in os.walk(os.path.join(OUT_DIR, "stages")):
+        paths += [os.path.join(parent, n) for n in names if n.endswith(".ckpt")]
+    for path in paths:
         if os.path.exists(path):
             os.unlink(path)
 
@@ -1463,8 +1495,476 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
                                 default=0.0),
         "disagree": disagree, "off_cluster_variant": off_cluster,
         "ok": bool(seen) and not disagree and not off_cluster}
+    compared.update(seen)            # the stages phase compares only what is new
     records["phase_s"] = time.perf_counter() - phase_t0
     records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict))
+    return records
+
+
+# -- the regular, latent and manipulation trainers (stages phase) ------------ #
+
+# the 128px DPM of configs/dpm_celebahq.yml, the trunk under the
+# manipulation stage's PDAE
+CELEBAHQ_DPM = dict(
+    input_channel=3, base_channel=128, channel_multiplier=(1, 1, 2, 2, 4, 4),
+    num_residual_blocks_of_a_block=2, attention_resolutions=(16,), num_heads=4,
+    head_channel=-1, use_new_attention_order=False, dropout=0.0)
+STAGE_STEPS = 6                  # saves at 3 and 6, the eval at 6
+STAGE_LENGTH = {"regular": 320, "latent": 640, "manipulation": 640}
+STAGE_BATCH = {"regular": 32, "latent": 128, "manipulation": 128}   # the configs'
+# the depth cut of the manipulation eval (the trainer's default ddim500/ddim200)
+MANIPULATION_EVAL = {"encode_style": "ddim100", "decode_style": "ddim100"}
+LATENT_LOSS_RTOL = 1e-5          # precomputed z against the encoder in the step
+
+
+def stage_runner():
+    """The shipped configs' runner_config with the cadences of a 6-step run:
+    a line a step, saves at 3 and 6, the eval at 6. ``steps_per_dispatch``
+    is 1: the port's is a cadence check, and 3 is no multiple of 4 or 50."""
+    return {"display_steps": 1, "evaluate_every_steps": STAGE_STEPS,
+            "save_latest_every_steps": 3, "save_checkpoint_every_steps": 10000,
+            "num_iterations": 1, "ema_every": 1, "ema_decay": 0.9999}
+
+
+def stage_configs(files) -> dict:
+    """Config dicts of ``configs/dpm_celeba64.yml``, ``celeba64_latent.yml``
+    and ``celebahq_manipulation.yml`` at their own widths, batches and
+    optimizers, with SYNTHETIC data (uint8, device-resident, preloaded) and
+    the stage files ``files`` names in place of the LMDBs and checkpoints."""
+    from pdae_torch.models import CELEBA64_DPM
+
+    diffusion = {"timesteps": 1000, "betas_type": "linear"}
+
+    def data(stage, size, **extra):
+        return {"name": "SYNTHETIC", "image_size": size, "image_channel": 3,
+                "length": STAGE_LENGTH[stage], "preload": True, "transfer_uint8": True,
+                "device_resident": True, **extra}
+
+    def loader(stage):
+        return {"train": {"num_workers": 4, "batch_size": STAGE_BATCH[stage]},
+                "eval": {"num_generations": BATCH}}
+
+    def later(stage, pdae):
+        return {"trained_ddpm_config": pdae["dpm_config"],
+                "trained_representation_learning_config": pdae["config"],
+                "trained_representation_learning_checkpoint": pdae["checkpoint"],
+                "inferred_latents": pdae["stats"], "diffusion_config": diffusion,
+                "eval_dataset_config": {"augmentation": False},
+                "dataloader_config": loader(stage)}
+
+    adam = {"lr": 1e-4, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
+            "weight_decay": 0.0, "enable_amp": False}
+    return {
+        "regular": {
+            "train_dataset_config": data("regular", 64, augmentation=True),
+            "eval_dataset_config": {"augmentation": False}, "diffusion_config": diffusion,
+            "denoise_fn_config": {"model": "UNet", **CELEBA64_DPM},
+            "dataloader_config": loader("regular"), "optimizer_config": adam,
+            "runner_config": stage_runner()},
+        "latent": {
+            **later("latent", files["celeba64"]),
+            "train_dataset_config": data("latent", 64, latent_dim=LATENT, augmentation=False),
+            "latent_denoise_fn_config": LATENT_CONFIG,
+            "optimizer_config": {**adam, "name": "AdamW", "lr": 0.001, "weight_decay": 0.01},
+            "runner_config": stage_runner()},
+        "manipulation": {
+            **later("manipulation", files["celebahq128"]),
+            "train_dataset_config": data("manipulation", 128, latent_dim=LATENT,
+                                         augmentation=False, multilabel=NUM_CLASSES),
+            "optimizer_config": adam, "runner_config": stage_runner()},
+    }
+
+
+class KernelKeys:
+    """A forward pre-hook on every module that counts, per run name, the
+    kernel input keys as ``path_shapes`` keys them (a GN chain that will run
+    a backward also under ``gn_bwd``); no run name, nothing counted."""
+
+    def __init__(self):
+        from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
+        self.kinds = (GNSiluChain, AttentionBlock)
+        self.name = None
+        self.counts = collections.defaultdict(collections.Counter)
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self.hook)
+
+    def hook(self, mod, args):
+        if self.name is None or not isinstance(mod, self.kinds):
+            return
+        counts = self.counts[self.name]
+        if isinstance(mod, self.kinds[0]):
+            x = args[0]
+            has_st = len(args) > 1 and args[1] is not None
+            has_z = len(args) > 3 and args[3] is not None
+            counts[("gn", *x.shape, has_st, has_z)] += 1
+            if torch.is_grad_enabled() and any(
+                    a is not None and a.requires_grad for a in (*args, mod.weight)):
+                counts[("gn_bwd", *x.shape, has_st, has_z, x.requires_grad)] += 1
+        else:
+            b, c, h, w = args[0].shape
+            counts[("attention", b, mod.num_heads, h * w, c // mod.num_heads)] += 1
+
+    def runs_of(self):
+        """{key: sorted run names that gave it}."""
+        runs = collections.defaultdict(set)
+        for name, counts in self.counts.items():
+            for key in counts:
+                runs[key].add(name)
+        return {k: sorted(v) for k, v in runs.items()}
+
+
+def idle_share(fn, reps: int = 5) -> dict:
+    """``fn()`` ``reps`` times under ``torch.profiler``: wall and device-busy
+    ms per call (the union of the card's kernel intervals) and the card's
+    idle share."""
+    from pdae_torch.tools.profile_autoencode import _busy_us
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if getattr(e.device_type, "name", str(e.device_type)) == "CUDA"]
+    busy = _busy_us(kernels)
+    return {"wall_ms": wall_us / reps / 1e3,
+            "device_busy_ms": busy / reps / 1e3 if kernels else None,
+            "device_idle_share": 1.0 - busy / wall_us if kernels else None,
+            "device_kernels_per_call": len(kernels) / reps}
+
+
+def drive_stage(trainer, keys, name, eval_kwargs=None, keep_step3=None,
+                save_on_exit=True) -> dict:
+    """Train ``trainer`` to STAGE_STEPS through its own
+    loop, each step synchronised and timed, its launches, GN variants and
+    loss recorded and its kernel keys counted under ``{name}_step``; the eval
+    (the config's cadence) timed and counted apart under ``{name}_eval``.
+    Before step 6 the step-3 ``latest.ckpt`` is linked to ``keep_step3``
+    (the save at 6 renames a new file over it)."""
+    import shutil
+
+    from pdae_torch import ops
+
+    rec = {"s": [], "launches": [], "gn": [], "gn_bwd": [], "loss": []}
+    inner_step, inner_eval = trainer.train_step, trainer.evaluate
+
+    def counted_step(batch):
+        if keep_step3 is not None and trainer.step == 5:
+            trainer._join_save()
+            latest = os.path.join(trainer.run_path, "checkpoints", "latest.ckpt")
+            try:
+                os.link(latest, keep_step3)
+            except OSError:
+                shutil.copyfile(latest, keep_step3)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        keys.name = f"{name}_step"
+        s0 = time.perf_counter()
+        out = inner_step(batch)
+        torch.cuda.synchronize()
+        rec["s"].append(time.perf_counter() - s0)
+        keys.name = None
+        rec["launches"].append(ops.launch_counts())
+        rec["gn"].append(ops.gn_variant_counts())
+        rec["gn_bwd"].append(ops.gn_bwd_variant_counts())
+        rec["loss"].append(float(next(iter(out.values()))))
+        return out
+
+    def counted_eval(step):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        keys.name = f"{name}_eval"
+        s0 = time.perf_counter()
+        inner_eval(step, **(eval_kwargs or {}))
+        torch.cuda.synchronize()
+        keys.name = None
+        rec["eval"] = {"s": time.perf_counter() - s0, "launches": ops.launch_counts(),
+                       "gn_variants": ops.gn_variant_counts()}
+
+    trainer.train_step, trainer.evaluate = counted_step, counted_eval
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if trainer.train(max_steps=STAGE_STEPS, save_on_exit=save_on_exit) != STAGE_STEPS:
+        raise AssertionError(f"{name}: the loop stopped early")
+    rec["loop_s"] = time.perf_counter() - t0
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    trainer.train_step, trainer.evaluate = inner_step, inner_eval
+    return rec
+
+
+def same_state(a, b) -> list:
+    """The names of ``a``'s trained tensors whose params, EMA or Adam moments
+    differ from ``b``'s in any bit."""
+    bad = []
+    for k, p in a.state.params["model"].items():
+        q = b.state.params["model"][k]
+        if not (torch.equal(p, q) and torch.equal(a.state.ema_params["model"][k],
+                                                  b.state.ema_params["model"][k])
+                and all(torch.equal(a.optimizer.state[p][m], b.optimizer.state[q][m])
+                        for m in ("exp_avg", "exp_avg_sq", "step"))):
+            bad.append(k)
+    return bad
+
+
+def write_celebahq_pdae(root, seed) -> dict:
+    """The manipulation stage's frozen PDAE, which is not in the repository:
+    the ShiftUNet over the ``configs/dpm_celebahq.yml`` trunk and the 128px
+    encoder (latent 512) with seeded weights (zero-init layers perturbed),
+    written as a checkpoint (``ema_encoder``, ``ema_decoder``) beside its
+    run config and the DPM's config, with seeded latent stats."""
+    from pdae_torch.models import ShiftUNet, encoder_for_resolution
+    from pdae_torch.utils import encoder_tree, save_checkpoint, save_yaml, unet_tree
+
+    gen = torch.Generator().manual_seed(seed + 9)
+    torch.manual_seed(seed + 9)
+    decoder = ShiftUNet(latent_dim=LATENT, **CELEBAHQ_DPM)
+    encoder = encoder_for_resolution(128, LATENT)
+    perturb_zero_params(decoder, gen)
+    perturb_zero_params(encoder, gen)
+    dpm = {"denoise_fn_config": {"model": "UNet", **CELEBAHQ_DPM},
+           "diffusion_config": {"timesteps": 1000, "betas_type": "linear"}}
+    files = {k: os.path.join(root, name) for k, name in (
+        ("config", "pdae128.yml"), ("checkpoint", "pdae128.ckpt"),
+        ("stats", "latents128.ckpt"), ("dpm_config", "dpm128.yml"))}
+    save_yaml(dpm, files["dpm_config"])
+    save_yaml({**dpm, "trained_ddpm_config": files["dpm_config"],
+               "encoder_config": {"model": "CELEBAHQEncoder", "latent_dim": LATENT},
+               "decoder_config": {"model": "CELEBAHQDecoder", "latent_dim": LATENT}},
+              files["config"])
+    save_checkpoint(files["checkpoint"], {
+        "step": np.asarray(0, np.int32), "ema_encoder": encoder_tree(encoder.state_dict()),
+        "ema_decoder": unet_tree(decoder.state_dict())})
+    srs = np.random.RandomState(seed + 10)
+    save_checkpoint(files["stats"], {
+        "mean": (0.1 * srs.randn(LATENT)).astype(np.float32),
+        "std": srs.uniform(0.5, 1.5, LATENT).astype(np.float32)})
+    return files
+
+
+def stages_phase(seed, device, files, compared, timed) -> dict:
+    """The regular, latent and manipulation trainers at the shipped configs'
+    widths through ``pdae_torch.train``'s code (``pick_trainer``, the trainer,
+    its loop), each: run A 6 steps (saves at 3 and 6, the eval at 6), run B a
+    fresh trainer resumed from A's step-3 file to 6, bit-equal to A; for the
+    latent and manipulation stages also run P, ``latent_train_source:
+    precomputed``, whose losses must equal A's within LATENT_LOSS_RTOL. Each
+    step's launches are held to the structure's, every kernel key the runs
+    give that no earlier phase compared (``compared``) is held to the plain
+    versions, and the regular step's kernel time per step is summed from
+    ``timed`` (the kernels phase's per-shape times) and the new shapes'."""
+    import gc
+    import shutil
+
+    from pdae_torch.train import pick_trainer
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "stages")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    files = dict(files, celebahq128=write_celebahq_pdae(root, seed))
+    configs = stage_configs(files)
+    keys = KernelKeys()
+    records = {"config": {
+        "regular": "configs/dpm_celeba64.yml: UNet base 128 x(1,2,2,4), 2 blocks, 4 heads, "
+                   "b32, Adam 1e-4; SYNTHETIC 64px RGB, 320 items, uint8, resident, the "
+                   "device flip on",
+        "latent": "configs/celeba64_latent.yml: MLPSkipNet 512 -> 2048, 10 layers, b128, "
+                  "AdamW 1e-3 wd 0.01; the trainer phase's step-6 PDAE and the samplers "
+                  "phase's InferLatents stats; SYNTHETIC 64px, 640 items, uint8, resident",
+        "manipulation": "configs/celebahq_manipulation.yml: Linear(512, 40), b128, Adam "
+                        "1e-4; a seeded PDAE over the configs/dpm_celebahq.yml trunk and "
+                        "the 128px encoder; SYNTHETIC 128px, 640 items, 40 labels, uint8, "
+                        "resident",
+        "cuts": "6 steps each; manipulation eval ddim100/ddim100 (the trainer's "
+                "ddim500/ddim200); steps_per_dispatch 1 (cadence check only)",
+        "numerics": "fp32, TF32 off, cudnn.deterministic"}}
+
+    def build(stage, run, config=None, resume=None):
+        t0 = time.perf_counter()
+        trainer = pick_trainer(config or configs[stage])(
+            config=config or configs[stage], run_path=os.path.join(root, stage, run),
+            resume=resume, seed=seed)
+        if stage == "regular":
+            # the config's augmentation: SYNTHETIC flips nothing on the host,
+            # so the flag is set as the JAX package's own resident test sets
+            # it, and each gathered row is flipped on the card by its coin
+            trainer.train_dataset.augmentation = True
+        return trainer, time.perf_counter() - t0
+
+    def release(*trainers):
+        for tr in trainers:
+            tr._resident_cache = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for stage in ("regular", "latent", "manipulation"):
+            cfg = configs[stage]
+            a, build_s = build(stage, "a")
+            if stage == "regular":
+                per = per_call(a.model, torch.zeros(1, 3, 64, 64, device=device),
+                               torch.zeros(1, dtype=torch.int32, device=device))
+                want_step = {**per, "gn_adagn_silu_bwd": per["gn_adagn_silu"]}
+                want_eval = {k: v * a.gd.ddim_schedule("ddim100").num_steps
+                             for k, v in per.items()}
+                eval_kwargs = None
+            else:
+                size = cfg["train_dataset_config"]["image_size"]
+                x = torch.zeros(1, 3, size, size, device=device)
+                enc = per_call(a.encoder, x)
+                dec = per_call(a.decoder, x, torch.zeros(1, dtype=torch.int32, device=device),
+                               torch.zeros(1, LATENT, device=device))
+                want_step = enc
+                if stage == "latent":
+                    n_dec, n_enc = a.gd.ddim_schedule("ddim100").num_steps, 0
+                    eval_kwargs = None
+                else:
+                    eval_kwargs = MANIPULATION_EVAL
+                    n_dec = sum(a.gd.ddim_schedule(s).num_steps
+                                for s in MANIPULATION_EVAL.values())
+                    n_enc = 2
+                want_eval = {k: n_dec * dec[k] + n_enc * enc[k] for k in dec}
+            step3 = os.path.join(root, stage, "step3.ckpt")
+            run_a = drive_stage(a, keys, f"{stage}_a", eval_kwargs, keep_step3=step3)
+            latest = os.path.join(root, stage, "a", "checkpoints", "latest.ckpt")
+            a._join_save()
+            ckpt_bytes = os.path.getsize(latest)
+            with open(os.path.join(root, stage, "a", "metrics.jsonl")) as f:
+                metric_steps = [json.loads(line)["step"] for line in f]
+            os.makedirs(os.path.join(root, stage, "b", "checkpoints"))
+            shutil.copyfile(step3, os.path.join(root, stage, "b", "checkpoints",
+                                                "latest.ckpt"))
+            cfg_b = {**cfg, "runner_config": {**cfg["runner_config"],
+                                              "evaluate_every_steps": 10000}}
+            b, resume_s = build(stage, "b", cfg_b, resume="latest")
+            run_b = drive_stage(b, keys, f"{stage}_b")
+            mismatched = same_state(a, b)
+            rec = {"build_s": build_s, "resume_build_s": resume_s, "start_step_b": b.start_step,
+                   "losses": run_a["loss"], "step_s": run_a["s"],
+                   "mean_step_s": sum(run_a["s"][1:]) / (len(run_a["s"]) - 1),
+                   "launches_per_step": run_a["launches"][-1],
+                   "launches_expected": want_step, "gn_variants_per_step": run_a["gn"][-1],
+                   "gn_bwd_variants_per_step": run_a["gn_bwd"][-1],
+                   "peak_mem_gb": run_a["peak_mem_gb"], "loop_s": run_a["loop_s"],
+                   "save_wait_s": [r[0] for r in a.save_seconds + b.save_seconds],
+                   "save_write_s": [r[1] for r in a.save_seconds + b.save_seconds],
+                   "checkpoint_bytes": ckpt_bytes, "eval_s": run_a["eval"]["s"],
+                   "eval_launches": run_a["eval"]["launches"],
+                   "eval_launches_expected": want_eval,
+                   "eval_gn_variants": run_a["eval"]["gn_variants"],
+                   "metrics_steps": metric_steps, "resume_mismatched": mismatched[:5]}
+            runs = [run_a, run_b]
+            ok = (all(math.isfinite(v) for v in run_a["loss"] + run_b["loss"])
+                  and rec["start_step_b"] == 3 and not mismatched
+                  and metric_steps == list(range(1, STAGE_STEPS + 1))
+                  and run_a["eval"]["launches"] == want_eval)
+            if stage != "regular":
+                pcfg = {**cfg, "runner_config": {**cfg["runner_config"],
+                                                 "latent_train_source": "precomputed",
+                                                 "evaluate_every_steps": 10000,
+                                                 "save_latest_every_steps": 10000}}
+                p, _ = build(stage, "p", pcfg)
+                keys.name = f"{stage}_p_encode_corpus"
+                t0 = time.perf_counter()
+                p._resident_device_data()          # the corpus encoded once, timed apart
+                torch.cuda.synchronize()
+                encode_s = time.perf_counter() - t0
+                keys.name = None
+                run_p = drive_stage(p, keys, f"{stage}_p", save_on_exit=False)
+                rel = [abs(x - y) / max(abs(y), 1e-30)
+                       for x, y in zip(run_p["loss"], run_a["loss"])]
+                zero = {"attention": 0, "gn_adagn_silu": 0, "gn_adagn_silu_bwd": 0}
+                rec["precomputed"] = {
+                    "encode_corpus_s": encode_s, "losses": run_p["loss"],
+                    "loss_rel_err_vs_encode": rel, "step_s": run_p["s"],
+                    "mean_step_s": sum(run_p["s"][1:]) / (len(run_p["s"]) - 1),
+                    "launches_per_step": run_p["launches"][-1],
+                    "peak_mem_gb": run_p["peak_mem_gb"],
+                    "profile": idle_share(lambda: p.train_step(next(p._batch_iterator(
+                        STAGE_STEPS))))}
+                ok = ok and max(rel) <= LATENT_LOSS_RTOL and all(
+                    c == zero for c in run_p["launches"])
+                release(p)
+                del p
+            batch = next(b._batch_iterator(STAGE_STEPS))
+            rec["profile"] = idle_share(lambda: b.train_step(batch))
+            del batch
+            ok = ok and all(c == want_step for c in run_a["launches"] + run_b["launches"])
+            ok = ok and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+                            for r in runs for v in r["gn"])
+            ok = ok and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+                            for r in runs for v in r["gn_bwd"])
+            rec["ok"] = bool(ok)
+            records[stage] = rec
+            release(a, b)
+            del a, b
+            for path in (step3, latest, os.path.join(root, stage, "b", "checkpoints",
+                                                     "latest.ckpt")):
+                os.unlink(path)
+    finally:
+        keys.handle.remove()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+
+    # every kernel key of those runs against the plain versions; the regular
+    # step's keys are timed where the kernels phase did not time them
+    runs_of = keys.runs_of()
+    step_counts = keys.counts["regular_a_step"]
+    check_gen = torch.Generator(device=device).manual_seed(seed + 11)
+    checks = {"attention": check_attention, "gn": check_gn, "gn_bwd": check_gn_bwd}
+    results = {}
+    for key in sorted(runs_of):
+        timed_here = key in step_counts and key not in timed
+        if key in compared and not timed_here:
+            continue
+        arg = key[1:] if key[0] == "attention" else key
+        results[key] = dict(checks[key[0]](arg, check_gen, device, timed=timed_here),
+                            runs=runs_of[key], timed=timed_here)
+    with open(os.path.join(OUT_DIR, "chip_smoke_stage_shapes.json"), "w") as f:
+        json.dump([{"key": list(k), **v} for k, v in results.items()], f, indent=1)
+    disagree = [(k, e) for k, r in results.items() for e, v in r["err"].items()
+                if not v["ok"]]
+    variants = collections.Counter(
+        (k[0], plan["variant"], plan["cluster"]) for k, r in results.items()
+        for name, plan in r.get("variant", {}).items() if name == "float32")
+    records["kernel_shapes"] = {
+        "batches": sorted({k[1] for k in runs_of}), "shapes": len(runs_of),
+        "compared_here": len(results),
+        "gn_bwd_modes_compared": sorted({f"adagn={k[5]},z={k[6]},dx={k[7]}"
+                                         for k in results if k[0] == "gn_bwd"}),
+        "max_abs_err_fp32": max((v["max_abs_err"] for r in results.values()
+                                 for e, v in r["err"].items() if "float32" in e),
+                                default=0.0),
+        "fp32_variants": {f"{k}/{v}/c{c}": n for (k, v, c), n in sorted(variants.items())},
+        "off_cluster_fp32": [list(k) for k, r in results.items()
+                             if r.get("variant", {}).get("float32", {}).get(
+                                 "variant", "cluster") != "cluster"],
+        "disagree": disagree, "ok": not disagree}
+
+    # the regular step's kernel time per step: each key's launches in one step
+    # times its per-launch device time
+    def per_launch(key):
+        return (results[key] if key in results and results[key]["timed"] else timed[key])
+
+    steps = len(records["regular"]["step_s"])
+    per_step = {}
+    for kind, name in (("attention", "attention"), ("gn", "gn_adagn_silu"),
+                       ("gn_bwd", "gn_adagn_silu_bwd")):
+        mine = {k: n / steps for k, n in step_counts.items() if k[0] == kind}
+        sums = {f: sum(n * per_launch(k)[f] for k, n in mine.items())
+                for f in ("ms", "plain_ms", "library_ms")}
+        t_bytes = sum(n * per_launch(k)["bytes"] for k, n in mine.items()) / HBM_BYTES_PER_S
+        t_ops = sum(n * per_launch(k)["flops"] for k, n in mine.items()) / FP32_FLOPS
+        per_step[name] = {**sums, "launches": sum(mine.values()), "shapes": len(mine),
+                          "bound_ms": max(t_bytes, t_ops) * 1e3,
+                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    records["regular"]["kernel_ms_per_step"] = per_step
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict)
+                        and "ok" in v)
     return records
 
 
@@ -1842,12 +2342,25 @@ def main(argv=None) -> int:
         raise AssertionError("the trainer phase failed its checks")
 
     # 8. the sampler suite and the service built from the trainer's files -----
+    compared = set(both) | set(bucket_res)
     samplers = samplers_phase(args.seed, device, dec_counts, enc_counts,
-                              res["control_relative_noise"],
-                              set(both) | set(bucket_res))
+                              res["control_relative_noise"], compared)
     emit({"phase": "samplers", **samplers})
     if not samplers["ok"]:
         raise AssertionError("the samplers phase failed its checks")
+
+    # 9. the regular, latent and manipulation trainers ------------------------
+    trainer_dir = os.path.join(OUT_DIR, "trainer")
+    samplers_dir = os.path.join(OUT_DIR, "samplers")
+    stages = stages_phase(args.seed, device, {"celeba64": {
+        "config": os.path.join(trainer_dir, "a", "config.yml"),
+        "checkpoint": os.path.join(trainer_dir, "a", "checkpoints", "latest.ckpt"),
+        "stats": os.path.join(samplers_dir, "synthetic.ckpt"),
+        "dpm_config": os.path.join(samplers_dir, "dpm.yml")}}, compared,
+        {**attn_res, **gn_res, **bwd_res})
+    emit({"phase": "stages", **stages})
+    if not stages["ok"]:
+        raise AssertionError("the stages phase failed its checks")
 
     per_op = {name: op_records[name]["launches"]
               for name in ("generate", "manipulate", "autoencode_dpm20")}
@@ -1857,21 +2370,32 @@ def main(argv=None) -> int:
                    if isinstance(v, dict) and "launches" in v})
     per_op.update({f"from_config_{k}": v["launches"]
                    for k, v in samplers["from_config"].items() if isinstance(v, dict)})
+    for stage in ("regular", "latent", "manipulation"):
+        per_op[f"{stage}_step"] = stages[stage]["launches_per_step"]
+        per_op[f"{stage}_eval"] = stages[stage]["eval_launches"]
+        if "precomputed" in stages[stage]:
+            per_op[f"{stage}_precomputed_step"] = stages[stage]["precomputed"][
+                "launches_per_step"]
+    regular_ms = stages["regular"]["kernel_ms_per_step"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
                      "pdae_tpu/ops/attention.py:40", attn_res, per_request, per_step,
                      ae_launches["attention"], train_launches["attention"]),
-         "launches_per_op": {k: v["attention"] for k, v in per_op.items()}},
+         "launches_per_op": {k: v["attention"] for k, v in per_op.items()},
+         "regular_step": regular_ms["attention"]},
         {**summarise("gn_adagn_silu", "pdae_torch/csrc/groupnorm.cu",
                      "pdae_tpu/ops/groupnorm.py:55", gn_res, per_request, per_step,
                      ae_launches["gn_adagn_silu"], train_launches["gn_adagn_silu"]),
-         "launches_per_op": {k: v["gn_adagn_silu"] for k, v in per_op.items()}},
+         "launches_per_op": {k: v["gn_adagn_silu"] for k, v in per_op.items()},
+         "regular_step": regular_ms["gn_adagn_silu"]},
         {**summarise("gn_adagn_silu_bwd", "pdae_torch/csrc/groupnorm_bwd.cu",
                      "pdae_tpu/ops/groupnorm_train.py:196", bwd_res, per_step, per_step,
                      train_launches["gn_adagn_silu_bwd"],
                      train_launches["gn_adagn_silu_bwd"],
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
-         "launches_per_op": {"trainer_step": trainer["launches_per_step"]["gn_adagn_silu_bwd"]}},
+         "launches_per_op": {k: per_op[k]["gn_adagn_silu_bwd"]
+                             for k in ("trainer_step", "regular_step")},
+         "regular_step": regular_ms["gn_adagn_silu_bwd"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

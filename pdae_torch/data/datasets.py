@@ -11,18 +11,23 @@ NHWC) as the JAX package, so both give the same batches bit for bit:
   * CELEBAHQ: keys ``256-%05d``, 30000 images + 40-attribute annotations
     parsed from ``CelebAMask-HQ-attribute-anno.txt``
   * HORSE / BEDROOM: keys ``256-%07d``, 2000340 / 3033042 images
+  * MNIST: raw idx files (torchvision's layout), a one-hot condition at
+    collate
   * SYNTHETIC: deterministic procedural images for tests and smoke runs
 
 Images decode through PIL, imported when the first image is read (the JAX
-package's path when its native decoder is absent). MNIST, the native decoder
-and ``transfer_uint8`` are not ported yet; a config that sets
-``transfer_uint8: true`` is refused by name.
+package's path when its native decoder is absent; that decoder is not
+ported). ``transfer_uint8: true`` keeps ``x_0`` as the raw uint8 pixels, 4x
+fewer bytes to move to the device, where ``utils.image.x0_from_transfer``
+normalises them bit-equal to the host's float path.
 """
 
 from __future__ import annotations
 
+import gzip
 import io
 import os
+import struct
 import threading
 from typing import Dict, Optional
 
@@ -32,13 +37,6 @@ from .labels import CELEBAHQ_ID_TO_LABEL, CELEBAHQ_LABEL_TO_ID
 from .lmdb_store import Reader, open_lmdb
 
 
-def refuse_transfer_uint8(config: dict) -> None:
-    if config.get("transfer_uint8", False):
-        raise NotImplementedError(
-            "transfer_uint8 is not ported yet (ROADMAP.md, queue 1 item 14); "
-            "set it to false")
-
-
 def _resize_pil(img, size: int):
     from PIL import Image
     if img.size != (size, size):
@@ -46,15 +44,19 @@ def _resize_pil(img, size: int):
     return img
 
 
-def _finalize(img, rng: Optional[np.random.Generator], augmentation: bool):
+def _finalize(img, rng: Optional[np.random.Generator], augmentation: bool,
+              as_uint8: bool = False):
     """PIL image -> (x_0 float32 [-1,1] HWC, gt uint8 HWC) with optional
     random hflip. gt rounding matches the reference's
-    ``mul(255).add(0.5).clamp``."""
+    ``mul(255).add(0.5).clamp``. ``as_uint8`` (``transfer_uint8``) gives
+    x_0 as the raw pixels, which equal gt."""
     arr = np.asarray(img, dtype=np.uint8)
     if arr.ndim == 2:
         arr = arr[:, :, None]
     if augmentation and rng is not None and rng.random() < 0.5:
         arr = arr[:, ::-1, :]
+    if as_uint8:
+        return np.ascontiguousarray(arr), np.ascontiguousarray(arr)
     x01 = arr.astype(np.float32) / 255.0
     x_0 = x01 * 2.0 - 1.0
     gt = np.clip(np.floor(x01 * 255.0 + 0.5), 0, 255).astype(np.uint8)
@@ -69,12 +71,12 @@ class LMDBImageDataset:
     crop = None  # (top, left, h, w)
 
     def __init__(self, config: dict):
-        refuse_transfer_uint8(config)
         self.config = config
         self.data_path = config["data_path"]
         self.image_size = int(config["image_size"])
         self.image_channel = int(config.get("image_channel", 3))
         self.augmentation = bool(config.get("augmentation", False))
+        self.transfer_uint8 = bool(config.get("transfer_uint8", False))
         self._reader: Optional[Reader] = None
         self._reader_lock = threading.Lock()
 
@@ -106,7 +108,8 @@ class LMDBImageDataset:
         return _resize_pil(img, self.image_size)
 
     def __getitem__(self, index: int, rng: Optional[np.random.Generator] = None):
-        x_0, gt = _finalize(self._load_image(index), rng, self.augmentation)
+        x_0, gt = _finalize(self._load_image(index), rng, self.augmentation,
+                            self.transfer_uint8)
         return {"idx": index, "x_0": x_0, "gt": gt}
 
     @staticmethod
@@ -198,11 +201,83 @@ class BEDROOM(LMDBImageDataset):
     length = 3033042
 
 
-class SYNTHETIC:
-    """Deterministic procedural image dataset for tests and smoke runs."""
+class MNIST:
+    """MNIST from raw idx files: ``{train,t10k}-{images-idx3,labels-idx1}-ubyte``,
+    plain or ``.gz``, under ``data_path`` or ``data_path/MNIST/raw``. Resized
+    bilinearly to ``image_size``; collate adds a one-hot condition beside the
+    class ids."""
 
     def __init__(self, config):
-        refuse_transfer_uint8(config)
+        self.config = config
+        self.image_size = int(config["image_size"])
+        self.train = bool(config.get("train", True))
+        self.transfer_uint8 = bool(config.get("transfer_uint8", False))
+        prefix = "train" if self.train else "t10k"
+        self.images, self.labels = self._load_idx(config["data_path"], prefix)
+
+    @staticmethod
+    def _open_maybe_gz(path):
+        if os.path.exists(path):
+            return open(path, "rb")
+        if os.path.exists(path + ".gz"):
+            return gzip.open(path + ".gz", "rb")
+        return None
+
+    @classmethod
+    def _load_idx(cls, base: str, prefix: str):
+        for root in (base, os.path.join(base, "MNIST", "raw")):
+            fi = cls._open_maybe_gz(os.path.join(root, f"{prefix}-images-idx3-ubyte"))
+            fl = cls._open_maybe_gz(os.path.join(root, f"{prefix}-labels-idx1-ubyte"))
+            if fi is None or fl is None:
+                for f in (fi, fl):
+                    if f is not None:
+                        f.close()
+                continue
+            with fi, fl:
+                magic, n, rows, cols = struct.unpack(">IIII", fi.read(16))
+                if magic != 2051:
+                    raise ValueError(f"{prefix} images: idx magic {magic}, not 2051")
+                images = np.frombuffer(fi.read(n * rows * cols), np.uint8).reshape(
+                    n, rows, cols)
+                magic, n_labels = struct.unpack(">II", fl.read(8))
+                if magic != 2049:
+                    raise ValueError(f"{prefix} labels: idx magic {magic}, not 2049")
+                labels = np.frombuffer(fl.read(n_labels), np.uint8)
+            return images, labels
+        raise FileNotFoundError(f"MNIST idx files not found under {base} (expected "
+                                f"{prefix}-images-idx3-ubyte[.gz])")
+
+    def __len__(self):
+        return self.images.shape[0]
+
+    def __getitem__(self, index, rng=None):
+        from PIL import Image
+        img = _resize_pil(Image.fromarray(self.images[index]), self.image_size)
+        x_0, gt = _finalize(img, None, False, self.transfer_uint8)
+        return {"idx": index, "x_0": x_0, "gt": gt, "label": int(self.labels[index])}
+
+    @staticmethod
+    def collate_fn(batch):
+        labels = np.asarray([b["label"] for b in batch], np.int32)
+        onehot = np.zeros((len(batch), 10), np.float32)
+        onehot[np.arange(len(batch)), labels] = 1.0
+        return {
+            "idx": np.asarray([b["idx"] for b in batch], np.int32),
+            "x_0": np.stack([b["x_0"] for b in batch]),
+            "gts": np.stack([b["gt"] for b in batch]),
+            "label": labels,
+            "condition": labels,          # class ids, for the UNet's embedding
+            "condition_onehot": onehot,
+        }
+
+
+class SYNTHETIC:
+    """Deterministic procedural image dataset for tests and smoke runs. It
+    has no augmentation. With ``transfer_uint8`` its x_0 is the quantised
+    ``gt`` (its float images are made, not decoded, so this changes them by
+    up to half a uint8 step, as in the JAX package)."""
+
+    def __init__(self, config):
         self.image_size = int(config["image_size"])
         self.image_channel = int(config.get("image_channel", 3))
         self.length = int(config.get("length", 256))
@@ -210,6 +285,7 @@ class SYNTHETIC:
         # multilabel=N emits +/-1 attribute vectors of size N (CelebA-HQ
         # style) instead of int class ids
         self.multilabel = int(config.get("multilabel", 0))
+        self.transfer_uint8 = bool(config.get("transfer_uint8", False))
         # preload: generate every item once at construction, so a smoke run
         # measures the device and not the procedural generation
         self._cache = None
@@ -231,7 +307,7 @@ class SYNTHETIC:
         reps = self.image_size // 8
         img = np.kron(base, np.ones((reps, reps, 1), np.float32))
         gt = np.clip(np.floor(img * 255.0 + 0.5), 0, 255).astype(np.uint8)
-        x_0 = img * 2.0 - 1.0
+        x_0 = gt if self.transfer_uint8 else img * 2.0 - 1.0
         if self.multilabel:
             label = (rs.randint(0, 2, (self.multilabel,)) * 2 - 1).astype(np.int32)
         else:
@@ -256,14 +332,11 @@ REGISTRY = {
     "CELEBAHQ": CELEBAHQ,
     "HORSE": HORSE,
     "BEDROOM": BEDROOM,
+    "MNIST": MNIST,
     "SYNTHETIC": SYNTHETIC,
 }
 
 
 def build_dataset(config: dict):
     """Registry-string dataset construction."""
-    name = config["name"]
-    if name == "MNIST":
-        raise NotImplementedError("the MNIST dataset is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 14)")
-    return REGISTRY[name](config)
+    return REGISTRY[config["name"]](config)

@@ -87,8 +87,14 @@ class SamplerContext:
     # -- dataset ------------------------------------------------------------ #
 
     def dataset(self):
+        """The sampler's dataset. ``transfer_uint8`` is refused: the samplers
+        compare and encode ``x_0`` as float [-1, 1], and uint8 pixels would
+        reach SSIM, MSE and the encoder unnormalised."""
         cfg = dict(self.config["dataset_config"])
         cfg.setdefault("name", cfg.pop("dataset_name", None))
+        if cfg.get("transfer_uint8", False):
+            raise ValueError("dataset_config.transfer_uint8 is a training option; the "
+                             "samplers read x_0 as float [-1, 1], so set it to false")
         return build_dataset(cfg)
 
     # -- the PDAE stage ------------------------------------------------------- #

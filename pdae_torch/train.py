@@ -5,8 +5,9 @@
         [--device D]
 
 The trainer is picked from the config's keys as ``scripts/train.py`` picks
-it; the port trains the representation stage (``encoder_config`` and
-``decoder_config``) and refuses the other three by name. ``--set
+it: ``denoise_fn_config`` the regular DPM, ``encoder_config`` and
+``decoder_config`` PDAE representation learning, ``latent_denoise_fn_config``
+the latent DPM, ``inferred_latents`` the manipulation classifier. ``--set
 dotted.key=value`` overrides a config field (repeatable; values parse as
 Python literals where they can). ``--device`` defaults to the card; pass
 ``cpu`` to train on the CPU.
@@ -20,16 +21,13 @@ import argparse
 def pick_trainer(config: dict):
     from . import training
     if "denoise_fn_config" in config:
-        raise SystemExit("the regular DDPM trainer is not ported yet (ROADMAP.md, "
-                         "queue 1 item 9)")
+        return training.RegularDiffusionTrainer
     if "encoder_config" in config and "decoder_config" in config:
         return training.RepresentationLearningTrainer
     if "latent_denoise_fn_config" in config:
-        raise SystemExit("the latent DPM trainer is not ported yet (ROADMAP.md, "
-                         "queue 1 item 10)")
+        return training.LatentDiffusionTrainer
     if "inferred_latents" in config:
-        raise SystemExit("the manipulation trainer is not ported yet (ROADMAP.md, "
-                         "queue 1 item 11)")
+        return training.ManipulationTrainer
     raise SystemExit("cannot infer trainer type from config keys")
 
 

@@ -17,16 +17,25 @@ background thread relays the copies out to the flax layout, serialises and
 writes them; a write that failed re-raises at the next save or at the end of
 ``train``.
 
+With ``train_dataset_config.device_resident`` the step-consumed keys of the
+whole corpus are moved to the device once (``training/resident.py``) and each
+step gathers its rows there: ``resident_sampling: epoch`` (the default) takes
+the host loader's index rows, so the batches are bit-equal to the host path's,
+``uniform`` draws them with replacement from a generator seeded with (seed,
+``DATA_STREAM_TAG``, step). Either way step N takes row N of its stream, on a
+resume too. ``transfer_uint8`` datasets give uint8 ``x_0``, which the steps
+normalise on the device.
+
 Not ported yet, and refused by name rather than ignored: sharded params and
-checkpoints, the device-resident corpus, ``transfer_uint8``, remat, bf16
-compute and profiler traces. ``steps_per_dispatch`` keeps the JAX trainer's
-cadence check, and each step still runs as one call: eager torch has no fused
-multi-step program.
+checkpoints, remat, bf16 compute and profiler traces. ``steps_per_dispatch``
+keeps the JAX trainer's cadence check, and each step still runs as one call:
+eager torch has no fused multi-step program.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import shutil
@@ -36,13 +45,17 @@ import time
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
+import torch
+from torch import nn
 
 from .. import resolve_device
 from ..data import Loader, build_dataset, prefetch_to_device
+from ..data.pipeline import batch_to_device
 from ..utils import (is_sharded_checkpoint, load_checkpoint, load_yaml,
                      save_checkpoint, save_yaml, snapshot_path)
 from ..utils.config import overlay_eval_dataset_config
 from ..utils.image import png_bytes
+from ..utils.rng import DROPOUT, INIT, generator, stream_seed
 
 
 class Meters:
@@ -127,10 +140,6 @@ def refuse_unported(config: dict) -> None:
          "optimizer_config.enable_amp=true", 17),
         (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
     ]
-    for key in ("train_dataset_config", "eval_dataset_config"):
-        ds = config.get(key) or {}
-        checks += [(bool(ds.get("device_resident")), f"{key}.device_resident=true", 14),
-                   (bool(ds.get("transfer_uint8")), f"{key}.transfer_uint8=true", 14)]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 "
@@ -141,6 +150,38 @@ def refuse_unported(config: dict) -> None:
     if rc.get("compute_dtype") not in (None, "float32", "bfloat16"):
         raise ValueError(f"runner_config.compute_dtype must be 'float32' or 'bfloat16', "
                          f"got {rc['compute_dtype']!r}")
+
+
+def has_dropout(*modules) -> bool:
+    return any(isinstance(m, nn.Dropout) and m.p > 0
+               for module in modules for m in module.modules())
+
+
+def init_on_cpu(seed: int, salt: int, build):
+    """``build()`` with the global RNG seeded from (seed, ``INIT``, salt) on
+    the CPU, so a model's init is the same on every machine; the global RNG
+    is left as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(stream_seed(seed, INIT, salt))
+        return build()
+
+
+class _Bound(nn.Module):
+    def __init__(self, modules, fn):
+        super().__init__()
+        self.mods, self.fn = nn.ModuleDict(modules), fn
+
+    def forward(self, *args):
+        return self.fn(*self.mods.values(), *args)
+
+
+def with_weights(modules: Dict[str, nn.Module], weights: Dict[str, Dict], fn, *args):
+    """``fn(*modules.values(), *args)`` with ``weights`` (module name ->
+    parameter name -> tensor: the EMA) in place of those parameters for the
+    one call (``torch.func.functional_call``, once for a whole sampling
+    loop); the modules' own tensors are never touched."""
+    flat = {f"mods.{m}.{k}": v for m, named in weights.items() for k, v in named.items()}
+    return torch.func.functional_call(_Bound(modules, fn), flat, args)
 
 
 class BaseTrainer:
@@ -163,6 +204,7 @@ class BaseTrainer:
         self.save_seconds = []      # (loop's wait, background write) per save
         self._save_thread = None
         self._save_error = None
+        self._dropout = False       # the trained modules have dropout (_build says)
 
         os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
         os.makedirs(os.path.join(run_path, "samples"), exist_ok=True)
@@ -198,6 +240,13 @@ class BaseTrainer:
                              batch_size=self.micro_batch * self.num_iterations,
                              shuffle=True, seed=self.seed,
                              num_workers=int(dl.get("num_workers", 4)))
+        ds_cfg = self.config["train_dataset_config"]
+        self.device_resident = bool(ds_cfg.get("device_resident", False))
+        self.resident_sampling = str(ds_cfg.get("resident_sampling", "epoch"))
+        if self.resident_sampling not in ("epoch", "uniform"):
+            raise ValueError(f"train_dataset_config.resident_sampling must be 'epoch' or "
+                             f"'uniform', got {self.resident_sampling!r}")
+        self._resident_cache = None
 
     def _step_batch_keys(self):
         """The batch keys the step reads (None: all); the rest stay on the
@@ -206,11 +255,68 @@ class BaseTrainer:
 
     def _batch_iterator(self, start_step: int = 0) -> Iterator[dict]:
         """The batch stream on the device, fast-forwarded so that step N takes
-        the batch an uninterrupted run would."""
+        the batch an uninterrupted run would: gathered from the resident
+        corpus, or loaded on the host and prefetched."""
+        if self.device_resident:
+            return self._resident_batches(start_step)
         epoch, offset = divmod(start_step, self.loader.batches_per_epoch())
         return prefetch_to_device(
             self.loader.infinite(start_epoch=epoch, skip_batches=offset),
             self.device, size=2, keys=self._step_batch_keys())
+
+    # -- device-resident data -------------------------------------------- #
+
+    def _resident_device_data(self) -> Dict[str, torch.Tensor]:
+        """The step-consumed keys of the whole corpus on the device (images
+        NCHW, in the dtype the dataset collates), made once per trainer."""
+        if self._resident_cache is None:
+            from .resident import materialize_step_arrays
+            host = materialize_step_arrays(self.train_dataset, self._step_batch_keys())
+            mb = sum(a.nbytes for a in host.values()) / 2 ** 20
+            print(f"device-resident corpus: {len(self.train_dataset)} items, "
+                  f"{mb:.1f} MB on {self.device}", flush=True)
+            self._resident_cache = batch_to_device(host, self.device)
+        return self._resident_cache
+
+    def _resident_batches(self, start_step: int) -> Iterator[dict]:
+        """Step N's batch gathered on the device from the resident corpus:
+        at row N of the host loader's index stream (``epoch``) or at
+        uniform draws (``uniform``), then, where the dataset augments, a
+        horizontal flip of each row by a coin; the draws come from a
+        generator seeded with (seed, ``DATA_STREAM_TAG``, N)."""
+        from .resident import DATA_STREAM_TAG, epoch_global_indices, sample_batch
+        data = self._resident_device_data()
+        n, size = len(self.train_dataset), self.loader.batch_size
+        flip = bool(getattr(self.train_dataset, "augmentation", False))
+        bpe = self.loader.batches_per_epoch()
+        epoch, row = divmod(start_step, bpe)
+        table = None
+        step = start_step
+        while True:
+            indices = None
+            if self.resident_sampling == "epoch":
+                if table is None:
+                    table = torch.from_numpy(epoch_global_indices(self.loader, epoch))
+                indices = table[row].to(self.device, torch.int64)
+                row += 1
+                if row == bpe:
+                    table, epoch, row = None, epoch + 1, 0
+            gen = generator(self.seed, DATA_STREAM_TAG, step, self.device)
+            yield sample_batch(data, gen, size, n, flip=flip, indices=indices)
+            step += 1
+
+    @contextlib.contextmanager
+    def seeded_dropout(self, step: int):
+        """Where the trained modules have dropout (``self._dropout``), the
+        step runs with the global RNG seeded with (seed, ``DROPOUT``, step),
+        restored after it, so a resumed run draws the same masks."""
+        if not self._dropout:
+            yield
+            return
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(stream_seed(self.seed, DROPOUT, step))
+            yield
 
     # -- subclass hooks -------------------------------------------------- #
 

@@ -26,39 +26,23 @@ import time
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..diffusion import GaussianDiffusion
 from ..models import build_decoder, build_encoder
 from ..utils import (encoder_state_dict, encoder_tree, optimizer_moments,
                      optimizer_tree, restore_into, save_image_grid, to_uint8,
                      unet_state_dict, unet_tree)
-from ..utils.image import make_grid
-from ..utils.rng import DROPOUT, EVAL, INIT, TRAIN, generator, stream_seed
+from ..utils.image import make_grid, x0_from_transfer
+from ..utils.rng import EVAL, TRAIN, generator
 from .artifacts import graft_ddpm_into_decoder, load_ddpm_params, resolve_model_config
-from .base import BaseTrainer
+from .base import BaseTrainer, has_dropout, init_on_cpu, with_weights
 from .partition import split_shift_tree, trainable_params
-from .state import TrainState, flat_params, make_optimizer
+from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
 from .steps import make_representation_train_step
 
 def _copy_tree(tree):
     return ({k: _copy_tree(v) for k, v in tree.items()} if isinstance(tree, dict)
             else np.array(tree))
-
-
-class _EvalSampler(nn.Module):
-    """The eval sampling loop as one module over the trained encoder and
-    decoder, so ``functional_call`` swaps the EMA weights in once for the
-    whole loop."""
-
-    def __init__(self, gd, encoder, decoder, ddim_style):
-        super().__init__()
-        self.gd, self.ddim_style = gd, ddim_style
-        self.encoder, self.decoder = encoder, decoder
-
-    def forward(self, x_0, x_T):
-        return self.gd.representation_learning_ddim_sample(
-            self.ddim_style, self.encoder, self.decoder, x_0, x_T)
 
 
 class RepresentationLearningTrainer(BaseTrainer):
@@ -69,13 +53,10 @@ class RepresentationLearningTrainer(BaseTrainer):
         ds_cfg = cfg["train_dataset_config"]
         size = int(ds_cfg["image_size"])
         ddpm_model_cfg = resolve_model_config(cfg["trained_ddpm_config"])
-        # initialised on the CPU from the seed, so the init is the same on
-        # every machine; the global torch RNG is left as it was
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(stream_seed(self.seed, INIT, 0))
-            self.encoder = build_encoder(cfg["encoder_config"], image_size=size)
-            torch.manual_seed(stream_seed(self.seed, INIT, 1))
-            self.decoder = build_decoder(cfg["decoder_config"], ddpm_model_cfg)
+        self.encoder = init_on_cpu(self.seed, 0, lambda: build_encoder(
+            cfg["encoder_config"], image_size=size))
+        self.decoder = init_on_cpu(self.seed, 1, lambda: build_decoder(
+            cfg["decoder_config"], ddpm_model_cfg))
         ckpt = cfg.get("trained_ddpm_checkpoint")
         if ckpt:
             tree = graft_ddpm_into_decoder(self.decoder, load_ddpm_params(ckpt))
@@ -86,8 +67,7 @@ class RepresentationLearningTrainer(BaseTrainer):
         self._trunk_tree = _copy_tree(split_shift_tree(tree)[1])
         self.encoder.to(self.device)
         self.decoder.to(self.device)
-        self._dropout = any(isinstance(m, nn.Dropout) and m.p > 0
-                            for m in self.decoder.modules())
+        self._dropout = has_dropout(self.decoder)
 
         params = trainable_params(self.encoder, self.decoder)
         self.optimizer_config = cfg["optimizer_config"]
@@ -111,11 +91,7 @@ class RepresentationLearningTrainer(BaseTrainer):
     def train_step(self, batch):
         step = self.state.step
         gen = generator(self.seed, TRAIN, step, self.device)
-        if not self._dropout:
-            return {"prediction_loss": self._step_fn(self.state, batch["x_0"], gen)}
-        devices = [self.device] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(stream_seed(self.seed, DROPOUT, step))
+        with self.seeded_dropout(step):
             return {"prediction_loss": self._step_fn(self.state, batch["x_0"], gen)}
 
     def evaluate(self, step: int, ddim_style: str = "ddim100"):
@@ -123,17 +99,23 @@ class RepresentationLearningTrainer(BaseTrainer):
         n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
         items = [self.eval_dataset[i] for i in range(min(n, len(self.eval_dataset)))]
         eval_batch = type(self.eval_dataset).collate_fn(items)
-        x_0 = torch.from_numpy(eval_batch["x_0"]).to(self.device).permute(0, 3, 1, 2).contiguous()
+        x_0 = x0_from_transfer(torch.from_numpy(eval_batch["x_0"]).to(self.device)
+                               .permute(0, 3, 1, 2).contiguous())
         x_T = torch.randn(x_0.shape, device=self.device,
                           generator=generator(self.seed, EVAL, step, self.device))
-        ema = {**{f"encoder.{k}": v for k, v in self.state.ema_params["encoder"].items()},
-               **{f"decoder.{k}": v for k, v in self.state.ema_params["shift"].items()}}
-        sampler = _EvalSampler(self.gd, self.encoder, self.decoder, ddim_style)
+        ema = self.state.ema_params
+
+        def sample(encoder, decoder, x_0, x_T):
+            return self.gd.representation_learning_ddim_sample(ddim_style, encoder, decoder,
+                                                               x_0, x_T)
+
         self.encoder.eval()
         self.decoder.eval()
         try:
             with torch.inference_mode():
-                imgs = torch.func.functional_call(sampler, ema, (x_0, x_T))
+                imgs = with_weights({"encoder": self.encoder, "decoder": self.decoder},
+                                    {"encoder": ema["encoder"], "decoder": ema["shift"]},
+                                    sample, x_0, x_T)
         finally:
             self.encoder.train()
             self.decoder.train()
@@ -145,56 +127,33 @@ class RepresentationLearningTrainer(BaseTrainer):
 
     # -- checkpoints ------------------------------------------------------ #
 
-    def _groups(self):
-        """Every tensor the step changes, by group and name."""
-        params, ema = self.state.params, self.state.ema_params
-        groups = {"encoder": params["encoder"], "shift": params["shift"],
-                  "ema_encoder": ema["encoder"], "ema_shift": ema["shift"]}
-        moments = self.optimizer.state
-        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            for g in ("encoder", "shift"):
-                groups[f"{name}_{g}"] = {k: (moments[p][key] if p in moments else None)
-                                         for k, p in params[g].items()}
-        return groups
-
     def snapshot_state(self):
-        """Host copies of params, EMA and Adam moments: every tensor goes
-        into one flat device buffer, which crosses to the host in one copy
-        (pinned on a card), so the copy is done when this returns and the
-        step may change the tensors again."""
-        groups = self._groups()
-        moments = self.optimizer.state
-        count = int(next(iter(moments.values()))["step"]) if moments else 0
-        # (group, name, tensor or None: no Adam state before the first step)
-        order = [(g, k, t, self.state.params[g.rsplit("_", 1)[-1]][k])
-                 for g, named in groups.items() for k, t in named.items()]
-        with torch.no_grad():
-            flat = torch.cat([t.detach().reshape(-1) if t is not None
-                              else torch.zeros(like.numel(), device=like.device)
-                              for _, _, t, like in order])
-            if flat.device.type == "cuda":
-                host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-                host.copy_(flat)
-            else:
-                host = flat            # torch.cat made a fresh copy
-        out = {g: {} for g in groups}
-        offset = 0
-        for g, k, _, like in order:
-            out[g][k] = host[offset:offset + like.numel()].view(like.shape)
-            offset += like.numel()
-        return {"count": count, "groups": out, "trunk": self._trunk_tree}
+        """Host copies of params, EMA and Adam moments, taken in one copy
+        (``state.host_copy``), so the step may change the tensors again."""
+        params, ema = self.state.params, self.state.ema_params
+        names = [(g, k) for g in ("encoder", "shift") for k in params[g]]
+        live = [params[g][k] for g, k in names]
+        count, mu, nu = adam_moments(self.optimizer, live)
+        copies = host_copy(live + [ema[g][k] for g, k in names] + mu + nu)
+
+        def grouped(i):
+            out = {"encoder": {}, "shift": {}}
+            for (g, k), t in zip(names, copies[i * len(names):(i + 1) * len(names)]):
+                out[g][k] = t
+            return out
+
+        return {"count": count, "params": grouped(0), "ema": grouped(1), "mu": grouped(2),
+                "nu": grouped(3), "trunk": self._trunk_tree}
 
     def checkpoint_tree(self, snap):
-        g = snap["groups"]
+        params, ema = snap["params"], snap["ema"]
         return {
-            "encoder": encoder_tree(g["encoder"]),
-            "ema_encoder": encoder_tree(g["ema_encoder"]),
-            "decoder": {**snap["trunk"], **unet_tree(g["shift"])},
-            "ema_decoder": {**snap["trunk"], **unet_tree(g["ema_shift"])},
-            "optimizer": optimizer_tree(
-                self.optimizer_config, snap["count"],
-                {"encoder": g["mu_encoder"], "shift": g["mu_shift"]},
-                {"encoder": g["nu_encoder"], "shift": g["nu_shift"]}),
+            "encoder": encoder_tree(params["encoder"]),
+            "ema_encoder": encoder_tree(ema["encoder"]),
+            "decoder": {**snap["trunk"], **unet_tree(params["shift"])},
+            "ema_decoder": {**snap["trunk"], **unet_tree(ema["shift"])},
+            "optimizer": optimizer_tree(self.optimizer_config, snap["count"], snap["mu"],
+                                        snap["nu"]),
         }
 
     def load_state_dict(self, raw):

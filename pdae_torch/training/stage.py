@@ -1,0 +1,144 @@
+"""What the regular, latent and manipulation trainers share: one trained
+module with Adam/AdamW and its EMA, checkpointed in the flax and optax
+layouts under the stage's keys, and (for the two later stages) the frozen
+PDAE they read.
+
+The checkpoint of a stage holds ``<params_key>``, ``<ema_key>``,
+``optimizer`` and ``step``, each tree as ``pdae_tpu``'s trainer of that
+stage writes it, so either package resumes the other's files.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..models import build_decoder, build_encoder
+from ..utils import optimizer_moments, optimizer_tree, restore_into
+from ..utils import encoder_state_dict, unet_state_dict
+from .artifacts import load_latent_stats, load_pdae, resolve_model_config
+from .base import BaseTrainer, has_dropout
+from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
+
+
+class StageTrainer(BaseTrainer):
+    """A trainer of one module. A subclass's ``_build`` makes the module and
+    calls ``_train_module``; ``params_key``/``ema_key`` name its
+    checkpoint trees, ``to_tree``/``to_state_dict`` map its state dict to
+    and from the flax layout."""
+
+    params_key = ema_key = None
+    to_tree = to_state_dict = None
+
+    def _train_module(self, model: nn.Module) -> None:
+        self.model = model.to(self.device)
+        self._dropout = has_dropout(model)
+        params = {"model": dict(model.named_parameters())}
+        self.optimizer_config = self.config["optimizer_config"]
+        self.optimizer = make_optimizer(self.optimizer_config, flat_params(params))
+        self.state = TrainState.create(params, self.optimizer)
+        rc = self.runner_config
+        self.ema_decay = float(rc.get("ema_decay", 0.9999))
+        self.ema_every = int(rc.get("ema_every", 1))
+        self.eval_seconds = []
+
+    @property
+    def step(self) -> int:
+        return int(self.state.step)
+
+    def ema_weights(self) -> dict:
+        return self.state.ema_params["model"]
+
+    # -- the frozen PDAE of the latent and manipulation stages --------------- #
+
+    def _load_frozen_pdae(self):
+        """The trained PDAE's EMA encoder and decoder, frozen in eval mode on
+        the device, and the inferred latent stats; returns the PDAE's run
+        config."""
+        cfg = self.config
+        pdae_cfg, enc_raw, dec_raw = load_pdae(
+            cfg["trained_representation_learning_config"],
+            cfg["trained_representation_learning_checkpoint"])
+        size = int(cfg["train_dataset_config"]["image_size"])
+        ddpm_cfg = resolve_model_config(cfg.get("trained_ddpm_config",
+                                                pdae_cfg.get("trained_ddpm_config")))
+        self.encoder = build_encoder(pdae_cfg["encoder_config"], image_size=size)
+        self.decoder = build_decoder(pdae_cfg["decoder_config"], ddpm_cfg)
+        self.encoder.load_state_dict(encoder_state_dict(enc_raw), strict=True)
+        self.decoder.load_state_dict(unet_state_dict(dec_raw), strict=True)
+        for m in (self.encoder, self.decoder):
+            m.requires_grad_(False)
+            m.to(self.device).eval()
+        mean, std = load_latent_stats(cfg["inferred_latents"])
+        self.latents_mean, self.latents_std = mean.to(self.device), std.to(self.device)
+        self.latent_dim = int(pdae_cfg["encoder_config"]["latent_dim"])
+        return pdae_cfg
+
+    def _latent_source(self) -> str:
+        """``runner_config.latent_train_source``: ``encode`` (the frozen
+        encoder runs in every step) or ``precomputed`` (the resident corpus
+        holds z, encoded once)."""
+        source = str(self.runner_config.get("latent_train_source", "encode"))
+        if source not in ("encode", "precomputed"):
+            raise ValueError(f"runner_config.latent_train_source must be 'encode' or "
+                             f"'precomputed', got {source!r}")
+        if source == "precomputed":
+            if not self.device_resident:
+                raise ValueError("latent_train_source 'precomputed' requires "
+                                 "train_dataset_config.device_resident: true")
+            if getattr(self.train_dataset, "augmentation", False):
+                raise ValueError("latent_train_source 'precomputed' requires "
+                                 "augmentation: false (a flipped image has a different "
+                                 "z; keep 'encode' for augmented corpora)")
+        return source
+
+    def _precomputed_device_data(self, keys=()):
+        """The resident corpus of ``precomputed``: x_0 replaced by its raw z
+        (``encode_corpus``), and ``keys`` beside it."""
+        if self._resident_cache is None:
+            from .resident import encode_corpus, materialize_step_arrays
+            host = materialize_step_arrays(self.train_dataset, ("x_0",) + tuple(keys))
+            z = encode_corpus(self.encoder, host["x_0"], self.device)
+            print(f"precomputed-z corpus: {z.shape[0]} items, "
+                  f"{z.numel() * z.element_size() / 2 ** 20:.1f} MB on {self.device}",
+                  flush=True)
+            self._resident_cache = {"x_0": z, **{
+                k: torch.from_numpy(host[k]).to(self.device) for k in keys}}
+        return self._resident_cache
+
+    # -- checkpoints ------------------------------------------------------ #
+
+    def snapshot_state(self):
+        named, ema = self.state.params["model"], self.state.ema_params["model"]
+        keys = list(named)
+        live = [named[k] for k in keys]
+        count, mu, nu = adam_moments(self.optimizer, live)
+        copies = host_copy(live + [ema[k] for k in keys] + mu + nu)
+        n = len(keys)
+        parts = [dict(zip(keys, copies[i * n:(i + 1) * n])) for i in range(4)]
+        return {"count": count, "params": parts[0], "ema": parts[1], "mu": parts[2],
+                "nu": parts[3]}
+
+    def checkpoint_tree(self, snap):
+        to_tree = type(self).to_tree
+        return {self.params_key: to_tree(snap["params"]),
+                self.ema_key: to_tree(snap["ema"]),
+                "optimizer": optimizer_tree(self.optimizer_config, snap["count"],
+                                            snap["mu"], snap["nu"], to_tree=to_tree)}
+
+    def _tensors(self, tree) -> dict:
+        """A flax tree as the trained module's named parameters (a state
+        dict's extra names, as MLPSkipNet's second name of each
+        ``linear_emb``, are dropped)."""
+        sd = type(self).to_state_dict(tree)
+        return {"model": {k: sd[k] for k in self.state.params["model"] if k in sd}}
+
+    def load_state_dict(self, raw):
+        keys = (self.params_key, self.ema_key, "optimizer")
+        template = self.state_dict()
+        restore_into({k: template[k] for k in keys}, raw)
+        self.state.load_converted({
+            "step": int(raw["step"]), "params": self._tensors(raw[self.params_key]),
+            "ema_params": self._tensors(raw[self.ema_key]),
+            **optimizer_moments(self.optimizer_config, raw["optimizer"],
+                                to_tensors=self._tensors)})

@@ -77,13 +77,20 @@ class TrainState:
 
 
 def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], x_0,
-                     generator, num_iters: int, *, t=None, noise=None):
+                     generator, num_iters: int, *, t=None, noise=None, cond=None):
     """Mean (loss, grads) over ``num_iters`` micro-batches, a Python loop
     where the JAX package runs one ``lax.scan``.
-    ``loss_fn(x_b, generator, t_b, noise_b) -> scalar``; injected ``t`` and
-    ``noise`` are cut into the same micro-batches as ``x_0``."""
+    ``loss_fn(x_b, generator, t_b, noise_b) -> scalar``, and with a ``cond``
+    (the class labels of a conditional DPM) ``loss_fn(..., cond=cond_b)``;
+    injected ``t`` and ``noise`` and the ``cond`` are cut into the same
+    micro-batches as ``x_0``."""
+    def call(cut):
+        extra = {} if cond is None else {"cond": cond[cut]}
+        return loss_fn(x_0[cut], generator, None if t is None else t[cut],
+                       None if noise is None else noise[cut], **extra)
+
     if num_iters <= 1:
-        loss = loss_fn(x_0, generator, t, noise)
+        loss = call(slice(None))
         return loss.detach(), list(torch.autograd.grad(loss, params))
     if x_0.shape[0] % num_iters:
         raise ValueError(f"batch {x_0.shape[0]} does not split into {num_iters} "
@@ -91,9 +98,7 @@ def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], x_0,
     mb = x_0.shape[0] // num_iters
     total, grads = None, None
     for i in range(num_iters):
-        cut = slice(i * mb, (i + 1) * mb)
-        loss = loss_fn(x_0[cut], generator, None if t is None else t[cut],
-                       None if noise is None else noise[cut])
+        loss = call(slice(i * mb, (i + 1) * mb))
         g = torch.autograd.grad(loss, params)
         if grads is None:
             total, grads = loss.detach(), list(g)
@@ -102,6 +107,34 @@ def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], x_0,
             for acc, gi in zip(grads, g):
                 acc.add_(gi)
     return total / num_iters, [g.div_(num_iters) for g in grads]
+
+
+def host_copy(tensors: Sequence[torch.Tensor]) -> list:
+    """Host copies of ``tensors``, taken when this returns: they go into one
+    flat device buffer, which crosses to the host in one copy (pinned on a
+    card); the results are views of it shaped as the inputs."""
+    with torch.no_grad():
+        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+        if flat.device.type == "cuda":
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat)
+        else:
+            host = flat            # torch.cat made a fresh copy
+    out, offset = [], 0
+    for t in tensors:
+        out.append(host[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    return out
+
+
+def adam_moments(optimizer, params: Sequence[torch.Tensor]):
+    """(count, exp_avg list, exp_avg_sq list) of ``params``; before the first
+    step, count 0 and zeros, as optax's fresh state holds."""
+    state = optimizer.state
+    count = int(next(iter(state.values()))["step"]) if state else 0
+    mu = [state[p]["exp_avg"] if p in state else torch.zeros_like(p) for p in params]
+    nu = [state[p]["exp_avg_sq"] if p in state else torch.zeros_like(p) for p in params]
+    return count, mu, nu
 
 
 def ema_update(ema: Dict[str, Dict], params: Dict[str, Dict], decay: float) -> None:

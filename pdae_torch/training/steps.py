@@ -1,62 +1,163 @@
-"""The PDAE train step: the port of
-``pdae_tpu/training/steps.py::make_representation_train_step``.
+"""The train steps of the four stages: the port of
+``pdae_tpu/training/steps.py`` and of the regular trainer's step
+(``pdae_tpu/training/regular.py``).
 
-One optimizer step of representation learning: the loss over the encoder and
-the shift branch with the frozen trunk in eval mode, its gradients
-(accumulated over micro-batches where asked), the configured Adam/AdamW
-update and the EMA lerp. Rematerialisation (the JAX ``remat`` argument, used
-at 128px) is not ported.
+Each builder returns ``step(state, x_0, ...) -> loss``: one optimizer step
+that updates ``state`` (a ``TrainState`` built with the same optimizer), the
+modules' parameters and the optimizer's moments in place and returns the
+detached loss. ``x_0`` is NCHW in [-1, 1], or uint8 pixels
+(``transfer_uint8``), which the step normalises on the device
+(``utils.image.x0_from_transfer``). Where the loss draws ``t`` and noise,
+they come from the ``generator`` unless injected. ``num_iters`` > 1 splits
+the batch into that many micro-batches (the trainer's ``num_iterations``).
+The EMA moves after the steps whose new count is a multiple of
+``ema_every`` (``runner_config.ema_every``; 1: every step). The models must
+lie on ``device``: ``cuda`` unless the caller names another. Trained modules
+run in train mode (dropout acts where it is configured), frozen ones in eval
+mode. Rematerialisation (the JAX ``remat`` argument, used at 128px) is not
+ported.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .. import resolve_device
+from ..utils.image import x0_from_transfer
 from .state import accumulate_grads, flat_params, maybe_ema_update
+
+
+def _on(device, *models):
+    device = resolve_device(device)
+    for model in models:
+        for p in model.parameters():
+            if p.device.type != device.type:
+                raise ValueError(f"the train step runs on {device} but a model "
+                                 f"parameter lies on {p.device}")
+    return device
+
+
+def _modes(trained=(), frozen=()):
+    for m in trained:
+        if not m.training:
+            m.train()
+    for m in frozen:
+        if m.training:
+            m.eval()
+
+
+def _update(state, optimizer, params, grads, ema_decay, ema_every):
+    """Adam/AdamW on ``grads``, then the EMA, then the step count."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    optimizer.step()
+    maybe_ema_update(state.step + 1, state.ema_params, state.params, ema_decay, ema_every)
+    state.step += 1
+
+
+def _check(state, optimizer, generator, t, noise):
+    if state.optimizer is not optimizer:
+        raise ValueError("the state was built with another optimizer")
+    if generator is None and (t is None or noise is None):
+        raise ValueError("a generator is needed unless t and noise are injected")
 
 
 def make_representation_train_step(gd, encoder, decoder, optimizer,
                                    ema_decay: float = 0.9999, num_iters: int = 1,
                                    device=None, ema_every: int = 1):
-    """``step(state, x_0, generator, *, t=None, noise=None) -> loss``.
-
-    ``state`` is a ``TrainState`` over ``trainable_params(encoder, decoder)``
-    built with this ``optimizer``; the step updates it, the modules'
-    parameters and the optimizer in place and returns the detached loss.
-    ``x_0`` is NCHW in [-1, 1]. ``t`` and ``noise`` are drawn from
-    ``generator`` unless injected. ``num_iters`` > 1 splits the batch into
-    that many micro-batches (the trainer's ``num_iterations``). The EMA moves
-    after the steps whose new count is a multiple of ``ema_every``
-    (``runner_config.ema_every``; 1: every step). The models must lie on
-    ``device``: ``cuda`` unless the caller names another.
-    """
-    device = resolve_device(device)
-    for model in (encoder, decoder):
-        for p in model.parameters():
-            if p.device.type != device.type:
-                raise ValueError(f"the train step runs on {device} but a model "
-                                 f"parameter lies on {p.device}")
+    """``step(state, x_0, generator, *, t=None, noise=None) -> loss``: the
+    PDAE loss over the encoder and the shift branch (``state`` over
+    ``trainable_params(encoder, decoder)``), the ShiftUNet's trunk frozen in
+    eval mode."""
+    device = _on(device, encoder, decoder)
 
     def loss_fn(x_b, generator, t, noise):
         return gd.representation_learning_train_one_batch(
             generator, encoder, decoder, x_b, t=t, noise=noise)["prediction_loss"]
 
     def train_step(state, x_0, generator=None, *, t=None, noise=None):
+        _check(state, optimizer, generator, t, noise)
+        _modes(trained=(encoder, decoder))   # the ShiftUNet keeps its trunk in eval mode
+        params = flat_params(state.params)
+        loss, grads = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
+                                       generator, num_iters, t=t, noise=noise)
+        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        return loss
+
+    return train_step
+
+
+def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
+                            num_iters: int = 1, device=None, ema_every: int = 1):
+    """``step(state, x_0, generator, *, condition=None, t=None, noise=None)
+    -> loss``: the epsilon-MSE of a DPM's UNet (``state`` over all its
+    parameters); ``condition`` holds the class ids of a class-conditional
+    UNet and is cut into the same micro-batches as ``x_0``."""
+    device = _on(device, model)
+
+    def loss_fn(x_b, generator, t, noise, cond=None):
+        return gd.regular_train_one_batch(generator, model, x_b, cond, t=t,
+                                          noise=noise)["prediction_loss"]
+
+    def train_step(state, x_0, generator=None, *, condition=None, t=None, noise=None):
+        _check(state, optimizer, generator, t, noise)
+        _modes(trained=(model,))
+        params = flat_params(state.params)
+        loss, grads = accumulate_grads(
+            loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
+            t=t, noise=noise, cond=None if condition is None else condition.to(device))
+        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        return loss
+
+    return train_step
+
+
+def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
+                           ema_decay: float = 0.9999, ema_every: int = 1,
+                           num_iters: int = 1, device=None):
+    """``step(state, x_0, generator, *, t=None, noise=None) -> loss``: the
+    latent DPM's l1 loss of the MLPSkipNet ``model`` (``state`` over its
+    parameters) on the frozen ``encoder``'s z normalised with the inferred
+    ``mean``/``std``; with ``IdentityEncoder`` the rows of ``x_0`` are the
+    raw z (``latent_train_source: precomputed``)."""
+    device = _on(device, model, encoder)
+    mean, std = mean.to(device), std.to(device)
+
+    def loss_fn(x_b, generator, t, noise):
+        return gd.latent_diffusion_train_one_batch(
+            generator, model, encoder, x_b, mean, std, t=t, noise=noise)["prediction_loss"]
+
+    def train_step(state, x_0, generator=None, *, t=None, noise=None):
+        _check(state, optimizer, generator, t, noise)
+        _modes(trained=(model,), frozen=(encoder,))
+        params = flat_params(state.params)
+        loss, grads = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
+                                       generator, num_iters, t=t, noise=noise)
+        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        return loss
+
+    return train_step
+
+
+def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
+                                 ema_decay: float = 0.9999, ema_every: int = 1,
+                                 device=None):
+    """``step(state, x_0, label) -> loss``: the BCE-with-logits of the linear
+    classifier ``model`` (``state`` over its parameters) on the frozen
+    ``encoder``'s normalised z against ``label > 0``; it draws nothing."""
+    device = _on(device, model, encoder)
+    mean, std = mean.to(device), std.to(device)
+
+    def train_step(state, x_0, label):
         if state.optimizer is not optimizer:
             raise ValueError("the state was built with another optimizer")
-        if generator is None and (t is None or noise is None):
-            raise ValueError("a generator is needed unless t and noise are injected")
-        if not (encoder.training and decoder.training):
-            encoder.train()
-            decoder.train()          # the ShiftUNet keeps its trunk in eval mode
+        _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
-        loss, grads = accumulate_grads(loss_fn, params, x_0.to(device), generator,
-                                       num_iters, t=t, noise=noise)
-        for p, g in zip(params, grads):
-            p.grad = g
-        optimizer.step()
-        maybe_ema_update(state.step + 1, state.ema_params, state.params, ema_decay,
-                         ema_every)
-        state.step += 1
-        return loss
+        loss = gd.manipulation_train_one_batch(
+            model, encoder, x0_from_transfer(x_0.to(device)), label.to(device), mean,
+            std)["bce_loss"]
+        grads = torch.autograd.grad(loss, params)
+        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        return loss.detach()
 
     return train_step

@@ -399,20 +399,24 @@ def _optax_layout(optimizer_config: dict, adam):
     return {"0": adam, "1": {}}
 
 
-def optimizer_tree(optimizer_config: dict, count: int, mu: Dict, nu: Dict) -> Dict:
+def optimizer_tree(optimizer_config: dict, count: int, mu: Dict, nu: Dict,
+                   to_tree=_groups_trees) -> Dict:
     """The checkpoint's ``optimizer`` subtree in optax's layout from Adam's
-    ``count`` and moments ``mu``/``nu`` (``{"encoder": {name: tensor},
-    "shift": {name: tensor}}``, keyed as ``trainable_params``)."""
+    ``count`` and moments ``mu``/``nu``. By default these are keyed as
+    ``trainable_params`` (``{"encoder": {name: tensor}, "shift": {...}}``);
+    a stage that trains one module passes its state dict's moments and that
+    module's ``*_tree`` map as ``to_tree``."""
     return _optax_layout(optimizer_config, {
-        "count": np.asarray(int(count), np.int32), "mu": _groups_trees(mu),
-        "nu": _groups_trees(nu)})
+        "count": np.asarray(int(count), np.int32), "mu": to_tree(mu), "nu": to_tree(nu)})
 
 
-def optimizer_moments(optimizer_config: dict, tree: Dict) -> Dict:
-    """The inverse of ``optimizer_tree``: ``{"count": int, "mu": {"encoder":
-    state dict, "shift": state dict}, "nu": ...}``. Raises when ``tree`` is
-    not the layout of ``optimizer_config``'s optimizer (an AdamW state given
-    to an Adam run, a chain where none is configured)."""
+def optimizer_moments(optimizer_config: dict, tree: Dict,
+                      to_tensors=_groups_tensors) -> Dict:
+    """The inverse of ``optimizer_tree``: ``{"count": int, "mu": ..., "nu":
+    ...}``, the moments mapped by ``to_tensors`` (by default to
+    ``{"encoder": state dict, "shift": state dict}``). Raises when ``tree``
+    is not the layout of ``optimizer_config``'s optimizer (an AdamW state
+    given to an Adam run, a chain where none is configured)."""
     marker = "adam"
 
     def find(want, got, path):
@@ -428,5 +432,5 @@ def optimizer_moments(optimizer_config: dict, tree: Dict) -> Dict:
             f"{optimizer_config.get('weight_decay', 0.0)}")
 
     adam = find(_optax_layout(optimizer_config, marker), tree, "optimizer")
-    return {"count": int(np.asarray(adam["count"])), "mu": _groups_tensors(adam["mu"]),
-            "nu": _groups_tensors(adam["nu"])}
+    return {"count": int(np.asarray(adam["count"])), "mu": to_tensors(adam["mu"]),
+            "nu": to_tensors(adam["nu"])}

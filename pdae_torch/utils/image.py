@@ -11,6 +11,7 @@ import zlib
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def to_uint8(x: np.ndarray) -> np.ndarray:
@@ -23,6 +24,18 @@ def to_uint8(x: np.ndarray) -> np.ndarray:
 def from_uint8(x: np.ndarray) -> np.ndarray:
     """uint8 NHWC -> [-1,1] float32 NHWC."""
     return np.asarray(x, dtype=np.float32) / 127.5 - 1.0
+
+
+def x0_from_transfer(x):
+    """A batch's ``x_0`` as it crossed to the device -> float [-1, 1].
+
+    A uint8 tensor (``transfer_uint8``: the raw pixels, 4x fewer bytes to
+    move) becomes ``x.float() / 255.0 * 2.0 - 1.0`` in fp32 on its own
+    device: the datasets' host op sequence, so the result is bit-equal to
+    the host-side float normalisation. Any other tensor passes unchanged."""
+    if x.dtype == torch.uint8:
+        return x.float() / 255.0 * 2.0 - 1.0
+    return x
 
 
 def make_grid(images: np.ndarray, nrow: Optional[int] = None,

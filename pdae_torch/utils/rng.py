@@ -11,9 +11,11 @@ resumed at step N draws what an uninterrupted run draws there:
 
 ``INIT`` seeds the models' initialisation (``step`` is 0 for the encoder and
 1 for the decoder), ``TRAIN`` each train step's draws of t and noise,
-``DROPOUT`` its dropout masks (where the decoder has dropout), ``EVAL`` the
-x_T of the eval grid at a step, ``SAMPLE`` each draw of a sampler
-(``step`` is the draw's salt, ``sampling/samplers.py``).
+``DROPOUT`` its dropout masks (where a trained module has dropout), ``EVAL``
+the x_T (and z_T) of the eval at a step, ``SAMPLE`` each draw of a sampler
+(``step`` is the draw's salt, ``sampling/samplers.py``);
+``training.resident.DATA_STREAM_TAG`` the device-resident corpus's uniform
+rows and flip coins of a step.
 """
 
 from __future__ import annotations

@@ -135,8 +135,13 @@ def tiny_pdae_config(ddpm_checkpoint=None, **runner):
 
 def patch_tiny_encoders(monkeypatch, jax_too=False):
     """Both packages' trainers build the two-stage encoder of 8 and 16
-    channels at 16px gray (no shipped encoder is that small)."""
+    channels at 16px gray (no shipped encoder is that small): the
+    representation trainer's, and the frozen one of the port's latent and
+    manipulation trainers (``jax_too`` patches the JAX representation
+    trainer; ``test_stage34_sharded.patch_tiny_encoders`` the JAX later
+    stages)."""
     import pdae_torch.training.representation as port_rep
+    import pdae_torch.training.stage as port_stage
     from pdae_torch.models import SemanticEncoder
 
     def port_encoder(config, image_size=None):
@@ -144,6 +149,7 @@ def patch_tiny_encoders(monkeypatch, jax_too=False):
                                image_size=image_size, input_channel=1)
 
     monkeypatch.setattr(port_rep, "build_encoder", port_encoder)
+    monkeypatch.setattr(port_stage, "build_encoder", port_encoder)
     if jax_too:
         import pdae_tpu.training.representation as jax_rep
         from pdae_tpu.models.encoder import SemanticEncoder as JaxSemanticEncoder

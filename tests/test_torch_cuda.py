@@ -20,7 +20,10 @@ and agree within one uint8 level. The representation trainer takes 2 steps
 through the kernels, saves, and a resumed trainer holds the same tensors bit
 for bit. ``AutoencodingEval`` and ``PDAEService.from_config`` on files the
 port writes run on the card and on the CPU and agree (reconstructions within
-1e-2, served images within one uint8 level). ``chip_smoke.py`` covers every path shape, bf16 and timings.
+1e-2, served images within one uint8 level). The regular, latent and
+manipulation trainers each take 2 steps on a resident uint8 corpus, every
+step's launches equal to the structure's, run their eval and resume bit for
+bit. ``chip_smoke.py`` covers every path shape, bf16 and timings.
 """
 
 import pytest
@@ -646,3 +649,112 @@ def test_from_config_on_the_card_matches_the_cpu(cuda, card_files):
     counts = ops.launch_counts()
     assert counts["attention"] > 0 and counts["gn_adagn_silu"] > 0, counts
     assert card.generate(2, seed=0).shape == (2, 64, 64, 3)
+
+
+# -- the regular, latent and manipulation trainers on the card ------------- #
+
+def _structure(model, *inputs):
+    """The GN chains and attention blocks one forward of ``model`` runs,
+    counted with hooks on a plain-path call."""
+    from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
+    counts = {"attention": 0, "gn_adagn_silu": 0}
+
+    def hook(mod, args):
+        counts["gn_adagn_silu" if isinstance(mod, GNSiluChain) else "attention"] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, (GNSiluChain, AttentionBlock))]
+    ops.set_use_kernels(False)
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        ops.set_use_kernels(None)
+        for h in handles:
+            h.remove()
+    return counts
+
+
+def _stage_config(stage, files):
+    ds = {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3, "length": 8,
+          "transfer_uint8": True, "device_resident": True}
+    cfg = {"train_dataset_config": ds, "eval_dataset_config": {},
+           "diffusion_config": {"timesteps": 20, "betas_type": "linear"},
+           "dataloader_config": {"train": {"num_workers": 1, "batch_size": 2},
+                                 "eval": {"num_generations": 2}},
+           "optimizer_config": {"lr": 1e-3},
+           "runner_config": {"display_steps": 1, "evaluate_every_steps": 100000,
+                             "save_latest_every_steps": 2, "ema_decay": 0.9}}
+    if stage == "regular":
+        cfg["denoise_fn_config"] = {"model": "UNet", **CARD_DPM, "num_class": 10}
+        return cfg
+    cfg.update(trained_representation_learning_config=files["config_path"],
+               trained_representation_learning_checkpoint=files["checkpoint_path"],
+               inferred_latents=files["inferred_latents_path"])
+    if stage.startswith("latent"):
+        cfg["latent_denoise_fn_config"] = {"input_channel": 16, "model_channel": 64,
+                                           "num_layers": 4}
+    else:
+        cfg["num_classes"] = 40
+        ds["multilabel"] = 40
+    if stage.endswith("precomputed"):
+        cfg["runner_config"]["latent_train_source"] = "precomputed"
+    return cfg
+
+
+@pytest.mark.parametrize("stage", ["regular", "latent", "latent_precomputed",
+                                   "manipulation"])
+def test_stage_trainer_steps_and_resumes_on_the_card(cuda, card_files, tmp_path, stage):
+    """Each new trainer on the card over a resident uint8 SYNTHETIC 64px
+    corpus at b2 (the regular DPM class-conditional with the device flip):
+    every step's launches equal the structure's (the UNet's forward and a GN
+    backward per chain; the frozen encoder's forward; none for precomputed
+    z), the eval runs through the kernels, and a resumed trainer holds the
+    step-2 tensors bit for bit."""
+    from pdae_torch.train import pick_trainer
+
+    config = _stage_config(stage, card_files)
+    run = str(tmp_path / "run")
+    trainer = pick_trainer(config)(config=config, run_path=run)
+    assert trainer.device.type == "cuda"
+    if stage == "regular":
+        trainer.train_dataset.augmentation = True      # SYNTHETIC has no host flip
+        per = _structure(trainer.model, torch.zeros(2, 3, 64, 64, device="cuda"),
+                         torch.zeros(2, dtype=torch.int32, device="cuda"),
+                         torch.zeros(2, dtype=torch.int32, device="cuda"))
+        want = {**per, "gn_adagn_silu_bwd": per["gn_adagn_silu"]}
+    elif stage.endswith("precomputed"):
+        want = {"attention": 0, "gn_adagn_silu": 0, "gn_adagn_silu_bwd": 0}
+    else:
+        want = {**_structure(trainer.encoder, torch.zeros(2, 3, 64, 64, device="cuda")),
+                "gn_adagn_silu_bwd": 0}
+    seen, inner = [], trainer.train_step
+
+    def counted(batch):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = inner(batch)
+        torch.cuda.synchronize()
+        seen.append(ops.launch_counts())
+        return out
+
+    trainer.train_step = counted
+    assert trainer.train(max_steps=2) == 2
+    assert seen == [want, want]
+    ops.reset_launch_counts()
+    if stage == "regular":
+        trainer.evaluate(2, ddim_style="ddim4")
+    elif stage == "manipulation":
+        trainer.evaluate(2, encode_style="ddim3", decode_style="ddim3")
+    else:
+        trainer.evaluate(2, latent_ddim_style="ddim3", decoder_ddim_style="ddim3")
+    assert ops.launch_counts()["gn_adagn_silu"] > 0
+    resumed = pick_trainer(config)(config=config, run_path=run, resume="latest")
+    assert resumed.start_step == 2
+    for key, p in trainer.state.params["model"].items():
+        q = resumed.state.params["model"][key]
+        assert q.device.type == "cuda" and torch.equal(p, q), key
+        assert torch.equal(trainer.state.ema_params["model"][key],
+                           resumed.state.ema_params["model"][key])
+        for m in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(trainer.optimizer.state[p][m], resumed.optimizer.state[q][m])

@@ -1,12 +1,15 @@
 """The port's data path (``pdae_torch/data``) against ``pdae_tpu``'s on the CPU:
 the same index stream from the ``Loader`` (epochs, skips, ``drop_last``, a
-rank of a world), the same SYNTHETIC items, and the same CELEBA64 items read
-from an LMDB that ``pdae_tpu``'s writer made, hflip augmentation included.
+rank of a world), the same SYNTHETIC items, the same CELEBA64 items read
+from an LMDB that ``pdae_tpu``'s writer made, hflip augmentation included,
+and the same items in ``transfer_uint8`` mode and from MNIST idx files.
 Every comparison is exact.
 """
 
+import gzip
 import io
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -90,11 +93,60 @@ def test_synthetic_items_bitwise(cfg):
         np.testing.assert_array_equal(got[k], exp[k])
 
 
-def test_unported_data_options_are_refused():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_dataset({"name": "SYNTHETIC", "image_size": 16, "transfer_uint8": True})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_dataset({"name": "MNIST", "image_size": 16, "data_path": "."})
+def _write_idx(root, prefix, n, seed, compress):
+    """MNIST idx files (magic 2051/2049, big-endian headers) of random
+    digits, as ``tests/test_mnist_e2e.py`` writes them."""
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (n, 28, 28), np.uint8)
+    labels = rs.randint(0, 10, (n,), np.uint8)
+    suffix = ".gz" if compress else ""
+    opener = gzip.open if compress else open
+    os.makedirs(root, exist_ok=True)
+    with opener(os.path.join(root, f"{prefix}-images-idx3-ubyte{suffix}"), "wb") as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28) + images.tobytes())
+    with opener(os.path.join(root, f"{prefix}-labels-idx1-ubyte{suffix}"), "wb") as f:
+        f.write(struct.pack(">II", 2049, n) + labels.tobytes())
+
+
+@pytest.mark.parametrize("case", ["synthetic_uint8", "celeba64_uint8", "mnist",
+                                  "mnist_uint8"])
+def test_uint8_and_mnist_items_match_jax(case, tmp_path):
+    """``transfer_uint8`` (raw pixels for x_0) and the MNIST idx reader build
+    and give ``pdae_tpu``'s items and batches bit for bit: MNIST from
+    ``.gz`` files under ``data_path/MNIST/raw`` (train) and plain ones under
+    ``data_path`` (test), resized to 32px with a one-hot condition."""
+    uint8 = case.endswith("uint8")
+    if case.startswith("synthetic"):
+        cfgs = [{"name": "SYNTHETIC", "image_size": 16, "length": 4, "multilabel": 40,
+                 "transfer_uint8": True}]
+    elif case.startswith("celeba64"):
+        path, _ = _jpeg_lmdb(tmp_path, "None-%07d", 4)
+        cfgs = [{"name": "CELEBA64", "data_path": path, "image_size": 64,
+                 "augmentation": True, "transfer_uint8": True, "fast_decode": False}]
+    else:
+        data = str(tmp_path / "mnist")
+        _write_idx(os.path.join(data, "MNIST", "raw"), "train", 6, 0, True)
+        _write_idx(data, "t10k", 4, 1, False)
+        cfgs = [{"name": "MNIST", "data_path": data, "image_size": 32, "image_channel": 1,
+                 "train": train, "transfer_uint8": uint8} for train in (True, False)]
+    for cfg in cfgs:
+        port, ref = build_dataset(cfg), jax_datasets.build_dataset(cfg)
+        assert type(port).__name__ == type(ref).__name__ and len(port) == len(ref)
+        n = min(len(port), 4)
+        items = [port.__getitem__(i, np.random.default_rng([1234, 0, 0, i]))
+                 for i in range(n)]
+        want = [ref.__getitem__(i, np.random.default_rng([1234, 0, 0, i]))
+                for i in range(n)]
+        for a, b in zip(items, want):
+            assert a["x_0"].dtype == (np.uint8 if uint8 else np.float32)
+            for k in ("x_0", "gt"):
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k])
+        got, exp = type(port).collate_fn(items), type(ref).collate_fn(want)
+        assert sorted(got) == sorted(exp)
+        for k in got:
+            assert got[k].dtype == exp[k].dtype, k
+            np.testing.assert_array_equal(got[k], exp[k])
 
 
 def _jpeg_lmdb(tmp_path, key_fmt, n, offset=0, size=(192, 176)):

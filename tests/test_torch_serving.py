@@ -166,7 +166,9 @@ def test_port_imports_no_jax():
     files = _port_sources()
     assert len(files) > 10 and os.path.exists(files[0])
     for module in ("sampling/context.py", "sampling/samplers.py", "metrics/ssim.py",
-                   "metrics/mse.py", "metrics/base.py", "sample.py", "serve.py"):
+                   "metrics/mse.py", "metrics/base.py", "sample.py", "serve.py",
+                   "training/resident.py", "training/stage.py", "training/regular.py",
+                   "training/latent.py", "training/manipulation.py"):
         assert os.path.join(REPO, "pdae_torch", module) in files, module
     for path in files:
         with open(path) as f:

@@ -1,6 +1,7 @@
 """The port's trainer loop on the CPU: bitwise resume, the background
 checkpoint write, SIGINT, ``ema_every``, ``num_iterations``, the cadence
-check, the refusals, the eval grid and ``python -m pdae_torch.train``.
+check, the refusals, ``device_resident`` and ``transfer_uint8``, the trainer
+each config picks, the eval grid and ``python -m pdae_torch.train``.
 
 The run is the tiny one of ``tests/test_torch_trainer.py`` (SYNTHETIC 16px
 gray, a two-level UNet of 8 channels, a two-stage encoder), its DPM trunk
@@ -187,8 +188,6 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
 REFUSALS = {
     "param_sharding": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
     "checkpoint_format": ({"runner_config": {"checkpoint_format": "sharded"}}, 15),
-    "device_resident": ({"train_dataset_config": {"device_resident": True}}, 14),
-    "transfer_uint8": ({"train_dataset_config": {"transfer_uint8": True}}, 14),
     "remat": ({"runner_config": {"remat": "skips"}}, 5),
     "compute_dtype": ({"runner_config": {"compute_dtype": "bfloat16"}}, 17),
     "enable_amp": ({"optimizer_config": {"enable_amp": True}}, 17),
@@ -207,14 +206,36 @@ def test_unported_options_are_refused_by_name(name, tmp_path):
     assert not os.path.exists(tmp_path / "run")
 
 
-@pytest.mark.parametrize("key,item", [("denoise_fn_config", 9),
-                                      ("latent_denoise_fn_config", 10),
-                                      ("inferred_latents", 11)])
-def test_other_trainers_are_refused_by_name(key, item):
+@pytest.mark.parametrize("option", ["device_resident", "transfer_uint8"])
+def test_data_options_are_accepted_and_train_a_step(option, port_dpm, tmp_path,
+                                                    monkeypatch):
+    """The options the shipped stage configs set, on the representation
+    trainer: the step reads uint8 pixels, or gathers its batch from the
+    resident corpus, and the eval grid reads the eval set's x_0 alike."""
+    patch_tiny_encoders(monkeypatch)
+    cfg = tiny_pdae_config(port_dpm[0])
+    cfg["train_dataset_config"][option] = True
+    tr = _trainer(tmp_path / "run", cfg)
+    batch = next(tr._batch_iterator(0))
+    assert batch["x_0"].dtype == (torch.uint8 if option == "transfer_uint8"
+                                  else torch.float32)
+    assert tr.train(max_steps=1) == 1
+    assert all(torch.isfinite(p).all() for p in tr.encoder.parameters())
+    tr.evaluate(1, ddim_style="ddim2")
+    assert os.path.exists(tmp_path / "run" / "samples" / "sample0k.png")
+
+
+@pytest.mark.parametrize("key,name", [("denoise_fn_config", "RegularDiffusionTrainer"),
+                                      ("latent_denoise_fn_config",
+                                       "LatentDiffusionTrainer"),
+                                      ("inferred_latents", "ManipulationTrainer")])
+def test_pick_trainer_returns_each_trainer(key, name):
+    """The trainer of a config's keys, in ``scripts/train.py``'s order."""
     from pdae_torch.train import pick_trainer
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        pick_trainer({key: {}})
+    assert pick_trainer({key: {}}).__name__ == name
     assert pick_trainer(tiny_pdae_config()) is RepresentationLearningTrainer
+    with pytest.raises(SystemExit, match="cannot infer trainer type"):
+        pick_trainer({})
 
 
 def test_eval_grid_decodes_with_the_ema_weights(port_dpm, tmp_path, monkeypatch):
