@@ -134,6 +134,30 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    held to the plain versions in fp32 and bf16 and its variant recorded; the
    regular step's kernel time per step is summed from the per-shape times
    (``chiprun_out/chip_smoke_stage_shapes.json``).
+10. ``precision``: bf16 compute over fp32 params and rematerialisation at
+   full width. The trainer phase's ``RepresentationLearningTrainer`` config
+   and the stages phase's ``configs/dpm_celeba64.yml`` dict with
+   ``runner_config.compute_dtype: bfloat16``, one warm-up and 5 timed b32
+   steps each: finite losses, fp32 params and grads, every conv and linear in
+   bf16, the frozen trunk bit-equal, launches equal to the structure's (GN on
+   the cluster variant, attention's bf16 keys on the ``mma.sync`` tiles),
+   step seconds and peak memory beside the fp32 phases'. At b2 one ShiftUNet
+   forward and both steps' loss and gradients through the bf16 kernels
+   against the bf16 plain versions, each within PRECISION_RATIO times the
+   plain path's own bf16-against-fp32 gap (printed with the ratio). Then the
+   FFHQ128 representation step (``configs/ffhq_representation_learning.yml``
+   over a seeded trunk of ``configs/dpm_ffhq.yml``, SYNTHETIC 128px, b32)
+   under remat none, ``skips`` and full, in fp32 and bf16, each from the same
+   state, t and noise (``cudnn.deterministic``): one warm-up and 2 timed
+   steps, the launches against ``remat_structure``, the modes' losses and
+   first gradients bit-equal (or each within REMAT_GRAD_TOL of its tensor's
+   largest), seconds and peak memory printed. Every kernel key these runs
+   give that no earlier phase compared is held to the plain versions in fp32
+   and bf16 on the cluster variant, the 128x128 GN keys timed
+   (``chiprun_out/chip_smoke_precision_shapes.json``). The kernels phase
+   times every timed shape in bf16 too (``bf16_ms``, ``bf16_library_ms``,
+   ``bf16_bound_ms``; bf16 attention's bound on the tensor cores' 989
+   TFLOP/s), and the summary sums them over a train step.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -171,6 +195,7 @@ NUM_CLASSES = 40
 TRAIN_STEPS = 5                  # timed, after one warm-up step
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 FP32_FLOPS = 67e12               # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM, bf16 on the tensor cores (dense)
 
 # Tolerances: |kernel - plain| <= atol + rtol * |plain| elementwise.
 TOL = {
@@ -412,6 +437,9 @@ def check_attention(shape, gen, device, timed=True):
         else:
             res["bf16_ms"] = device_ms(lambda: attention.attention_cuda(q, k, v))
             res["bf16_library_ms"] = device_ms(library)
+            # the mma tiles run both products on the tensor cores
+            res["bf16_bound_ms"] = max(4 * q.numel() * 2 / HBM_BYTES_PER_S,
+                                       4 * b * h * t * t * d / BF16_FLOPS) * 1e3
     return res
 
 
@@ -515,6 +543,16 @@ def check_gn(key, gen, device, timed=True):
                             + sum(a.numel() * a.element_size()
                                   for a in (s, t, zs, zt) if a is not None))
             res["flops"] = 15 * x.numel()
+        elif timed:
+            # bf16: the library call on bf16 GroupNorm parameters (cast once)
+            lib = (x, gamma.to(dtype), beta.to(dtype), s, t, zs, zt)
+            res["bf16_ms"] = device_ms(lambda: groupnorm.gn_cuda(*args, groups=groups))
+            res["bf16_library_ms"] = device_ms(lambda: library_gn(*lib, groups))
+            bf16_bytes = (2 * x.numel() * x.element_size() + 8 * shape[1]
+                          + sum(a.numel() * a.element_size()
+                                for a in (s, t, zs, zt) if a is not None))
+            res["bf16_bound_ms"] = max(bf16_bytes / HBM_BYTES_PER_S,
+                                       15 * x.numel() / FP32_FLOPS) * 1e3
     return res
 
 
@@ -589,6 +627,17 @@ def check_gn_bwd(key, gen, device, timed=True):
                             + sum(a.numel() * a.element_size()
                                   for a in coef if a is not None))
             res["flops"] = (45 if need_dx else 25) * x.numel()
+        elif timed:
+            saved = library_gn_saved(x, gamma.to(dtype), beta.to(dtype), *coef, groups)
+            res["bf16_ms"] = device_ms(lambda: groupnorm_train.gn_bwd_cuda(
+                x, g, mean, rstd, gamma, beta, *coef, groups=groups, need_dx=need_dx))
+            res["bf16_library_ms"] = device_ms(
+                lambda: library_gn_backward(g, saved, need_dx))
+            bf16_bytes = ((3 if need_dx else 2) * x.numel() * x.element_size()
+                          + 8 * shape[1] + 8 * shape[0] * groups + 8 * shape[0] * shape[1]
+                          + sum(a.numel() * a.element_size() for a in coef if a is not None))
+            res["bf16_bound_ms"] = max(bf16_bytes / HBM_BYTES_PER_S,
+                                       (45 if need_dx else 25) * x.numel() / FP32_FLOPS) * 1e3
     return res
 
 
@@ -853,7 +902,8 @@ def summarise(name, source, replaces, results, per_request, per_step, launches,
     """One kernel's line: the main path's launches, and every time summed over
     the launches of one autoencode request (or, for the backward kernel, one
     train step) at that path's shapes (fp32); ``train_step_ms`` is the
-    kernel's time summed over one train step's launches."""
+    kernel's time summed over one train step's launches, ``bf16_train_step``
+    the bf16 kernel's, library call's and bound's over the same launches."""
     def total(field, weights=per_request):
         return sum(weights.get(k, 0) * r[field] for k, r in results.items())
 
@@ -869,7 +919,10 @@ def summarise(name, source, replaces, results, per_request, per_step, launches,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": total("library_ms"), "per": per,
-            "train_step_ms": total("ms", per_step)}
+            "train_step_ms": total("ms", per_step),
+            # the same train step's launches in bf16 (the precision phase's)
+            "bf16_train_step": {f: total(f"bf16_{f}", per_step)
+                                for f in ("ms", "library_ms", "bound_ms")}}
 
 
 def png_size(path) -> tuple:
@@ -880,6 +933,31 @@ def png_size(path) -> tuple:
         raise AssertionError(f"{path} is not a PNG")
     width, height = struct.unpack(">II", head[16:24])
     return height, width
+
+
+def trainer_config(dpm_path) -> dict:
+    """The trainer phase's run: the celeba64 PDAE over the DPM at
+    ``dpm_path``, SYNTHETIC 64px, b32, Adam lr 1e-4, saves at 3 and 6, the
+    eval at 6."""
+    from pdae_torch.models import CELEBA64_DPM
+
+    return {
+        "train_dataset_config": {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
+                                 "length": 320, "preload": True, "latent_dim": LATENT},
+        "eval_dataset_config": {},
+        "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
+        "trained_ddpm_config": {"denoise_fn_config": {"model": "UNet", **CELEBA64_DPM}},
+        "trained_ddpm_checkpoint": dpm_path,
+        "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
+        "decoder_config": {"model": "CELEBA64Decoder", "latent_dim": LATENT},
+        "dataloader_config": {"train": {"num_workers": 4, "batch_size": TRAIN_BATCH},
+                              "eval": {"num_generations": BATCH}},
+        "optimizer_config": {"lr": 1e-4, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
+                             "weight_decay": 0.0, "enable_amp": False},
+        "runner_config": {"display_steps": 1, "evaluate_every_steps": 6,
+                          "save_latest_every_steps": 3,
+                          "save_checkpoint_every_steps": 10000, "num_iterations": 1,
+                          "ema_every": 1, "ema_decay": 0.9999}}
 
 
 def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
@@ -909,23 +987,7 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
     save_checkpoint(dpm_path, {"step": np.asarray(0, np.int32), "ema_denoise_fn": dpm_tree})
     dpm_sd = {k: v.to(device) for k, v in unet.state_dict().items()}
     del unet
-    config = {
-        "train_dataset_config": {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
-                                 "length": 320, "preload": True, "latent_dim": LATENT},
-        "eval_dataset_config": {},
-        "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
-        "trained_ddpm_config": {"denoise_fn_config": {"model": "UNet", **CELEBA64_DPM}},
-        "trained_ddpm_checkpoint": dpm_path,
-        "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
-        "decoder_config": {"model": "CELEBA64Decoder", "latent_dim": LATENT},
-        "dataloader_config": {"train": {"num_workers": 4, "batch_size": TRAIN_BATCH},
-                              "eval": {"num_generations": BATCH}},
-        "optimizer_config": {"lr": 1e-4, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
-                             "weight_decay": 0.0, "enable_amp": False},
-        "runner_config": {"display_steps": 1, "evaluate_every_steps": 6,
-                          "save_latest_every_steps": 3,
-                          "save_checkpoint_every_steps": 10000, "num_iterations": 1,
-                          "ema_every": 1, "ema_decay": 0.9999}}
+    config = trainer_config(dpm_path)
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     torch.cuda.reset_peak_memory_stats()
@@ -1116,7 +1178,8 @@ def rows_hw(*lengths) -> tuple:
 
 
 HEAVY_FILES = ("trainer/dpm.ckpt", "trainer/step3.ckpt", "trainer/a/checkpoints/latest.ckpt",
-               "trainer/b/checkpoints/latest.ckpt", "samplers/latent.ckpt")
+               "trainer/b/checkpoints/latest.ckpt", "samplers/latent.ckpt",
+               "precision/dpm_ffhq.ckpt")
 
 
 def drop_heavy_files() -> None:
@@ -1526,41 +1589,51 @@ def stage_runner():
             "num_iterations": 1, "ema_every": 1, "ema_decay": 0.9999}
 
 
+STAGE_DIFFUSION = {"timesteps": 1000, "betas_type": "linear"}
+STAGE_ADAM = {"lr": 1e-4, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
+              "weight_decay": 0.0, "enable_amp": False}
+
+
+def stage_data(stage, size, **extra) -> dict:
+    return {"name": "SYNTHETIC", "image_size": size, "image_channel": 3,
+            "length": STAGE_LENGTH[stage], "preload": True, "transfer_uint8": True,
+            "device_resident": True, **extra}
+
+
+def stage_loader(stage) -> dict:
+    return {"train": {"num_workers": 4, "batch_size": STAGE_BATCH[stage]},
+            "eval": {"num_generations": BATCH}}
+
+
+def regular_config() -> dict:
+    """The config dict of ``configs/dpm_celeba64.yml`` the stages phase trains."""
+    from pdae_torch.models import CELEBA64_DPM
+
+    return {"train_dataset_config": stage_data("regular", 64, augmentation=True),
+            "eval_dataset_config": {"augmentation": False},
+            "diffusion_config": STAGE_DIFFUSION,
+            "denoise_fn_config": {"model": "UNet", **CELEBA64_DPM},
+            "dataloader_config": stage_loader("regular"), "optimizer_config": STAGE_ADAM,
+            "runner_config": stage_runner()}
+
+
 def stage_configs(files) -> dict:
     """Config dicts of ``configs/dpm_celeba64.yml``, ``celeba64_latent.yml``
     and ``celebahq_manipulation.yml`` at their own widths, batches and
     optimizers, with SYNTHETIC data (uint8, device-resident, preloaded) and
     the stage files ``files`` names in place of the LMDBs and checkpoints."""
-    from pdae_torch.models import CELEBA64_DPM
-
-    diffusion = {"timesteps": 1000, "betas_type": "linear"}
-
-    def data(stage, size, **extra):
-        return {"name": "SYNTHETIC", "image_size": size, "image_channel": 3,
-                "length": STAGE_LENGTH[stage], "preload": True, "transfer_uint8": True,
-                "device_resident": True, **extra}
-
-    def loader(stage):
-        return {"train": {"num_workers": 4, "batch_size": STAGE_BATCH[stage]},
-                "eval": {"num_generations": BATCH}}
+    data, loader, adam = stage_data, stage_loader, STAGE_ADAM
 
     def later(stage, pdae):
         return {"trained_ddpm_config": pdae["dpm_config"],
                 "trained_representation_learning_config": pdae["config"],
                 "trained_representation_learning_checkpoint": pdae["checkpoint"],
-                "inferred_latents": pdae["stats"], "diffusion_config": diffusion,
+                "inferred_latents": pdae["stats"], "diffusion_config": STAGE_DIFFUSION,
                 "eval_dataset_config": {"augmentation": False},
                 "dataloader_config": loader(stage)}
 
-    adam = {"lr": 1e-4, "adam_betas": "(0.9, 0.999)", "adam_eps": 1e-8,
-            "weight_decay": 0.0, "enable_amp": False}
     return {
-        "regular": {
-            "train_dataset_config": data("regular", 64, augmentation=True),
-            "eval_dataset_config": {"augmentation": False}, "diffusion_config": diffusion,
-            "denoise_fn_config": {"model": "UNet", **CELEBA64_DPM},
-            "dataloader_config": loader("regular"), "optimizer_config": adam,
-            "runner_config": stage_runner()},
+        "regular": regular_config(),
         "latent": {
             **later("latent", files["celeba64"]),
             "train_dataset_config": data("latent", 64, latent_dim=LATENT, augmentation=False),
@@ -1923,6 +1996,7 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
         arg = key[1:] if key[0] == "attention" else key
         results[key] = dict(checks[key[0]](arg, check_gen, device, timed=timed_here),
                             runs=runs_of[key], timed=timed_here)
+    compared.update(results)          # the precision phase compares only what is new
     with open(os.path.join(OUT_DIR, "chip_smoke_stage_shapes.json"), "w") as f:
         json.dump([{"key": list(k), **v} for k, v in results.items()], f, indent=1)
     disagree = [(k, e) for k, r in results.items() for e, v in r["err"].items()
@@ -1966,6 +2040,445 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
     records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict)
                         and "ok" in v)
     return records
+
+
+# configs/dpm_ffhq.yml's denoise_fn_config: the FFHQ128 DPM under the PDAE of
+# configs/ffhq_representation_learning.yml
+FFHQ_DPM = dict(
+    input_channel=3, base_channel=128, channel_multiplier=(1, 1, 2, 2, 4, 4),
+    num_residual_blocks_of_a_block=2, attention_resolutions=(16,), num_heads=4,
+    head_channel=-1, use_new_attention_order=False, dropout=0.0)
+FFHQ_STEPS = 2                   # timed per (dtype, remat), after one warm-up
+REMAT_MODES = {"none": None, "skips": "skips", "full": True}
+# bf16 whole path: kernels against plain versions within this many times the
+# plain path's own bf16-against-fp32 relative L2 on the same inputs
+PRECISION_RATIO = 2.0
+# remat modes that are not bit-equal: each gradient within this times its
+# tensor's largest
+REMAT_GRAD_TOL = 1e-6
+
+
+def quiet_runner() -> dict:
+    """``stage_runner`` with no save and no eval inside a 6-step run."""
+    return {**stage_runner(), "evaluate_every_steps": 10000, "save_latest_every_steps": 10000}
+
+
+def ffhq_config(dpm_config, dpm_checkpoint, dtype: str) -> dict:
+    """``configs/ffhq_representation_learning.yml`` as a dict: ``FFHQEncoder``
+    and ``FFHQDecoder`` (latent 512) over the DPM config file
+    ``dpm_config`` and the trunk ``dpm_checkpoint``, b32, its Adam; SYNTHETIC
+    128px in place of the FFHQ LMDB; compute dtype ``dtype``."""
+    return {
+        "train_dataset_config": {"name": "SYNTHETIC", "image_size": 128, "image_channel": 3,
+                                 "length": 64, "preload": True, "latent_dim": LATENT},
+        "eval_dataset_config": {},
+        "diffusion_config": dict(STAGE_DIFFUSION),
+        "trained_ddpm_config": dpm_config, "trained_ddpm_checkpoint": dpm_checkpoint,
+        "encoder_config": {"model": "FFHQEncoder", "latent_dim": LATENT},
+        "decoder_config": {"model": "FFHQDecoder", "latent_dim": LATENT},
+        "dataloader_config": {"train": {"num_workers": 4, "batch_size": TRAIN_BATCH},
+                              "eval": {"num_generations": BATCH}},
+        "optimizer_config": dict(STAGE_ADAM),
+        "runner_config": {**quiet_runner(), "compute_dtype": dtype}}
+
+
+def remat_structure(encoder, decoder) -> dict:
+    """The kernel launches of one representation step under each remat mode,
+    from the models' structure. Every GN chain and attention block runs once
+    a forward: the encoder's, the trunk's (``input_blocks``), the epsilon
+    decode's and the shift branch's. The backward runs the encoder's and the
+    shift branch's chains. ``skips`` runs the shift branch again, ``full``
+    the trunk and the shift branch, its checkpointed region; the recompute
+    of a region stops at the last tensor the backward needs
+    (``torch.utils.checkpoint``'s early stop), the input of the shift
+    branch's output conv, which comes after every GN chain and attention
+    block."""
+    from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
+
+    regions = {"trunk": ("input_blocks",), "epsilon": ("middle_block", "output_blocks", "out"),
+               "shift": ("shift_middle_block", "shift_output_blocks", "shift_out")}
+
+    def count(model, heads=None):
+        out = {"gn": 0, "attention": 0}
+        for name, m in model.named_modules():
+            if heads is not None and name.split(".")[0] not in heads:
+                continue
+            if isinstance(m, GNSiluChain):
+                out["gn"] += 1
+            elif isinstance(m, AttentionBlock):
+                out["attention"] += 1
+        return out
+
+    enc = count(encoder)
+    part = {k: count(decoder, v) for k, v in regions.items()}
+    if count(decoder) != {k: sum(p[k] for p in part.values()) for k in enc}:
+        raise AssertionError("a GN chain or attention block of the decoder lies outside "
+                             "the trunk, the epsilon decode and the shift branch")
+    again = {"none": (), "skips": ("shift",), "full": ("trunk", "shift")}
+    return {mode: {"attention": enc["attention"] + sum(p["attention"] for p in part.values())
+                   + sum(part[r]["attention"] for r in extra),
+                   "gn_adagn_silu": enc["gn"] + sum(p["gn"] for p in part.values())
+                   + sum(part[r]["gn"] for r in extra),
+                   "gn_adagn_silu_bwd": enc["gn"] + part["shift"]["gn"]}
+            for mode, extra in again.items()}
+
+
+def rel_l2(a, b) -> float:
+    """|a - b| / |b| over lists of tensors, in float64."""
+    a = torch.cat([t.detach().double().flatten() for t in a])
+    b = torch.cat([t.detach().double().flatten() for t in b])
+    return float((a - b).norm() / b.norm())
+
+
+def within_control(kernel, plain, plain32, floor=0.0) -> dict:
+    """Kernels against plain versions (both bf16) beside the control, the
+    plain path's own bf16-against-fp32 gap (raised to ``floor``)."""
+    control = max(rel_l2(plain, plain32), floor)
+    err = rel_l2(kernel, plain)
+    return {"rel_l2": err, "control": control, "ratio": err / control,
+            "ok": bool(err <= PRECISION_RATIO * control and 0.0 < control)}
+
+
+def bf16_step_record(trainer, run, want, fp32, models) -> dict:
+    """A bf16 stage run of ``drive_stage``: its losses, times and launches
+    beside the fp32 run's figures ``fp32``; params and grads fp32; every
+    conv and linear of ``models`` in bf16."""
+    from pdae_torch.models.blocks import Conv1d, Conv2d, Linear
+    from pdae_torch.training.state import flat_params
+
+    params = flat_params(trainer.state.params)
+    layers = [m for model in models for m in model.modules()
+              if isinstance(m, (Conv1d, Conv2d, Linear))]
+    rec = {"losses": run["loss"], "step_s": run["s"],
+           "mean_step_s": sum(run["s"][1:]) / (len(run["s"]) - 1),
+           "peak_mem_gb": run["peak_mem_gb"], "fp32": fp32,
+           "launches_per_step": run["launches"][-1], "launches_expected": want,
+           "gn_variants_per_step": run["gn"][-1], "gn_bwd_variants_per_step": run["gn_bwd"][-1],
+           "params_fp32": all(p.dtype == torch.float32 for p in params),
+           "grads_fp32_finite": all(p.grad is not None and p.grad.dtype == torch.float32
+                                    and bool(torch.isfinite(p.grad).all()) for p in params),
+           "layers_bf16": bool(layers) and all(m.compute_dtype == torch.bfloat16
+                                               for m in layers)}
+    rec["speedup_vs_fp32"] = fp32["mean_step_s"] / rec["mean_step_s"]
+    rec["ok"] = bool(
+        all(math.isfinite(v) for v in run["loss"]) and rec["params_fp32"]
+        and rec["grads_fp32_finite"] and rec["layers_bf16"]
+        and all(c == want for c in run["launches"])
+        and all(v == {"cluster": want["gn_adagn_silu"], "general": 0} for v in run["gn"])
+        and all(v == {"cluster": want["gn_adagn_silu_bwd"], "general": 0}
+                for v in run["gn_bwd"]))
+    return rec
+
+
+def precision_phase(seed, device, compared, want_step, fp32) -> dict:
+    """bf16 compute over fp32 params and rematerialisation at full width:
+    the celeba64 representation and regular trainers in bf16 (``drive_stage``:
+    one warm-up and 5 timed steps each, beside the fp32 figures ``fp32``); at
+    b2 the bf16 kernels against the bf16 plain versions, held to the plain
+    path's own bf16-against-fp32 gap; the FFHQ128 representation step at b32
+    under each remat mode in fp32 and bf16, each from the same state, t and
+    noise (``cudnn.deterministic``), its launches against
+    ``remat_structure``; then every kernel key of these runs that no earlier
+    phase compared (``compared``) against the plain versions in fp32 and
+    bf16, the 128x128 GN keys timed."""
+    import gc
+    import shutil
+
+    from pdae_torch.models import FROZEN_PREFIXES, UNet
+    from pdae_torch.ops import attention
+    from pdae_torch.train import pick_trainer
+    from pdae_torch.training import RepresentationLearningTrainer
+    from pdae_torch.utils import save_checkpoint, save_yaml, unet_tree
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "precision")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    keys = KernelKeys()
+    records = {"config": {
+        "representation": "the trainer phase's config (celeba64 PDAE over the seeded "
+                          "CELEBA64_DPM trunk, b32, Adam 1e-4), compute_dtype bfloat16",
+        "regular": "the stages phase's configs/dpm_celeba64.yml dict (b32, resident "
+                   "uint8, the device flip), compute_dtype bfloat16, cudnn.deterministic",
+        "ffhq128": "configs/ffhq_representation_learning.yml (FFHQEncoder, FFHQDecoder, "
+                   "latent 512, b32, Adam 1e-4) over a seeded trunk of configs/dpm_ffhq.yml "
+                   "(base 128 x(1,1,2,2,4,4), attention at 16, 4 heads); SYNTHETIC 128px; "
+                   "cudnn.deterministic",
+        "numerics": "bf16 compute over fp32 params; fp32 with TF32 off"}}
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        # 1. bf16 steps at celeba64 ------------------------------------------
+        cfg = trainer_config(os.path.join(OUT_DIR, "trainer", "dpm.ckpt"))
+        cfg["runner_config"] = {**quiet_runner(), "compute_dtype": "bfloat16"}
+        rep = RepresentationLearningTrainer(config=cfg, run_path=os.path.join(root, "rep"),
+                                            seed=seed)
+        trunk = {k: v.clone() for k, v in rep.decoder.state_dict().items()
+                 if k.split(".")[0] in FROZEN_PREFIXES}
+        run = drive_stage(rep, keys, "precision_representation", save_on_exit=False)
+        rec = bf16_step_record(rep, run, want_step, fp32["representation"],
+                               (rep.encoder, rep.decoder))
+        now = rep.decoder.state_dict()
+        rec["trunk_unchanged"] = all(torch.equal(now[k], v) for k, v in trunk.items())
+        attn = [k for k in keys.counts["precision_representation_step"] if k[0] == "attention"]
+        rec["attention_on_mma_tiles"] = [list(k[1:]) for k in attn
+                                         if attention.attention_plan(k[1] * k[2], k[3], k[4],
+                                                                     2).mma]
+        rec["ok"] = bool(rec["ok"] and rec["trunk_unchanged"]
+                         and len(rec["attention_on_mma_tiles"]) == len(attn) > 0)
+        records["representation"] = rec
+        del trunk, now
+
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        cfg = regular_config()
+        cfg["runner_config"] = {**quiet_runner(), "compute_dtype": "bfloat16"}
+        reg = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, "regular"), seed=seed)
+        reg.train_dataset.augmentation = True     # as the stages phase runs it
+        per = per_call(reg.model, torch.zeros(1, 3, 64, 64, device=device),
+                       torch.zeros(1, dtype=torch.int32, device=device))
+        run = drive_stage(reg, keys, "precision_regular", save_on_exit=False)
+        records["regular"] = bf16_step_record(
+            reg, run, {**per, "gn_adagn_silu_bwd": per["gn_adagn_silu"]}, fp32["regular"],
+            (reg.model,))
+        reg._resident_cache = None
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+
+        # 2. the bf16 whole path at b2: kernels against plain versions -------
+        records["whole_path_bf16"] = bf16_whole_path(seed, device, rep, reg, cfg)
+        del rep, reg
+        release()
+
+        # 3. the FFHQ128 representation step under each remat mode ------------
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        dpm_config = os.path.join(root, "dpm_ffhq.yml")
+        dpm_path = os.path.join(root, "dpm_ffhq.ckpt")
+        save_yaml({"denoise_fn_config": {"model": "UNet", **FFHQ_DPM},
+                   "diffusion_config": STAGE_DIFFUSION}, dpm_config)
+        gen = torch.Generator().manual_seed(seed + 13)
+        torch.manual_seed(seed + 13)
+        unet = UNet(**FFHQ_DPM)
+        perturb_zero_params(unet, gen)
+        save_checkpoint(dpm_path, {"step": np.asarray(0, np.int32),
+                                   "ema_denoise_fn": unet_tree(unet.state_dict())})
+        del unet
+        ffhq = {}
+        inputs = None
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            tr = RepresentationLearningTrainer(config=ffhq_config(dpm_config, dpm_path, dtype),
+                                               run_path=os.path.join(root, f"ffhq_{dtype}"),
+                                               seed=seed)
+            build_s = time.perf_counter() - t0
+            if inputs is None:
+                g = torch.Generator(device=device).manual_seed(seed + 14)
+                x_0 = next(tr._batch_iterator(0))["x_0"]
+                inputs = (x_0, torch.randint(0, 1000, (TRAIN_BATCH,), generator=g,
+                                             device=device, dtype=torch.int32),
+                          torch.randn(x_0.shape, generator=g, device=device))
+            ffhq[dtype] = ffhq_remat_runs(tr, keys, inputs, dtype, device)
+            ffhq[dtype]["build_s"] = build_s
+            del tr
+            release()
+        os.unlink(dpm_path)
+        records["ffhq128"] = ffhq
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+    finally:
+        keys.handle.remove()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+
+    # 4. every new kernel key against the plain versions, fp32 and bf16 -------
+    runs_of = keys.runs_of()
+    check_gen = torch.Generator(device=device).manual_seed(seed + 15)
+    checks = {"attention": check_attention, "gn": check_gn, "gn_bwd": check_gn_bwd}
+    results = {}
+    for key in sorted(k for k in runs_of if k not in compared):
+        timed = key[0] != "attention" and key[3] == 128     # the 128x128 GN slabs
+        arg = key[1:] if key[0] == "attention" else key
+        results[key] = dict(checks[key[0]](arg, check_gen, device, timed=timed),
+                            runs=runs_of[key], timed=timed)
+    compared.update(results)
+    with open(os.path.join(OUT_DIR, "chip_smoke_precision_shapes.json"), "w") as f:
+        json.dump([{"key": list(k), **v} for k, v in results.items()], f, indent=1)
+    disagree = [(list(k), e) for k, r in results.items() for e, v in r["err"].items()
+                if not v["ok"]]
+    off_cluster = [(list(k), name) for k, r in results.items()
+                   for name, plan in r.get("variant", {}).items()
+                   if plan["variant"] != "cluster"]
+    timed_rows = {json.dumps(list(k)): {f: r.get(f) for f in (
+        "ms", "bf16_ms", "plain_ms", "library_ms", "bf16_library_ms", "bf16_bound_ms")}
+        for k, r in results.items() if r["timed"]}
+    for k, r in results.items():
+        if r["timed"]:
+            timed_rows[json.dumps(list(k))]["bound_ms"] = max(
+                r["bytes"] / HBM_BYTES_PER_S, r["flops"] / FP32_FLOPS) * 1e3
+            timed_rows[json.dumps(list(k))]["plan_fp32"] = r["variant"]["float32"]
+    records["kernel_shapes"] = {
+        "shapes": len(runs_of), "compared_here": len(results),
+        "max_abs_err_fp32": max((v["max_abs_err"] for r in results.values()
+                                 for e, v in r["err"].items() if "float32" in e), default=0.0),
+        "timed_128px": timed_rows, "off_cluster": off_cluster, "disagree": disagree,
+        "ok": not disagree and not off_cluster}
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records
+
+
+def bf16_whole_path(seed, device, rep, reg, reg_cfg) -> dict:
+    """At b2, from the same weights, t and noise: one ShiftUNet forward, the
+    representation step's loss and every trainable gradient, and the regular
+    step's, through the bf16 kernels and through the bf16 plain versions,
+    beside the control: the plain path in bf16 against fp32 twins of the same
+    models. Each within PRECISION_RATIO times its control; a loss, one number
+    whose rounding is a single draw, with the larger of its own control and
+    its step's gradient control."""
+    from pdae_torch import ops
+    from pdae_torch.models import build_decoder, build_denoise_fn, build_encoder
+    from pdae_torch.training import trainable_params
+    from pdae_torch.training.artifacts import resolve_model_config
+    from pdae_torch.training.state import flat_params
+
+    rs = np.random.RandomState(seed + 12)
+
+    def tensor(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device)
+
+    x_0, noise, z = tensor(2, 3, 64, 64).clamp(-1, 1), tensor(2, 3, 64, 64), tensor(2, LATENT)
+    t = torch.tensor([10, 500], dtype=torch.int32, device=device)
+    cfg = rep.config
+    twins = {"encoder": build_encoder(cfg["encoder_config"], image_size=64),
+             "decoder": build_decoder(cfg["decoder_config"],
+                                      resolve_model_config(cfg["trained_ddpm_config"])),
+             "unet": build_denoise_fn(reg_cfg["denoise_fn_config"])}
+    for name, model in (("encoder", rep.encoder), ("decoder", rep.decoder),
+                        ("unet", reg.model)):
+        twins[name].load_state_dict(model.state_dict(), strict=True)
+        twins[name].to(device).train(model.training)
+
+    def forward(dec):
+        with torch.inference_mode():
+            return list(dec(x_0, t, z))
+
+    def rep_grads(enc, dec):
+        leaves = flat_params(trainable_params(enc, dec))
+        loss = rep.gd.representation_learning_train_one_batch(
+            None, enc, dec, x_0, t=t, noise=noise)["prediction_loss"]
+        return [loss.detach()], list(torch.autograd.grad(loss, leaves))
+
+    def reg_grads(model):
+        leaves = [p for p in model.parameters() if p.requires_grad]
+        loss = reg.gd.regular_train_one_batch(None, model, x_0, None, t=t,
+                                              noise=noise)["prediction_loss"]
+        return [loss.detach()], list(torch.autograd.grad(loss, leaves))
+
+    runs = {
+        "shift_unet_forward": lambda bf16: forward(rep.decoder if bf16 else twins["decoder"]),
+        "representation_step": lambda bf16: rep_grads(
+            *((rep.encoder, rep.decoder) if bf16 else (twins["encoder"], twins["decoder"]))),
+        "regular_step": lambda bf16: reg_grads(reg.model if bf16 else twins["unet"]),
+    }
+    out = {}
+    for name, run in runs.items():
+        kernel = run(True)
+        ops.set_use_kernels(False)
+        try:
+            plain, plain32 = run(True), run(False)
+        finally:
+            ops.set_use_kernels(None)
+        if name == "shift_unet_forward":
+            out[name] = within_control(kernel, plain, plain32)
+            continue
+        grads = within_control(kernel[1], plain[1], plain32[1])
+        grads["tensors"] = len(kernel[1])
+        grads["all_nonzero_finite"] = all(bool(torch.isfinite(g).all()) and bool(g.any())
+                                          for g in kernel[1])
+        grads["ok"] = grads["ok"] and grads["all_nonzero_finite"]
+        out[name] = {"loss": within_control(kernel[0], plain[0], plain32[0],
+                                            floor=grads["control"]),
+                     "grads": grads,
+                     "loss_values": {"kernels_bf16": float(kernel[0][0]),
+                                     "plain_bf16": float(plain[0][0]),
+                                     "plain_fp32": float(plain32[0][0])}}
+        out[name]["ok"] = out[name]["loss"]["ok"] and grads["ok"]
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def ffhq_remat_runs(tr, keys, inputs, dtype, device) -> dict:
+    """The FFHQ128 representation step of trainer ``tr`` under each remat
+    mode, each from the trainer's initial state (params, EMA, an empty Adam)
+    on the same ``(x_0, t, noise)``: one warm-up step and FFHQ_STEPS timed,
+    the launches of each against ``remat_structure``, the first step's loss
+    and gradients against the mode without remat."""
+    from pdae_torch import ops
+    from pdae_torch.training import make_representation_train_step
+    from pdae_torch.training.state import flat_params
+
+    x_0, t, noise = inputs
+    params, ema = flat_params(tr.state.params), flat_params(tr.state.ema_params)
+    start = [p.detach().clone() for p in params]
+    ema_start = [e.clone() for e in ema]
+    want = remat_structure(tr.encoder, tr.decoder)
+    out = {"structure": want}
+    first = {}
+    for mode, remat in REMAT_MODES.items():
+        with torch.no_grad():
+            for p, s, e, e0 in zip(params, start, ema, ema_start):
+                p.copy_(s)
+                p.grad = None
+                e.copy_(e0)
+        tr.optimizer.state.clear()
+        tr.state.step = 0
+        step = make_representation_train_step(tr.gd, tr.encoder, tr.decoder, tr.optimizer,
+                                              device=device, remat=remat)
+        rec = {"s": [], "loss": [], "launches": [], "gn": [], "gn_bwd": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 + FFHQ_STEPS):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            keys.name = f"ffhq_{dtype}_{mode}"
+            s0 = time.perf_counter()
+            loss = step(tr.state, x_0, t=t, noise=noise)
+            torch.cuda.synchronize()
+            rec["s"].append(time.perf_counter() - s0)
+            keys.name = None
+            rec["loss"].append(float(loss))
+            rec["launches"].append(ops.launch_counts())
+            rec["gn"].append(ops.gn_variant_counts())
+            rec["gn_bwd"].append(ops.gn_bwd_variant_counts())
+            if i == 0:
+                first[mode] = (loss.clone(), [p.grad.clone() for p in params])
+        w = want[mode]
+        out[mode] = {
+            "losses": rec["loss"], "step_s": rec["s"],
+            "mean_step_s": sum(rec["s"][1:]) / FFHQ_STEPS,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": rec["launches"][-1], "launches_expected": w,
+            "ok": bool(all(math.isfinite(v) for v in rec["loss"])
+                       and all(c == w for c in rec["launches"])
+                       and all(v == {"cluster": w["gn_adagn_silu"], "general": 0}
+                               for v in rec["gn"])
+                       and all(v == {"cluster": w["gn_adagn_silu_bwd"], "general": 0}
+                               for v in rec["gn_bwd"]))}
+    base_loss, base_grads = first["none"]
+    for mode in ("skips", "full"):
+        loss, grads = first[mode]
+        bit_equal = (bool(torch.equal(loss, base_loss))
+                     and all(torch.equal(a, b) for a, b in zip(grads, base_grads))
+                     and out[mode]["losses"] == out["none"]["losses"])
+        worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(grads, base_grads))
+        out[mode]["vs_none"] = {
+            "bit_equal": bit_equal, "loss_rel_err": abs(float(loss) - float(base_loss)) / abs(float(base_loss)),
+            "worst_grad_err_of_its_max": worst}
+        out[mode]["ok"] = bool(out[mode]["ok"] and (bit_equal or (
+            worst <= REMAT_GRAD_TOL and out[mode]["vs_none"]["loss_rel_err"] <= REMAT_GRAD_TOL)))
+    out["ok"] = all(out[m]["ok"] for m in REMAT_MODES)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2186,11 +2699,12 @@ def main(argv=None) -> int:
                 and not stuck and not bad_grad and not thawed
                 and 2 * len(ema_still) < len(leaves) and ema_finite
                 and state.step == 1 + TRAIN_STEPS)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit({"phase": "train", "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
           "optimizer": "Adam lr 1e-4", "dtype": "float32, TF32 off",
           "losses": losses, "step_s": step_s[1:], "warmup_step_s": step_s[0],
           "mean_step_s": mean_step_s, "imgs_per_s": TRAIN_BATCH / mean_step_s,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_mem_gb": train_peak_gb,
           "launches_per_step": train_launches, "launches_expected": want_step,
           "gn_variants_per_step": step_variants[-1],
           "gn_bwd_variants_per_step": step_bwd_variants,
@@ -2361,6 +2875,16 @@ def main(argv=None) -> int:
     emit({"phase": "stages", **stages})
     if not stages["ok"]:
         raise AssertionError("the stages phase failed its checks")
+
+    # 10. bf16 compute and rematerialisation at full width ---------------------
+    precision = precision_phase(args.seed, device, compared, want_step, {
+        "representation": {"mean_step_s": mean_step_s, "peak_mem_gb": train_peak_gb,
+                           "of": "train phase"},
+        "regular": {"mean_step_s": stages["regular"]["mean_step_s"],
+                    "peak_mem_gb": stages["regular"]["peak_mem_gb"], "of": "stages phase"}})
+    emit({"phase": "precision", **precision})
+    if not precision["ok"]:
+        raise AssertionError("the precision phase failed its checks")
 
     per_op = {name: op_records[name]["launches"]
               for name in ("generate", "manipulate", "autoencode_dpm20")}

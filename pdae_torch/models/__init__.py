@@ -1,6 +1,9 @@
-"""Model registry: config dicts -> modules, as ``pdae_tpu.models`` builds them."""
+"""Model registry: config dicts -> modules, as ``pdae_tpu.models`` builds them.
+Each builder takes the compute ``dtype`` (fp32 parameters either way)."""
 
 from __future__ import annotations
+
+import torch
 
 from .blocks import timestep_embedding
 from .classifier import LinearClassifier
@@ -38,16 +41,17 @@ def _filter(config: dict, keys) -> dict:
     return out
 
 
-def build_denoise_fn(config: dict) -> UNet:
+def build_denoise_fn(config: dict, dtype=torch.float32) -> UNet:
     """``UNet``, ``MNISTDenoiseFn`` or ``<DS>DenoiseFn`` -> UNet (a pre-trained
     DPM's model config)."""
     name = config.get("model", "UNet")
     if name not in ("UNet", "MNISTDenoiseFn") and not name.endswith("DenoiseFn"):
         raise KeyError(f"unknown denoise_fn model: {name}")
-    return UNet(**_filter(config, _UNET_KEYS))
+    return UNet(dtype=dtype, **_filter(config, _UNET_KEYS))
 
 
-def build_decoder(config: dict, trained_ddpm_config: dict) -> ShiftUNet:
+def build_decoder(config: dict, trained_ddpm_config: dict,
+                  dtype=torch.float32) -> ShiftUNet:
     """``<DS>Decoder`` -> ShiftUNet: the UNet geometry comes from the
     pre-trained DPM config, ``latent_dim`` from the decoder config."""
     name = config.get("model", "ShiftUNet")
@@ -55,19 +59,20 @@ def build_decoder(config: dict, trained_ddpm_config: dict) -> ShiftUNet:
         raise KeyError(f"unknown decoder model: {name}")
     kwargs = _filter(trained_ddpm_config, _UNET_KEYS)
     kwargs.pop("num_class", None)
-    return ShiftUNet(latent_dim=config["latent_dim"], **kwargs)
+    return ShiftUNet(latent_dim=config["latent_dim"], dtype=dtype, **kwargs)
 
 
-def build_encoder(config: dict, image_size: int = None) -> SemanticEncoder:
+def build_encoder(config: dict, image_size: int = None,
+                  dtype=torch.float32) -> SemanticEncoder:
     name = config.get("model", "")
     if name in _ENCODER_RESOLUTION:
         image_size = _ENCODER_RESOLUTION[name]
     if image_size is None:
         raise KeyError(f"unknown encoder model: {name} (and no image_size)")
-    return encoder_for_resolution(image_size, config["latent_dim"])
+    return encoder_for_resolution(image_size, config["latent_dim"], dtype=dtype)
 
 
-def build_latent_denoise_fn(config: dict) -> MLPSkipNet:
+def build_latent_denoise_fn(config: dict, dtype=torch.float32) -> MLPSkipNet:
     """``<DS>LatentDenoiseFn`` -> MLPSkipNet."""
     name = config.get("model", "MLPSkipNet")
     if name != "MLPSkipNet" and not name.endswith("LatentDenoiseFn"):
@@ -78,11 +83,13 @@ def build_latent_denoise_fn(config: dict) -> MLPSkipNet:
         num_layers=config.get("num_layers", 10),
         time_emb_channel=config.get("time_emb_channel", 64),
         use_norm=config.get("use_norm", True),
-        dropout=config.get("dropout", 0.0))
+        dropout=config.get("dropout", 0.0),
+        dtype=dtype)
 
 
-def build_classifier(num_classes: int = 40, latent_dim: int = 512) -> LinearClassifier:
-    return LinearClassifier(num_classes=num_classes, latent_dim=latent_dim)
+def build_classifier(num_classes: int = 40, latent_dim: int = 512,
+                     dtype=torch.float32) -> LinearClassifier:
+    return LinearClassifier(num_classes=num_classes, latent_dim=latent_dim, dtype=dtype)
 
 
 __all__ = ["CELEBA64_DPM", "UNet", "ShiftUNet", "SemanticEncoder", "MLPSkipNet",

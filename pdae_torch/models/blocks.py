@@ -6,6 +6,15 @@ converted checkpoint loads with ``load_state_dict(strict=True)``. Where the
 reference has a SiLU after a GroupNorm, the GN+AdaGN+SiLU chain runs as one op
 (``pdae_torch.ops.gn_adagn_silu``) and the SiLU's index holds an
 ``nn.Identity`` placeholder, which has no parameters.
+
+Compute dtype, as the JAX blocks' ``dtype`` attribute: parameters stay fp32
+and each conv, linear and norm that has a ``compute_dtype`` casts its input
+and its parameters to it at the call, as flax's ``dtype=`` does, and returns
+that dtype (``Conv2d``, ``Conv1d``, ``Linear``; the norms compute in fp32
+first, as flax's ``_normalize``). The casts are written out, not left to
+``torch.autocast``, whose op lists are not flax's. In fp32 every cast is the
+tensor itself, so the fp32 graph is the one without them. The GN+AdaGN+SiLU
+chain computes in the dtype of its input.
 """
 
 from __future__ import annotations
@@ -27,8 +36,58 @@ def num_groups(channels: int) -> int:
     return groups
 
 
-def group_norm(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(num_groups(channels), channels, eps=1e-5)
+class _ComputeDtype:
+    """Mixin of the layers below: ``compute_dtype`` is a keyword of the
+    constructor (the layer's own ``dtype`` keyword stays its parameters')."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+
+class _CastConv(_ComputeDtype):
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``: the input, weight and bias
+    are cast at the call and the output keeps that dtype."""
+
+
+class Conv1d(_CastConv, nn.Conv1d):
+    """``nn.Conv1d`` computing in ``compute_dtype`` (see ``Conv2d``)."""
+
+
+class Linear(_ComputeDtype, nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``)."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class GroupNorm(_ComputeDtype, nn.GroupNorm):
+    """``nn.GroupNorm`` with flax's ``GroupNorm(dtype=)`` order: statistics,
+    normalisation and affine in fp32, then the cast to ``compute_dtype``."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
+class LayerNorm(_ComputeDtype, nn.LayerNorm):
+    """``nn.LayerNorm`` with flax's ``LayerNorm(dtype=)`` order (see
+    ``GroupNorm``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
+def group_norm(channels: int, dtype=torch.float32) -> GroupNorm:
+    return GroupNorm(num_groups(channels), channels, eps=1e-5, compute_dtype=dtype)
 
 
 class GNSiluChain(nn.Module):
@@ -60,8 +119,8 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return embedding
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+def conv3x3(cin: int, cout: int, stride: int = 1, dtype=torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, compute_dtype=dtype)
 
 
 def zero_init(module: nn.Module) -> nn.Module:
@@ -75,11 +134,12 @@ def zero_init(module: nn.Module) -> nn.Module:
 class Upsample(nn.Module):
     """2x nearest upsample with an optional 3x3 conv after it."""
 
-    def __init__(self, channels: int, use_conv: bool, out_channels=None):
+    def __init__(self, channels: int, use_conv: bool, out_channels=None,
+                 dtype=torch.float32):
         super().__init__()
         self.use_conv = use_conv
         if use_conv:
-            self.conv = conv3x3(channels, out_channels or channels)
+            self.conv = conv3x3(channels, out_channels or channels, dtype=dtype)
 
     def forward(self, x):
         x = F.interpolate(x, scale_factor=2, mode="nearest")
@@ -89,11 +149,12 @@ class Upsample(nn.Module):
 class Downsample(nn.Module):
     """2x downsample by a stride-2 3x3 conv or a 2x2 average pool."""
 
-    def __init__(self, channels: int, use_conv: bool, out_channels=None):
+    def __init__(self, channels: int, use_conv: bool, out_channels=None,
+                 dtype=torch.float32):
         super().__init__()
         self.use_conv = use_conv
         if use_conv:
-            self.op = conv3x3(channels, out_channels or channels, stride=2)
+            self.op = conv3x3(channels, out_channels or channels, stride=2, dtype=dtype)
         elif (out_channels or channels) != channels:
             raise ValueError("average-pool downsampling keeps the channel count")
 
@@ -108,27 +169,28 @@ class ResBlock(nn.Module):
 
     def __init__(self, channels: int, emb_channels: int, dropout: float,
                  out_channels=None, use_conv: bool = False, up: bool = False,
-                 down: bool = False, shift: bool = False):
+                 down: bool = False, shift: bool = False, dtype=torch.float32):
         super().__init__()
         out_ch = out_channels or channels
         self.up, self.down, self.shift = up, down, shift
         # [GN, SiLU, conv] in the reference; index 1 is fused into index 0
         self.in_layers = nn.ModuleList([GNSiluChain(channels), nn.Identity(),
-                                        conv3x3(channels, out_ch)])
-        self.emb_layers = nn.ModuleList([nn.SiLU(), nn.Linear(emb_channels, 2 * out_ch)])
+                                        conv3x3(channels, out_ch, dtype=dtype)])
+        self.emb_layers = nn.ModuleList([
+            nn.SiLU(), Linear(emb_channels, 2 * out_ch, compute_dtype=dtype)])
         if shift:
-            self.emb_z_layers = nn.ModuleList([nn.SiLU(),
-                                               nn.Linear(emb_channels, 2 * out_ch)])
+            self.emb_z_layers = nn.ModuleList([
+                nn.SiLU(), Linear(emb_channels, 2 * out_ch, compute_dtype=dtype)])
         # [GN, SiLU, dropout, zero-init conv]
         self.out_layers = nn.ModuleList([GNSiluChain(out_ch), nn.Identity(),
                                          nn.Dropout(dropout),
-                                         zero_init(conv3x3(out_ch, out_ch))])
+                                         zero_init(conv3x3(out_ch, out_ch, dtype=dtype))])
         if out_ch == channels:
             self.skip_connection = nn.Identity()
         elif use_conv:
-            self.skip_connection = conv3x3(channels, out_ch)
+            self.skip_connection = conv3x3(channels, out_ch, dtype=dtype)
         else:
-            self.skip_connection = nn.Conv2d(channels, out_ch, 1)
+            self.skip_connection = Conv2d(channels, out_ch, 1, compute_dtype=dtype)
 
     def forward(self, x, emb, emb_z=None):
         h = self.in_layers[0](x)
@@ -184,7 +246,7 @@ class AttentionBlock(nn.Module):
     ``channels // head_channel``."""
 
     def __init__(self, channels: int, num_heads: int = 1, head_channel: int = -1,
-                 use_new_attention_order: bool = False):
+                 use_new_attention_order: bool = False, dtype=torch.float32):
         super().__init__()
         if head_channel == -1:
             self.num_heads = num_heads
@@ -193,9 +255,9 @@ class AttentionBlock(nn.Module):
                 raise ValueError(f"{channels} channels, head_channel {head_channel}")
             self.num_heads = channels // head_channel
         self.new_order = use_new_attention_order
-        self.norm = group_norm(channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj_out = zero_init(nn.Conv1d(channels, channels, 1))
+        self.norm = group_norm(channels, dtype)
+        self.qkv = Conv1d(channels, 3 * channels, 1, compute_dtype=dtype)
+        self.proj_out = zero_init(Conv1d(channels, channels, 1, compute_dtype=dtype))
 
     def forward(self, x):
         b, c, h, w = x.shape

@@ -4,14 +4,19 @@
 Its ``weight`` and ``bias`` are the keys of ``export_classifier_state_dict``;
 ``weight`` is the ``[num_classes, latent_dim]`` matrix whose rows are the
 manipulation's edit directions (the JAX ``LinearClassifier.weight(params)``).
+``dtype`` is its compute dtype (``models/blocks.py``); the manipulation
+trainer builds it fp32, as ``pdae_tpu``'s does.
 """
 
 from __future__ import annotations
 
-from torch import nn
+import torch
+
+from .blocks import Linear
 
 
-class LinearClassifier(nn.Linear):
+class LinearClassifier(Linear):
 
-    def __init__(self, num_classes: int = 40, latent_dim: int = 512):
-        super().__init__(latent_dim, num_classes)
+    def __init__(self, num_classes: int = 40, latent_dim: int = 512,
+                 dtype=torch.float32):
+        super().__init__(latent_dim, num_classes, compute_dtype=dtype)

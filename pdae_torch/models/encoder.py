@@ -9,48 +9,53 @@ SiLU indices hold ``nn.Identity`` (fused into the GN chain before them).
 * 64px:  channels (64, 128, 128, 128), attention after stage 2;
 * 128px: channels (64, 128, 256, 256, 256), attention after stage 3.
 
-Both end at 4x4, so the flatten is ``channels[-1] * 16`` wide.
+Both end at 4x4, so the flatten is ``channels[-1] * 16`` wide. ``dtype`` is
+the compute dtype (``models/blocks.py``): x is cast to it, z is fp32.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
 
-from .blocks import AttentionBlock, GNSiluChain, conv3x3
+from .blocks import AttentionBlock, GNSiluChain, Linear, conv3x3
 
 
 class SemanticEncoder(nn.Module):
 
     def __init__(self, latent_dim: int, channels: Sequence[int] = (64, 128, 128, 128),
                  attn_after_stage: int = 2, attn_heads: int = 4,
-                 image_size: int = 64, input_channel: int = 3):
+                 image_size: int = 64, input_channel: int = 3, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         layers = []
         cin = input_channel
         for i, ch in enumerate(channels):
             if i > 0:
                 layers += [GNSiluChain(channels[i - 1]), nn.Identity()]
-            layers.append(conv3x3(cin, ch, stride=2))
+            layers.append(conv3x3(cin, ch, stride=2, dtype=dtype))
             cin = ch
             if (i + 1) == attn_after_stage:
-                layers.append(AttentionBlock(ch, num_heads=attn_heads))
+                layers.append(AttentionBlock(ch, num_heads=attn_heads, dtype=dtype))
         final_size = image_size >> len(channels)
         layers += [GNSiluChain(channels[-1]), nn.Identity(), nn.Flatten(),
-                   nn.Linear(channels[-1] * final_size * final_size, latent_dim)]
+                   Linear(channels[-1] * final_size * final_size, latent_dim,
+                          compute_dtype=dtype)]
         self.encoder = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.encoder(x).float()
+        return self.encoder(x.to(self.dtype)).float()
 
 
-def encoder_for_resolution(image_size: int, latent_dim: int) -> SemanticEncoder:
+def encoder_for_resolution(image_size: int, latent_dim: int,
+                           dtype=torch.float32) -> SemanticEncoder:
     """The reference's per-dataset encoder geometry by input resolution."""
     if image_size == 64:
         return SemanticEncoder(latent_dim, channels=(64, 128, 128, 128),
-                               attn_after_stage=2, image_size=64)
+                               attn_after_stage=2, image_size=64, dtype=dtype)
     if image_size == 128:
         return SemanticEncoder(latent_dim, channels=(64, 128, 256, 256, 256),
-                               attn_after_stage=3, image_size=128)
+                               attn_after_stage=3, image_size=128, dtype=dtype)
     raise ValueError(f"no reference encoder geometry for {image_size}px")

@@ -12,6 +12,16 @@ eval mode whatever ``train()`` is asked for, so dropout acts in the shift
 branch alone (the JAX model's ``deterministic`` / ``shift_deterministic``
 pair) and a backward saves nothing for the trunk. Only
 ``SHIFT_TRAINABLE_PREFIXES`` train.
+
+``dtype`` is the compute dtype (``models/blocks.py``): x and z are cast to it,
+both outputs are fp32. The epsilon decode runs before the shift branch, so
+that its transients are gone before the shift branch's saved activations
+pile up. ``remat`` (``runner_config.remat``) puts non-reentrant activation
+checkpoints on the training forward: ``"skips"`` on the shift branch, so the
+backward keeps the trunk's skips and recomputes the shift branch alone;
+``"full"`` on the trunk and the shift branch together (the epsilon decode,
+which no gradient reaches, runs outside, as JAX's remat leaves it out of the
+recompute).
 """
 
 from __future__ import annotations
@@ -21,9 +31,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import timestep_embedding
-from .unet import (apply_stage, build_decode_stack, build_input_stack,
-                   output_head, time_embed_mlp)
+from .blocks import Linear, timestep_embedding
+from torch.utils.checkpoint import checkpoint
+
+from .unet import (apply_stage, build_decode_stack, build_input_stack, check_remat,
+                   decode, output_head, rematerialised, time_embed_mlp)
 
 
 # Top-level names of the trainable PDAE branch, in the port's key layout
@@ -43,22 +55,24 @@ class ShiftUNet(nn.Module):
                  attention_resolutions: Sequence[int], latent_dim: int,
                  num_heads: int = 1, head_channel: int = -1,
                  use_new_attention_order: bool = False, dropout: float = 0.0,
-                 learn_sigma: bool = False):
+                 learn_sigma: bool = False, dtype=torch.float32):
         super().__init__()
         self.base_channel = base_channel
-        self.time_embed = time_embed_mlp(base_channel)
-        self.label_emb = nn.Linear(latent_dim, base_channel * 4)
+        self.dtype = dtype
+        self.time_embed = time_embed_mlp(base_channel, dtype)
+        self.label_emb = Linear(latent_dim, base_channel * 4, compute_dtype=dtype)
         geometry = (base_channel, channel_multiplier, num_residual_blocks_of_a_block,
                     attention_resolutions, num_heads, head_channel,
                     use_new_attention_order, dropout)
-        self.input_blocks, skip_chans = build_input_stack(*geometry, input_channel)
+        self.input_blocks, skip_chans = build_input_stack(*geometry, input_channel,
+                                                          dtype=dtype)
         self.middle_block, self.output_blocks, final_ch = build_decode_stack(
-            *geometry, skip_chans)
+            *geometry, skip_chans, dtype=dtype)
         self.shift_middle_block, self.shift_output_blocks, _ = build_decode_stack(
-            *geometry, skip_chans, shift=True)
+            *geometry, skip_chans, shift=True, dtype=dtype)
         self.out = output_head(final_ch, input_channel * 2 if learn_sigma
-                               else input_channel)
-        self.shift_out = output_head(final_ch, input_channel)
+                               else input_channel, dtype)
+        self.shift_out = output_head(final_ch, input_channel, dtype)
         for name in FROZEN_PREFIXES:
             getattr(self, name).requires_grad_(False)
         self.train()
@@ -70,22 +84,34 @@ class ShiftUNet(nn.Module):
             getattr(self, name).eval()
         return self
 
-    def forward(self, x, time, condition):
-        """``condition`` is the semantic latent z ``[N, latent_dim]``."""
-        emb = self.time_embed(timestep_embedding(time, self.base_channel))
-        shift_emb = self.label_emb(condition.to(x.dtype))
+    def _trunk(self, x, emb):
         hs = []
         h = x
         for stage in self.input_blocks:
             h = apply_stage(stage, h, emb)
             hs.append(h)
-        epsilon_h = apply_stage(self.middle_block, h, emb)
-        shift_h = apply_stage(self.shift_middle_block, h, emb, shift_emb)
-        for stage, shift_stage in zip(self.output_blocks, self.shift_output_blocks):
-            h_previous = hs.pop()
-            epsilon_h = apply_stage(stage, torch.cat([epsilon_h, h_previous], dim=1), emb)
-            shift_h = apply_stage(shift_stage, torch.cat([shift_h, h_previous], dim=1),
-                                  emb, shift_emb)
-        epsilon = self.out[2](self.out[0](epsilon_h))
-        gradient = self.shift_out[2](self.shift_out[0](shift_h))
+        return hs
+
+    def _shift(self, hs, emb, shift_emb):
+        return decode(self.shift_middle_block, self.shift_output_blocks, self.shift_out, hs,
+                      emb, shift_emb)
+
+    def _trunk_and_shift(self, x, emb, shift_emb):
+        hs = self._trunk(x, emb)
+        return (self._shift(hs, emb, shift_emb), *hs)
+
+    def forward(self, x, time, condition, remat=None):
+        """``condition`` is the semantic latent z ``[N, latent_dim]``."""
+        check_remat(remat)
+        emb = self.time_embed(timestep_embedding(time, self.base_channel))
+        shift_emb = self.label_emb(condition.to(self.dtype))
+        x = x.to(self.dtype)
+        if remat == "full":
+            gradient, *hs = checkpoint(self._trunk_and_shift, x, emb, shift_emb,
+                                       use_reentrant=False)
+            epsilon = decode(self.middle_block, self.output_blocks, self.out, hs, emb)
+        else:
+            hs = self._trunk(x, emb)
+            epsilon = decode(self.middle_block, self.output_blocks, self.out, hs, emb)
+            gradient = rematerialised(remat == "skips", self._shift, hs, emb, shift_emb)
         return epsilon.float(), gradient.float()

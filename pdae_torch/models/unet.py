@@ -6,6 +6,15 @@ package) are shared with ``ShiftUNet`` so the frozen trunk has one layout in
 both models; stage lists
 are ``nn.ModuleList``s so the state-dict keys read ``input_blocks.I.J.*``,
 ``middle_block.J.*`` and ``output_blocks.I.J.*`` as in the reference.
+
+``dtype`` is the compute dtype of ``pdae_tpu``'s models (see ``blocks``): the
+input is cast to it, every stage runs in it, the output is fp32.
+``remat`` is the training forward's rematerialisation
+(``runner_config.remat``, ``pdae_tpu/training/steps.py::remat_wrap``) under
+non-reentrant activation checkpoints: ``"full"`` checkpoints the whole
+forward; ``"skips"`` keeps the skips, as JAX's policy keeps the tagged ones,
+and checkpoints each input stage and then the decode, so the backward
+recomputes the rest from them.
 """
 
 from __future__ import annotations
@@ -14,27 +23,46 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .blocks import (AttentionBlock, GNSiluChain, ResBlock, ResBlockShift,
+from .blocks import (AttentionBlock, GNSiluChain, Linear, ResBlock, ResBlockShift,
                      conv3x3, timestep_embedding, zero_init)
 
 
-def time_embed_mlp(base_channel: int) -> nn.Sequential:
+def time_embed_mlp(base_channel: int, dtype=torch.float32) -> nn.Sequential:
     """Two-layer SiLU MLP on the sinusoidal embedding (``time_embed.0/.2``)."""
     dim = base_channel * 4
-    return nn.Sequential(nn.Linear(base_channel, dim), nn.SiLU(), nn.Linear(dim, dim))
+    return nn.Sequential(Linear(base_channel, dim, compute_dtype=dtype), nn.SiLU(),
+                         Linear(dim, dim, compute_dtype=dtype))
 
 
-def _attention(ch, num_heads, head_channel, use_new_attention_order):
+def _attention(ch, num_heads, head_channel, use_new_attention_order, dtype):
     return AttentionBlock(ch, num_heads=num_heads, head_channel=head_channel,
-                          use_new_attention_order=use_new_attention_order)
+                          use_new_attention_order=use_new_attention_order, dtype=dtype)
+
+
+REMAT_MODES = (None, "skips", "full")
+
+
+def check_remat(remat) -> None:
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
+
+
+def rematerialised(remat: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant activation checkpoint where
+    ``remat``: the backward recomputes what ``fn`` saved, with the forward's
+    RNG state (the same dropout masks)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def build_input_stack(base_channel: int, channel_multiplier: Sequence[int],
                       num_residual_blocks_of_a_block: int,
                       attention_resolutions: Sequence[int], num_heads: int,
                       head_channel: int, use_new_attention_order: bool,
-                      dropout: float, input_channel: int):
+                      dropout: float, input_channel: int, dtype=torch.float32):
     """Build the encoding half of the trunk.
 
     Returns ``(input_blocks, skip_chans)``: the stage list and the channel
@@ -44,22 +72,23 @@ def build_input_stack(base_channel: int, channel_multiplier: Sequence[int],
     attn = set(attention_resolutions)
     time_embed_dim = base_channel * 4
     ch = int(channel_multiplier[0] * base_channel)
-    input_blocks = nn.ModuleList([nn.ModuleList([conv3x3(input_channel, ch)])])
+    input_blocks = nn.ModuleList([nn.ModuleList([conv3x3(input_channel, ch, dtype=dtype)])])
     skip_chans = [ch]
     ds = 1
     for level, mult in enumerate(channel_multiplier):
         for _ in range(num_residual_blocks_of_a_block):
             layers = [ResBlock(ch, time_embed_dim, dropout,
-                               out_channels=int(mult * base_channel))]
+                               out_channels=int(mult * base_channel), dtype=dtype)]
             ch = int(mult * base_channel)
             if ds in attn:
                 layers.append(_attention(ch, num_heads, head_channel,
-                                         use_new_attention_order))
+                                         use_new_attention_order, dtype))
             input_blocks.append(nn.ModuleList(layers))
             skip_chans.append(ch)
         if level != len(channel_multiplier) - 1:
             input_blocks.append(nn.ModuleList([
-                ResBlock(ch, time_embed_dim, dropout, out_channels=ch, down=True)]))
+                ResBlock(ch, time_embed_dim, dropout, out_channels=ch, down=True,
+                         dtype=dtype)]))
             skip_chans.append(ch)
             ds *= 2
     return input_blocks, skip_chans
@@ -70,7 +99,7 @@ def build_decode_stack(base_channel: int, channel_multiplier: Sequence[int],
                        attention_resolutions: Sequence[int], num_heads: int,
                        head_channel: int, use_new_attention_order: bool,
                        dropout: float, skip_chans: Sequence[int],
-                       shift: bool = False):
+                       shift: bool = False, dtype=torch.float32):
     """Build the middle block and the decoding half, reading the skips of
     ``build_input_stack`` (``skip_chans`` is not modified).
 
@@ -86,9 +115,9 @@ def build_decode_stack(base_channel: int, channel_multiplier: Sequence[int],
     ds = 2 ** (len(channel_multiplier) - 1)
 
     middle_block = nn.ModuleList([
-        Res(ch, time_embed_dim, dropout),
-        _attention(ch, num_heads, head_channel, use_new_attention_order),
-        Res(ch, time_embed_dim, dropout),
+        Res(ch, time_embed_dim, dropout, dtype=dtype),
+        _attention(ch, num_heads, head_channel, use_new_attention_order, dtype),
+        Res(ch, time_embed_dim, dropout, dtype=dtype),
     ])
 
     output_blocks = nn.ModuleList()
@@ -96,13 +125,14 @@ def build_decode_stack(base_channel: int, channel_multiplier: Sequence[int],
         for i in range(num_residual_blocks_of_a_block + 1):
             ich = skips.pop()
             layers = [Res(ch + ich, time_embed_dim, dropout,
-                          out_channels=int(base_channel * mult))]
+                          out_channels=int(base_channel * mult), dtype=dtype)]
             ch = int(base_channel * mult)
             if ds in attn:
                 layers.append(_attention(ch, num_heads, head_channel,
-                                         use_new_attention_order))
+                                         use_new_attention_order, dtype))
             if level and i == num_residual_blocks_of_a_block:
-                layers.append(Res(ch, time_embed_dim, dropout, out_channels=ch, up=True))
+                layers.append(Res(ch, time_embed_dim, dropout, out_channels=ch, up=True,
+                                  dtype=dtype))
                 ds //= 2
             output_blocks.append(nn.ModuleList(layers))
     return middle_block, output_blocks, ch
@@ -120,11 +150,21 @@ def apply_stage(layers, h, emb, emb_z=None):
     return h
 
 
-def output_head(final_ch: int, out_ch: int) -> nn.ModuleList:
+def decode(middle_block, output_blocks, head, skips, emb, emb_z=None):
+    """The middle block from the last skip, the output stages each on the
+    concat with its skip (the last first), then the output head; ``skips``
+    is not modified."""
+    h = apply_stage(middle_block, skips[-1], emb, emb_z)
+    for stage, skip in zip(output_blocks, reversed(skips)):
+        h = apply_stage(stage, torch.cat([h, skip], dim=1), emb, emb_z)
+    return head[2](head[0](h))
+
+
+def output_head(final_ch: int, out_ch: int, dtype=torch.float32) -> nn.ModuleList:
     """``[GN, SiLU, zero-init conv]`` (``out.0``/``out.2``); index 1 is fused
     into the chain at index 0."""
     return nn.ModuleList([GNSiluChain(final_ch), nn.Identity(),
-                          zero_init(conv3x3(final_ch, out_ch))])
+                          zero_init(conv3x3(final_ch, out_ch, dtype=dtype))])
 
 
 class UNet(nn.Module):
@@ -137,33 +177,37 @@ class UNet(nn.Module):
                  attention_resolutions: Sequence[int], num_heads: int = 1,
                  head_channel: int = -1, use_new_attention_order: bool = False,
                  dropout: float = 0.0, num_class: Optional[int] = None,
-                 learn_sigma: bool = False):
+                 learn_sigma: bool = False, dtype=torch.float32):
         super().__init__()
         self.base_channel = base_channel
-        self.time_embed = time_embed_mlp(base_channel)
+        self.dtype = dtype
+        self.time_embed = time_embed_mlp(base_channel, dtype)
         if num_class is not None:
             self.label_emb = nn.Embedding(num_class, base_channel * 4)
         geometry = (base_channel, channel_multiplier, num_residual_blocks_of_a_block,
                     attention_resolutions, num_heads, head_channel,
                     use_new_attention_order, dropout)
-        self.input_blocks, skip_chans = build_input_stack(*geometry, input_channel)
+        self.input_blocks, skip_chans = build_input_stack(*geometry, input_channel,
+                                                          dtype=dtype)
         self.middle_block, self.output_blocks, final_ch = build_decode_stack(
-            *geometry, skip_chans)
+            *geometry, skip_chans, dtype=dtype)
         self.out = output_head(final_ch, input_channel * 2 if learn_sigma
-                               else input_channel)
+                               else input_channel, dtype)
 
-    def forward(self, x, time, condition=None):
+    def forward(self, x, time, condition=None, remat=None):
+        check_remat(remat)
+        if remat == "full":
+            return checkpoint(self.forward, x, time, condition, use_reentrant=False)
+        remat_skips = remat == "skips"
         emb = self.time_embed(timestep_embedding(time, self.base_channel))
         if hasattr(self, "label_emb"):
             if condition is None:
                 raise ValueError("a class-conditional UNet needs a condition")
-            emb = emb + self.label_emb(condition)
+            emb = emb + self.label_emb(condition).to(self.dtype)
         hs = []
-        h = x
+        h = x.to(self.dtype)
         for stage in self.input_blocks:
-            h = apply_stage(stage, h, emb)
+            h = rematerialised(remat_skips, apply_stage, stage, h, emb)
             hs.append(h)
-        h = apply_stage(self.middle_block, h, emb)
-        for stage in self.output_blocks:
-            h = apply_stage(stage, torch.cat([h, hs.pop()], dim=1), emb)
-        return self.out[2](self.out[0](h)).float()
+        return rematerialised(remat_skips, decode, self.middle_block, self.output_blocks,
+                              self.out, hs, emb).float()

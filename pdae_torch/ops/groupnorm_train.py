@@ -45,6 +45,7 @@ launches = 0   # backward-kernel launches since the last reset (pdae_torch.ops)
 variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
 
 PAIR_BYTES = 65536      # most of a slab pair (x and g) one block of the cluster variant holds
+MAX_PAIR_BYTES = 196608  # ... where 8 parts of PAIR_BYTES do not hold it (the source's limit)
 BYTES_PER_THREAD = 128  # of that pair, for which the cluster variant gives a thread
 MAX_THREADS = 256       # the cluster variant's largest block
 MAX_CHANNELS = 128      # the most channels per group the cluster variant takes
@@ -141,12 +142,16 @@ def gn_bwd_plan(n: int, hw: int, elt: int, need_dx: bool, x_ptr: int = 0, g_ptr:
     g one block reads (and, with ``need_dx``, holds). It needs 16-byte
     aligned pointers, ``hw`` a multiple of the vector (a vector lies in one
     channel) and at most ``MAX_CHANNELS`` channels per group; every other
-    slab (misaligned, ragged, too many channels, or over 8 parts) goes to the
-    general variant. Without ``need_dx`` the launch is the same, and the part
-    is read once and not held."""
+    slab (misaligned, ragged, too many channels, or over 8 parts of
+    ``MAX_PAIR_BYTES``) goes to the general variant. A slab pair over 8 parts
+    of ``PAIR_BYTES`` (1 MB in fp32 at FFHQ128's 256-channel concat at
+    128x128) takes the same rule at parts of up to ``MAX_PAIR_BYTES``: one
+    block an SM, the slab still read once. Without ``need_dx`` the launch is
+    the same, and the part is read once and not held."""
     if x_ptr % 16 or g_ptr % 16 or dx_ptr % 16 or hw % (16 // elt) or n // hw > MAX_CHANNELS:
         return groupnorm.GENERAL
-    plan = groupnorm.cluster_plan(n, elt, PAIR_BYTES // 2, MAX_THREADS)
+    plan = (groupnorm.cluster_plan(n, elt, PAIR_BYTES // 2, MAX_THREADS)
+            or groupnorm.cluster_plan(n, elt, MAX_PAIR_BYTES // 2, MAX_THREADS))
     if plan is None:
         return groupnorm.GENERAL
     pair = 2 * plan.part_bytes

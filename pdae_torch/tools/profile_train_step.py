@@ -2,8 +2,9 @@
 
 Builds the celeba64 ShiftUNet (``CELEBA64_DPM``, latent 512) and the 64px
 encoder with seeded random weights (zero-init layers perturbed, so the
-gradient branch is live), and at batch ``--batch`` (Adam lr 1e-4, fp32)
-measures, each over ``--steps`` steps after a warm-up:
+gradient branch is live) in the compute dtype ``--dtype`` (fp32 params either
+way), and at batch ``--batch`` (Adam lr 1e-4, the decoder's forward under
+``--remat``) measures, each over ``--steps`` steps after a warm-up:
 
 * the wall time per step with the kernels (auto) and with the plain versions
   (``set_use_kernels(False)``), TF32 off, and with the kernels and TF32 on
@@ -13,10 +14,12 @@ measures, each over ``--steps`` steps after a warm-up:
 
 Run on a machine with a card, from the repository root:
 
-    python -m pdae_torch.tools.profile_train_step [--batch 32] [--steps 5]
+    python -m pdae_torch.tools.profile_train_step [--batch 32] [--steps 5] \
+        [--dtype float32|bfloat16] [--remat none|full|skips]
 
 Prints one JSON line per measurement; the full table goes to
-``chiprun_out/profile_train_step.json``.
+``chiprun_out/profile_train_step[_DTYPE_REMAT].json`` (no suffix for fp32
+without remat).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from .profile_autoencode import _busy_us
 from .profile_autoencode import _category as _forward_category
 
 LATENT = 512
-OUT = os.path.join(os.getcwd(), "chiprun_out", "profile_train_step.json")
+REMAT = {"none": None, "full": True, "skips": "skips"}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _category(name: str) -> str:
@@ -58,7 +62,12 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    ap.add_argument("--remat", choices=sorted(REMAT), default="none")
     args = ap.parse_args(argv)
+    suffix = ("" if (args.dtype, args.remat) == ("float32", "none")
+              else f"_{args.dtype}_{args.remat}")
+    out = os.path.join(os.getcwd(), "chiprun_out", f"profile_train_step{suffix}.json")
 
     device = resolve_device()
     if device.type != "cuda":
@@ -66,8 +75,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(args.seed)
-    decoder = ShiftUNet(latent_dim=LATENT, **CELEBA64_DPM)
-    encoder = encoder_for_resolution(64, LATENT)
+    dtype = DTYPES[args.dtype]
+    decoder = ShiftUNet(latent_dim=LATENT, dtype=dtype, **CELEBA64_DPM)
+    encoder = encoder_for_resolution(64, LATENT, dtype=dtype)
     with torch.no_grad():
         for model in (decoder, encoder):
             for p in model.parameters():
@@ -79,7 +89,8 @@ def main(argv=None) -> int:
     params = trainable_params(encoder, decoder)
     optimizer = make_optimizer({"name": "Adam", "lr": 1e-4}, flat_params(params))
     state = TrainState.create(params, optimizer)
-    step = make_representation_train_step(gd, encoder, decoder, optimizer)
+    step = make_representation_train_step(gd, encoder, decoder, optimizer,
+                                          remat=REMAT[args.remat])
     gen = torch.Generator(device=device).manual_seed(args.seed)
     x_0 = torch.rand(args.batch, 3, 64, 64, device=device) * 2 - 1
 
@@ -103,14 +114,14 @@ def main(argv=None) -> int:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
 
-    result = {"batch": args.batch, "steps": args.steps,
-              "device": torch.cuda.get_device_name(0),
+    result = {"batch": args.batch, "steps": args.steps, "dtype": args.dtype,
+              "remat": args.remat, "device": torch.cuda.get_device_name(0),
               "ms_per_step": {
-                  "kernels_fp32": wall_per_step(True, False),
-                  "plain_fp32": wall_per_step(False, False),
-                  "kernels_fp32_tf32": wall_per_step(True, True),
-                  "plain_fp32_second": wall_per_step(False, False),
-                  "kernels_fp32_second": wall_per_step(True, False)}}
+                  "kernels": wall_per_step(True, False),
+                  "plain": wall_per_step(False, False),
+                  "kernels_tf32": wall_per_step(True, True),
+                  "plain_second": wall_per_step(False, False),
+                  "kernels_second": wall_per_step(True, False)}}
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     run()
@@ -144,8 +155,8 @@ def main(argv=None) -> int:
     }
     print(json.dumps(trace), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    with open(OUT, "w") as f:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump({**result, **trace, "by_kernel": [
             {"name": n, "ms_per_step": t / args.steps / 1e3,
              "count_per_step": c / args.steps} for n, (t, c) in top]}, f, indent=1)

@@ -13,7 +13,7 @@ from .representation import RepresentationLearningTrainer
 from .state import (TrainState, accumulate_grads, ema_update, make_optimizer,
                     maybe_ema_update, parse_adam_betas)
 from .steps import (make_latent_train_step, make_manipulation_train_step,
-                    make_regular_train_step, make_representation_train_step)
+                    make_regular_train_step, make_representation_train_step, remat_wrap)
 
 __all__ = ["graft_ddpm_into_decoder", "load_ddpm_params", "load_latent_stats",
            "load_pdae", "resolve_model_config", "BaseTrainer",
@@ -22,4 +22,4 @@ __all__ = ["graft_ddpm_into_decoder", "load_ddpm_params", "load_latent_stats",
            "split_shift_unet", "trainable_params", "TrainState", "accumulate_grads",
            "ema_update", "make_optimizer", "maybe_ema_update", "parse_adam_betas",
            "make_regular_train_step", "make_representation_train_step",
-           "make_latent_train_step", "make_manipulation_train_step"]
+           "make_latent_train_step", "make_manipulation_train_step", "remat_wrap"]

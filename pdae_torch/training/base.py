@@ -26,8 +26,12 @@ the host loader's index rows, so the batches are bit-equal to the host path's,
 resume too. ``transfer_uint8`` datasets give uint8 ``x_0``, which the steps
 normalise on the device.
 
+``runner_config.compute_dtype`` (or the reference's
+``optimizer_config.enable_amp``) sets the models' compute dtype over fp32
+parameters (``_compute_dtype``), and ``runner_config.remat`` the training
+forward's rematerialisation (``steps.remat_wrap``), as in ``pdae_tpu``.
 Not ported yet, and refused by name rather than ignored: sharded params and
-checkpoints, remat, bf16 compute and profiler traces. ``steps_per_dispatch``
+checkpoints and profiler traces. ``steps_per_dispatch``
 keeps the JAX trainer's cadence check, and each step still runs as one call:
 eager torch has no fused multi-step program.
 """
@@ -133,11 +137,6 @@ def refuse_unported(config: dict) -> None:
          f"runner_config.param_sharding={rc.get('param_sharding')!r}", 15),
         (rc.get("checkpoint_format", "full") == "sharded",
          "runner_config.checkpoint_format='sharded'", 15),
-        (bool(rc.get("remat")), f"runner_config.remat={rc.get('remat')!r}", 5),
-        (rc.get("compute_dtype") == "bfloat16", "runner_config.compute_dtype='bfloat16'",
-         17),
-        (bool((config.get("optimizer_config") or {}).get("enable_amp")),
-         "optimizer_config.enable_amp=true", 17),
         (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
     ]
     for bad, what, item in checks:
@@ -319,6 +318,18 @@ class BaseTrainer:
             yield
 
     # -- subclass hooks -------------------------------------------------- #
+
+    def _compute_dtype(self) -> torch.dtype:
+        """The models' compute dtype: ``runner_config.compute_dtype`` where
+        set, else bf16 where ``optimizer_config.enable_amp`` asks for it (bf16
+        compute over fp32 params in place of the reference's AMP and
+        GradScaler), else fp32, which is what ``pdae_tpu``'s trainer picks
+        off a TPU."""
+        name = self.runner_config.get("compute_dtype")
+        if name is None:
+            amp = (self.config.get("optimizer_config") or {}).get("enable_amp")
+            return torch.bfloat16 if amp else torch.float32
+        return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
     def _build(self):
         raise NotImplementedError

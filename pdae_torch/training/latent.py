@@ -3,7 +3,8 @@
 
 * The trained PDAE's EMA encoder and decoder are read from
   ``trained_representation_learning_{config,checkpoint}`` and frozen; the z
-  statistics from ``inferred_latents`` (``InferLatents``' file).
+  statistics from ``inferred_latents`` (``InferLatents``' file). The
+  MLPSkipNet and both frozen models compute in ``_compute_dtype``.
 * Each step is ``make_latent_train_step``: the frozen encoder's z,
   normalised, under the latent schedule's l1 loss; the MLPSkipNet in train
   mode (dropout seeded per (seed, step)), Adam or AdamW, the EMA every
@@ -53,7 +54,7 @@ class LatentDiffusionTrainer(StageTrainer):
         size, chans = int(ds["image_size"]), int(ds["image_channel"])
         self.sample_shape = (chans, size, size)
         self._train_module(init_on_cpu(self.seed, 2, lambda: build_latent_denoise_fn(
-            self.config["latent_denoise_fn_config"])))
+            self.config["latent_denoise_fn_config"], dtype=self._compute_dtype())))
         self.latent_source = self._latent_source()
         step_encoder = (IdentityEncoder() if self.latent_source == "precomputed"
                         else self.encoder)

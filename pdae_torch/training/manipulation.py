@@ -5,7 +5,8 @@ normalised z, the port of ``pdae_tpu/training/manipulation.py``.
   trained with BCE-with-logits against ``label > 0``
   (``make_manipulation_train_step``) over the frozen EMA encoder of the
   trained PDAE, the z normalised with ``inferred_latents``' statistics; Adam
-  or AdamW, the EMA every ``ema_every`` steps.
+  or AdamW, the EMA every ``ema_every`` steps. The frozen models compute in
+  ``_compute_dtype``, the classifier in fp32, as ``pdae_tpu`` builds it.
 * ``latent_train_source: precomputed`` (needs ``device_resident`` and no
   augmentation) keeps the corpus's z and labels on the device and steps
   through ``IdentityEncoder``; ``encode`` runs the encoder in every step.

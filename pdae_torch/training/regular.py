@@ -7,7 +7,8 @@
   ``gd.regular_train_one_batch`` over ``num_iterations`` micro-batches, with
   the batch's class ``condition`` when ``num_class`` is set, the UNet in
   train mode (dropout seeded per (seed, step)), Adam or AdamW, and the EMA
-  every ``ema_every`` steps.
+  every ``ema_every`` steps; the UNet computes in the trainer's
+  ``_compute_dtype`` and its forward runs under ``runner_config.remat``.
 * ``evaluate`` writes ``samples/step-{N}.png``: a DDIM-100 grid of
   ``num_generations`` samples from the EMA weights, from x_T drawn with
   (seed, ``EVAL``, N); a conditional model cycles through its classes.
@@ -43,12 +44,13 @@ class RegularDiffusionTrainer(StageTrainer):
         size, chans = int(ds["image_size"]), int(ds["image_channel"])
         self.sample_shape = (chans, size, size)
         self._train_module(init_on_cpu(self.seed, 0, lambda: build_denoise_fn(
-            self.config["denoise_fn_config"])))
+            self.config["denoise_fn_config"], dtype=self._compute_dtype())))
         self.num_class = (self.model.label_emb.num_embeddings
                           if hasattr(self.model, "label_emb") else None)
         self._step_fn = make_regular_train_step(
             self.gd, self.model, self.optimizer, ema_decay=self.ema_decay,
-            num_iters=self.num_iterations, device=self.device, ema_every=self.ema_every)
+            num_iters=self.num_iterations, device=self.device, ema_every=self.ema_every,
+            remat=self.runner_config.get("remat"))
 
     def _step_batch_keys(self):
         return ("x_0", "condition") if self.num_class is not None else ("x_0",)

@@ -8,7 +8,9 @@ gradient branch trained on a frozen pre-trained DPM. The port of
   grafted into the trunk with ``strict=False`` semantics.
 * Each step is ``make_representation_train_step`` (trunk in eval mode, shift
   branch in train mode, Adam/AdamW, EMA every ``ema_every`` steps), its t,
-  noise and dropout drawn from generators seeded with (seed, step).
+  noise and dropout drawn from generators seeded with (seed, step), the
+  decoder's forward under ``runner_config.remat``. Both models compute in the
+  trainer's ``_compute_dtype``, the eval grid too; params stay fp32.
 * ``evaluate`` decodes a shift-DDIM grid of ``num_generations`` eval images
   with the EMA weights (swapped in for the call by
   ``torch.func.functional_call``; the trained tensors are never touched) and
@@ -53,10 +55,11 @@ class RepresentationLearningTrainer(BaseTrainer):
         ds_cfg = cfg["train_dataset_config"]
         size = int(ds_cfg["image_size"])
         ddpm_model_cfg = resolve_model_config(cfg["trained_ddpm_config"])
+        dtype = self._compute_dtype()
         self.encoder = init_on_cpu(self.seed, 0, lambda: build_encoder(
-            cfg["encoder_config"], image_size=size))
+            cfg["encoder_config"], image_size=size, dtype=dtype))
         self.decoder = init_on_cpu(self.seed, 1, lambda: build_decoder(
-            cfg["decoder_config"], ddpm_model_cfg))
+            cfg["decoder_config"], ddpm_model_cfg, dtype=dtype))
         ckpt = cfg.get("trained_ddpm_checkpoint")
         if ckpt:
             tree = graft_ddpm_into_decoder(self.decoder, load_ddpm_params(ckpt))
@@ -78,7 +81,7 @@ class RepresentationLearningTrainer(BaseTrainer):
             self.gd, self.encoder, self.decoder, self.optimizer,
             ema_decay=float(rc.get("ema_decay", 0.9999)),
             num_iters=self.num_iterations, device=self.device,
-            ema_every=int(rc.get("ema_every", 1)))
+            ema_every=int(rc.get("ema_every", 1)), remat=rc.get("remat"))
         self.eval_seconds = []
 
     @property

@@ -52,9 +52,9 @@ class StageTrainer(BaseTrainer):
     # -- the frozen PDAE of the latent and manipulation stages --------------- #
 
     def _load_frozen_pdae(self):
-        """The trained PDAE's EMA encoder and decoder, frozen in eval mode on
-        the device, and the inferred latent stats; returns the PDAE's run
-        config."""
+        """The trained PDAE's EMA encoder and decoder in the compute dtype,
+        frozen in eval mode on the device, and the inferred latent stats;
+        returns the PDAE's run config."""
         cfg = self.config
         pdae_cfg, enc_raw, dec_raw = load_pdae(
             cfg["trained_representation_learning_config"],
@@ -62,8 +62,10 @@ class StageTrainer(BaseTrainer):
         size = int(cfg["train_dataset_config"]["image_size"])
         ddpm_cfg = resolve_model_config(cfg.get("trained_ddpm_config",
                                                 pdae_cfg.get("trained_ddpm_config")))
-        self.encoder = build_encoder(pdae_cfg["encoder_config"], image_size=size)
-        self.decoder = build_decoder(pdae_cfg["decoder_config"], ddpm_cfg)
+        dtype = self._compute_dtype()
+        self.encoder = build_encoder(pdae_cfg["encoder_config"], image_size=size,
+                                     dtype=dtype)
+        self.decoder = build_decoder(pdae_cfg["decoder_config"], ddpm_cfg, dtype=dtype)
         self.encoder.load_state_dict(encoder_state_dict(enc_raw), strict=True)
         self.decoder.load_state_dict(unet_state_dict(dec_raw), strict=True)
         for m in (self.encoder, self.decoder):

@@ -14,11 +14,14 @@ The EMA moves after the steps whose new count is a multiple of
 ``ema_every`` (``runner_config.ema_every``; 1: every step). The models must
 lie on ``device``: ``cuda`` unless the caller names another. Trained modules
 run in train mode (dropout acts where it is configured), frozen ones in eval
-mode. Rematerialisation (the JAX ``remat`` argument, used at 128px) is not
-ported.
+mode. ``remat`` (``runner_config.remat``, the JAX steps' argument of that
+name) rematerialises the training forward of the decoder or UNet through
+``remat_wrap``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,6 +38,22 @@ def _on(device, *models):
                 raise ValueError(f"the train step runs on {device} but a model "
                                  f"parameter lies on {p.device}")
     return device
+
+
+def remat_wrap(model, mode):
+    """``model`` (a UNet or ShiftUNet) as its training forward under
+    ``runner_config.remat``, the port of ``pdae_tpu/training/steps.py::
+    remat_wrap`` on the models' non-reentrant activation checkpoints (the
+    recompute restores the forward's RNG state, so dropout draws the same
+    masks): falsy: none; ``"skips"``: the skips kept, as JAX's
+    ``save_only_these_names("unet_skip")`` policy keeps them (the ShiftUNet
+    recomputes its shift branch alone, the UNet each stage from them); any
+    other truthy value: ``"full"`` (the ShiftUNet recomputes its trunk and
+    shift branch, which is what JAX's full remat leaves after dead-code
+    elimination, the UNet its whole forward)."""
+    if not mode:
+        return model
+    return functools.partial(model, remat="skips" if mode == "skips" else "full")
 
 
 def _modes(trained=(), frozen=()):
@@ -64,16 +83,17 @@ def _check(state, optimizer, generator, t, noise):
 
 def make_representation_train_step(gd, encoder, decoder, optimizer,
                                    ema_decay: float = 0.9999, num_iters: int = 1,
-                                   device=None, ema_every: int = 1):
+                                   device=None, ema_every: int = 1, remat=False):
     """``step(state, x_0, generator, *, t=None, noise=None) -> loss``: the
     PDAE loss over the encoder and the shift branch (``state`` over
     ``trainable_params(encoder, decoder)``), the ShiftUNet's trunk frozen in
-    eval mode."""
+    eval mode; ``remat`` checkpoints the decoder's forward (``remat_wrap``)."""
     device = _on(device, encoder, decoder)
+    train_decoder = remat_wrap(decoder, remat)
 
     def loss_fn(x_b, generator, t, noise):
         return gd.representation_learning_train_one_batch(
-            generator, encoder, decoder, x_b, t=t, noise=noise)["prediction_loss"]
+            generator, encoder, train_decoder, x_b, t=t, noise=noise)["prediction_loss"]
 
     def train_step(state, x_0, generator=None, *, t=None, noise=None):
         _check(state, optimizer, generator, t, noise)
@@ -88,15 +108,18 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
 
 
 def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
-                            num_iters: int = 1, device=None, ema_every: int = 1):
+                            num_iters: int = 1, device=None, ema_every: int = 1,
+                            remat=False):
     """``step(state, x_0, generator, *, condition=None, t=None, noise=None)
     -> loss``: the epsilon-MSE of a DPM's UNet (``state`` over all its
     parameters); ``condition`` holds the class ids of a class-conditional
-    UNet and is cut into the same micro-batches as ``x_0``."""
+    UNet and is cut into the same micro-batches as ``x_0``; ``remat``
+    checkpoints the UNet's forward (``remat_wrap``)."""
     device = _on(device, model)
+    train_model = remat_wrap(model, remat)
 
     def loss_fn(x_b, generator, t, noise, cond=None):
-        return gd.regular_train_one_batch(generator, model, x_b, cond, t=t,
+        return gd.regular_train_one_batch(generator, train_model, x_b, cond, t=t,
                                           noise=noise)["prediction_loss"]
 
     def train_step(state, x_0, generator=None, *, condition=None, t=None, noise=None):

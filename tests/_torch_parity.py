@@ -144,9 +144,9 @@ def patch_tiny_encoders(monkeypatch, jax_too=False):
     import pdae_torch.training.stage as port_stage
     from pdae_torch.models import SemanticEncoder
 
-    def port_encoder(config, image_size=None):
+    def port_encoder(config, image_size=None, dtype=torch.float32):
         return SemanticEncoder(config["latent_dim"], channels=(8, 16), attn_after_stage=2,
-                               image_size=image_size, input_channel=1)
+                               image_size=image_size, input_channel=1, dtype=dtype)
 
     monkeypatch.setattr(port_rep, "build_encoder", port_encoder)
     monkeypatch.setattr(port_stage, "build_encoder", port_encoder)

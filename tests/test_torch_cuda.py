@@ -23,7 +23,10 @@ port writes run on the card and on the CPU and agree (reconstructions within
 1e-2, served images within one uint8 level). The regular, latent and
 manipulation trainers each take 2 steps on a resident uint8 corpus, every
 step's launches equal to the structure's, run their eval and resume bit for
-bit. ``chip_smoke.py`` covers every path shape, bf16 and timings.
+bit. A bf16 train step at b2 through the kernels agrees with the bf16 plain
+path within twice the plain path's own bf16-against-fp32 gap, and FFHQ128's
+256-channel 128x128 GN backward slab pair (1 MB in fp32) runs on the cluster
+variant. ``chip_smoke.py`` covers every path shape, bf16 and timings.
 """
 
 import pytest
@@ -291,6 +294,67 @@ def test_backward_through_the_kernels_reaches_every_trainable_parameter(cuda):
     assert counts["gn_adagn_silu_bwd"] < counts["gn_adagn_silu"]
 
 
+def _rel_l2(a, b):
+    a = torch.cat([t.detach().double().flatten() for t in a])
+    b = torch.cat([t.detach().double().flatten() for t in b])
+    return float((a - b).norm() / b.norm())
+
+
+def test_bf16_train_step_through_the_kernels_matches_plain_within_its_control(cuda):
+    """The representation loss and every trainable gradient at b2, bf16
+    compute over fp32 params: the kernels against the plain versions, both in
+    bf16, within twice the control, the plain path in bf16 against fp32 twins
+    of the same models (the loss, one number, with the larger of its own
+    control and the gradients'). Params and grads stay fp32."""
+    from pdae_torch.diffusion import GaussianDiffusion
+    from pdae_torch.models import SemanticEncoder, ShiftUNet
+    from pdae_torch.training import trainable_params
+    from pdae_torch.training.state import flat_params
+
+    geometry = dict(input_channel=3, base_channel=32, channel_multiplier=(1, 2),
+                    num_residual_blocks_of_a_block=1, attention_resolutions=(2,),
+                    num_heads=2, head_channel=-1, use_new_attention_order=False,
+                    dropout=0.0)
+    models = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        torch.manual_seed(0)
+        decoder = ShiftUNet(latent_dim=16, dtype=dtype, **geometry)
+        encoder = SemanticEncoder(16, channels=(32, 64), attn_after_stage=2, image_size=16,
+                                  dtype=dtype)
+        with torch.no_grad():
+            for model in (decoder, encoder):
+                for p in model.parameters():
+                    if not p.any():
+                        p.normal_(std=0.05)
+        models[dtype] = (encoder.to(cuda), decoder.to(cuda))
+    gd = GaussianDiffusion({"timesteps": 1000, "betas_type": "linear"})
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x_0 = torch.rand(2, 3, 16, 16, device=cuda, generator=gen) * 2 - 1
+    noise = torch.randn(2, 3, 16, 16, device=cuda, generator=gen)
+    t = torch.tensor([10, 500], dtype=torch.int32, device=cuda)
+
+    def loss_and_grads(encoder, decoder):
+        leaves = flat_params(trainable_params(encoder, decoder))
+        loss = gd.representation_learning_train_one_batch(
+            None, encoder, decoder, x_0, t=t, noise=noise)["prediction_loss"]
+        grads = torch.autograd.grad(loss, leaves)
+        assert all(p.dtype == torch.float32 for p in leaves)
+        assert all(g.dtype == torch.float32 for g in grads)
+        return [loss.detach()], list(grads)
+
+    ops.reset_launch_counts()
+    kernel = loss_and_grads(*models[torch.bfloat16])
+    assert ops.launch_counts()["gn_adagn_silu_bwd"] > 0
+    ops.set_use_kernels(False)
+    plain = loss_and_grads(*models[torch.bfloat16])
+    plain32 = loss_and_grads(*models[torch.float32])
+    grad_control = _rel_l2(plain[1], plain32[1])
+    assert 0 < grad_control <= 5e-2
+    assert _rel_l2(kernel[1], plain[1]) <= 2 * grad_control
+    loss_control = max(_rel_l2(plain[0], plain32[0]), grad_control)
+    assert _rel_l2(kernel[0], plain[0]) <= 2 * loss_control
+
+
 def _bwd_inputs(cuda, shape, variant, dtype=torch.float32, seed=5):
     """x, g, the forward kernel's saved stats, gamma, beta and the four AdaGN
     vectors (None where ``variant`` has none) for the GN backward kernel."""
@@ -330,6 +394,7 @@ def _assert_bwd_close(got, want, dtype):
     ((4, 512, 8, 8), "adagn", True, ("cluster", 1)),
     ((4, 128, 4, 4), "plain", True, ("cluster", 1)),
     ((1, 64, 128, 256), "adagn_z", True, ("cluster", 8)),
+    ((2, 256, 128, 128), "adagn_z", True, ("cluster", 8)),   # FFHQ128's 1 MB fp32 pair
     ((2, 256, 64, 64), "plain", False, ("cluster", 4)),
     ((4, 512, 8, 8), "plain", False, ("cluster", 1)),
     ((2, 64, 12, 12), "adagn_z", True, ("cluster", 1)),

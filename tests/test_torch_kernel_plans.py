@@ -301,6 +301,19 @@ def test_backward_edge_slabs_that_the_cluster_variant_takes(elt, hw, cluster):
     assert (plan.variant, plan.cluster) == ("cluster", cluster)
 
 
+@pytest.mark.parametrize("elt,cluster,part", [(4, 8, 131072), (2, 8, 65536)])
+def test_a_slab_pair_over_8_standard_parts_takes_larger_parts(elt, cluster, part):
+    """FFHQ128's 256-channel concat at 128x128 (8 channels a group): in fp32
+    the x and g pair is 1 MB, over 8 parts of PAIR_BYTES, so each of 8
+    blocks holds 128 KB of it (at most MAX_PAIR_BYTES, the source's limit);
+    in bf16 the 512 KB pair takes the standard parts."""
+    hw = 128 * 128
+    plan = groupnorm_train.gn_bwd_plan(8 * hw, hw, elt, True)
+    assert (plan.variant, plan.cluster, plan.part_bytes) == ("cluster", cluster, part)
+    assert plan.part_bytes <= groupnorm_train.MAX_PAIR_BYTES == 196608
+    assert plan.threads == groupnorm_train.MAX_THREADS
+
+
 @pytest.mark.parametrize("channels,side,cluster,threads", [
     (384, 64, 8, 256), (256, 64, 4, 256), (128, 64, 2, 256), (384, 32, 2, 256),
     (256, 32, 1, 256), (512, 16, 1, 256), (1024, 8, 1, 128), (512, 8, 1, 64),

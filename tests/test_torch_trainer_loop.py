@@ -188,9 +188,6 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
 REFUSALS = {
     "param_sharding": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
     "checkpoint_format": ({"runner_config": {"checkpoint_format": "sharded"}}, 15),
-    "remat": ({"runner_config": {"remat": "skips"}}, 5),
-    "compute_dtype": ({"runner_config": {"compute_dtype": "bfloat16"}}, 17),
-    "enable_amp": ({"optimizer_config": {"enable_amp": True}}, 17),
     "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
 }
 
@@ -204,6 +201,39 @@ def test_unported_options_are_refused_by_name(name, tmp_path):
     with pytest.raises(NotImplementedError, match=f"{name}.*item {item}\\)"):
         _trainer(tmp_path / "run", cfg)
     assert not os.path.exists(tmp_path / "run")
+
+
+# the options whose refusals the compute dtype and remat lifted: each trains
+ACCEPTED = {
+    "remat_full": ({"runner_config": {"remat": True}}, torch.float32),
+    "remat_skips": ({"runner_config": {"remat": "skips"}}, torch.float32),
+    "compute_dtype": ({"runner_config": {"compute_dtype": "bfloat16"}}, torch.bfloat16),
+    "enable_amp": ({"optimizer_config": {"enable_amp": True}}, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED))
+def test_remat_and_compute_dtype_train_a_step(name, port_dpm, tmp_path, monkeypatch):
+    """The tiny trainer with the option set takes a step: finite loss, every
+    parameter fp32 and finite, every conv and linear of both models
+    computing in the chosen dtype."""
+    from pdae_torch.models.blocks import Conv1d, Conv2d, Linear
+    change, dtype = ACCEPTED[name]
+    patch_tiny_encoders(monkeypatch)
+    cfg = tiny_pdae_config(port_dpm[0])
+    for section, values in change.items():
+        cfg[section].update(values)
+    tr = _trainer(tmp_path / "run", cfg)
+    assert tr._compute_dtype() == dtype
+    assert tr.train(max_steps=1) == 1
+    assert np.isfinite(_losses(tmp_path / "run")[0][1])
+    layers = [m for model in (tr.encoder, tr.decoder) for m in model.modules()
+              if isinstance(m, (Conv1d, Conv2d, Linear))]
+    assert layers and all(m.compute_dtype == dtype for m in layers)
+    for model in (tr.encoder, tr.decoder):
+        assert model.dtype == dtype
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in model.parameters())
 
 
 @pytest.mark.parametrize("option", ["device_resident", "transfer_uint8"])
