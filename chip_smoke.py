@@ -110,7 +110,27 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    kernels phase holds its shapes; the shapes it already compared are not
    compared again (full table in ``chiprun_out/chip_smoke_sampler_shapes.json``).
 
-9. ``stages``: the regular, latent and manipulation trainers through
+9. ``metrics``: LPIPS, InceptionV3 and FID (``pdae_torch.metrics``) and the
+   process layer (``pdae_torch.parallel``), on the samplers phase's files,
+   over seeded weights at full width (AlexNet LPIPS 64-192-384-256-256,
+   InceptionV3 at the torchvision channel table) that the phase writes in
+   ``pdae_tpu``'s flat layouts; fp32, TF32 off. LPIPS and the Inception
+   features at b2 on the card against the CPU, at 64px and 320px (the resize
+   to 299 up and down), within 1e-4 of the largest magnitude; Inception
+   imgs/s over two sets of 2,560 SYNTHETIC 64px images in chunks of 64 and
+   LPIPS pairs/s at b16 (device ms between CUDA events, and wall seconds),
+   and the host seconds of the statistics and of ``frechet_distance`` at
+   2048-d; ``AutoencodingEval`` with ``lpips_weights`` (32 images, b16,
+   dpm20/dpm20) beside the samplers phase's run, and ``UnconditionalSample``
+   with ``fid`` (256 samples, b64, ddim10/ddim10, against the features of
+   2,560 SYNTHETIC images), each run's model calls and kernel launches held
+   to the structure and every new kernel shape to the plain versions
+   (``chiprun_out/chip_smoke_metrics_shapes.json``); then ``AutoencodingEval``
+   (with LPIPS) and ``InferLatents`` again as two ranks on the one card
+   (``python3 chip_smoke.py --rank-worker``, gloo for the objects), each
+   within the one-process run's values plus the gap of a control (one
+   process over the ranks' batches, in their order) and the means' order.
+10. ``stages``: the regular, latent and manipulation trainers through
    ``pdae_torch.train``'s code (``pick_trainer``, the trainer, its loop) from
    config dicts of ``configs/dpm_celeba64.yml`` (the full-width celeba64 UNet,
    b32, Adam), ``configs/celeba64_latent.yml`` (MLPSkipNet 512 -> 2048, 10
@@ -134,7 +154,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    held to the plain versions in fp32 and bf16 and its variant recorded; the
    regular step's kernel time per step is summed from the per-shape times
    (``chiprun_out/chip_smoke_stage_shapes.json``).
-10. ``precision``: bf16 compute over fp32 params and rematerialisation at
+11. ``precision``: bf16 compute over fp32 params and rematerialisation at
    full width. The trainer phase's ``RepresentationLearningTrainer`` config
    and the stages phase's ``configs/dpm_celeba64.yml`` dict with
    ``runner_config.compute_dtype: bfloat16``, one warm-up and 5 timed b32
@@ -1179,7 +1199,7 @@ def rows_hw(*lengths) -> tuple:
 
 HEAVY_FILES = ("trainer/dpm.ckpt", "trainer/step3.ckpt", "trainer/a/checkpoints/latest.ckpt",
                "trainer/b/checkpoints/latest.ckpt", "samplers/latent.ckpt",
-               "precision/dpm_ffhq.ckpt")
+               "precision/dpm_ffhq.ckpt", "metrics/inception.ckpt", "metrics/lpips.ckpt")
 
 
 def drop_heavy_files() -> None:
@@ -1192,6 +1212,86 @@ def drop_heavy_files() -> None:
     for path in paths:
         if os.path.exists(path):
             os.unlink(path)
+
+
+def counted_run(name, fn, want_calls, structure, seen):
+    """``fn()`` counted: the top-level model calls (a forward pre-hook on
+    every module counts the modules named in ``structure``) and the kernel
+    launches, each held to ``structure`` (launches per call of each model);
+    the kernels' input shapes go into ``seen``, keyed as ``path_shapes``
+    keys them, with the runs that gave them."""
+    from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
+
+    calls = collections.Counter()
+
+    def hook(mod, args):
+        if type(mod).__name__ in structure:
+            calls[type(mod).__name__] += 1
+        elif isinstance(mod, GNSiluChain):
+            seen[("gn", *args[0].shape, len(args) > 1 and args[1] is not None,
+                  len(args) > 3 and args[3] is not None)].add(name)
+        elif isinstance(mod, AttentionBlock):
+            b, c, h, w = args[0].shape
+            seen[("attention", b, mod.num_heads, h * w, c // mod.num_heads)].add(name)
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        out, rec = counted(fn)
+    finally:
+        handle.remove()
+    want = {k: sum(n * structure[m][k] for m, n in want_calls.items())
+            for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")}
+    rec.update(calls=dict(calls), calls_expected=want_calls, launches_expected=want)
+    rec["ok"] = (dict(calls) == {m: n for m, n in want_calls.items() if n}
+                 and rec["launches"] == want
+                 and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"], "general": 0})
+    return out, rec
+
+
+def compare_new_shapes(seen, compared, seed, device, table) -> dict:
+    """Every kernel input shape in ``seen`` that is not in ``compared`` held
+    to the plain versions in fp32 and bf16 (compared, not timed), each GN
+    shape on the cluster variant; the full table goes to ``table`` under
+    ``chiprun_out/``, and ``compared`` takes the new shapes."""
+    shape_gen = torch.Generator().manual_seed(seed)
+    new = sorted(k for k in seen if k not in compared)
+    shape_res = [dict(check_attention(k[1:], shape_gen, device, timed=False)
+                      if k[0] == "attention" else
+                      check_gn(k, shape_gen, device, timed=False),
+                      runs=sorted(seen[k])) for k in new]
+    with open(os.path.join(OUT_DIR, table), "w") as f:
+        json.dump(shape_res, f, indent=1)
+    disagree = [(r["shape"], k) for r in shape_res for k, v in r["err"].items()
+                if not v["ok"]]
+    off_cluster = [(r["shape"], k) for r in shape_res
+                   for k, plan in r.get("variant", {}).items()
+                   if plan["variant"] != "cluster"]
+    compared.update(seen)
+    return {"batches": sorted({k[1] for k in seen}),
+            "shapes": len(seen), "compared_before": len(seen) - len(new),
+            "compared_here": len(new),
+            "max_abs_err_fp32": max((v["max_abs_err"] for r in shape_res
+                                     for k, v in r["err"].items() if "float32" in k),
+                                    default=0.0),
+            "disagree": disagree, "off_cluster_variant": off_cluster,
+            "ok": bool(seen) and not disagree and not off_cluster}
+
+
+def sampler_base() -> dict:
+    """The sampler config over the samplers phase's files: the trainer
+    phase's run config and step-6 checkpoint, the seeded latent DPM and
+    classifier and the InferLatents stats; SYNTHETIC 64px RGB, 64 images."""
+    trainer = os.path.join(OUT_DIR, "trainer")
+    root = os.path.join(OUT_DIR, "samplers")
+    return {"config_path": os.path.join(trainer, "a", "config.yml"),
+            "checkpoint_path": os.path.join(trainer, "a", "checkpoints", "latest.ckpt"),
+            "dataset_config": {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
+                               "length": 64},
+            "latent_config_path": os.path.join(root, "latent.yml"),
+            "latent_checkpoint_path": os.path.join(root, "latent.ckpt"),
+            "inferred_latents_path": os.path.join(root, "synthetic.ckpt"),
+            "classifier_checkpoint_path": os.path.join(root, "classifier.ckpt"),
+            "num_classes": NUM_CLASSES}
 
 
 def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
@@ -1208,7 +1308,6 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     import shutil
 
     from pdae_torch import ops
-    from pdae_torch.models.blocks import AttentionBlock, GNSiluChain
     from pdae_torch.diffusion import GaussianDiffusion
     from pdae_torch.models import (CELEBA64_DPM, UNet, build_classifier,
                                    build_latent_denoise_fn)
@@ -1243,13 +1342,7 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     save_yaml({"denoise_fn_config": {"model": "UNet", **CELEBA64_DPM},
                "diffusion_config": diffusion}, path("dpm.yml"))
     del latent, classifier
-    dataset = {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3, "length": 64}
-    base = {"config_path": os.path.join(trainer, "a", "config.yml"),
-            "checkpoint_path": os.path.join(trainer, "a", "checkpoints", "latest.ckpt"),
-            "dataset_config": dataset, "latent_config_path": path("latent.yml"),
-            "latent_checkpoint_path": path("latent.ckpt"),
-            "inferred_latents_path": path("synthetic.ckpt"),
-            "classifier_checkpoint_path": path("classifier.ckpt"), "num_classes": NUM_CLASSES}
+    base = sampler_base()
     short = {"timesteps": 100, "betas_type": "linear"}     # the depth cut
     gd, gd_short = GaussianDiffusion(diffusion), GaussianDiffusion(short)
 
@@ -1264,40 +1357,12 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     structure = {"ShiftUNet": launches_of(1, 0, dec_counts, enc_counts),
                  "SemanticEncoder": launches_of(0, 1, dec_counts, enc_counts),
                  "UNet": unet_call}
-    top = tuple(structure)
     # every kernel input shape the counted runs give, keyed as path_shapes
     # keys them, with the runs that gave it
     seen = collections.defaultdict(set)
 
     def run(name, fn, want_calls):
-        """``fn()`` counted: the top-level model calls (forward pre-hook on
-        every module) and the kernel launches, each held to the structure;
-        the kernels' input shapes go into ``seen``."""
-        calls = collections.Counter()
-
-        def hook(mod, args):
-            if type(mod).__name__ in top:
-                calls[type(mod).__name__] += 1
-            elif isinstance(mod, GNSiluChain):
-                seen[("gn", *args[0].shape, len(args) > 1 and args[1] is not None,
-                      len(args) > 3 and args[3] is not None)].add(name)
-            elif isinstance(mod, AttentionBlock):
-                b, c, h, w = args[0].shape
-                seen[("attention", b, mod.num_heads, h * w, c // mod.num_heads)].add(name)
-
-        handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
-        try:
-            out, rec = counted(fn)
-        finally:
-            handle.remove()
-        want = {k: sum(n * structure[m][k] for m, n in want_calls.items())
-                for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")}
-        rec.update(calls=dict(calls), calls_expected=want_calls, launches_expected=want)
-        rec["ok"] = (dict(calls) == {m: n for m, n in want_calls.items() if n}
-                     and rec["launches"] == want
-                     and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"],
-                                                "general": 0})
-        return out, rec
+        return counted_run(name, fn, want_calls, structure, seen)
 
     records = {"config": "the trainer phase's celeba64 run (config.yml, step-6 latest.ckpt, "
                          "its seeded DPM), a seeded celeba64 MLPSkipNet and Linear(512, 40); "
@@ -1535,30 +1600,393 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
 
     # 5. every kernel shape of those runs against the plain versions -----------
     # (compared, not timed; the shapes the kernels phase compared are not
-    # compared again)
-    shape_gen = torch.Generator().manual_seed(seed + 8)
-    new = sorted(k for k in seen if k not in compared)
-    shape_res = [dict(check_attention(k[1:], shape_gen, device, timed=False)
-                      if k[0] == "attention" else
-                      check_gn(k, shape_gen, device, timed=False),
-                      runs=sorted(seen[k])) for k in new]
-    with open(os.path.join(OUT_DIR, "chip_smoke_sampler_shapes.json"), "w") as f:
-        json.dump(shape_res, f, indent=1)
-    disagree = [(r["shape"], k) for r in shape_res for k, v in r["err"].items()
-                if not v["ok"]]
-    off_cluster = [(r["shape"], k) for r in shape_res
-                   for k, plan in r.get("variant", {}).items()
-                   if plan["variant"] != "cluster"]
-    records["kernel_shapes"] = {
-        "batches": sorted({k[1] for k in seen}),
-        "shapes": len(seen), "compared_in_kernels_phase": len(seen) - len(new),
-        "compared_here": len(new),
-        "max_abs_err_fp32": max((v["max_abs_err"] for r in shape_res
-                                 for k, v in r["err"].items() if "float32" in k),
-                                default=0.0),
-        "disagree": disagree, "off_cluster_variant": off_cluster,
-        "ok": bool(seen) and not disagree and not off_cluster}
-    compared.update(seen)            # the stages phase compares only what is new
+    # compared again, and the stages phase compares only what is new)
+    records["kernel_shapes"] = compare_new_shapes(seen, compared, seed + 8, device,
+                                                  "chip_smoke_sampler_shapes.json")
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict))
+    return records
+
+
+# -- LPIPS, InceptionV3, FID and two ranks on one card (metrics phase) -------- #
+
+METRIC_TOL = 1e-4                # card against CPU, relative to the largest magnitude
+METRIC_SIZES = (64, 320)         # InceptionV3 resizes up from one, down from the other
+FID_SET = 2560                   # SYNTHETIC images a feature set: more rows than features
+LPIPS_BATCH = 16
+LPIPS_TIMED_BATCHES = 20
+FID_SAMPLES = 256                # UnconditionalSample's generated set (the phase ~120 s)
+FID_BATCH = 64
+FID_STYLES = ("ddim10", "ddim10")
+WORLD2_MEAN_RTOL = 1e-12         # the float64 means' order
+WORLD2_LATENT_RTOL = 1e-6        # the float32 mean's order over another concatenation
+
+
+def seeded_metric_weights(seed, root) -> dict:
+    """Seeded AlexNet LPIPS and InceptionV3 weights at full width (He-scaled
+    kernels, BN statistics near 1 and 0, non-negative ``lin`` weights),
+    written as ``scripts/convert_torch_checkpoint.py`` writes the pretrained
+    ones: ``pdae_tpu``'s flat layouts, conv kernels HWIO."""
+    from pdae_torch.metrics.inception import InceptionV3
+    from pdae_torch.metrics.lpips import ALEX, CHANNELS
+    from pdae_torch.utils import save_checkpoint
+
+    rs = np.random.RandomState(seed)
+    inception = {}
+    for k, v in InceptionV3().state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith(".conv.weight"):
+            o, i, kh, kw = v.shape
+            w = rs.randn(kh, kw, i, o) * np.sqrt(2.0 / (kh * kw * i))
+        elif k.endswith(("running_var", "bn.weight")):
+            w = rs.uniform(0.5, 1.5, tuple(v.shape))
+        else:
+            w = 0.1 * rs.randn(*v.shape)
+        inception[k] = w.astype(np.float32)
+    lpips, cin = {}, 3
+    for i, (cout, k, _, _) in enumerate(ALEX):
+        lpips[f"conv{i}_w"] = (rs.randn(k, k, cin, cout) * np.sqrt(2.0 / (k * k * cin))
+                               ).astype(np.float32)
+        lpips[f"conv{i}_b"] = (0.1 * rs.randn(cout)).astype(np.float32)
+        cin = cout
+    for i, c in enumerate(CHANNELS):
+        lpips[f"lin{i}_w"] = (np.abs(rs.randn(c)) / c).astype(np.float32)
+    paths = {"inception": os.path.join(root, "inception.ckpt"),
+             "lpips": os.path.join(root, "lpips.ckpt")}
+    save_checkpoint(paths["inception"], inception)
+    save_checkpoint(paths["lpips"], lpips)
+    return paths
+
+
+def event_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn`` between CUDA events, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def conv_flops(model, *inputs) -> int:
+    """The multiply-adds (x2) of every ``nn.Conv2d`` in one ``model(*inputs)``,
+    counted from the output shapes: the operations a bound is taken over."""
+    total = [0]
+
+    def hook(mod, args, out):
+        k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2 * out.numel() * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def rel_to_largest(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_worker(spec_path, out_path) -> int:
+    """One rank of the metrics phase's two-process run (``python3
+    chip_smoke.py --rank-worker SPEC OUT``, torchrun's environment set by the
+    phase): joins the gloo group, runs each sampler of the spec on the card,
+    models built before the timing, and writes each result and its seconds."""
+    import torch.distributed as dist
+
+    from pdae_torch.parallel import init_distributed, process_index, sync_global_devices
+    from pdae_torch.sampling import SAMPLERS
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    init_distributed()
+    out = {"rank": process_index()}
+    try:
+        for name, config in spec.items():
+            sampler = SAMPLERS[name](config)
+            sampler.ctx.build_pdae()
+            sync_global_devices(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = sampler.start()
+            torch.cuda.synchronize()
+            out[name] = {"result": result, "s": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def world2(spec, root) -> dict:
+    """The spec's samplers as two ranks on the one card (both ``LOCAL_RANK``
+    0, as two hosts of one card each would be), gloo carrying the objects;
+    each rank's output, and the run's wall seconds. A rank that fails fails
+    the phase."""
+    spec_path = os.path.join(root, "world2_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = str(free_port())
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                       MASTER_ADDR="localhost", MASTER_PORT=port)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank-worker",
+                 spec_path, os.path.join(root, f"rank{rank}.json")],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} of the two-process run exited "
+                                 f"{p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(root, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def metrics_phase(seed, device, dec_counts, enc_counts, samplers, compared) -> dict:
+    """LPIPS, InceptionV3 and FID over seeded full-width weights, and the
+    process layer, on the samplers phase's files (fp32, TF32 off): the
+    backbones on the card against the CPU, their throughput, the FID's
+    host seconds; ``AutoencodingEval`` with LPIPS and ``UnconditionalSample``
+    with FID, counted as the samplers phase counts its runs, every new kernel
+    shape held to the plain versions; then ``AutoencodingEval`` (with LPIPS)
+    and ``InferLatents`` as two ranks on the one card against the one-process
+    runs, within a control that runs one process over the ranks' batches."""
+    import shutil
+
+    import pdae_torch.sampling.samplers as sampler_module
+    from pdae_torch.data import build_dataset
+    from pdae_torch.diffusion import GaussianDiffusion
+    from pdae_torch.metrics import LPIPSMetric, activation_statistics, frechet_distance
+    from pdae_torch.metrics.fid import chunked_features
+    from pdae_torch.metrics.inception import load_inception, load_inception_feature_fn
+    from pdae_torch.metrics.lpips import load_lpips
+    from pdae_torch.parallel import process_shard_indices
+    from pdae_torch.sampling import SAMPLERS
+    from pdae_torch.utils import load_checkpoint
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "metrics")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    paths = seeded_metric_weights(seed + 9, root)
+    records = {"weights": "seeded AlexNet LPIPS 64-192-384-256-256 and InceptionV3 at the "
+                          "torchvision channel table, pdae_tpu's flat layouts (HWIO); fp32, "
+                          "TF32 off"}
+    rs = np.random.RandomState(seed + 10)
+
+    # 1. the backbones on the card against the CPU -----------------------------
+    lp = {d: load_lpips(paths["lpips"], device=d) for d in (device, "cpu")}
+    inc = {d: load_inception(paths["inception"], device=d) for d in (device, "cpu")}
+    card_cpu = {}
+    with torch.inference_mode():
+        for size in METRIC_SIZES:
+            u8 = rs.randint(0, 256, (2, size, size, 3), np.uint8)
+            other = rs.randint(0, 256, (2, size, size, 3), np.uint8)
+            pair = [torch.from_numpy(a).permute(0, 3, 1, 2).float() / 127.5 - 1.0
+                    for a in (u8, other)]
+            got = {d: (lp[d](*(t.to(d) for t in pair)).cpu().numpy(),
+                       inc[d](torch.from_numpy(u8).to(d)).cpu().numpy())
+                   for d in (device, "cpu")}
+            card_cpu[f"{size}px"] = {
+                "lpips_card": got[device][0].tolist(), "lpips_cpu": got["cpu"][0].tolist(),
+                "lpips_rel_err": rel_to_largest(got[device][0], got["cpu"][0]),
+                "inception_rel_err": rel_to_largest(got[device][1], got["cpu"][1]),
+                "inception_max_abs_feature": float(np.abs(got["cpu"][1]).max()),
+                "inception_features_differ_by_image": bool(
+                    np.abs(got["cpu"][1][0] - got["cpu"][1][1]).max() > 0)}
+    del lp["cpu"], inc["cpu"]
+    card_cpu["bound"] = METRIC_TOL
+    card_cpu["ok"] = all(v["lpips_rel_err"] <= METRIC_TOL and v["inception_rel_err"] <= METRIC_TOL
+                         and v["inception_features_differ_by_image"]
+                         for k, v in card_cpu.items() if k.endswith("px"))
+    records["card_vs_cpu"] = card_cpu
+
+    # 2. throughput ---------------------------------------------------------------
+    ds = build_dataset({"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
+                        "length": 2 * FID_SET})
+    sets = [np.stack([ds[i]["gt"] for i in range(k * FID_SET, (k + 1) * FID_SET)])
+            for k in (0, 1)]
+    feature_fn = load_inception_feature_fn(paths["inception"], device)
+    chunk = torch.from_numpy(sets[0][:64]).to(device)
+    with torch.inference_mode():
+        inc_chunk_ms = event_ms(lambda: inc[device](chunk))
+    inc_flops = conv_flops(inc[device], chunk)
+    feats, walls = [], []
+    for images in sets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats.append(chunked_features(feature_fn, images))
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stats = [activation_statistics(f) for f in feats]
+    stats_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_ab = frechet_distance(*stats[0], *stats[1])
+    fid_s = time.perf_counter() - t0
+    gts = [torch.from_numpy(sets[k][:LPIPS_BATCH]).to(device).permute(0, 3, 1, 2).float()
+           / 255.0 for k in (0, 1)]
+    with torch.inference_mode():
+        lp_ms = event_ms(lambda: lp[device](gts[0] * 2 - 1, gts[1] * 2 - 1))
+    lp_flops = conv_flops(lp[device], gts[0] * 2 - 1, gts[1] * 2 - 1)
+    lpips_m = LPIPSMetric(paths["lpips"], device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LPIPS_TIMED_BATCHES):
+        lpips_m.process(gts[0], gts[1])
+    lp_wall = time.perf_counter() - t0
+    records["throughput"] = {
+        "inception_chunk": 64, "inception_device_ms_per_chunk": inc_chunk_ms,
+        "inception_imgs_per_s_device": 64e3 / inc_chunk_ms,
+        "inception_conv_gflop_per_chunk": inc_flops / 1e9,
+        "inception_conv_tflops_device": inc_flops / inc_chunk_ms / 1e9,
+        "inception_bound_ms_per_chunk": inc_flops / FP32_FLOPS * 1e3,
+        "inception_bound_by": "operations (fp32 convs over 67 TFLOP/s)",
+        "inception_wall_s": walls, "inception_imgs_per_s_wall": [FID_SET / w for w in walls],
+        "feature_rows": FID_SET, "feature_dim": int(feats[0].shape[1]),
+        "activation_statistics_s": stats_s, "frechet_distance_s": fid_s,
+        "fid_set_a_vs_set_b": fid_ab,
+        "lpips_batch": LPIPS_BATCH, "lpips_device_ms_per_batch": lp_ms,
+        "lpips_pairs_per_s_device": LPIPS_BATCH * 1e3 / lp_ms,
+        "lpips_conv_gflop_per_batch": lp_flops / 1e9,
+        "lpips_bound_ms_per_batch": lp_flops / FP32_FLOPS * 1e3,
+        "lpips_wall_s": lp_wall,
+        "lpips_pairs_per_s_wall": LPIPS_BATCH * LPIPS_TIMED_BATCHES / lp_wall,
+        "ok": (all(f.shape == (FID_SET, 2048) and np.isfinite(f).all() for f in feats)
+               and math.isfinite(fid_ab) and fid_ab >= 0.0
+               and len(lpips_m) == LPIPS_BATCH * LPIPS_TIMED_BATCHES
+               and all(math.isfinite(v) and v >= 0.0 for v in lpips_m.results))}
+    del feats, sets, lp, inc, lpips_m, feature_fn, chunk
+
+    # 3. the samplers with their metrics ---------------------------------------------
+    base = sampler_base()
+    gd = GaussianDiffusion({"timesteps": 1000, "betas_type": "linear"})
+    structure = {"ShiftUNet": launches_of(1, 0, dec_counts, enc_counts),
+                 "SemanticEncoder": launches_of(0, 1, dec_counts, enc_counts)}
+    seen = collections.defaultdict(set)
+
+    def built(name, cfg):
+        sampler = SAMPLERS[name](cfg)
+        sampler.ctx.build_pdae()                 # outside the timing
+        return sampler
+
+    eval_cfg = dict(base, batch_size=16, max_samples=32, encoder_ddim_style="dpm20",
+                    decoder_ddim_style="dpm20", lpips_weights=paths["lpips"])
+    before = samplers["autoencoding_eval"]
+    eval_sampler = built("autoencoding_eval", eval_cfg)
+    w1_eval, rec = counted_run("autoencoding_eval_lpips", eval_sampler.start,
+                               before["calls_expected"], structure, seen)
+    rec.update(w1_eval, imgs_per_s=32 / rec["s"], samplers_phase_imgs_per_s=before["imgs_per_s"],
+               samplers_phase_s=before["s"], ssim_diff_vs_samplers_phase=w1_eval["ssim"]
+               - before["ssim"], mse_diff_vs_samplers_phase=w1_eval["mse"] - before["mse"])
+    rec["ok"] = (rec["ok"] and sorted(w1_eval) == ["lpips", "mse", "ssim"]
+                 and math.isfinite(w1_eval["lpips"]) and w1_eval["lpips"] >= 0.0)
+    records["autoencoding_eval_lpips"] = rec
+
+    lat_style, dec_style = FID_STYLES
+    fid_cfg = dict(base, num_samples=FID_SAMPLES, batch_size=FID_BATCH,
+                   latent_ddim_style=lat_style, decoder_ddim_style=dec_style,
+                   dataset_config=dict(base["dataset_config"], length=FID_SET),
+                   fid={"inception_path": paths["inception"], "num_reference": FID_SET},
+                   output_path=os.path.join(root, "unconditional_fid.png"))
+    calls = -(-FID_SAMPLES // FID_BATCH) * gd.ddim_schedule(dec_style).num_steps
+    sampler = built("unconditional_sample", fid_cfg)
+    sampler.ctx.build_latent()
+    (png, fid), rec = counted_run("unconditional_sample_fid", sampler.start,
+                                  {"ShiftUNet": calls}, structure, seen)
+    rec.update(samples=FID_SAMPLES, batch=FID_BATCH, styles="/".join(FID_STYLES),
+               reference_images=FID_SET, fid=fid, imgs_per_s=FID_SAMPLES / rec["s"],
+               png_hw=png_size(png) if os.path.exists(png) else None,
+               png_hw_expected=list(grid_hw(FID_SAMPLES)))
+    rec["ok"] = (rec["ok"] and fid is not None and math.isfinite(fid) and fid >= 0.0
+                 and rec["png_hw"] is not None
+                 and list(rec["png_hw"]) == rec["png_hw_expected"])
+    records["unconditional_sample_fid"] = rec
+    records["kernel_shapes"] = compare_new_shapes(seen, compared, seed + 11, device,
+                                                  "chip_smoke_metrics_shapes.json")
+
+    # 4. two ranks on the one card against one process ----------------------------------
+    w2_cfg = {"autoencoding_eval": eval_cfg,
+              "infer_latents": dict(base, batch_size=32,
+                                    output_path=os.path.join(root, "latents_w2.ckpt"))}
+    w2 = world2(w2_cfg, root)
+    # the control: one process over the ranks' batches, in the ranks' order
+    order = {n: np.concatenate([process_shard_indices(n, r, 2, pad_to_even=pad)
+                                for r in range(2)])
+             for n, pad in ((32, True), (64, False))}
+    real_shards = sampler_module.process_shard_indices
+    sampler_module.process_shard_indices = lambda n, pad_to_even=True: order[n]
+    try:
+        ctrl_eval = eval_sampler.start()
+        ctrl_path = os.path.join(root, "latents_ctrl.ckpt")
+        built("infer_latents", dict(w2_cfg["infer_latents"], output_path=ctrl_path)).start()
+    finally:
+        sampler_module.process_shard_indices = real_shards
+    got = [r["autoencoding_eval"]["result"] for r in w2["ranks"]]
+    eval_rec = {k: {"world1": w1_eval[k], "world2": got[0][k], "control": ctrl_eval[k],
+                    "world2_minus_world1": got[0][k] - w1_eval[k],
+                    "control_minus_world1": ctrl_eval[k] - w1_eval[k],
+                    "world2_minus_control": got[0][k] - ctrl_eval[k],
+                    "bound": abs(ctrl_eval[k] - w1_eval[k])
+                    + WORLD2_MEAN_RTOL * abs(w1_eval[k])}
+                for k in w1_eval}
+    lat = {who: load_checkpoint(p) for who, p in (
+        ("world1", base["inferred_latents_path"]), ("world2", w2_cfg["infer_latents"][
+            "output_path"]), ("control", ctrl_path))}
+    lat_rec = {}
+    for k in ("mean", "std"):
+        scale = float(np.abs(lat["world1"][k]).max())
+        gap = float(np.abs(lat["control"][k] - lat["world1"][k]).max())
+        lat_rec[k] = {"world2_minus_world1": float(np.abs(lat["world2"][k]
+                                                           - lat["world1"][k]).max()),
+                      "control_minus_world1": gap,
+                      "world2_minus_control": float(np.abs(lat["world2"][k]
+                                                           - lat["control"][k]).max()),
+                      "bound": gap + WORLD2_LATENT_RTOL * scale}
+    records["world2"] = {
+        "ranks": 2, "card": "one, both ranks on cuda:0", "objects_over": "gloo",
+        "wall_s": w2["wall_s"],
+        "rank_s": {name: [r[name]["s"] for r in w2["ranks"]] for name in w2_cfg},
+        "world1_autoencoding_eval_s": records["autoencoding_eval_lpips"]["s"],
+        "world1_infer_latents_s": samplers["infer_latents"]["s"],
+        "autoencoding_eval": eval_rec, "infer_latents": lat_rec,
+        "ok": (got[0] == got[1]
+               and all(abs(v["world2_minus_world1"]) <= v["bound"] for v in eval_rec.values())
+               and all(v["world2_minus_world1"] <= v["bound"] for v in lat_rec.values())
+               and all(r["infer_latents"]["result"] == w2_cfg["infer_latents"]["output_path"]
+                       for r in w2["ranks"]))}
     records["phase_s"] = time.perf_counter() - phase_t0
     records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict))
     return records
@@ -2863,7 +3291,13 @@ def main(argv=None) -> int:
     if not samplers["ok"]:
         raise AssertionError("the samplers phase failed its checks")
 
-    # 9. the regular, latent and manipulation trainers ------------------------
+    # 9. LPIPS, InceptionV3, FID and two ranks on one card ----------------------
+    metrics = metrics_phase(args.seed, device, dec_counts, enc_counts, samplers, compared)
+    emit({"phase": "metrics", **metrics})
+    if not metrics["ok"]:
+        raise AssertionError("the metrics phase failed its checks")
+
+    # 10. the regular, latent and manipulation trainers -----------------------
     trainer_dir = os.path.join(OUT_DIR, "trainer")
     samplers_dir = os.path.join(OUT_DIR, "samplers")
     stages = stages_phase(args.seed, device, {"celeba64": {
@@ -2876,7 +3310,7 @@ def main(argv=None) -> int:
     if not stages["ok"]:
         raise AssertionError("the stages phase failed its checks")
 
-    # 10. bf16 compute and rematerialisation at full width ---------------------
+    # 11. bf16 compute and rematerialisation at full width --------------------
     precision = precision_phase(args.seed, device, compared, want_step, {
         "representation": {"mean_step_s": mean_step_s, "peak_mem_gb": train_peak_gb,
                            "of": "train phase"},
@@ -2894,6 +3328,8 @@ def main(argv=None) -> int:
                    if isinstance(v, dict) and "launches" in v})
     per_op.update({f"from_config_{k}": v["launches"]
                    for k, v in samplers["from_config"].items() if isinstance(v, dict)})
+    per_op.update({f"metrics_{k}": metrics[k]["launches"]
+                   for k in ("autoencoding_eval_lpips", "unconditional_sample_fid")})
     for stage in ("regular", "latent", "manipulation"):
         per_op[f"{stage}_step"] = stages[stage]["launches_per_step"]
         per_op[f"{stage}_eval"] = stages[stage]["eval_launches"]
@@ -2929,6 +3365,10 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        # a rank of the metrics phase's two-process run: it leaves the
+        # files to the phase that started it
+        sys.exit(rank_worker(*sys.argv[2:4]))
     try:
         code = main()
     finally:

@@ -12,16 +12,25 @@ This package imports neither JAX nor ``pdae_tpu``.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another. Without a card and without an explicit device it raises rather
-    than carry on on the CPU."""
+    another, and ``cuda:LOCAL_RANK`` in a process that torchrun started.
+    Without that card and without an explicit device it raises rather than
+    carry on on the CPU."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to "
                            "run the port on the CPU")
-    return torch.device("cuda")
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return torch.device("cuda")
+    if int(local) >= torch.cuda.device_count():
+        raise RuntimeError(f"LOCAL_RANK={local}, but this host has "
+                           f"{torch.cuda.device_count()} CUDA devices")
+    return torch.device("cuda", int(local))

@@ -1,16 +1,14 @@
-"""Metric accumulation: per-sample results gathered locally, reduced to
-their mean (``pdae_tpu/metrics/base.py``).
-
-The port runs in one process. ``all_gather_results`` is the identity there,
-and raises when ``WORLD_SIZE`` says the run has several processes: the
-gather across processes is not ported (ROADMAP.md, queue 1 item 15)."""
+"""Metric accumulation: per-sample results gathered locally, merged across
+processes by ``all_gather_results`` (``parallel.gather_objects``), reduced
+to their mean (``pdae_tpu/metrics/base.py``)."""
 
 from __future__ import annotations
 
-import os
 from typing import List
 
 import numpy as np
+
+from ..parallel import gather_objects
 
 
 class BaseMetric:
@@ -21,11 +19,7 @@ class BaseMetric:
         raise NotImplementedError
 
     def all_gather_results(self):
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: gathering metric results across processes is not "
-                "ported (ROADMAP.md, queue 1 item 15); run the port in one process")
+        self.results = gather_objects(self.results)
 
     def compute_metrics(self) -> float:
         return float(np.mean(np.asarray(self.results, np.float64)))

@@ -19,9 +19,11 @@ file, or a ``pdae_tpu`` sharded directory); the flax trees under
 ``ema_encoder``, ``ema_decoder``, ``ema_denoise_fn``,
 ``ema_latent_denoise_fn`` and ``ema_classifier`` go through
 ``utils.convert`` and load with ``strict=True``. Models are kept in eval
-mode on ``device``: ``cuda`` unless the caller names another, and without a
-card the caller must. The context sets TF32 off for the process, as the
-service does: the port's numerics are fp32.
+mode on ``device``: ``cuda`` unless the caller names another
+(``cuda:LOCAL_RANK`` in a process that torchrun started, whose process group
+the context joins: ``parallel.init_distributed``), and without a card the
+caller must. The context sets TF32 off for the process, as the service does:
+the port's numerics are fp32.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..data import build_dataset
 from ..diffusion import GaussianDiffusion
 from ..models import (build_classifier, build_decoder, build_denoise_fn, build_encoder,
                       build_latent_denoise_fn)
+from ..parallel import init_distributed
 from ..training.artifacts import resolve_model_config
 from ..utils import (classifier_state_dict, encoder_state_dict, load_checkpoint,
                      load_yaml, mlp_skip_net_state_dict, unet_state_dict)
@@ -66,6 +69,7 @@ class SamplerContext:
 
     def __init__(self, config: dict, device=None):
         self.config = config
+        init_distributed()
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -12,9 +12,13 @@ torch, so the port's draws are its own; a test replaces ``draw`` to feed
 both packages the same noise. A loop that needs noise at every step gets it
 one step at a time (``PerStep``), drawn with salts ``salt0 + step``.
 
-Not ported: LPIPS (``lpips_weights``) and FID (``fid``), which need
-pretrained backbones (ROADMAP.md, queue 1 item 13); a config that asks for
-either is refused by name.
+Under ``torchrun`` (``parallel``) the samplers that evaluate or generate
+split their work over the processes and gather it on the primary, as the
+JAX ones do: ``AutoencodingEval`` (padded shards), ``InferLatents``
+(unpadded shards) and ``UnconditionalSample`` (``num_samples`` dispatched,
+the images and FID features gathered). Each process salts its draws with its
+rank, rank 0 drawing what a one-process run draws. Only the primary writes
+files; the other samplers compute on every process alike.
 """
 
 from __future__ import annotations
@@ -24,8 +28,12 @@ import math
 import numpy as np
 import torch
 
+from .. import metrics
 from ..data import CELEBAHQ_LABEL_TO_ID
 from ..metrics import MSEMetric, SSIMMetric
+from ..metrics.fid import activation_statistics, chunked_features
+from ..parallel import (dispatch_num_samples_for_process, gather_objects, is_primary,
+                        process_index, process_shard_indices)
 from ..utils import paste_rows, save_checkpoint, save_image_grid, to_uint8
 from ..utils.rng import SAMPLE, generator
 from .context import SamplerContext
@@ -43,12 +51,6 @@ class PerStep:
         return self.draw(self.shape, self.salt0 + step, self.uniform)
 
 
-def _refuse(config: dict, key: str, what: str) -> None:
-    if config.get(key):
-        raise NotImplementedError(f"{key}: {what} is not ported (it needs pretrained "
-                                  "backbone weights; ROADMAP.md, queue 1 item 13)")
-
-
 def _u8(x: torch.Tensor) -> np.ndarray:
     """NCHW [-1, 1] -> NHWC uint8."""
     return to_uint8(x.permute(0, 2, 3, 1).cpu().numpy())
@@ -60,11 +62,13 @@ class BaseSampler:
         self.ctx = SamplerContext(config, device)
         self.device = self.ctx.device
         self.seed = int(config.get("seed", 0))
+        self.rank = process_index()
 
     def draw(self, shape, salt: int, uniform: bool = False) -> torch.Tensor:
         """fp32 noise of ``shape`` on the device, N(0, 1), or U[0, 1) when
-        ``uniform``, from a generator seeded with (seed, ``SAMPLE``, salt)."""
-        gen = generator(self.seed, SAMPLE, salt, self.device)
+        ``uniform``, from a generator seeded with (seed, ``SAMPLE``, salt) and
+        the process's rank."""
+        gen = generator(self.seed, SAMPLE, salt, self.device, self.rank)
         sample = torch.rand if uniform else torch.randn
         return sample(tuple(shape), generator=gen, device=self.device)
 
@@ -73,13 +77,13 @@ class BaseSampler:
         return torch.from_numpy(np.ascontiguousarray(x_0)).to(self.device).permute(
             0, 3, 1, 2).contiguous()
 
-    def batches(self, ds, n: int, batch_size: int):
-        """``(batch, real)`` over the first ``n`` items in order; the last
+    def batches(self, ds, indices, batch_size: int):
+        """``(batch, real)`` over the items at ``indices`` in order; the last
         chunk is padded by repeating its last index, so every batch has
         ``batch_size`` images, and ``real`` says how many count."""
         collate = type(ds).collate_fn
-        for start in range(0, n, batch_size):
-            idxs = list(range(start, min(start + batch_size, n)))
+        for start in range(0, len(indices), batch_size):
+            idxs = [int(i) for i in indices[start:start + batch_size]]
             real = len(idxs)
             idxs += [idxs[-1]] * (batch_size - real)
             yield collate([ds[i] for i in idxs]), real
@@ -102,7 +106,8 @@ class TestDPMs(BaseSampler):
         x_T = self.draw((n, ch, size, size), 0)
         samples = _u8(ctx.gd.test_pretrained_dpms(style, ctx.denoise_fn, x_T))
         out = ctx.output_path("test_dpms_result.png")
-        save_image_grid(samples, out, nrow=int(math.ceil(math.sqrt(n))))
+        if is_primary():
+            save_image_grid(samples, out, nrow=int(math.ceil(math.sqrt(n))))
         return out
 
 
@@ -132,7 +137,8 @@ class AutoencodingExample(BaseSampler):
                                                       self.draw(shape, 0))
         row = np.concatenate([data["gt"][None], _u8(recon), _u8(ddim), _u8(ddpm)])
         out = ctx.output_path("autoencoding_example_result.png")
-        save_image_grid(row, out, nrow=row.shape[0])
+        if is_primary():
+            save_image_grid(row, out, nrow=row.shape[0])
         return out
 
 
@@ -140,11 +146,14 @@ class AutoencodingEval(BaseSampler):
     """Reconstruction metrics over the dataset (or its first
     ``max_samples``): autoencode each batch of ``batch_size`` (16) at
     ``encoder_ddim_style``/``decoder_ddim_style`` (ddim1000/ddim100), then
-    SSIM and MSE of the pairs on [0, 1]. Returns ``{"ssim", "mse"}``."""
+    SSIM, MSE and, where ``lpips_weights`` names the converted AlexNet LPIPS
+    weights, LPIPS of the pairs on [0, 1]. Each process takes every
+    ``world``-th image, the indices wrapped to equal shards (the wrapped
+    duplicates count in the means, as in JAX); the results are gathered and
+    printed on the primary. Returns ``{"ssim", "mse"[, "lpips"]}``."""
 
     @torch.inference_mode()
     def start(self):
-        _refuse(self.config, "lpips_weights", "LPIPS")
         ctx = self.ctx
         ctx.build_pdae()
         ds = ctx.dataset()
@@ -153,7 +162,10 @@ class AutoencodingEval(BaseSampler):
         max_samples = self.config.get("max_samples")
         n = len(ds) if max_samples is None else min(int(max_samples), len(ds))
         ssim_m, mse_m = SSIMMetric(), MSEMetric()
-        for batch, real in self.batches(ds, n, int(self.config.get("batch_size", 16))):
+        lpips_path = self.config.get("lpips_weights")
+        lpips_m = metrics.LPIPSMetric(lpips_path, self.device) if lpips_path else None
+        for batch, real in self.batches(ds, process_shard_indices(n),
+                                        int(self.config.get("batch_size", 16))):
             x_0 = self.images(batch["x_0"])
             recon = ctx.gd.representation_learning_autoencoding(
                 enc_style, dec_style, ctx.encoder, ctx.decoder, x_0)[:real]
@@ -161,10 +173,16 @@ class AutoencodingEval(BaseSampler):
             b = (x_0[:real] + 1.0) / 2.0
             ssim_m.process(a, b)
             mse_m.process(a.cpu().numpy(), b.cpu().numpy())
-        for m in (ssim_m, mse_m):
+            if lpips_m is not None:
+                lpips_m.process(a, b)
+        named = {"ssim": ssim_m, "mse": mse_m}
+        if lpips_m is not None:
+            named["lpips"] = lpips_m
+        for m in named.values():
             m.all_gather_results()
-        results = {"ssim": ssim_m.compute_metrics(), "mse": mse_m.compute_metrics()}
-        print({k: f"{v:.6g}" for k, v in results.items()})
+        results = {k: m.compute_metrics() for k, m in named.items()}
+        if is_primary():
+            print({k: f"{v:.6g}" for k, v in results.items()})
         return results
 
 
@@ -172,7 +190,9 @@ class InferLatents(BaseSampler):
     """Encode the dataset (or its first ``max_samples``) in batches of
     ``batch_size`` (100) and write ``{mean, std}`` of the latents (std with
     ddof 1) to ``output_path`` (``./<dataset name>.ckpt``), a file both
-    packages read."""
+    packages read. Each process encodes every ``world``-th image (no
+    padding); the latents are gathered in rank order and the primary
+    writes the file."""
 
     @torch.inference_mode()
     def start(self):
@@ -182,12 +202,14 @@ class InferLatents(BaseSampler):
         max_samples = self.config.get("max_samples")
         n = len(ds) if max_samples is None else min(int(max_samples), len(ds))
         zs = [ctx.encoder(self.images(batch["x_0"]))[:real].cpu().numpy()
-              for batch, real in self.batches(ds, n, int(self.config.get("batch_size", 100)))]
-        latent = np.concatenate(zs, axis=0)
+              for batch, real in self.batches(ds, process_shard_indices(n, pad_to_even=False),
+                                              int(self.config.get("batch_size", 100)))]
+        latent = np.concatenate(gather_objects(zs), axis=0)
         ds_cfg = self.config["dataset_config"]
         name = ds_cfg.get("name", ds_cfg.get("dataset_name"))
         out = self.config.get("output_path", f"./{str(name).lower()}.ckpt")
-        save_checkpoint(out, {"mean": latent.mean(0), "std": latent.std(0, ddof=1)})
+        if is_primary():
+            save_checkpoint(out, {"mean": latent.mean(0), "std": latent.std(0, ddof=1)})
         return out
 
 
@@ -226,6 +248,8 @@ class GapMeasure(BaseSampler):
         ae_gap = np.mean(np.stack(ae_gaps), axis=0)
 
         out = ctx.output_path("gap_measure_result.png")
+        if not is_primary():
+            return gap, ae_gap
         try:
             import matplotlib
         except ImportError:
@@ -262,8 +286,9 @@ class DenoiseOneStep(BaseSampler):
             noise=self.draw(tuple(x_0.shape), 0))
         gt = data["gt"][None]
         out = ctx.output_path("denoise_one_step_result.png")
-        paste_rows([np.concatenate([gt, _u8(pred_x0)]),
-                    np.concatenate([gt, _u8(ae_pred_x0)])], out)
+        if is_primary():
+            paste_rows([np.concatenate([gt, _u8(pred_x0)]),
+                        np.concatenate([gt, _u8(ae_pred_x0)])], out)
         return out
 
 
@@ -314,7 +339,8 @@ class Interpolation(BaseSampler):
         row1.append(d2["gt"])
         row2.append(d2["gt"])
         out = ctx.output_path("interpolation_result.png")
-        paste_rows([np.stack(row1), np.stack(row2)], out)
+        if is_primary():
+            paste_rows([np.stack(row1), np.stack(row2)], out)
         return out
 
 
@@ -353,7 +379,8 @@ class Manipulation(BaseSampler):
         half = len(scale_list) // 2
         row = results[:half] + [data["gt"]] + results[half:]
         out = ctx.output_path("manipulation_result.png")
-        save_image_grid(np.stack(row), out, nrow=len(row))
+        if is_primary():
+            save_image_grid(np.stack(row), out, nrow=len(row))
         return out
 
 
@@ -361,20 +388,29 @@ class UnconditionalSample(BaseSampler):
     """``num_samples`` (16) images through the latent DPM in batches of
     ``batch_size``: z_T ~ N(0, 1) clamped, the latent loop
     (``latent_ddim_style``), denormalized, then the shift decode of x_T with
-    stop_percent 0.3 (``decoder_ddim_style``); one grid. The batch after
-    ``done`` images draws x_T with salt ``2 * done`` and z_T with
-    ``2 * done + 1``."""
+    stop_percent 0.3 (``decoder_ddim_style``); one grid, written by the
+    primary from every process's images. Each process generates its
+    dispatched share; its batch after ``done`` of its images draws x_T with
+    salt ``2 * done`` and z_T with ``2 * done + 1``.
+
+    With ``fid``: the FID of the generated images against ``stats_path`` (a
+    ``.npz`` of mu and sigma), or else against the features of the
+    dataset's first ``num_reference`` (1000) images, sharded over the
+    processes; InceptionV3 from ``inception_path``. Every process computes
+    the features of its own images, the features are gathered, and the
+    primary computes the distance. Returns ``(path, fid)`` then (``fid`` is
+    None off the primary), else the path."""
 
     @torch.inference_mode()
     def start(self):
-        _refuse(self.config, "fid", "FID")
         ctx = self.ctx
         ctx.build_pdae()
         latent_denoise_fn = ctx.build_latent()
         ds_cfg = self.config.get("dataset_config") or {}
         ch = int(self.config.get("image_channel", ds_cfg.get("image_channel", 3)))
         size = int(self.config.get("image_size", ds_cfg.get("image_size")))
-        n = int(self.config.get("num_samples", 16))
+        total = int(self.config.get("num_samples", 16))
+        n = dispatch_num_samples_for_process(total)
         batch = int(self.config.get("batch_size", min(n, 64)))
         mean, std = ctx.latent_stats()
         lat_style = self.config.get("latent_ddim_style", "ddim100")
@@ -392,10 +428,42 @@ class UnconditionalSample(BaseSampler):
                 latent_dim=latent_dim, z_T=z_T)
             imgs.append(_u8(out[:b]))
             done += b
+        empty = np.zeros((0, size, size, ch), np.uint8)
+        local_images = np.concatenate(imgs) if imgs else empty
+        all_imgs = gather_objects(imgs)
         out = ctx.output_path("unconditional_sample_result.png")
-        if imgs:
-            save_image_grid(np.concatenate(imgs), out)
-        return out
+        if is_primary() and all_imgs:
+            save_image_grid(np.concatenate(all_imgs), out)
+
+        fid_cfg = self.config.get("fid")
+        if not fid_cfg:
+            return out
+        feature_fn = metrics.inception_feature_fn(fid_cfg.get("inception_path"), self.device)
+        m = (metrics.FIDMetric.from_stats_file(feature_fn, fid_cfg["stats_path"])
+             if fid_cfg.get("stats_path") else metrics.FIDMetric(feature_fn))
+        if m.target_mu is None:
+            # the reference set's forwards are sharded like the generated
+            # side's; its features are gathered, its statistics taken on the
+            # primary
+            ds = ctx.dataset()
+            ref_n = min(int(fid_cfg.get("num_reference", 1000)), len(ds))
+            my_ref = process_shard_indices(ref_n, pad_to_even=False)
+            ref_local = (chunked_features(feature_fn, type(ds).collate_fn(
+                [ds[int(i)] for i in my_ref])["gts"]) if len(my_ref) else None)
+            parts = [f for f in gather_objects([ref_local]) if f is not None and len(f)]
+            if is_primary():
+                m.target_mu, m.target_sigma = activation_statistics(np.concatenate(parts))
+        # the features of this process's own images; the gather is of
+        # features (computing them on the gathered images would repeat the
+        # work on every process)
+        if len(local_images):
+            m.process(local_images)
+        m.all_gather_results()
+        # the 2048x2048 sqrtm runs once, on the primary
+        fid = m.compute_metrics() if is_primary() else None
+        if is_primary():
+            print({"fid": fid})
+        return out, fid
 
 
 SAMPLERS = {

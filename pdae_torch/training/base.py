@@ -132,7 +132,9 @@ def refuse_unported(config: dict) -> None:
     """Raise, naming the ROADMAP item that will lift it, for every option of
     the JAX trainer that the port does not run yet."""
     rc = config.get("runner_config") or {}
+    world = int(os.environ.get("WORLD_SIZE", "1"))
     checks = [
+        (world > 1, f"WORLD_SIZE={world}: data-parallel training across processes", 15),
         (rc.get("param_sharding", "replicated") != "replicated",
          f"runner_config.param_sharding={rc.get('param_sharding')!r}", 15),
         (rc.get("checkpoint_format", "full") == "sharded",

@@ -16,6 +16,10 @@ the x_T (and z_T) of the eval at a step, ``SAMPLE`` each draw of a sampler
 (``step`` is the draw's salt, ``sampling/samplers.py``);
 ``training.resident.DATA_STREAM_TAG`` the device-resident corpus's uniform
 rows and flip coins of a step.
+
+A process of a run of several salts its streams with its rank (``rank``),
+as the JAX package folds the process index into a key, so no two ranks
+draw alike; rank 0 adds nothing, so it draws what a one-process run draws.
 """
 
 from __future__ import annotations
@@ -27,11 +31,12 @@ BASE_SEED = 666666666
 INIT, TRAIN, EVAL, DROPOUT, SAMPLE = 0, 1, 2, 3, 4
 
 
-def stream_seed(seed: int, stream: int, step: int = 0) -> int:
-    state = np.random.SeedSequence([BASE_SEED + int(seed), int(stream), int(step)])
+def stream_seed(seed: int, stream: int, step: int = 0, rank: int = 0) -> int:
+    entropy = [BASE_SEED + int(seed), int(stream), int(step)] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy)
     return int(state.generate_state(2, np.uint64)[0]) & ((1 << 63) - 1)
 
 
-def generator(seed: int, stream: int, step: int, device) -> torch.Generator:
+def generator(seed: int, stream: int, step: int, device, rank: int = 0) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``stream_seed``."""
-    return torch.Generator(device=device).manual_seed(stream_seed(seed, stream, step))
+    return torch.Generator(device=device).manual_seed(stream_seed(seed, stream, step, rank))

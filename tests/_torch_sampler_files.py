@@ -53,11 +53,13 @@ def _jax_encoder(config, image_size=None, dtype=jnp.float32):
 
 
 @contextlib.contextmanager
-def sampler_files(root):
+def sampler_files(root, size=SIZE):
     """The checkpoint files and run configs under ``root``, the JAX models and
     params that made them, and a sampler config naming them all; while the
-    context is open, the contexts build the tiny encoder."""
-    x = jnp.zeros((1, SIZE, SIZE, 3))
+    context is open, the contexts build the tiny encoder. ``size`` is the
+    images' side (the encoder's last layer depends on it)."""
+    dataset = dict(DATASET, image_size=size)
+    x = jnp.zeros((1, size, size, 3))
     t = jnp.zeros((1,), jnp.int32)
     z = jnp.zeros((1, LATENT))
     m = SimpleNamespace(encoder=_jax_encoder({"latent_dim": LATENT}),
@@ -77,7 +79,7 @@ def sampler_files(root):
     path = {k: str(root / k) for k in ("pdae.yml", "pdae.ckpt", "dpm.yml", "dpm.ckpt",
                                        "latent.yml", "latent.ckpt", "classifier.ckpt",
                                        "stats.ckpt")}
-    jax_save_yaml({"train_dataset_config": DATASET, "eval_dataset_config": {},
+    jax_save_yaml({"train_dataset_config": dataset, "eval_dataset_config": {},
                    "diffusion_config": DIFFUSION,
                    "trained_ddpm_config": {"denoise_fn_config": DPM_CONFIG},
                    "encoder_config": {"model": "TinyEncoder", "latent_dim": LATENT},
@@ -98,7 +100,7 @@ def sampler_files(root):
               "latent_checkpoint_path": path["latent.ckpt"],
               "inferred_latents_path": path["stats.ckpt"],
               "classifier_checkpoint_path": path["classifier.ckpt"],
-              "dataset_config": DATASET, "max_batch": 4}
+              "dataset_config": dataset, "max_batch": 4}
     with pytest.MonkeyPatch.context() as mp:
         # both packages' contexts (and the port's in-memory service) build
         # the tiny encoder in place of a shipped one

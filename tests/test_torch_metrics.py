@@ -1,6 +1,6 @@
-"""The port's SSIM and MSE against ``pdae_tpu.metrics`` on the CPU, and what the
-port refuses by name: a gather across processes (``WORLD_SIZE`` > 1), LPIPS
-and FID.
+"""The port's SSIM and MSE against ``pdae_tpu.metrics`` on the CPU (LPIPS,
+FID and the gather across processes: ``tests/test_torch_backbones.py`` and
+``tests/test_torch_dist.py``).
 
 SSIM: the same 11x11 window, zero padding and constants in both packages;
 the convolutions sum in another order, so values agree within 1e-6. MSE is
@@ -16,8 +16,7 @@ from pdae_tpu.metrics import MSEMetric as JaxMSEMetric
 from pdae_tpu.metrics import SSIMMetric as JaxSSIMMetric
 from pdae_tpu.metrics import mse as jax_mse
 from pdae_tpu.metrics import ssim as jax_ssim
-from pdae_torch.metrics import BaseMetric, MSEMetric, SSIMMetric, mse, ssim
-from pdae_torch.sampling import SAMPLERS
+from pdae_torch.metrics import MSEMetric, SSIMMetric, mse, ssim
 
 torch.set_num_threads(1)
 
@@ -71,23 +70,3 @@ def test_mse_and_its_metric_equal_jax_bit_for_bit():
     port.all_gather_results()
     assert port.results == jax_metric.results
     assert port.compute_metrics() == jax_metric.compute_metrics()
-
-
-@pytest.mark.parametrize("world", ["2", "8"])
-def test_a_gather_across_processes_is_refused(monkeypatch, world):
-    metric = BaseMetric()
-    metric.results = [0.5]
-    monkeypatch.setenv("WORLD_SIZE", world)
-    with pytest.raises(NotImplementedError, match=f"WORLD_SIZE={world}.*item 15"):
-        metric.all_gather_results()
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    metric.all_gather_results()
-    assert metric.results == [0.5]
-
-
-@pytest.mark.parametrize("name,key", [("autoencoding_eval", "lpips_weights"),
-                                      ("unconditional_sample", "fid")])
-def test_lpips_and_fid_are_refused_by_name(name, key):
-    sampler = SAMPLERS[name]({key: {"stats_path": "x"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{key}.*item 13"):
-        sampler.start()

@@ -189,12 +189,16 @@ REFUSALS = {
     "param_sharding": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
     "checkpoint_format": ({"runner_config": {"checkpoint_format": "sharded"}}, 15),
     "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
+    # a torchrun launch: data-parallel training is not ported
+    "WORLD_SIZE": ({}, 15),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_unported_options_are_refused_by_name(name, tmp_path):
+def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
     change, item = REFUSALS[name]
+    if name == "WORLD_SIZE":
+        monkeypatch.setenv("WORLD_SIZE", "2")
     cfg = tiny_pdae_config()
     for section, values in change.items():
         cfg[section].update(values)
