@@ -178,6 +178,28 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    times every timed shape in bf16 too (``bf16_ms``, ``bf16_library_ms``,
    ``bf16_bound_ms``; bf16 attention's bound on the tensor cores' 989
    TFLOP/s), and the summary sums them over a train step.
+12. ``ingest``: the files a user brings, through the port's CLIs and the
+   native host code. 256 seeded JPEGs at CelebA's 178x218 (quality 95) packed
+   by ``python -m pdae_torch.prepare_lmdb --key-format 'None-%07d'``; the
+   trainer phase's DPM exported to a reference ``.pt`` by ``python -m
+   pdae_torch.convert --export`` and converted back, bit-equal on every leaf
+   and byte-equal as a file; the celeba64 ``RepresentationLearningTrainer``
+   (the trainer phase's config, b32, fp32, TF32 off) from the converted DPM
+   on CELEBA64 over the LMDB with ``fast_decode`` at its default (the train
+   split cut to the packed images), one warm-up and 4 timed steps, each
+   step's launches held to the structure, with ``time/load_data`` per step
+   and the reader and decoder that ran; on the host, the native and PIL
+   decode of every packed image at the CELEBA64 crop to 64 px in imgs/s at 1
+   and 4 threads (native within 3 levels of PIL and within 1 on 99% of
+   values) and the native and pure-Python readers' gets/s; last, the trained
+   checkpoint exported to ``.pt``, converted back (the trees bit-equal) and
+   served by ``PDAEService.from_config``: a b8 ddim10/ddim10 ``autoencode``
+   bit-equal to the same request on the unconverted checkpoint, its launches
+   held to the structure. ``cudnn.deterministic`` throughout. The native
+   reader must build; the decoder may fall back to PIL only where
+   ``/usr/include/jpeglib.h`` is missing (``"decoder": "pil"`` and the
+   compiler's last line). The phase's images, LMDB and checkpoints are
+   deleted when it ends. Then the script's total seconds.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -1212,6 +1234,7 @@ def drop_heavy_files() -> None:
     for path in paths:
         if os.path.exists(path):
             os.unlink(path)
+    drop_ingest_files()
 
 
 def counted_run(name, fn, want_calls, structure, seen):
@@ -2909,10 +2932,281 @@ def ffhq_remat_runs(tr, keys, inputs, dtype, device) -> dict:
     return out
 
 
+INGEST_IMAGES = 256              # synthetic JPEGs at CelebA's geometry, packed by the CLI
+INGEST_HW = (218, 178)           # CelebA's aligned images, height x width
+INGEST_QUALITY = 95
+INGEST_STEPS = 5                 # the first is a warm-up
+INGEST_STYLE = "ddim10"          # the served request's encode and decode style
+DECODE_THREADS = (1, 4)          # 4: the shipped configs' loader workers
+DECODE_MAX_LEVELS, DECODE_WITHIN_ONE = 3, 0.99   # native against PIL (tests/test_data.py)
+JPEG_HEADER = "/usr/include/jpeglib.h"
+
+
+def synthetic_photos(seed, n, hw=INGEST_HW) -> np.ndarray:
+    """``n`` seeded RGB images: smooth colour fields with noise, so that their
+    JPEGs keep detail at every frequency the resize filters."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        f, phase = rs.uniform(5, 30, (2, 3)), rs.uniform(0, 6, 3)
+        field = 128 + 100 * np.sin(xx[..., None] / f[0] + phase) * np.cos(yy[..., None] / f[1])
+        out[i] = np.clip(field + rs.normal(0, 20, (h, w, 3)), 0, 255)
+    return out
+
+
+def run_module(*args) -> dict:
+    """``python -m ARGS`` from the checkout's root, as a user runs the port's
+    CLIs: its seconds and the last line it printed. Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return {"s": time.perf_counter() - t0, "said": lines[-1] if lines else ""}
+
+
+def same_trees(a, b) -> bool:
+    """Every leaf of ``a`` and ``b`` (numpy trees) equal bit for bit, with
+    the same keys, shapes and dtypes."""
+    fa, fb = _flat(a), _flat(b)
+    return sorted(fa) == sorted(fb) and all(
+        np.asarray(v).dtype == np.asarray(fb[k]).dtype
+        and np.array_equal(np.asarray(v), np.asarray(fb[k])) for k, v in fa.items())
+
+
+def per_second(fn, items, threads, reps=2) -> float:
+    """``fn`` over ``items`` on a pool of ``threads``: calls per host second."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(threads) as pool:
+        list(pool.map(fn, items))                      # warm-up
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            list(pool.map(fn, items))
+        return reps * len(items) / (time.perf_counter() - t0)
+
+
+def ingest_phase(seed, device, want_step, want_request, trainer_step_s) -> dict:
+    """The files a user brings, on their way to the card: seeded JPEGs at
+    CelebA's geometry packed by ``python -m pdae_torch.prepare_lmdb``; the
+    trainer phase's DPM exported to a reference ``.pt`` and converted back by
+    ``python -m pdae_torch.convert``; the celeba64 representation trainer on
+    CELEBA64 over that LMDB (``fast_decode`` at its default) from the
+    converted DPM; the native and PIL decode rates and the LMDB readers' get
+    rates on the host; and the trained checkpoint exported, converted back
+    and served by ``PDAEService.from_config``, bit-equal to the service of
+    the unconverted file. ``cudnn.deterministic`` throughout."""
+    import shutil
+
+    from PIL import Image
+
+    from pdae_torch import ops
+    from pdae_torch.data import CELEBA64, NativeReader, Reader
+    from pdae_torch.data import lmdb_store, native_image
+    from pdae_torch.serving import PDAEService
+    from pdae_torch.training import RepresentationLearningTrainer
+    from pdae_torch.utils import _host_build, load_checkpoint
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "ingest")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def path(name):
+        return os.path.join(root, name)
+
+    rec = {"config": f"{INGEST_IMAGES} seeded JPEGs {INGEST_HW[1]}x{INGEST_HW[0]} "
+                     f"quality {INGEST_QUALITY}; the trainer phase's config on CELEBA64 "
+                     "(augmentation on, the train split cut to the packed images) over "
+                     "the converted DPM, b32, fp32, TF32 off, cudnn.deterministic"}
+    # the backends: the reader must build; the decoder falls back to PIL
+    # only where libjpeg's header is missing
+    reader_lib = lmdb_store.native_lib()
+    decoder = "native" if native_image.available() else "pil"
+    rec["backends"] = {"reader_library": reader_lib is not None, "decoder": decoder,
+                       "jpeglib_h": os.path.exists(JPEG_HEADER)}
+    if decoder == "pil":
+        rec["backends"]["decoder_build_last_line"] = _host_build.last_line("image_decode.cpp")
+    backends_ok = reader_lib is not None and (decoder == "native"
+                                              or not rec["backends"]["jpeglib_h"])
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        # 1. the user's images, packed ------------------------------------------------
+        t0 = time.perf_counter()
+        os.makedirs(path("images"))
+        for i, img in enumerate(synthetic_photos(seed + 20, INGEST_IMAGES)):
+            Image.fromarray(img).save(path(f"images/{i:06d}.jpg"), quality=INGEST_QUALITY)
+        write_s = time.perf_counter() - t0
+        packed = run_module("pdae_torch.prepare_lmdb", path("images"), path("lmdb"),
+                            "--key-format", CELEBA64.key_fmt)
+        rec["pack"] = {"write_jpegs_s": write_s, "prepare_lmdb_s": packed["s"],
+                       "said": packed["said"],
+                       "lmdb_bytes": os.path.getsize(path("lmdb/data.mdb"))}
+
+        # 2. the DPM to a reference .pt and back ---------------------------------------
+        dpm = os.path.join(OUT_DIR, "trainer", "dpm.ckpt")
+        export = run_module("pdae_torch.convert", dpm, path("dpm.pt"), "--export")
+        back = run_module("pdae_torch.convert", path("dpm.pt"), path("dpm.ckpt"))
+        with open(dpm, "rb") as a, open(path("dpm.ckpt"), "rb") as b:
+            dpm_bytes_equal = a.read() == b.read()
+        rec["dpm_round_trip"] = {
+            "export_s": export["s"], "convert_s": back["s"],
+            "ckpt_bytes": os.path.getsize(dpm), "pt_bytes": os.path.getsize(path("dpm.pt")),
+            "leaves_bit_equal": same_trees(load_checkpoint(dpm), load_checkpoint(path("dpm.ckpt"))),
+            "file_bytes_equal": dpm_bytes_equal}
+
+        # 3. the representation trainer on the LMDB -----------------------------------
+        config = trainer_config(path("dpm.ckpt"))
+        config["train_dataset_config"] = {
+            "name": "CELEBA64", "data_path": path("lmdb"), "image_size": 64,
+            "image_channel": 3, "latent_dim": LATENT, "augmentation": True, "split": "train"}
+        config["eval_dataset_config"] = {"split": "valid", "augmentation": False}
+        config["runner_config"] = {**config["runner_config"], "evaluate_every_steps": 10000,
+                                   "save_latest_every_steps": 10000}
+        run = RepresentationLearningTrainer(config=config, run_path=path("run"), seed=seed)
+        # the split holds 162,770 keys; the LMDB the first INGEST_IMAGES
+        run.train_dataset.length = INGEST_IMAGES
+        steps = {"s": [], "launches": [], "gn": [], "gn_bwd": [], "loss": []}
+        inner = run.train_step
+
+        def counted_step(batch):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            s0 = time.perf_counter()
+            out = inner(batch)
+            torch.cuda.synchronize()
+            steps["s"].append(time.perf_counter() - s0)
+            steps["launches"].append(ops.launch_counts())
+            steps["gn"].append(ops.gn_variant_counts())
+            steps["gn_bwd"].append(ops.gn_bwd_variant_counts())
+            steps["loss"].append(float(out["prediction_loss"]))
+            return out
+
+        run.train_step = counted_step
+        t0 = time.perf_counter()
+        assert run.train(max_steps=INGEST_STEPS) == INGEST_STEPS
+        loop_s = time.perf_counter() - t0
+        with open(path("run/metrics.jsonl")) as f:
+            load_data = [json.loads(line)["time/load_data"] for line in f]
+        mean_step_s = sum(steps["s"][1:]) / (INGEST_STEPS - 1)
+        rec["train"] = {
+            "reader": type(run.train_dataset._txn()).__name__,
+            "decoder": decoder if run.train_dataset.fast_decode else "pil",
+            "losses": steps["loss"], "step_s": steps["s"], "mean_step_s": mean_step_s,
+            "trainer_phase_step_s": trainer_step_s,
+            "vs_trainer_phase": mean_step_s / trainer_step_s, "loop_s": loop_s,
+            "time_load_data_s": load_data, "launches_per_step": steps["launches"][-1],
+            "launches_expected": want_step}
+        rec["train"]["ok"] = bool(
+            all(math.isfinite(v) for v in steps["loss"])
+            and len(steps["loss"]) == INGEST_STEPS
+            and all(c == want_step for c in steps["launches"])
+            and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+                    for v in steps["gn"])
+            and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+                    for v in steps["gn_bwd"])
+            and rec["train"]["reader"] == "NativeReader")
+        dataset = run.train_dataset
+        del run
+
+        # 4. decode and read rates on the host ----------------------------------------
+        pil = CELEBA64({"data_path": path("lmdb"), "image_size": 64, "fast_decode": False})
+        indices = list(range(INGEST_IMAGES))
+        images = np.stack([np.asarray(dataset._load_image(i)) for i in indices[:BATCH]])
+        rec["decode"] = {
+            "crop": list(CELEBA64.crop), "size": 64,
+            "pil_imgs_per_s": {t: per_second(pil._load_image, indices, t)
+                               for t in DECODE_THREADS},
+            "b32_step_demand_imgs_per_s": TRAIN_BATCH / mean_step_s, "ok": True}
+        if decoder == "native":
+            native_px = np.stack([dataset._load_image(i) for i in indices])
+            pil_px = np.stack([np.asarray(pil._load_image(i)) for i in indices])
+            levels = np.abs(native_px.astype(int) - pil_px.astype(int))
+            rec["decode"].update(
+                native_imgs_per_s={t: per_second(dataset._load_image, indices, t)
+                                   for t in DECODE_THREADS},
+                max_levels_vs_pil=int(levels.max()),
+                share_within_one_level=float((levels <= 1).mean()),
+                share_equal=float((levels == 0).mean()))
+            rec["decode"]["ok"] = (rec["decode"]["max_levels_vs_pil"] <= DECODE_MAX_LEVELS
+                                   and rec["decode"]["share_within_one_level"]
+                                   >= DECODE_WITHIN_ONE)
+        else:
+            rec["decode"]["native_imgs_per_s"] = "not measured: the native decoder is absent"
+        keys = [dataset._index_key(i) for i in indices]
+        readers = {"native": NativeReader(path("lmdb")), "pure": Reader(path("lmdb"))}
+        rec["reader_gets_per_s"] = {name: per_second(r.get, keys * 20, 1)
+                                    for name, r in readers.items()}
+        for r in readers.values():
+            r.close()
+
+        # 5. the trained checkpoint to a .pt and back, then served ---------------------
+        latest = path("run/checkpoints/latest.ckpt")
+        export = run_module("pdae_torch.convert", latest, path("pdae.pt"), "--export")
+        back = run_module("pdae_torch.convert", path("pdae.pt"), path("pdae.ckpt"))
+        original, converted = load_checkpoint(latest), load_checkpoint(path("pdae.ckpt"))
+        kept = sorted(converted)
+        trees_equal = same_trees({k: original[k] for k in kept}, converted)
+        del original, converted
+        base = {"config_path": path("run/config.yml"), "max_batch": 64}
+        served = {}
+        for name, ckpt in (("unconverted", latest), ("converted", path("pdae.ckpt"))):
+            service = PDAEService.from_config({**base, "checkpoint_path": ckpt}, device)
+            out, counts = counted(lambda: service.autoencode(images, INGEST_STYLE,
+                                                             INGEST_STYLE))
+            served[name] = (out, counts)
+            del service
+        out, counts = served["converted"]
+        rec["serve"] = {
+            "export_s": export["s"], "convert_s": back["s"],
+            "bytes": {"latest_ckpt": os.path.getsize(latest),
+                      "pt": os.path.getsize(path("pdae.pt")),
+                      "converted_ckpt": os.path.getsize(path("pdae.ckpt"))},
+            "keys_converted": kept, "trees_bit_equal": trees_equal,
+            "styles": f"{INGEST_STYLE}/{INGEST_STYLE}", "batch": BATCH, "s": counts["s"],
+            "launches": counts["launches"], "launches_expected": want_request,
+            "gn_variants": counts["gn_variants"],
+            "bit_equal_to_unconverted": bool(np.array_equal(out, served["unconverted"][0]))}
+        rec["serve"]["ok"] = bool(
+            trees_equal and rec["serve"]["bit_equal_to_unconverted"]
+            and out.shape == images.shape and out.dtype == np.uint8
+            and counts["launches"] == want_request
+            and counts["gn_variants"] == {"cluster": want_request["gn_adagn_silu"],
+                                          "general": 0})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+        drop_ingest_files()
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    rec["ok"] = bool(backends_ok and rec["dpm_round_trip"]["leaves_bit_equal"]
+                     and rec["dpm_round_trip"]["file_bytes_equal"] and rec["train"]["ok"]
+                     and rec["decode"]["ok"] and rec["serve"]["ok"])
+    return rec
+
+
+def drop_ingest_files() -> None:
+    """Delete the ingest phase's images, LMDB, checkpoints and ``.pt`` files;
+    its ``metrics.jsonl`` and ``config.yml`` stay."""
+    import shutil
+
+    root = os.path.join(OUT_DIR, "ingest")
+    for name in ("images", "lmdb"):
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    for parent, _, names in os.walk(root):
+        for n in names:
+            if n.endswith((".ckpt", ".pt")):
+                os.unlink(os.path.join(parent, n))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    script_t0 = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a card",
@@ -3320,6 +3614,15 @@ def main(argv=None) -> int:
     if not precision["ok"]:
         raise AssertionError("the precision phase failed its checks")
 
+    # 12. the files a user brings: images, the reference's .pt, the trainer ---
+    ingest = ingest_phase(args.seed, device, want_step,
+                          launches_of(2 * int(INGEST_STYLE[len("ddim"):]), 1, dec_counts,
+                                      enc_counts), trainer["trainer_step_s"])
+    emit({"phase": "ingest", **ingest})
+    if not ingest["ok"]:
+        raise AssertionError("the ingest phase failed its checks")
+    emit({"script_s": time.perf_counter() - script_t0})
+
     per_op = {name: op_records[name]["launches"]
               for name in ("generate", "manipulate", "autoencode_dpm20")}
     per_op["trainer_step"] = trainer["launches_per_step"]
@@ -3336,6 +3639,8 @@ def main(argv=None) -> int:
         if "precomputed" in stages[stage]:
             per_op[f"{stage}_precomputed_step"] = stages[stage]["precomputed"][
                 "launches_per_step"]
+    per_op["ingest_step"] = ingest["train"]["launches_per_step"]
+    per_op[f"ingest_autoencode_{INGEST_STYLE}"] = ingest["serve"]["launches"]
     regular_ms = stages["regular"]["kernel_ms_per_step"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
@@ -3354,7 +3659,7 @@ def main(argv=None) -> int:
                      train_launches["gn_adagn_silu_bwd"],
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
          "launches_per_op": {k: per_op[k]["gn_adagn_silu_bwd"]
-                             for k in ("trainer_step", "regular_step")},
+                             for k in ("trainer_step", "regular_step", "ingest_step")},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
     ]})
     print(smi, flush=True)

@@ -15,9 +15,11 @@ NHWC) as the JAX package, so both give the same batches bit for bit:
     collate
   * SYNTHETIC: deterministic procedural images for tests and smoke runs
 
-Images decode through PIL, imported when the first image is read (the JAX
-package's path when its native decoder is absent; that decoder is not
-ported). ``transfer_uint8: true`` keeps ``x_0`` as the raw uint8 pixels, 4x
+3-channel LMDB JPEGs decode through the native libjpeg decoder and triangle
+resize (``native_image.py``) when ``fast_decode`` is on, which is the default,
+as in the JAX package; PIL (imported when the first image is read) takes the
+rest, and everything where ``fast_decode: false`` or the native library does
+not build. ``transfer_uint8: true`` keeps ``x_0`` as the raw uint8 pixels, 4x
 fewer bytes to move to the device, where ``utils.image.x0_from_transfer``
 normalises them bit-equal to the host's float path.
 """
@@ -76,6 +78,8 @@ class LMDBImageDataset:
         self.image_size = int(config["image_size"])
         self.image_channel = int(config.get("image_channel", 3))
         self.augmentation = bool(config.get("augmentation", False))
+        # the native JPEG decode and resize, within +/-1 uint8 step of PIL
+        self.fast_decode = bool(config.get("fast_decode", True))
         self.transfer_uint8 = bool(config.get("transfer_uint8", False))
         self._reader: Optional[Reader] = None
         self._reader_lock = threading.Lock()
@@ -96,10 +100,16 @@ class LMDBImageDataset:
         return (self.key_fmt % index).encode("utf-8")
 
     def _load_image(self, index: int):
-        from PIL import Image
         img_bytes = self._txn().get(self._index_key(index))
         if img_bytes is None:
             raise KeyError(f"missing LMDB key {self._index_key(index)!r}")
+        if self.fast_decode and self.image_channel == 3:
+            from .native_image import available, load_jpeg_resized
+            if available():
+                arr = load_jpeg_resized(img_bytes, self.image_size, crop=self.crop)
+                if arr is not None:
+                    return arr
+        from PIL import Image
         img = Image.open(io.BytesIO(img_bytes))
         img = img.convert("RGB" if self.image_channel == 3 else "L")
         if self.crop is not None:

@@ -108,7 +108,7 @@ def inception_feature_fn(inception_path: Optional[str] = None, device=None):
     if not inception_path or not os.path.exists(inception_path):
         raise FileNotFoundError(
             f"TF-FID InceptionV3 weights not found at {inception_path!r}: convert the "
-            "pt_inception-2015-12-05 weights with scripts/convert_torch_checkpoint.py "
+            "pt_inception-2015-12-05 weights with python -m pdae_torch.convert "
             "--inception and pass the file as inception_path")
     from .inception import load_inception_feature_fn
     return load_inception_feature_fn(inception_path, device)

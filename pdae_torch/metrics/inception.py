@@ -209,10 +209,23 @@ def _tensor(v) -> torch.Tensor:
     return v.detach().cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
 
 
+def convert_inception_state_dict(sd: Mapping) -> dict:
+    """A torchvision-keyed state dict -> the flat numpy file of ``pdae_tpu``
+    (conv kernels to HWIO, BatchNorm buffers as they are); ``fc.*`` and
+    ``AuxLogits.*``, unused for FID, are dropped."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(("fc.", "AuxLogits.")):
+            continue
+        v = _tensor(v).numpy()
+        out[k] = v.transpose(2, 3, 1, 0) if k.endswith(".conv.weight") else v
+    return out
+
+
 def inception_state_dict(source) -> dict:
     """The module's state dict from ``source``: a torchvision-keyed state dict
     (``Mapping``, or a ``.pth``/``.pt`` file of one) as it is, or the flat
-    file that ``scripts/convert_torch_checkpoint.py --inception`` writes (conv
+    file that ``python -m pdae_torch.convert --inception`` writes (conv
     kernels HWIO, transposed here to OIHW). ``fc.*`` and ``AuxLogits.*`` are
     dropped."""
     hwio = False

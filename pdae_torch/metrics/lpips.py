@@ -14,7 +14,7 @@ averaged over space, and summed over the five stages.
 
 Weights: the pretrained AlexNet and the lpips package's ``alex.pth`` are not
 in the repository; ``load_lpips`` reads the flat file that
-``scripts/convert_torch_checkpoint.py --lpips`` writes (what
+``python -m pdae_torch.convert --lpips`` writes (what
 ``lpips_weights`` names), or torch state dicts keyed as the lpips package or
 torchvision's AlexNet keys them.
 """
@@ -131,6 +131,24 @@ def _from_flat(raw: Mapping) -> dict:
         out[f"{_CONV_KEY[i]}.weight"] = _tensor(raw[f"conv{i}_w"]).permute(3, 2, 0, 1).contiguous()
         out[f"{_CONV_KEY[i]}.bias"] = _tensor(raw[f"conv{i}_b"])
         out[f"lin{i}.model.1.weight"] = _tensor(raw[f"lin{i}_w"]).reshape(1, c, 1, 1)
+    return out
+
+
+def flat_lpips_state_dict(sd: Mapping) -> dict:
+    """A torch state dict as ``convert_lpips_state_dict`` takes it -> the flat
+    numpy file of ``pdae_tpu`` (``conv{i}_w`` HWIO, ``conv{i}_b``,
+    ``lin{i}_w`` ``[C]``; the inverse of ``_from_flat``), with the entries the
+    state dict has: torchvision's AlexNet gives no ``lin{i}_w``."""
+    module = convert_lpips_state_dict(sd)
+    out = {}
+    for i in range(len(CHANNELS)):
+        for name, key, layout in ((f"conv{i}_w", f"{_CONV_KEY[i]}.weight", (2, 3, 1, 0)),
+                                  (f"conv{i}_b", f"{_CONV_KEY[i]}.bias", None),
+                                  (f"lin{i}_w", f"lin{i}.model.1.weight", -1)):
+            if key in module:
+                v = module[key].numpy()
+                out[name] = (v.reshape(-1) if layout == -1 else
+                             v.transpose(*layout) if layout else v)
     return out
 
 
