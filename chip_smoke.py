@@ -199,7 +199,27 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    reader must build; the decoder may fall back to PIL only where
    ``/usr/include/jpeglib.h`` is missing (``"decoder": "pil"`` and the
    compiler's last line). The phase's images, LMDB and checkpoints are
-   deleted when it ends. Then the script's total seconds.
+   deleted when it ends.
+13. ``dispatch``: ``runner_config.steps_per_dispatch`` at each shipped
+   config's own K, a chunk of steps replayed from one captured CUDA graph
+   (``pdae_torch/training/dispatch.py``): the trainer phase's representation
+   config in fp32 and bf16 (b32, K=4, host-loaded), the stages phase's
+   ``dpm_celeba64`` (b32, K=4), ``celeba64_latent`` (b128, K=50, resident,
+   ``encode``) and ``celebahq_manipulation`` (b128, K=50, resident) dicts,
+   and the precision phase's FFHQ128 representation config under ``remat:
+   skips`` (b32, fp32). Each is trained by an eager K=1 trainer and by graph
+   trainers from the same seed: one to step 3, where it saves (off a chunk
+   boundary), and one resumed from that file to 9 (K=4) or 103 (K=50); the
+   bf16 step straight to 9, the FFHQ128 step to 3. Every step's loss, and at
+   the end every param, EMA tensor, Adam moment and the count, must be
+   bit-equal (``cudnn.deterministic``; of the FFHQ128 step, whose eager runs
+   are not bit-reproducible in this process from step 3, the losses, and
+   its final state is recorded); the launches a capture counted, times the
+   replays, must equal the structure's per step, every GN launch on the
+   cluster variant. Wall ms per step over whole chunks, and busy ms and the
+   idle share under ``torch.profiler``, graph against eager, and each
+   path's peak memory (``chiprun_out/chip_smoke_dispatch.json``). Then the
+   script's total seconds.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -2034,7 +2054,7 @@ LATENT_LOSS_RTOL = 1e-5          # precomputed z against the encoder in the step
 def stage_runner():
     """The shipped configs' runner_config with the cadences of a 6-step run:
     a line a step, saves at 3 and 6, the eval at 6. ``steps_per_dispatch``
-    is 1: the port's is a cadence check, and 3 is no multiple of 4 or 50."""
+    is 1 (3 is no multiple of 4 or 50): the dispatch phase runs their K."""
     return {"display_steps": 1, "evaluate_every_steps": STAGE_STEPS,
             "save_latest_every_steps": 3, "save_checkpoint_every_steps": 10000,
             "num_iterations": 1, "ema_every": 1, "ema_decay": 0.9999}
@@ -2218,18 +2238,40 @@ def drive_stage(trainer, keys, name, eval_kwargs=None, keep_step3=None,
     return rec
 
 
+def trained_state(trainer) -> dict:
+    """{name: (param, EMA, exp_avg, exp_avg_sq, count)} of ``trainer``'s
+    trained tensors, the live ones."""
+    out = {}
+    for g, named in trainer.state.params.items():
+        for k, p in named.items():
+            opt = trainer.optimizer.state[p]
+            out[k if g == "model" else f"{g}.{k}"] = (
+                p, trainer.state.ema_params[g][k], opt["exp_avg"], opt["exp_avg_sq"], opt["step"])
+    return out
+
+
+def state_rel_err(a, b) -> float:
+    """The largest difference of ``b``'s trained tensors from ``a``'s (a
+    ``trained_state`` or a trainer each), relative to the largest magnitude
+    of ``a``'s tensor."""
+    a, b = (x if isinstance(x, dict) else trained_state(x) for x in (a, b))
+    return max(float((x.double() - y.double()).abs().max())
+               / max(float(x.double().abs().max()), 1e-30)
+               for k, ts in a.items() for x, y in zip(ts, b[k]))
+
+
 def same_state(a, b) -> list:
     """The names of ``a``'s trained tensors whose params, EMA or Adam moments
-    differ from ``b``'s in any bit."""
-    bad = []
-    for k, p in a.state.params["model"].items():
-        q = b.state.params["model"][k]
-        if not (torch.equal(p, q) and torch.equal(a.state.ema_params["model"][k],
-                                                  b.state.ema_params["model"][k])
-                and all(torch.equal(a.optimizer.state[p][m], b.optimizer.state[q][m])
-                        for m in ("exp_avg", "exp_avg_sq", "step"))):
-            bad.append(k)
-    return bad
+    differ from ``b``'s in any bit; each is a trainer or a ``trained_state``."""
+    a, b = (x if isinstance(x, dict) else trained_state(x) for x in (a, b))
+    return [k for k, ts in a.items() if not all(torch.equal(x, y) for x, y in zip(ts, b[k]))]
+
+
+def celebahq_files(root) -> dict:
+    """The paths ``write_celebahq_pdae`` writes under ``root``."""
+    return {k: os.path.join(root, name) for k, name in (
+        ("config", "pdae128.yml"), ("checkpoint", "pdae128.ckpt"),
+        ("stats", "latents128.ckpt"), ("dpm_config", "dpm128.yml"))}
 
 
 def write_celebahq_pdae(root, seed) -> dict:
@@ -2249,9 +2291,7 @@ def write_celebahq_pdae(root, seed) -> dict:
     perturb_zero_params(encoder, gen)
     dpm = {"denoise_fn_config": {"model": "UNet", **CELEBAHQ_DPM},
            "diffusion_config": {"timesteps": 1000, "betas_type": "linear"}}
-    files = {k: os.path.join(root, name) for k, name in (
-        ("config", "pdae128.yml"), ("checkpoint", "pdae128.ckpt"),
-        ("stats", "latents128.ckpt"), ("dpm_config", "dpm128.yml"))}
+    files = celebahq_files(root)
     save_yaml(dpm, files["dpm_config"])
     save_yaml({**dpm, "trained_ddpm_config": files["dpm_config"],
                "encoder_config": {"model": "CELEBAHQEncoder", "latent_dim": LATENT},
@@ -2302,7 +2342,7 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
                         "the 128px encoder; SYNTHETIC 128px, 640 items, 40 labels, uint8, "
                         "resident",
         "cuts": "6 steps each; manipulation eval ddim100/ddim100 (the trainer's "
-                "ddim500/ddim200); steps_per_dispatch 1 (cadence check only)",
+                "ddim500/ddim200); steps_per_dispatch 1 (the dispatch phase runs K)",
         "numerics": "fp32, TF32 off, cudnn.deterministic"}}
 
     def build(stage, run, config=None, resume=None):
@@ -2734,8 +2774,7 @@ def precision_phase(seed, device, compared, want_step, fp32) -> dict:
             ffhq[dtype]["build_s"] = build_s
             del tr
             release()
-        os.unlink(dpm_path)
-        records["ffhq128"] = ffhq
+        records["ffhq128"] = ffhq       # the trunk file stays for the dispatch phase
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
     finally:
         keys.handle.remove()
@@ -3202,6 +3241,285 @@ def drop_ingest_files() -> None:
                 os.unlink(os.path.join(parent, n))
 
 
+DISPATCH_CUT = 3                 # the step of the checkpoint off a chunk boundary
+DISPATCH_END = {4: 9, 50: 103}   # from the cut: a realigning chunk, a whole one, a tail
+DISPATCH_TIMED_CHUNKS = 2        # timed chunks per path, then one profiled
+DISPATCH_PROFILED = 10           # at most this many steps of the profiled chunk
+
+
+def dispatch_runner(k) -> dict:
+    """A runner_config whose cadences are multiples of ``k``: a loss line
+    every chunk, no save and no eval inside the run."""
+    far = k * 10 ** 5
+    return {"display_steps": k, "evaluate_every_steps": far, "save_latest_every_steps": far,
+            "save_checkpoint_every_steps": far, "num_iterations": 1, "ema_every": 1,
+            "ema_decay": 0.9999, "steps_per_dispatch": k}
+
+
+def dispatch_configs(files, ffhq) -> dict:
+    """{name: (config, K, steps, resume)} of the phase: the shipped configs
+    at their own K and widths on the earlier phases' SYNTHETIC data and
+    files, each with the resume at DISPATCH_CUT; the bf16 representation
+    step straight to the end; the FFHQ128 representation step under
+    ``remat: skips``, 3 steps."""
+    rep = trainer_config(os.path.join(OUT_DIR, "trainer", "dpm.ckpt"))
+    stages = stage_configs(files)
+    out = {"representation": (rep, 4, DISPATCH_END[4]),
+           "representation_bf16": (rep, 4, DISPATCH_END[4]),
+           "regular": (stages["regular"], 4, DISPATCH_END[4]),
+           "latent": (stages["latent"], 50, DISPATCH_END[50]),
+           "manipulation": (stages["manipulation"], 50, DISPATCH_END[50]),
+           "ffhq128_remat_skips": (ffhq_config(*ffhq, "float32"), 4, DISPATCH_CUT)}
+    for name, (cfg, k, end) in out.items():
+        rc = {**dispatch_runner(k),
+              "compute_dtype": cfg["runner_config"].get("compute_dtype", "float32")}
+        if name == "representation_bf16":
+            rc["compute_dtype"] = "bfloat16"
+        if name.startswith("ffhq128"):
+            rc["remat"] = "skips"
+        out[name] = ({**cfg, "runner_config": rc}, k, end,
+                     name not in ("representation_bf16", "ffhq128_remat_skips"))
+    return out
+
+
+def step_structure(name, trainer, device) -> dict:
+    """The kernel launches of one train step of ``trainer``, from its models."""
+    if name.startswith(("representation", "ffhq128")):
+        mode = trainer.runner_config.get("remat") or "none"
+        return remat_structure(trainer.encoder, trainer.decoder)[mode]
+    ds = trainer.config["train_dataset_config"]
+    size = int(ds["image_size"])
+    x = torch.zeros(1, int(ds.get("image_channel", 3)), size, size, device=device)
+    if name == "regular":
+        t = torch.zeros(1, dtype=torch.int32, device=device)
+        per = per_call(trainer.model, x, t, t if hasattr(trainer.model, "label_emb") else None)
+        return {**per, "gn_adagn_silu_bwd": per["gn_adagn_silu"]}
+    return per_call(trainer.encoder, x)
+
+
+def recording(trainer) -> list:
+    """The per-step losses ``trainer``'s loop takes from now on, in order
+    (device tensors), kept by wrapping its chunk runner."""
+    seen, inner = [], trainer._chunk_runner
+
+    def runner(*args):
+        run = inner(*args)
+
+        def wrapped(c):
+            out, load = run(c)
+            seen.extend(next(iter(m.values())) for m in out)
+            return out, load
+        return wrapped
+
+    trainer._chunk_runner = runner
+    return seen
+
+
+def drop_graphs(trainer) -> None:
+    """Free ``trainer``'s captured graphs now, so that their private pool
+    goes back to the card with the trainer and not at a later collection."""
+    if trainer._dispatch is not None:
+        for g in trainer._dispatch.graphs.values():
+            g.graph.reset()
+        trainer._dispatch = None
+
+
+def path_launches(counted, dispatch) -> dict:
+    """The launches a graph run made on the card: what the wrappers counted
+    (the eager warm-up step and each capture, once) with each captured
+    launch counted once per replay."""
+    per = dispatch.launches
+    return {k: counted[k] + per.get(k, 0) * (dispatch.replays - len(dispatch.graphs))
+            for k in counted}
+
+
+def chunk_times(trainer, k) -> dict:
+    """Wall ms per step of ``trainer``'s loop over whole chunks of ``k``
+    steps (DISPATCH_TIMED_CHUNKS, unprofiled, after the steps up to a
+    multiple of ``k``), and the device's busy ms per step and idle share
+    over one more chunk, cut to DISPATCH_PROFILED steps, under
+    ``torch.profiler`` (idle against the unprofiled wall)."""
+    def chunk(steps=k):
+        trainer.train(max_steps=trainer.step + steps, save_on_exit=False)
+        torch.cuda.synchronize()
+
+    if trainer.step % k:
+        chunk(k - trainer.step % k)
+    t0 = time.perf_counter()
+    for _ in range(DISPATCH_TIMED_CHUNKS):
+        chunk()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (DISPATCH_TIMED_CHUNKS * k)
+    n = min(k, DISPATCH_PROFILED)
+    prof = idle_share(lambda: chunk(n), reps=1)
+    busy = prof["device_busy_ms"]
+    return {"wall_ms": wall_ms, "busy_ms": None if busy is None else busy / n,
+            "idle_share": None if busy is None else 1.0 - busy / n / wall_ms,
+            "profiled_wall_ms": prof["wall_ms"] / n,
+            "profiled_idle_share": prof["device_idle_share"],
+            "kernels_per_step": prof["device_kernels_per_call"] / n,
+            "timing_s": time.perf_counter() - t0}
+
+
+def dispatch_phase(seed, device, files, ffhq) -> dict:
+    """``steps_per_dispatch`` on the card: each config of ``dispatch_configs``
+    trained eagerly at K=1 (E) and from the captured graph at its K: G1 to
+    DISPATCH_CUT (a chunk whose first step is the eager warm-up, then a
+    capture and replays; saved there, off a chunk boundary), G2 resumed from
+    G1's file to the end (a realigning chunk, whole chunks, a tail). Every
+    step's loss, and at the end every param, EMA tensor, Adam moment and the
+    count, must equal E's bit for bit (``cudnn.deterministic``); each graph
+    run's launches, a capture counted once per replay, must equal the
+    structure's per step, every GN launch on the cluster variant. Wall ms
+    per step, busy ms and the idle share of whole chunks, graph against
+    eager, each path timed after its run. E is released before the graph
+    trainers are built, and each trainer's graphs with it. The bf16
+    representation step runs straight to the end (G1 alone); the FFHQ128
+    step (fp32, ``remat: skips``) 3 steps, untimed, its losses held bit for
+    bit and its final state compared and recorded: its eager runs are not
+    bit-reproducible in this process from step 3 (two eager trainers
+    differed there beside a captured graph, and agree in a fresh process;
+    PERF.md, section 7)."""
+    import gc
+    import shutil
+
+    from pdae_torch import ops
+    from pdae_torch.train import pick_trainer
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "dispatch")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    records = {"config": {
+        "runs": "E: K=1 eager; G1: the config's K to step 3, saved there; G2: resumed "
+                "from G1's file to the end (K=4: 9 steps, chunks 1+4+1; K=50: 103 steps, "
+                "chunks 47+50+3); bf16: G1 straight to 9; FFHQ128 remat skips: E and G1 "
+                "to 3; E released before G1 is built",
+        "configs": "the trainer phase's celeba64 PDAE (b32; fp32 and bf16), the stages "
+                   "phase's dpm_celeba64 (b32), celeba64_latent (b128, resident, encode) "
+                   "and celebahq_manipulation (b128, resident) dicts, the precision "
+                   "phase's FFHQ128 representation config (b32, fp32, remat skips)",
+        "numerics": "fp32 with TF32 off unless bf16, cudnn.deterministic"}}
+    configs = dispatch_configs(files, ffhq)
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def build(name, run, k, resume=None):
+        cfg = configs[name][0]
+        cfg = {**cfg, "runner_config": {**cfg["runner_config"], "steps_per_dispatch": k}}
+        trainer = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, name, run),
+                                    resume=resume, seed=seed)
+        if name == "regular":
+            trainer.train_dataset.augmentation = True     # as the stages phase runs it
+        return trainer
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def graph_run(trainer, end, want, save=True):
+        losses = recording(trainer)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train(max_steps=end, save_on_exit=save)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        d = trainer._dispatch
+        counted, gn = ops.launch_counts(), ops.gn_variant_counts()
+        bwd = ops.gn_bwd_variant_counts()
+        captures = len(d.graphs)
+        launches = path_launches(counted, d)
+        steps = d.replays + 1
+        ok = (d.launches == want and launches == {k: v * steps for k, v in want.items()}
+              and gn == {"cluster": want["gn_adagn_silu"] * (1 + captures), "general": 0}
+              and bwd == {"cluster": want["gn_adagn_silu_bwd"] * (1 + captures),
+                          "general": 0})
+        return losses, {"s": s, "steps": steps, "replays": d.replays, "captures": captures,
+                        "launches_counted": counted, "launches_per_replay": d.launches,
+                        "launches_on_path": launches, "launches_ok": bool(ok)}
+
+    try:
+        for name, (cfg, k, end, resumed) in configs.items():
+            timed = not name.startswith("ffhq128")      # the remat step: bit-equality alone
+            t0 = time.perf_counter()
+            base = torch.cuda.memory_allocated()
+            free_gb = torch.cuda.mem_get_info()[0] / 1e9
+            eager = build(name, "eager", 1)
+            build_s = time.perf_counter() - t0
+            want = step_structure(name, eager, device)
+            want_losses = recording(eager)
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            eager.train(max_steps=end, save_on_exit=False)
+            eager_launches = ops.launch_counts()
+            rec = {"k": k, "steps": end, "build_s": build_s, "structure": want,
+                   "start_allocated_gb": base / 1e9, "start_free_gb": free_gb,
+                   "eager_peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                   "eager_launches_ok": eager_launches == {
+                       kk: v * end for kk, v in want.items()}}
+            # E's state at the end, then its times; E is gone before the
+            # graph trainers are built, so that no run shares the card
+            want_state = {n: tuple(t.clone() for t in ts)
+                          for n, ts in trained_state(eager).items()}
+            want_losses = list(want_losses)
+            if timed:
+                rec["eager"] = chunk_times(eager, k)
+            eager._resident_cache = None
+            del eager
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            g1 = build(name, "graph", k)
+            got_losses, rec["g1"] = graph_run(g1, DISPATCH_CUT if resumed else end, want,
+                                              save=resumed)
+            last = g1
+            if resumed:
+                g1._join_save()
+                drop_graphs(g1)
+                del g1, last
+                release()
+                last = build(name, "graph", k, resume="latest")
+                rec["g2_start_step"] = last.start_step
+                more, rec["g2"] = graph_run(last, end, want)
+                got_losses += more
+            want_l = [float(v) for v in want_losses]
+            got_l = [float(v) for v in got_losses]
+            rec["losses_eager"], rec["losses_graph"] = want_l[:6], got_l[:6]
+            rec["losses_bit_equal"] = len(got_losses) == len(want_losses) == end and all(
+                torch.equal(a, b) for a, b in zip(got_losses, want_losses))
+            rec["state_mismatched"] = same_state(want_state, last)[:5]
+            rec["state_worst_rel_err"] = state_rel_err(want_state, last)
+            rec["step"] = last.step
+            rec["graph_peak_mem_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            if timed:
+                rec["graph"] = chunk_times(last, k)
+            # the shipped configs' state bit for bit; the FFHQ128 step's is
+            # recorded, not held: its eager runs are not bit-reproducible in
+            # this process from step 3 (PERF.md, section 7)
+            state_ok = not rec["state_mismatched"] or not timed
+            rec["ok"] = bool(rec["losses_bit_equal"] and state_ok
+                             and rec["step"] == end and rec["eager_launches_ok"]
+                             and all(rec[r]["launches_ok"] for r in ("g1", "g2") if r in rec)
+                             and rec.get("g2_start_step", DISPATCH_CUT) == DISPATCH_CUT
+                             and ("g2" in rec) == resumed
+                             and all(math.isfinite(v) for v in got_l))
+            rec["config_s"] = time.perf_counter() - t0
+            records[name] = rec
+            drop_graphs(last)
+            last._resident_cache = None
+            del last, want_losses, got_losses, want_state
+            release()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+        for parent, _, names in os.walk(root):
+            for n in names:
+                if n.endswith(".ckpt"):
+                    os.unlink(os.path.join(parent, n))
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3594,12 +3912,13 @@ def main(argv=None) -> int:
     # 10. the regular, latent and manipulation trainers -----------------------
     trainer_dir = os.path.join(OUT_DIR, "trainer")
     samplers_dir = os.path.join(OUT_DIR, "samplers")
-    stages = stages_phase(args.seed, device, {"celeba64": {
+    celeba64_files = {"celeba64": {
         "config": os.path.join(trainer_dir, "a", "config.yml"),
         "checkpoint": os.path.join(trainer_dir, "a", "checkpoints", "latest.ckpt"),
         "stats": os.path.join(samplers_dir, "synthetic.ckpt"),
-        "dpm_config": os.path.join(samplers_dir, "dpm.yml")}}, compared,
-        {**attn_res, **gn_res, **bwd_res})
+        "dpm_config": os.path.join(samplers_dir, "dpm.yml")}}
+    stages = stages_phase(args.seed, device, celeba64_files, compared,
+                          {**attn_res, **gn_res, **bwd_res})
     emit({"phase": "stages", **stages})
     if not stages["ok"]:
         raise AssertionError("the stages phase failed its checks")
@@ -3621,6 +3940,18 @@ def main(argv=None) -> int:
     emit({"phase": "ingest", **ingest})
     if not ingest["ok"]:
         raise AssertionError("the ingest phase failed its checks")
+
+    # 13. steps_per_dispatch: chunks of steps replayed from a CUDA graph ------
+    precision_dir = os.path.join(OUT_DIR, "precision")
+    dispatch = dispatch_phase(args.seed, device, {
+        **celeba64_files, "celebahq128": celebahq_files(os.path.join(OUT_DIR, "stages"))},
+        (os.path.join(precision_dir, "dpm_ffhq.yml"),
+         os.path.join(precision_dir, "dpm_ffhq.ckpt")))
+    with open(os.path.join(OUT_DIR, "chip_smoke_dispatch.json"), "w") as f:
+        json.dump(dispatch, f, indent=1)
+    emit({"phase": "dispatch", **dispatch})
+    if not dispatch["ok"]:
+        raise AssertionError("the dispatch phase failed its checks")
     emit({"script_s": time.perf_counter() - script_t0})
 
     per_op = {name: op_records[name]["launches"]
@@ -3641,6 +3972,11 @@ def main(argv=None) -> int:
                 "launches_per_step"]
     per_op["ingest_step"] = ingest["train"]["launches_per_step"]
     per_op[f"ingest_autoencode_{INGEST_STYLE}"] = ingest["serve"]["launches"]
+    for name, rec in dispatch.items():
+        if isinstance(rec, dict) and "g1" in rec:
+            runs = [rec[r] for r in ("g1", "g2") if r in rec]
+            per_op[f"dispatch_{name}_graph"] = {
+                k: sum(r["launches_on_path"][k] for r in runs) for k in rec["structure"]}
     regular_ms = stages["regular"]["kernel_ms_per_step"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
@@ -3658,8 +3994,9 @@ def main(argv=None) -> int:
                      train_launches["gn_adagn_silu_bwd"],
                      train_launches["gn_adagn_silu_bwd"],
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
-         "launches_per_op": {k: per_op[k]["gn_adagn_silu_bwd"]
-                             for k in ("trainer_step", "regular_step", "ingest_step")},
+         "launches_per_op": {k: v["gn_adagn_silu_bwd"] for k, v in per_op.items()
+                             if k in ("trainer_step", "regular_step", "ingest_step")
+                             or (k.startswith("dispatch_") and v["gn_adagn_silu_bwd"])},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
     ]})
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 Port of ``pdae_tpu/diffusion/schedules.py``: every table is computed in
 float64 numpy and cast to float32 once, exactly as the JAX package does, so
 the tables are bitwise equal to its own. They are CPU tensors; the sampling
-loops read per-step coefficients from them as numbers.
+loops read per-step coefficients from them as numbers, and ``extract`` keeps
+one copy of a table on each device it gathers on.
 """
 
 from __future__ import annotations
@@ -164,8 +165,25 @@ def make_ddim_schedule(schedule_alphas_cumprod, ddim_style: str) -> DDIMSchedule
     )
 
 
+_ON_DEVICE: dict = {}   # (id(table), device) -> (table, its copy there)
+
+
+def _on_device(table: torch.Tensor, device) -> torch.Tensor:
+    """``table`` on ``device``, copied there once: a train step then makes no
+    host-to-device copy, which would wait for the card and which a CUDA
+    graph cannot capture from pageable memory. The entry holds the table, so
+    its ``id`` stays its own."""
+    if table.device == device:
+        return table
+    key = (id(table), device)
+    hit = _ON_DEVICE.get(key)
+    if hit is None:
+        hit = _ON_DEVICE[key] = (table, table.to(device))
+    return hit[1]
+
+
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-sample coefficients ``table[t]`` and broadcast them over
     ``ndim - 1`` trailing dims."""
-    out = table.to(t.device)[t]
+    out = _on_device(table, t.device)[t]
     return out.reshape(out.shape + (1,) * (ndim - 1))

@@ -21,7 +21,8 @@ checkpoints on the training forward: ``"skips"`` on the shift branch, so the
 backward keeps the trunk's skips and recomputes the shift branch alone;
 ``"full"`` on the trunk and the shift branch together (the epsilon decode,
 which no gradient reaches, runs outside, as JAX's remat leaves it out of the
-recompute).
+recompute); the RNG state is stashed only where the model draws
+(``unet.draws``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .blocks import Linear, timestep_embedding
 from torch.utils.checkpoint import checkpoint
 
 from .unet import (apply_stage, build_decode_stack, build_input_stack, check_remat,
-                   decode, output_head, rematerialised, time_embed_mlp)
+                   decode, draws, output_head, rematerialised, time_embed_mlp)
 
 
 # Top-level names of the trainable PDAE branch, in the port's key layout
@@ -106,12 +107,14 @@ class ShiftUNet(nn.Module):
         emb = self.time_embed(timestep_embedding(time, self.base_channel))
         shift_emb = self.label_emb(condition.to(self.dtype))
         x = x.to(self.dtype)
+        rng = remat is not None and draws(self)
         if remat == "full":
             gradient, *hs = checkpoint(self._trunk_and_shift, x, emb, shift_emb,
-                                       use_reentrant=False)
+                                       use_reentrant=False, preserve_rng_state=rng)
             epsilon = decode(self.middle_block, self.output_blocks, self.out, hs, emb)
         else:
             hs = self._trunk(x, emb)
             epsilon = decode(self.middle_block, self.output_blocks, self.out, hs, emb)
-            gradient = rematerialised(remat == "skips", self._shift, hs, emb, shift_emb)
+            gradient = rematerialised(remat == "skips", self._shift, hs, emb, shift_emb,
+                                      rng=rng)
         return epsilon.float(), gradient.float()

@@ -14,7 +14,10 @@ input is cast to it, every stage runs in it, the output is fp32.
 non-reentrant activation checkpoints: ``"full"`` checkpoints the whole
 forward; ``"skips"`` keeps the skips, as JAX's policy keeps the tagged ones,
 and checkpoints each input stage and then the decode, so the backward
-recomputes the rest from them.
+recomputes the rest from them. A checkpoint stashes and restores the RNG
+state only where a module of the model draws (``draws``: dropout in train
+mode), so that a forward without draws reads no RNG state on the host and
+can be captured into a CUDA graph like any other.
 """
 
 from __future__ import annotations
@@ -49,12 +52,19 @@ def check_remat(remat) -> None:
         raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
 
 
-def rematerialised(remat: bool, fn, *args):
+def draws(model: nn.Module) -> bool:
+    """Whether a forward of ``model`` draws from the RNG: a dropout with p >
+    0 in train mode."""
+    return any(isinstance(m, nn.Dropout) and m.p > 0 and m.training
+               for m in model.modules())
+
+
+def rematerialised(remat: bool, fn, *args, rng: bool = True):
     """``fn(*args)``, under a non-reentrant activation checkpoint where
     ``remat``: the backward recomputes what ``fn`` saved, with the forward's
-    RNG state (the same dropout masks)."""
+    RNG state (the same dropout masks) where ``rng``."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=rng)
     return fn(*args)
 
 
@@ -196,8 +206,10 @@ class UNet(nn.Module):
 
     def forward(self, x, time, condition=None, remat=None):
         check_remat(remat)
+        rng = remat is not None and draws(self)
         if remat == "full":
-            return checkpoint(self.forward, x, time, condition, use_reentrant=False)
+            return checkpoint(self.forward, x, time, condition, use_reentrant=False,
+                              preserve_rng_state=rng)
         remat_skips = remat == "skips"
         emb = self.time_embed(timestep_embedding(time, self.base_channel))
         if hasattr(self, "label_emb"):
@@ -207,7 +219,7 @@ class UNet(nn.Module):
         hs = []
         h = x.to(self.dtype)
         for stage in self.input_blocks:
-            h = rematerialised(remat_skips, apply_stage, stage, h, emb)
+            h = rematerialised(remat_skips, apply_stage, stage, h, emb, rng=rng)
             hs.append(h)
         return rematerialised(remat_skips, decode, self.middle_block, self.output_blocks,
-                              self.out, hs, emb).float()
+                              self.out, hs, emb, rng=rng).float()

@@ -12,14 +12,20 @@ way), and at batch ``--batch`` (Adam lr 1e-4, the decoder's forward under
 * a ``torch.profiler`` trace of the kernel path (TF32 off): device busy time
   per step, the device's idle share, and device time by kernel category.
 
+With ``--steps-per-dispatch K`` > 1 the step is also captured into a CUDA
+graph (``training/dispatch.py``'s ``StepGraph``) and the same steps run as
+replays, the generator re-seeded before each and the host synchronised once
+per K: wall ms per step and the trace's busy ms and idle share beside the
+eager path's, measured in the same process.
+
 Run on a machine with a card, from the repository root:
 
     python -m pdae_torch.tools.profile_train_step [--batch 32] [--steps 5] \
-        [--dtype float32|bfloat16] [--remat none|full|skips]
+        [--dtype float32|bfloat16] [--remat none|full|skips] [--steps-per-dispatch K]
 
 Prints one JSON line per measurement; the full table goes to
-``chiprun_out/profile_train_step[_DTYPE_REMAT].json`` (no suffix for fp32
-without remat).
+``chiprun_out/profile_train_step[_DTYPE_REMAT][_kK].json`` (no suffix for
+fp32 without remat and K = 1).
 """
 
 from __future__ import annotations
@@ -57,6 +63,35 @@ def _category(name: str) -> str:
     return _forward_category(name)
 
 
+def _trace(run, steps):
+    """``run()`` (``steps`` steps, ending in a synchronise) under
+    ``torch.profiler``: wall and device-busy ms per step, the idle share,
+    launches and device ms by category per step; and the per-kernel sums."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if getattr(e.device_type, "name", str(e.device_type)) == "CUDA"]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    by_cat = collections.defaultdict(float)
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_name[e.name][0] += dur
+        by_name[e.name][1] += 1
+        by_cat[_category(e.name)] += dur
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    return {
+        "wall_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy / steps / 1e3 if kernels else None,
+        "device_idle_share": 1.0 - busy / wall_us if kernels else None,
+        "kernel_launches_per_step": len(kernels) / steps,
+        "ms_per_step_by_category": {k: v / steps / 1e3 for k, v in
+                                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
+    }, by_name
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=32)
@@ -64,9 +99,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     ap.add_argument("--remat", choices=sorted(REMAT), default="none")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1)
     args = ap.parse_args(argv)
+    k = args.steps_per_dispatch
     suffix = ("" if (args.dtype, args.remat) == ("float32", "none")
-              else f"_{args.dtype}_{args.remat}")
+              else f"_{args.dtype}_{args.remat}") + (f"_k{k}" if k > 1 else "")
     out = os.path.join(os.getcwd(), "chiprun_out", f"profile_train_step{suffix}.json")
 
     device = resolve_device()
@@ -130,30 +167,41 @@ def main(argv=None) -> int:
                                    for k, v in ops.launch_counts().items()}
     print(json.dumps(result), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if getattr(e.device_type, "name", str(e.device_type)) == "CUDA"]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    by_cat = collections.defaultdict(float)
-    for e in kernels:
-        dur = e.time_range.end - e.time_range.start
-        by_name[e.name][0] += dur
-        by_name[e.name][1] += 1
-        by_cat[_category(e.name)] += dur
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
-    trace = {
-        "wall_ms_per_step": wall_us / args.steps / 1e3,
-        "device_busy_ms_per_step": busy / args.steps / 1e3 if kernels else None,
-        "device_idle_share": 1.0 - busy / wall_us if kernels else None,
-        "kernel_launches_per_step": len(kernels) / args.steps,
-        "ms_per_step_by_category": {k: v / args.steps / 1e3 for k, v in
-                                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
-    }
+    trace, by_name = _trace(run, args.steps)
     print(json.dumps(trace), flush=True)
+    if k > 1:
+        from ..training.dispatch import StepGraph
+
+        count = state.step
+        graph = StepGraph(lambda: {"loss": step(state, x_0, gen, ema=True)}, [gen],
+                          torch.cuda.Stream(device), torch.cuda.graph_pool_handle())
+        state.step = count           # the capture ran nothing
+
+        def replays():
+            for i in range(args.steps):
+                gen.manual_seed(args.seed + state.step)
+                graph.replay()
+                state.step += 1
+                if (i + 1) % k == 0:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+
+        def wall_per_replay():
+            replays()                 # warm-up: the graph's first replays
+            t0 = time.perf_counter()
+            replays()
+            return (time.perf_counter() - t0) / args.steps * 1e3
+
+        ops.reset_launch_counts()
+        graph_ms = [wall_per_replay(), wall_per_replay()]
+        graph_result = {"steps_per_dispatch": k, "ms_per_step": graph_ms,
+                        "launches_per_replay": graph.launches,
+                        "launches_counted_while_replaying": ops.launch_counts(),
+                        "eager_ms_per_step_now": wall_per_step(True, False)}
+        graph_trace, _ = _trace(replays, args.steps)
+        graph_result.update({f"trace_{n}": v for n, v in graph_trace.items()})
+        print(json.dumps({"graph": graph_result}), flush=True)
+        trace["graph"] = graph_result
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:

@@ -30,10 +30,19 @@ normalise on the device.
 ``optimizer_config.enable_amp``) sets the models' compute dtype over fp32
 parameters (``_compute_dtype``), and ``runner_config.remat`` the training
 forward's rematerialisation (``steps.remat_wrap``), as in ``pdae_tpu``.
+
+``runner_config.steps_per_dispatch: K`` runs the loop chunk by chunk, on
+``pdae_tpu``'s schedule (``_chunk_schedule``: a chunk that realigns a
+resumed run to a multiple of K, then K at a time, then the tail), and the
+cadences (display, saves, evals, a signal's stop) are read at chunk ends,
+which they must divide. On the card a chunk of c steps runs as c replays of
+one train step captured into a CUDA graph, with no host synchronisation
+inside the chunk (``training/dispatch.py``: the port of JAX's scanned
+multi-step programs); with K = 1, or on the CPU (which a caller must ask
+for), each step is an eager call of ``train_step``. Both paths draw from
+generators re-seeded per step and give the same bits.
 Not ported yet, and refused by name rather than ignored: sharded params and
-checkpoints and profiler traces. ``steps_per_dispatch``
-keeps the JAX trainer's cadence check, and each step still runs as one call:
-eager torch has no fused multi-step program.
+checkpoints and profiler traces.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ..utils import (is_sharded_checkpoint, load_checkpoint, load_yaml,
                      save_checkpoint, save_yaml, snapshot_path)
 from ..utils.config import overlay_eval_dataset_config
 from ..utils.image import png_bytes
-from ..utils.rng import DROPOUT, INIT, generator, stream_seed
+from ..utils.rng import DROPOUT, INIT, TRAIN, StepGenerator, stream_seed
 
 
 class Meters:
@@ -67,9 +76,10 @@ class Meters:
         self.totals = collections.defaultdict(float)
         self.counts = collections.defaultdict(int)
 
-    def add(self, name, dt):
+    def add(self, name, dt, n: int = 1):
+        """``dt`` seconds spent over ``n`` steps."""
         self.totals[name] += dt
-        self.counts[name] += 1
+        self.counts[name] += n
 
     def summary(self):
         return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}
@@ -206,6 +216,8 @@ class BaseTrainer:
         self._save_thread = None
         self._save_error = None
         self._dropout = False       # the trained modules have dropout (_build says)
+        self.ema_every = int(self.runner_config.get("ema_every", 1))
+        self._dispatch = None       # the card's captured step (training/dispatch.py)
 
         os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
         os.makedirs(os.path.join(run_path, "samples"), exist_ok=True)
@@ -213,6 +225,10 @@ class BaseTrainer:
 
         self._build_datasets()
         self._build()          # subclass: models, state, step
+        # one generator per stream, re-seeded before every step (utils/rng.py)
+        from .resident import DATA_STREAM_TAG
+        self._train_gen = StepGenerator(seed, TRAIN, self.device)
+        self._data_gen = StepGenerator(seed, DATA_STREAM_TAG, self.device)
 
         self.start_step = 0
         latest = os.path.join(run_path, "checkpoints", "latest.ckpt")
@@ -279,38 +295,75 @@ class BaseTrainer:
             self._resident_cache = batch_to_device(host, self.device)
         return self._resident_cache
 
+    def _resident_sample(self, indices: Optional[torch.Tensor] = None) -> dict:
+        """A batch gathered on the device from the resident corpus: the rows
+        at ``indices`` (``epoch``) or at uniform draws (``uniform``), then,
+        where the dataset augments, a horizontal flip of each row by a coin;
+        the draws come from the data stream's generator as it is seeded."""
+        from .resident import sample_batch
+        return sample_batch(self._resident_device_data(), self._data_gen.generator,
+                            self.loader.batch_size, len(self.train_dataset),
+                            flip=bool(getattr(self.train_dataset, "augmentation", False)),
+                            indices=indices)
+
     def _resident_batches(self, start_step: int) -> Iterator[dict]:
-        """Step N's batch gathered on the device from the resident corpus:
-        at row N of the host loader's index stream (``epoch``) or at
-        uniform draws (``uniform``), then, where the dataset augments, a
-        horizontal flip of each row by a coin; the draws come from a
-        generator seeded with (seed, ``DATA_STREAM_TAG``, N)."""
-        from .resident import DATA_STREAM_TAG, epoch_global_indices, sample_batch
-        data = self._resident_device_data()
-        n, size = len(self.train_dataset), self.loader.batch_size
-        flip = bool(getattr(self.train_dataset, "augmentation", False))
-        bpe = self.loader.batches_per_epoch()
-        epoch, row = divmod(start_step, bpe)
-        table = None
+        """Step N's batch gathered on the device from the resident corpus,
+        at row N of the host loader's index stream (``epoch``) or at uniform
+        draws (``uniform``), with the data generator seeded with (seed,
+        ``DATA_STREAM_TAG``, N)."""
+        rows = (self._resident_index_chunks(start_step, 1, None)
+                if self.resident_sampling == "epoch" else None)
         step = start_step
         while True:
             indices = None
-            if self.resident_sampling == "epoch":
-                if table is None:
-                    table = torch.from_numpy(epoch_global_indices(self.loader, epoch))
-                indices = table[row].to(self.device, torch.int64)
-                row += 1
-                if row == bpe:
-                    table, epoch, row = None, epoch + 1, 0
-            gen = generator(self.seed, DATA_STREAM_TAG, step, self.device)
-            yield sample_batch(data, gen, size, n, flip=flip, indices=indices)
+            if rows is not None:
+                indices = torch.from_numpy(next(rows)[0]).to(self.device, torch.int64)
+            self._data_gen.at(step)
+            yield self._resident_sample(indices)
             step += 1
 
+    def _resident_index_chunks(self, start_step: int, k: int,
+                               max_steps: Optional[int]) -> Iterator[np.ndarray]:
+        """The ``epoch`` index stream as int32 ``[c, B]`` host arrays, one a
+        chunk of ``_chunk_schedule``: row N is the host loader's batch N
+        (``resident.epoch_global_indices``), as ``pdae_tpu`` ships them."""
+        from .resident import epoch_global_indices
+        epoch, offset = divmod(start_step, self.loader.batches_per_epoch())
+
+        def rows():
+            e, off = epoch, offset
+            while True:
+                table = epoch_global_indices(self.loader, e)
+                for i in range(off, len(table)):
+                    yield table[i]
+                off, e = 0, e + 1
+
+        it = rows()
+        for c in self._chunk_schedule(start_step, k, max_steps):
+            yield np.stack([next(it) for _ in range(c)])
+
+    @staticmethod
+    def _chunk_schedule(start_step: int, k: int, max_steps: Optional[int]) -> Iterator[int]:
+        """Chunk sizes covering (start_step, max_steps]: first up to the next
+        multiple of ``k`` (a resume may start anywhere), then ``k`` at a
+        time, then the tail; ``pdae_tpu``'s schedule."""
+        s = start_step
+        while max_steps is None or s < max_steps:
+            c = k - s % k if s % k else k
+            if max_steps is not None:
+                c = min(c, max_steps - s)
+            yield c
+            s += c
+
     @contextlib.contextmanager
-    def seeded_dropout(self, step: int):
-        """Where the trained modules have dropout (``self._dropout``), the
-        step runs with the global RNG seeded with (seed, ``DROPOUT``, step),
-        restored after it, so a resumed run draws the same masks."""
+    def seeded(self, step: int):
+        """Every stream of step ``step`` seeded, so a resumed run, and a
+        replay of the captured step, draws what an uninterrupted eager run
+        draws there: the train and data streams' generators and, where the
+        trained modules have dropout (``self._dropout``), the global RNG
+        with (seed, ``DROPOUT``, step), restored after the step."""
+        self._train_gen.at(step)
+        self._data_gen.at(step)
         if not self._dropout:
             yield
             return
@@ -340,8 +393,23 @@ class BaseTrainer:
     def step(self) -> int:
         raise NotImplementedError
 
-    def train_step(self, batch) -> Dict[str, Any]:
+    def _step(self, batch, ema: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a device batch, drawing from the generators
+        as they are seeded; ``ema`` as ``steps._update`` takes it. Returns
+        the step's losses, on the device."""
         raise NotImplementedError
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One eager step on a device batch, at the live step."""
+        with self.seeded(self.step):
+            return self._step(batch)
+
+    def _graph_body(self, inputs: Dict[str, torch.Tensor], ema: bool):
+        """The step a CUDA graph captures: ``_step`` on the static
+        ``inputs`` (the batch, or the resident corpus's index row)."""
+        if self.device_resident:
+            return self._step(self._resident_sample(inputs.get("indices")), ema=ema)
+        return self._step(inputs, ema=ema)
 
     def evaluate(self, step: int):
         pass
@@ -430,6 +498,53 @@ class BaseTrainer:
 
     # -- loop ------------------------------------------------------------ #
 
+    def _replays(self, k: int) -> bool:
+        """Whether chunks of ``k`` steps run from a captured graph: on the
+        card, for ``k`` > 1."""
+        return k > 1 and self.device.type == "cuda"
+
+    def _chunk_runner(self, start_step: int, k: int, max_steps: Optional[int]):
+        """``run(c) -> (per-step losses, seconds spent loading)``: the next
+        ``c`` steps from ``start_step``. With ``k`` > 1 on the card each step
+        is a replay of the captured step (``dispatch.GraphDispatch``), fed
+        the host batch or, from a resident corpus, the epoch stream's index
+        row; else an eager ``train_step`` on the batch stream."""
+        if self._replays(k):
+            from .dispatch import GraphDispatch
+            if self._dispatch is None:
+                self._dispatch = GraphDispatch(self)
+            graph = self._dispatch
+            if self.device_resident:
+                rows = (self._resident_index_chunks(start_step, k, max_steps)
+                        if self.resident_sampling == "epoch" else None)
+
+                def run(c):
+                    t0 = time.perf_counter()
+                    idx = None
+                    if rows is not None:
+                        idx = torch.from_numpy(next(rows).astype(np.int64))
+                        if self.device.type == "cuda":
+                            idx = idx.pin_memory()
+                        idx = idx.to(self.device, non_blocking=True)
+                    load = time.perf_counter() - t0
+                    return [graph.step({} if idx is None else {"indices": idx[i]})
+                            for i in range(c)], load
+                return run
+            source = graph.step
+        else:
+            source = self.train_step
+        it = self._batch_iterator(start_step)
+
+        def run(c):
+            out, load = [], 0.0
+            for _ in range(c):
+                t0 = time.perf_counter()
+                batch = next(it)
+                load += time.perf_counter() - t0
+                out.append(source(batch))
+            return out, load
+        return run
+
     def train(self, max_steps: Optional[int] = None, save_on_exit: bool = True) -> int:
         rc = self.runner_config
         display = int(rc.get("display_steps", 100))
@@ -438,9 +553,7 @@ class BaseTrainer:
         save_snap = int(rc.get("save_checkpoint_every_steps", 10000))
         k = int(rc.get("steps_per_dispatch", 1))
         if k > 1:
-            # the JAX trainer scans k steps into one program and its
-            # cadences must land on chunk ends; the port keeps the check so
-            # that a config one package refuses the other refuses too
+            # the cadences are read at chunk ends, so they must land on them
             for name, val in (("display_steps", display),
                               ("evaluate_every_steps", eval_every),
                               ("save_latest_every_steps", save_latest),
@@ -453,7 +566,8 @@ class BaseTrainer:
         step = self.step
         meters = Meters()
         losses = collections.defaultdict(list)
-        it = self._batch_iterator(step)
+        chunks = self._chunk_schedule(step, k, max_steps)
+        run_chunk = self._chunk_runner(step, k, max_steps)
         last_saved = step
         stop = {"flag": False}
 
@@ -471,16 +585,15 @@ class BaseTrainer:
         first_window = True     # the first window holds the warm-up
         try:
             while (max_steps is None or step < max_steps) and not stop["flag"]:
-                t0 = time.perf_counter()
-                batch = next(it)
-                t1 = time.perf_counter()
-                metrics = self.train_step(batch)
-                step += 1
-                window_steps += 1
+                c = next(chunks)
+                metrics, load_s = run_chunk(c)
+                step += c
+                window_steps += c
                 # device scalars every step; one host sync per display window
-                for name, v in metrics.items():
-                    losses[name].append(v)
-                meters.add("load_data", t1 - t0)
+                for m in metrics:
+                    for name, v in m.items():
+                        losses[name].append(v)
+                meters.add("load_data", load_s, n=c)
                 if step % display == 0:
                     avg = {name: float(np.mean([float(x) for x in v]))
                            for name, v in losses.items()}

@@ -33,7 +33,7 @@ from ..models import build_latent_denoise_fn
 from ..utils import (mlp_skip_net_state_dict, mlp_skip_net_tree, save_image_grid,
                      to_uint8)
 from ..utils.image import make_grid
-from ..utils.rng import EVAL, TRAIN, generator
+from ..utils.rng import EVAL, generator
 from .base import init_on_cpu, with_weights
 from .resident import IdentityEncoder
 from .stage import StageTrainer
@@ -71,11 +71,9 @@ class LatentDiffusionTrainer(StageTrainer):
             return super()._resident_device_data()
         return self._precomputed_device_data()
 
-    def train_step(self, batch):
-        step = self.state.step
-        gen = generator(self.seed, TRAIN, step, self.device)
-        with self.seeded_dropout(step):
-            return {"prediction_loss": self._step_fn(self.state, batch["x_0"], gen)}
+    def _step(self, batch, ema=None):
+        return {"prediction_loss": self._step_fn(self.state, batch["x_0"],
+                                                 self._train_gen.generator, ema=ema)}
 
     def evaluate(self, step: int, latent_ddim_style: str = "ddim100",
                  decoder_ddim_style: str = "ddim100"):

@@ -64,8 +64,8 @@ class ManipulationTrainer(StageTrainer):
             return super()._resident_device_data()
         return self._precomputed_device_data(keys=("label",))
 
-    def train_step(self, batch):
-        return {"bce_loss": self._step_fn(self.state, batch["x_0"], batch["label"])}
+    def _step(self, batch, ema=None):
+        return {"bce_loss": self._step_fn(self.state, batch["x_0"], batch["label"], ema=ema)}
 
     def evaluate(self, step: int, encode_style: str = "ddim500",
                  decode_style: str = "ddim200", class_id: int = 31, scale: float = 0.3):

@@ -27,7 +27,7 @@ from ..diffusion import GaussianDiffusion
 from ..models import build_denoise_fn
 from ..utils import save_image_grid, to_uint8, unet_state_dict, unet_tree
 from ..utils.image import make_grid
-from ..utils.rng import EVAL, TRAIN, generator
+from ..utils.rng import EVAL, generator
 from .base import init_on_cpu, with_weights
 from .stage import StageTrainer
 from .steps import make_regular_train_step
@@ -55,12 +55,10 @@ class RegularDiffusionTrainer(StageTrainer):
     def _step_batch_keys(self):
         return ("x_0", "condition") if self.num_class is not None else ("x_0",)
 
-    def train_step(self, batch):
-        step = self.state.step
-        gen = generator(self.seed, TRAIN, step, self.device)
-        with self.seeded_dropout(step):
-            return {"prediction_loss": self._step_fn(
-                self.state, batch["x_0"], gen, condition=batch.get("condition"))}
+    def _step(self, batch, ema=None):
+        return {"prediction_loss": self._step_fn(
+            self.state, batch["x_0"], self._train_gen.generator,
+            condition=batch.get("condition"), ema=ema)}
 
     def evaluate(self, step: int, ddim_style: str = "ddim100"):
         t0 = time.perf_counter()

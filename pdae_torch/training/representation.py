@@ -8,7 +8,8 @@ gradient branch trained on a frozen pre-trained DPM. The port of
   grafted into the trunk with ``strict=False`` semantics.
 * Each step is ``make_representation_train_step`` (trunk in eval mode, shift
   branch in train mode, Adam/AdamW, EMA every ``ema_every`` steps), its t,
-  noise and dropout drawn from generators seeded with (seed, step), the
+  noise and dropout drawn from generators seeded with (seed, step)
+  (``BaseTrainer.seeded``), eager or replayed from a CUDA graph, the
   decoder's forward under ``runner_config.remat``. Both models compute in the
   trainer's ``_compute_dtype``, the eval grid too; params stay fp32.
 * ``evaluate`` decodes a shift-DDIM grid of ``num_generations`` eval images
@@ -35,7 +36,7 @@ from ..utils import (encoder_state_dict, encoder_tree, optimizer_moments,
                      optimizer_tree, restore_into, save_image_grid, to_uint8,
                      unet_state_dict, unet_tree)
 from ..utils.image import make_grid, x0_from_transfer
-from ..utils.rng import EVAL, TRAIN, generator
+from ..utils.rng import EVAL, generator
 from .artifacts import graft_ddpm_into_decoder, load_ddpm_params, resolve_model_config
 from .base import BaseTrainer, has_dropout, init_on_cpu, with_weights
 from .partition import split_shift_tree, trainable_params
@@ -81,7 +82,7 @@ class RepresentationLearningTrainer(BaseTrainer):
             self.gd, self.encoder, self.decoder, self.optimizer,
             ema_decay=float(rc.get("ema_decay", 0.9999)),
             num_iters=self.num_iterations, device=self.device,
-            ema_every=int(rc.get("ema_every", 1)), remat=rc.get("remat"))
+            ema_every=self.ema_every, remat=rc.get("remat"))
         self.eval_seconds = []
 
     @property
@@ -91,11 +92,9 @@ class RepresentationLearningTrainer(BaseTrainer):
     def _step_batch_keys(self):
         return ("x_0",)
 
-    def train_step(self, batch):
-        step = self.state.step
-        gen = generator(self.seed, TRAIN, step, self.device)
-        with self.seeded_dropout(step):
-            return {"prediction_loss": self._step_fn(self.state, batch["x_0"], gen)}
+    def _step(self, batch, ema=None):
+        return {"prediction_loss": self._step_fn(self.state, batch["x_0"],
+                                                 self._train_gen.generator, ema=ema)}
 
     def evaluate(self, step: int, ddim_style: str = "ddim100"):
         t0 = time.perf_counter()

@@ -37,9 +37,7 @@ class StageTrainer(BaseTrainer):
         self.optimizer_config = self.config["optimizer_config"]
         self.optimizer = make_optimizer(self.optimizer_config, flat_params(params))
         self.state = TrainState.create(params, self.optimizer)
-        rc = self.runner_config
-        self.ema_decay = float(rc.get("ema_decay", 0.9999))
-        self.ema_every = int(rc.get("ema_every", 1))
+        self.ema_decay = float(self.runner_config.get("ema_decay", 0.9999))
         self.eval_seconds = []
 
     @property

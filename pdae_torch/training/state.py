@@ -5,6 +5,15 @@ The JAX package advances an immutable pytree (params, EMA params, optax
 state); here the modules own the parameters and the step updates them, the
 EMA copy and the optimizer's moments **in place**. ``TrainState`` holds
 references to the modules' parameters, not copies.
+
+On the card the optimizer is built ``capturable``: its step count lives on
+the card and the bias corrections ``1 - beta ** count`` are computed there in
+fp32 (as optax computes them), so a train step can be captured into a CUDA
+graph (``training/dispatch.py``), and the eager step runs the same kernels,
+so both give the same bits. PyTorch runs a capturable Adam on CUDA only: on
+the CPU the count stays a host number and the corrections are Python floats
+(the path the CPU tests hold to ``pdae_tpu``; the formulation the card takes
+is held to it too, ``tests/test_torch_steps_per_dispatch.py``).
 """
 
 from __future__ import annotations
@@ -23,12 +32,15 @@ def flat_params(params: Dict[str, Dict]) -> list:
     return [p for group in params.values() for p in group.values()]
 
 
-def make_optimizer(optimizer_config: dict, params) -> torch.optim.Optimizer:
+def make_optimizer(optimizer_config: dict, params,
+                   capturable=None) -> torch.optim.Optimizer:
     """Adam/AdamW over ``params`` from the reference optimizer_config schema
     (lr / adam_betas / adam_eps / weight_decay / name). ``Adam`` adds the
     weight decay to the gradient (L2), ``AdamW`` decays the weights
     themselves by ``lr * weight_decay``; both as the JAX package configures
-    optax."""
+    optax. ``capturable`` (None: where the parameters lie on a card) keeps
+    the count and the bias corrections on the parameters' device (module
+    docstring)."""
     lr = float(optimizer_config["lr"])
     betas = parse_adam_betas(optimizer_config.get("adam_betas", (0.9, 0.999)))
     eps = float(optimizer_config.get("adam_eps", 1e-8))
@@ -39,8 +51,12 @@ def make_optimizer(optimizer_config: dict, params) -> torch.optim.Optimizer:
         # wrong optimizer and misattribute the results
         raise ValueError(f"optimizer_config.name must be 'Adam' or 'AdamW', "
                          f"got {name!r}")
+    params = list(params)
+    if capturable is None:
+        capturable = bool(params) and params[0].is_cuda
     cls = torch.optim.AdamW if name == "AdamW" else torch.optim.Adam
-    return cls(list(params), lr=lr, betas=betas, eps=eps, weight_decay=wd)
+    return cls(params, lr=lr, betas=betas, eps=eps, weight_decay=wd,
+               capturable=bool(capturable))
 
 
 @dataclasses.dataclass
@@ -70,8 +86,12 @@ class TrainState:
                     self.ema_params[group][key].copy_(
                         converted["ema_params"][group][key])
                     if "mu" in converted:
+                        # a capturable optimizer keeps its count beside the
+                        # parameter, the other on the host
+                        capturable = self.optimizer.param_groups[0]["capturable"]
                         self.optimizer.state[p] = {
-                            "step": torch.tensor(float(converted["count"])),
+                            "step": torch.tensor(float(converted["count"]),
+                                                 device=p.device if capturable else "cpu"),
                             "exp_avg": converted["mu"][group][key].to(p).clone(),
                             "exp_avg_sq": converted["nu"][group][key].to(p).clone()}
 
@@ -148,7 +168,13 @@ def ema_update(ema: Dict[str, Dict], params: Dict[str, Dict], decay: float) -> N
                 e.mul_(keep).add_(params[group][key].detach().to(e.dtype), alpha=take)
 
 
+def ema_due(step: int, every: int) -> bool:
+    """Whether the EMA moves after the step whose new count is ``step``
+    (``runner_config.ema_every``)."""
+    return every <= 1 or step % every == 0
+
+
 def maybe_ema_update(step: int, ema, params, decay: float, every: int) -> None:
     """EMA applied every ``every`` steps (runner_config.ema_every)."""
-    if every <= 1 or step % every == 0:
+    if ema_due(step, every):
         ema_update(ema, params, decay)

@@ -11,7 +11,11 @@ detached loss. ``x_0`` is NCHW in [-1, 1], or uint8 pixels
 they come from the ``generator`` unless injected. ``num_iters`` > 1 splits
 the batch into that many micro-batches (the trainer's ``num_iterations``).
 The EMA moves after the steps whose new count is a multiple of
-``ema_every`` (``runner_config.ema_every``; 1: every step). The models must
+``ema_every`` (``runner_config.ema_every``; 1: every step), or where the
+step's ``ema`` argument says so (the two steps a CUDA graph captures,
+``training/dispatch.py``). The step does no host synchronisation and
+branches on no device value, so it can be captured; the count ``state.step``
+is the host's, advanced by one per call. The models must
 lie on ``device``: ``cuda`` unless the caller names another. Trained modules
 run in train mode (dropout acts where it is configured), frozen ones in eval
 mode. ``remat`` (``runner_config.remat``, the JAX steps' argument of that
@@ -27,7 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..utils.image import x0_from_transfer
-from .state import accumulate_grads, flat_params, maybe_ema_update
+from .state import accumulate_grads, ema_due, ema_update, flat_params
 
 
 def _on(device, *models):
@@ -65,12 +69,14 @@ def _modes(trained=(), frozen=()):
             m.eval()
 
 
-def _update(state, optimizer, params, grads, ema_decay, ema_every):
-    """Adam/AdamW on ``grads``, then the EMA, then the step count."""
+def _update(state, optimizer, params, grads, ema_decay, ema_every, ema=None):
+    """Adam/AdamW on ``grads``, then the EMA where ``ema`` says (None: where
+    it is due at the new count), then the step count."""
     for p, g in zip(params, grads):
         p.grad = g
     optimizer.step()
-    maybe_ema_update(state.step + 1, state.ema_params, state.params, ema_decay, ema_every)
+    if ema_due(state.step + 1, ema_every) if ema is None else ema:
+        ema_update(state.ema_params, state.params, ema_decay)
     state.step += 1
 
 
@@ -84,8 +90,8 @@ def _check(state, optimizer, generator, t, noise):
 def make_representation_train_step(gd, encoder, decoder, optimizer,
                                    ema_decay: float = 0.9999, num_iters: int = 1,
                                    device=None, ema_every: int = 1, remat=False):
-    """``step(state, x_0, generator, *, t=None, noise=None) -> loss``: the
-    PDAE loss over the encoder and the shift branch (``state`` over
+    """``step(state, x_0, generator, *, t=None, noise=None, ema=None) ->
+    loss``: the PDAE loss over the encoder and the shift branch (``state`` over
     ``trainable_params(encoder, decoder)``), the ShiftUNet's trunk frozen in
     eval mode; ``remat`` checkpoints the decoder's forward (``remat_wrap``)."""
     device = _on(device, encoder, decoder)
@@ -95,13 +101,13 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
         return gd.representation_learning_train_one_batch(
             generator, encoder, train_decoder, x_b, t=t, noise=noise)["prediction_loss"]
 
-    def train_step(state, x_0, generator=None, *, t=None, noise=None):
+    def train_step(state, x_0, generator=None, *, t=None, noise=None, ema=None):
         _check(state, optimizer, generator, t, noise)
         _modes(trained=(encoder, decoder))   # the ShiftUNet keeps its trunk in eval mode
         params = flat_params(state.params)
         loss, grads = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
                                        generator, num_iters, t=t, noise=noise)
-        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step
@@ -110,8 +116,8 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
 def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
                             num_iters: int = 1, device=None, ema_every: int = 1,
                             remat=False):
-    """``step(state, x_0, generator, *, condition=None, t=None, noise=None)
-    -> loss``: the epsilon-MSE of a DPM's UNet (``state`` over all its
+    """``step(state, x_0, generator, *, condition=None, t=None, noise=None,
+    ema=None) -> loss``: the epsilon-MSE of a DPM's UNet (``state`` over all its
     parameters); ``condition`` holds the class ids of a class-conditional
     UNet and is cut into the same micro-batches as ``x_0``; ``remat``
     checkpoints the UNet's forward (``remat_wrap``)."""
@@ -122,14 +128,15 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
         return gd.regular_train_one_batch(generator, train_model, x_b, cond, t=t,
                                           noise=noise)["prediction_loss"]
 
-    def train_step(state, x_0, generator=None, *, condition=None, t=None, noise=None):
+    def train_step(state, x_0, generator=None, *, condition=None, t=None, noise=None,
+                   ema=None):
         _check(state, optimizer, generator, t, noise)
         _modes(trained=(model,))
         params = flat_params(state.params)
         loss, grads = accumulate_grads(
             loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
             t=t, noise=noise, cond=None if condition is None else condition.to(device))
-        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step
@@ -138,8 +145,8 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
 def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
                            ema_decay: float = 0.9999, ema_every: int = 1,
                            num_iters: int = 1, device=None):
-    """``step(state, x_0, generator, *, t=None, noise=None) -> loss``: the
-    latent DPM's l1 loss of the MLPSkipNet ``model`` (``state`` over its
+    """``step(state, x_0, generator, *, t=None, noise=None, ema=None) ->
+    loss``: the latent DPM's l1 loss of the MLPSkipNet ``model`` (``state`` over its
     parameters) on the frozen ``encoder``'s z normalised with the inferred
     ``mean``/``std``; with ``IdentityEncoder`` the rows of ``x_0`` are the
     raw z (``latent_train_source: precomputed``)."""
@@ -150,13 +157,13 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
         return gd.latent_diffusion_train_one_batch(
             generator, model, encoder, x_b, mean, std, t=t, noise=noise)["prediction_loss"]
 
-    def train_step(state, x_0, generator=None, *, t=None, noise=None):
+    def train_step(state, x_0, generator=None, *, t=None, noise=None, ema=None):
         _check(state, optimizer, generator, t, noise)
         _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
         loss, grads = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
                                        generator, num_iters, t=t, noise=noise)
-        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step
@@ -165,13 +172,13 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
 def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
                                  ema_decay: float = 0.9999, ema_every: int = 1,
                                  device=None):
-    """``step(state, x_0, label) -> loss``: the BCE-with-logits of the linear
+    """``step(state, x_0, label, *, ema=None) -> loss``: the BCE-with-logits of the linear
     classifier ``model`` (``state`` over its parameters) on the frozen
     ``encoder``'s normalised z against ``label > 0``; it draws nothing."""
     device = _on(device, model, encoder)
     mean, std = mean.to(device), std.to(device)
 
-    def train_step(state, x_0, label):
+    def train_step(state, x_0, label, *, ema=None):
         if state.optimizer is not optimizer:
             raise ValueError("the state was built with another optimizer")
         _modes(trained=(model,), frozen=(encoder,))
@@ -180,7 +187,7 @@ def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
             model, encoder, x0_from_transfer(x_0.to(device)), label.to(device), mean,
             std)["bce_loss"]
         grads = torch.autograd.grad(loss, params)
-        _update(state, optimizer, params, grads, ema_decay, ema_every)
+        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss.detach()
 
     return train_step

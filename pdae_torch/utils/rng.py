@@ -17,6 +17,14 @@ the x_T (and z_T) of the eval at a step, ``SAMPLE`` each draw of a sampler
 ``training.resident.DATA_STREAM_TAG`` the device-resident corpus's uniform
 rows and flip coins of a step.
 
+A train step's streams are drawn from ``StepGenerator``s: one generator per
+stream, made once and re-seeded before every step, which draws exactly what
+a fresh ``generator(seed, stream, step)`` draws. Being one object for the
+whole run, it can be registered with the CUDA graph a step is captured into
+(``training/dispatch.py``): a replay reads the generator's seed and offset
+as they stand when it starts, so re-seeding before each replay gives the
+eager step's draws.
+
 A process of a run of several salts its streams with its rank (``rank``),
 as the JAX package folds the process index into a key, so no two ranks
 draw alike; rank 0 adds nothing, so it draws what a one-process run draws.
@@ -40,3 +48,16 @@ def stream_seed(seed: int, stream: int, step: int = 0, rank: int = 0) -> int:
 def generator(seed: int, stream: int, step: int, device, rank: int = 0) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``stream_seed``."""
     return torch.Generator(device=device).manual_seed(stream_seed(seed, stream, step, rank))
+
+
+class StepGenerator:
+    """The generator of one stream on ``device``, re-seeded per step:
+    ``at(step)`` seeds it with ``stream_seed(seed, stream, step, rank)``
+    (offset 0) and returns it."""
+
+    def __init__(self, seed: int, stream: int, device, rank: int = 0):
+        self.seed, self.stream, self.rank = int(seed), int(stream), int(rank)
+        self.generator = torch.Generator(device=device)
+
+    def at(self, step: int) -> torch.Generator:
+        return self.generator.manual_seed(stream_seed(self.seed, self.stream, step, self.rank))

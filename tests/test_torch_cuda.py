@@ -26,7 +26,10 @@ step's launches equal to the structure's, run their eval and resume bit for
 bit. A bf16 train step at b2 through the kernels agrees with the bf16 plain
 path within twice the plain path's own bf16-against-fp32 gap, and FFHQ128's
 256-channel 128x128 GN backward slab pair (1 MB in fp32) runs on the cluster
-variant. ``chip_smoke.py`` covers every path shape, bf16 and timings.
+variant. With ``steps_per_dispatch`` > 1 the representation step and a
+resident latent chunk replayed from a CUDA graph equal the eager K=1 steps
+bit for bit, and a step that cannot be captured raises. ``chip_smoke.py``
+covers every path shape, bf16 and timings.
 """
 
 import pytest
@@ -823,3 +826,150 @@ def test_stage_trainer_steps_and_resumes_on_the_card(cuda, card_files, tmp_path,
                            resumed.state.ema_params["model"][key])
         for m in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(trainer.optimizer.state[p][m], resumed.optimizer.state[q][m])
+
+
+def _rep_config(k):
+    return {
+        "train_dataset_config": {"name": "SYNTHETIC", "image_size": 64, "image_channel": 3,
+                                 "length": 8},
+        "diffusion_config": {"timesteps": 20, "betas_type": "linear"},
+        "trained_ddpm_config": {"denoise_fn_config": CARD_DPM},
+        "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": 16},
+        "decoder_config": {"model": "ShiftUNet", "latent_dim": 16},
+        "dataloader_config": {"train": {"num_workers": 1, "batch_size": 2}},
+        "optimizer_config": {"lr": 1e-3},
+        "runner_config": {"display_steps": 4, "evaluate_every_steps": 100000,
+                          "save_latest_every_steps": 100000, "ema_decay": 0.9,
+                          "steps_per_dispatch": k}}
+
+
+def _assert_same_state(a, b):
+    for group, named in a.state.params.items():
+        for key, p in named.items():
+            q = b.state.params[group][key]
+            assert torch.equal(p, q), key
+            assert torch.equal(a.state.ema_params[group][key], b.state.ema_params[group][key])
+            for m in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(a.optimizer.state[p][m], b.optimizer.state[q][m]), m
+    assert a.step == b.step
+
+
+def _losses_of(trainer):
+    seen, inner = [], trainer._chunk_runner
+
+    def runner(*args):
+        run = inner(*args)
+
+        def wrapped(c):
+            out, load = run(c)
+            seen.extend(m["prediction_loss"] for m in out)
+            return out, load
+        return wrapped
+
+    trainer._chunk_runner = runner
+    return seen
+
+
+def test_the_captured_representation_step_replays_the_eager_one(cuda, tmp_path):
+    """K=4 on the card: the first step is the eager warm-up, then one capture
+    and 3 replays, each after the streams are re-seeded; every loss, param,
+    EMA tensor, Adam moment and the count equal the K=1 eager run's bit for
+    bit (cuDNN deterministic), and a replay's launches are one step's."""
+    from pdae_torch.training import RepresentationLearningTrainer
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = RepresentationLearningTrainer(config=_rep_config(1),
+                                              run_path=str(tmp_path / "e"))
+        want = _losses_of(eager)
+        ops.reset_launch_counts()
+        eager.train(max_steps=4, save_on_exit=False)
+        per_step = {k: v // 4 for k, v in ops.launch_counts().items()}
+        graph = RepresentationLearningTrainer(config=_rep_config(4),
+                                              run_path=str(tmp_path / "g"))
+        got = _losses_of(graph)
+        graph.train(max_steps=4, save_on_exit=False)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    dispatch = graph._dispatch
+    assert dispatch.replays == 3 and list(dispatch.graphs) == [True]
+    assert dispatch.launches == per_step and all(per_step.values())
+    assert len(got) == len(want) == 4
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _assert_same_state(graph, eager)
+
+
+def test_a_resident_latent_chunk_replays_the_eager_steps(cuda, card_files, tmp_path):
+    """The latent trainer over a resident uint8 corpus at K=3: the epoch
+    index rows copied into the static buffer, the gather and the draws in
+    the graph; 7 steps (a chunk of 3 whose first step is the warm-up, a
+    chunk of 3, a tail of 1) equal the eager K=1 run's bit for bit."""
+    from pdae_torch.train import pick_trainer
+
+    def config(k):
+        cfg = _stage_config("latent", card_files)
+        cfg["runner_config"].update(display_steps=3, save_latest_every_steps=3 * 10 ** 5,
+                                    evaluate_every_steps=3 * 10 ** 5,
+                                    save_checkpoint_every_steps=3 * 10 ** 5,
+                                    steps_per_dispatch=k)
+        return cfg
+
+    eager = pick_trainer(config(1))(config=config(1), run_path=str(tmp_path / "e"))
+    want = _losses_of(eager)
+    eager.train(max_steps=7, save_on_exit=False)
+    graph = pick_trainer(config(3))(config=config(3), run_path=str(tmp_path / "g"))
+    got = _losses_of(graph)
+    graph.train(max_steps=7, save_on_exit=False)
+    assert graph._dispatch.replays == 6 and sorted(graph._dispatch.static) == ["indices"]
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == 7
+    _assert_same_state(graph, eager)
+
+
+def test_dropout_under_remat_replays_the_eager_masks(cuda, tmp_path):
+    """The shift branch with dropout 0.1 under ``remat: skips`` at K=2: the
+    checkpoint stashes the RNG state inside the capture and the recompute
+    draws the forward's masks, so the replays equal the eager K=1 steps bit
+    for bit."""
+    from pdae_torch.training import RepresentationLearningTrainer
+
+    def config(k):
+        cfg = _rep_config(k)
+        cfg["trained_ddpm_config"] = {"denoise_fn_config": {**CARD_DPM, "dropout": 0.1}}
+        cfg["runner_config"].update(remat="skips", display_steps=2)
+        return cfg
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = RepresentationLearningTrainer(config=config(1), run_path=str(tmp_path / "e"))
+        assert eager._dropout
+        want = _losses_of(eager)
+        eager.train(max_steps=4, save_on_exit=False)
+        graph = RepresentationLearningTrainer(config=config(2), run_path=str(tmp_path / "g"))
+        got = _losses_of(graph)
+        graph.train(max_steps=4, save_on_exit=False)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert graph._dispatch.replays == 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and len(got) == 4
+    _assert_same_state(graph, eager)
+
+
+def test_a_capture_that_fails_raises_rather_than_runs_eagerly(cuda, tmp_path):
+    """A step that synchronises with the host cannot be captured: the loop
+    raises, and no step past the warm-up has run."""
+    from pdae_torch.training import RepresentationLearningTrainer
+
+    trainer = RepresentationLearningTrainer(config=_rep_config(4), run_path=str(tmp_path))
+    inner = trainer._step
+
+    def syncing(batch, ema=None):
+        out = inner(batch, ema=ema)
+        float(out["prediction_loss"])            # a host read: illegal in a capture
+        return out
+
+    trainer._step = syncing
+    with pytest.raises(RuntimeError, match="capturing the train step into a CUDA graph"):
+        trainer.train(max_steps=4, save_on_exit=False)
+    assert trainer.step == 1 and trainer._dispatch.replays == 0

@@ -9,7 +9,7 @@ noise:
 * the port's three modes (none, ``True``, ``"skips"``) give the same loss and
   the same gradient of every trained tensor, bit for bit, at dropout 0 and at
   dropout 0.1 (the global RNG seeded before the step, as the trainers'
-  ``seeded_dropout`` seeds it: the recompute must draw the forward's masks);
+  ``seeded`` seeds it: the recompute must draw the forward's masks);
 * each mode at dropout 0 agrees with JAX's step under the same mode (the loss
   through ``pdae_tpu.training.steps.remat_wrap``), within the fp32 tolerances
   of ``tests/test_torch_training.py``: loss rtol 1e-5, each gradient within
