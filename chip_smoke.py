@@ -218,8 +218,26 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    replays, must equal the structure's per step, every GN launch on the
    cluster variant. Wall ms per step over whole chunks, and busy ms and the
    idle share under ``torch.profiler``, graph against eager, and each
-   path's peak memory (``chiprun_out/chip_smoke_dispatch.json``). Then the
-   script's total seconds.
+   path's peak memory (``chiprun_out/chip_smoke_dispatch.json``).
+14. ``ddp``: data-parallel training (``param_sharding: replicated``). The
+   trainer phase's celeba64 PDAE config at full width (b32 a rank, fp32,
+   TF32 off, ``cudnn.deterministic``, Adam eps 1e-5) as two ranks on the one
+   card (``python3 chip_smoke.py --ddp-worker``, both ``LOCAL_RANK`` 0: NCCL
+   refuses two ranks on one device, so their tensor group is gloo and the
+   run eager): 4 steps saved at 2, then a fresh pair resumed from that file
+   to 4. Against it one process (b64) over the same 64 rows in the ranks'
+   order, after the ranks have left the card: every loss within
+   ``DDP_TOL["loss_rel"]``, the last reduced gradients, params, EMA and Adam
+   moments within their ``DDP_TOL``; the ranks' states and losses bit-equal
+   (digests), the resume bit-equal, only rank 0 writing, each rank's launches
+   the structure's per step, wall ms per step at both world sizes and of the
+   gloo all-reduce of the gradients alone. Then the
+   same config at its shipped K=4 from the captured graph, 12 steps, in a
+   process with an NCCL tensor group of one rank and in one with no group:
+   every loss and the final state bit-equal, the launches per replay the
+   structure's; recorded: wall ms per step of each chunk, one more traced
+   chunk of each (busy ms, kernels, NCCL kernels, the costliest kernels) and
+   the eager all-reduce's ms (``chiprun_out/chip_smoke_ddp.json``). Then the script's total seconds.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -3520,6 +3538,405 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
     return records
 
 
+DDP_RANKS = 2                    # two ranks on the one card, b32 each
+DDP_STEPS = 4                    # a save at DDP_CUT, resumed there
+DDP_CUT = 2
+DDP_GRAPH_STEPS = 12             # the world-1 NCCL run: chunks 4+4+4 at K=4
+DDP_TOL = {"loss_rel": 1e-5,     # world 2 against one process over the 64 rows
+           "grad_rel": 1e-3,     # each tensor's error over its own largest value,
+           "mu_rel": 1e-3,       # floored at 1e-4 of the category's largest
+           "nu_rel": 2e-3,
+           "param_abs": 1e-6,    # lr 1e-4, Adam eps 1e-5, 4 steps
+           "ema_abs": 1e-6}
+
+
+def ddp_config(dpm_path, k=1) -> dict:
+    """The trainer phase's celeba64 PDAE run for the ddp phase: b32 a rank,
+    Adam eps 1e-5 (a gradient that is rounding noise would be a whole Adam
+    step at 1e-8), a loss line every step, no eval and no save inside the
+    run; ``k``: ``steps_per_dispatch``."""
+    cfg = trainer_config(dpm_path)
+    cfg["optimizer_config"] = {**cfg["optimizer_config"], "adam_eps": 1e-5}
+    cfg["runner_config"] = {**dispatch_runner(k), "display_steps": k}
+    return cfg
+
+
+def ddp_state(trainer, grads=True) -> dict:
+    """{name: [param, EMA, exp_avg, exp_avg_sq(, grad)]} of ``trainer``'s
+    trained tensors, copied to the host."""
+    out = {}
+    for name, ts in trained_state(trainer).items():
+        g, k = name.split(".", 1)
+        keep = list(ts[:4]) + ([trainer.state.params[g][k].grad] if grads else [])
+        out[name] = [t.detach().cpu().clone() for t in keep]
+    return out
+
+
+def state_digest(state) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for name in sorted(state):
+        for t in state[name]:
+            h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def files_under(path) -> list:
+    return sorted(os.path.relpath(os.path.join(p, n), path)
+                  for p, _, names in os.walk(path) for n in names) if os.path.isdir(path) else []
+
+
+def timed_losses(trainer) -> tuple:
+    """(losses, wall ms) of each chunk ``trainer``'s loop runs from now on,
+    the card synchronised after each."""
+    losses, ms, inner = [], [], trainer._chunk_runner
+
+    def runner(*args):
+        run = inner(*args)
+
+        def wrapped(c):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, load = run(c)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / c)
+            losses.extend(float(next(iter(m.values()))) for m in out)
+            return out, load
+        return wrapped
+
+    trainer._chunk_runner = runner
+    return losses, ms
+
+
+def ddp_worker(spec_path, out_path) -> int:
+    """One process of the ddp phase (``python3 chip_smoke.py --ddp-worker SPEC
+    OUT``): ``two_ranks``, a rank of the gloo run (A: 4 steps saved at 2, B:
+    resumed from that file), or ``nccl1``/``nogroup``, the K=4 graph run with
+    an NCCL group of one rank or with none."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+
+    from pdae_torch import ops, parallel
+    from pdae_torch.train import pick_trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    role, root = spec["role"], spec["root"]
+    if role == "two_ranks":
+        parallel.init_distributed(backend="gloo")
+    elif role == "nccl1":
+        parallel.init_distributed(backend="nccl")
+    rank = parallel.process_index()
+    out = {"role": role, "rank": rank, "world": parallel.process_count(),
+           "tensor_backend": parallel.tensor_backend()}
+    try:
+        if role == "two_ranks":
+            cfg = spec["config"]
+            run_a = os.path.join(root, "a", f"rank{rank}")
+            t0 = time.perf_counter()
+            a = pick_trainer(cfg)(config=cfg, run_path=run_a, seed=spec["seed"])
+            out["build_s"] = time.perf_counter() - t0
+            losses, ms = timed_losses(a)
+            ops.reset_launch_counts()
+            a.train(max_steps=DDP_CUT)               # the final save, at DDP_CUT
+            a._join_save()
+            if parallel.is_primary():
+                shutil.copyfile(os.path.join(run_a, "checkpoints", "latest.ckpt"),
+                                spec["cut_file"])
+            parallel.sync_global_devices("copied")
+            a.train(max_steps=DDP_STEPS, save_on_exit=False)
+            torch.cuda.synchronize()
+            out["launches"] = ops.launch_counts()
+            out.update(losses=losses, step_ms=ms, step=a.step, files=files_under(run_a),
+                       save_s=a.save_seconds)
+            state = ddp_state(a)
+            out["digest"] = state_digest(state)
+            if parallel.is_primary():
+                torch.save(state, spec["state_file"])
+            del a
+            gc.collect()
+            torch.cuda.empty_cache()
+            run_b = os.path.join(root, "b", f"rank{rank}")
+            b = pick_trainer(cfg)(config=cfg, run_path=run_b, resume=spec["cut_file"],
+                                 seed=spec["seed"])
+            out["resume_start"] = b.start_step
+            resumed, _ = timed_losses(b)
+            b.train(max_steps=DDP_STEPS, save_on_exit=False)
+            got = ddp_state(b)
+            out["resume_losses"] = resumed
+            out["resume_mismatched"] = [k for k, ts in state.items()
+                                        if not all(torch.equal(x, y)
+                                                   for x, y in zip(ts, got[k]))][:5]
+            out["resume_files"] = files_under(run_b)
+            out["all_reduce_ms"] = all_reduce_ms(b)
+        else:
+            cfg = ddp_config(spec["dpm"], k=4)
+            tr = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, role),
+                                   seed=spec["seed"])
+            losses, ms = timed_losses(tr)
+            ops.reset_launch_counts()
+            tr.train(max_steps=DDP_GRAPH_STEPS, save_on_exit=False)
+            torch.cuda.synchronize()
+            d = tr._dispatch
+            out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
+                       replays=d.replays,
+                       captures=len(d.graphs), launches_per_replay=d.launches,
+                       launches_on_path=path_launches(ops.launch_counts(), d),
+                       digest=state_digest(ddp_state(tr, grads=False)))
+            out["trace"] = traced_chunk(tr, 4)
+            if role == "nccl1":
+                out["all_reduce_ms"] = all_reduce_ms(tr)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def traced_chunk(trainer, k) -> dict:
+    """One more chunk of ``k`` replays of ``trainer`` under ``torch.profiler``:
+    the card's busy ms and kernels per step, the kernels whose name holds
+    ``nccl`` (a one-rank all-reduce may be a copy or nothing), and the eight
+    kernels that took most of the time, ms per step."""
+    from pdae_torch.tools.profile_autoencode import _busy_us
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train(max_steps=trainer.step + k, save_on_exit=False)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if getattr(e.device_type, "name", str(e.device_type)) == "CUDA"]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / k
+    return {"busy_ms_per_step": _busy_us([(e.time_range.start, e.time_range.end)
+                                          for e in kernels]) / 1e3 / k,
+            "kernels_per_step": len(kernels) / k,
+            "nccl_kernels": sum(1 for e in kernels if "nccl" in e.name.lower()),
+            "top_ms_per_step": by_name.most_common(8)}
+
+
+def all_reduce_ms(trainer, reps: int = 3) -> float:
+    """Wall ms of the step's collective alone: a mean all-reduce of
+    ``trainer``'s gradients and a loss through a reducer of its own, after
+    one untimed. Collective: every rank calls it."""
+    from pdae_torch import parallel
+
+    tensors = [torch.zeros((), device=trainer.device)] + [
+        p.grad for named in trainer.state.params.values() for p in named.values()]
+    reduce = parallel.mean_all_reducer(sum(t.numel() for t in tensors), trainer.device)
+    reduce(tensors)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        reduce(tensors)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def run_workers(kind, specs, root) -> tuple:
+    """Start one ``chip_smoke.py --ddp-worker`` process per (spec, env) of
+    ``specs`` at once; their outputs and the wall seconds. A process that
+    fails fails the phase."""
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for i, (spec, env) in enumerate(specs):
+            path = os.path.join(root, f"{kind}{i}_spec.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            outs.append(os.path.join(root, f"{kind}{i}.json"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--ddp-worker", path,
+                 outs[-1]], cwd=ROOT, env=dict(os.environ, **env), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{kind} process {i} exited {p.returncode}:\n{log[-3000:]}")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def ddp_rel_errors(got, want) -> dict:
+    """The largest error of ``got``'s tensors from ``want``'s by category:
+    params and EMA absolute, moments and gradients over each tensor's own
+    largest value (floored at 1e-4 of the category's largest: a gradient
+    that is zero in exact arithmetic is rounding noise in both runs), with
+    the tensor that gave it."""
+    names = ("param", "ema", "mu", "nu", "grad")
+    largest = [max(float(ts[i].abs().max()) for ts in want.values()) for i in range(5)]
+    out = {}
+    for i, cat in enumerate(names):
+        worst, at = 0.0, None
+        for k, ts in want.items():
+            err = float((got[k][i].double() - ts[i].double()).abs().max())
+            if i >= 2:
+                err /= max(float(ts[i].abs().max()), 1e-4 * largest[i])
+            if err >= worst:
+                worst, at = err, k
+        key = f"{cat}_abs" if i < 2 else f"{cat}_rel"
+        out[key] = {"max": worst, "tensor": at, "tol": DDP_TOL[key],
+                    "ok": worst <= DDP_TOL[key]}
+    return out
+
+
+def ddp_phase(seed, device, want_step) -> dict:
+    """Data-parallel training (``param_sharding: replicated``) on the card.
+    (a) The trainer phase's celeba64 PDAE config at full width as two ranks
+    on the one card (both ``LOCAL_RANK`` 0; NCCL refuses two ranks on one
+    device, so the tensor group is gloo and the run eager), b32 a rank, fp32
+    with TF32 off, ``cudnn.deterministic``: A trains 4 steps saved at 2, B
+    resumes from that file to 4. Against it one process (b64) over the same
+    64 rows in the ranks' order: the losses, and the largest errors of the
+    last reduced gradients, params, EMA and moments, each beside its
+    tolerance; the ranks' states bit-equal, B bit-equal to A, only rank 0
+    writing, wall ms per step at both world sizes. (b) The same config at
+    its shipped K=4 from the captured graph in a process with an NCCL group
+    of one rank and in one with no group: every loss and the final state
+    bit-equal, the launches per replay, and the NCCL kernels a traced chunk
+    of replays ran."""
+    import gc
+    import shutil
+
+    from pdae_torch.data import Loader
+    from pdae_torch.data.pipeline import batch_to_device
+    from pdae_torch.train import pick_trainer
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "ddp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    dpm = os.path.join(OUT_DIR, "trainer", "dpm.ckpt")
+    cfg = ddp_config(dpm)
+    records = {"config": {
+        "two_ranks": f"celeba64 PDAE, b{TRAIN_BATCH} a rank x {DDP_RANKS} ranks on one card, "
+                     f"gloo tensor group, K=1, {DDP_STEPS} steps saved at {DDP_CUT} and "
+                     "resumed there; control: one process at b64 over the ranks' rows",
+        "nccl1": f"the same config at K=4 from the captured graph, {DDP_GRAPH_STEPS} steps, "
+                 "an NCCL group of one rank against no group",
+        "numerics": "fp32, TF32 off, cudnn.deterministic, Adam eps 1e-5",
+        "tolerances": DDP_TOL}}
+    port = str(free_port())
+    env = {"WORLD_SIZE": str(DDP_RANKS), "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": port}
+    spec = {"role": "two_ranks", "root": root, "config": cfg, "seed": seed,
+            "cut_file": os.path.join(root, "cut.ckpt"),
+            "state_file": os.path.join(root, "rank0_state.pt")}
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ranks, wall = run_workers("rank", [(spec, {**env, "RANK": str(r)})
+                                           for r in range(DDP_RANKS)], root)
+        r0, r1 = ranks
+        rec = {"wall_s": wall, "build_s": [r["build_s"] for r in ranks],
+               "losses": r0["losses"], "resume_losses": r0["resume_losses"],
+               "ranks_bit_equal": r0["digest"] == r1["digest"]
+               and r0["losses"] == r1["losses"],
+               "resume_bit_equal": not r0["resume_mismatched"] and not r1["resume_mismatched"]
+               and r0["resume_losses"] == r0["losses"][DDP_CUT:]
+               and r0["resume_start"] == DDP_CUT,
+               "files": {f"rank{r['rank']}": r["files"] for r in ranks},
+               "resume_files": {f"rank{r['rank']}": r["resume_files"] for r in ranks},
+               "launches_per_rank": {f"rank{r['rank']}": r["launches"] for r in ranks},
+               "world2_step_ms": r0["step_ms"], "save_s": r0["save_s"],
+               "gloo_all_reduce_ms": [r["all_reduce_ms"] for r in ranks]}
+        rec["launches_ok"] = all(r["launches"] == {k: v * DDP_STEPS for k, v in want_step.items()}
+                                 for r in ranks)
+        rec["only_primary_wrote"] = (r1["files"] == [] and r1["resume_files"] == []
+                                     and "checkpoints/latest.ckpt" in r0["files"]
+                                     and "metrics.jsonl" in r0["files"])
+        # one process over the same 64 rows, after the ranks have left the card
+        control = pick_trainer(cfg)(
+            config={**cfg, "dataloader_config": {
+                **cfg["dataloader_config"],
+                "train": {**cfg["dataloader_config"]["train"],
+                          "batch_size": DDP_RANKS * TRAIN_BATCH}}},
+            run_path=os.path.join(root, "control"), seed=seed)
+        loaders = [Loader(control.train_dataset, TRAIN_BATCH, shuffle=True, seed=seed,
+                          num_workers=4, process_index=r, process_count=DDP_RANKS).infinite()
+                   for r in range(DDP_RANKS)]
+
+        def global_batches(start):
+            while True:
+                parts = [next(it)["x_0"] for it in loaders]
+                yield batch_to_device({"x_0": np.concatenate(parts)}, device)
+
+        control._batch_iterator = global_batches
+        want_losses, want_ms = timed_losses(control)
+        control.train(max_steps=DDP_STEPS, save_on_exit=False)
+        want = ddp_state(control)
+        got = torch.load(spec["state_file"])
+        rec["control_losses"] = want_losses
+        rec["world1_b64_step_ms"] = want_ms
+        rec["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want_losses))
+        rec["errors"] = ddp_rel_errors(got, want)
+        del control, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["ok"] = bool(rec["ranks_bit_equal"] and rec["resume_bit_equal"]
+                         and rec["only_primary_wrote"] and rec["launches_ok"]
+                         and rec["loss_rel"] <= DDP_TOL["loss_rel"]
+                         and all(v["ok"] for v in rec["errors"].values())
+                         and all(math.isfinite(v) for v in r0["losses"]))
+        records["two_ranks"] = rec
+
+        # (b) the all-reduce in the captured graph: NCCL at world 1, then the
+        # same run with no group, one after the other so that each has the
+        # card to itself
+        graph_spec = {"root": root, "dpm": dpm, "seed": seed}
+        (nccl,), wall = run_workers("nccl", [(
+            {**graph_spec, "role": "nccl1"},
+            {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(free_port())})], root)
+        (alone,), wall_alone = run_workers("nogroup", [(
+            {**graph_spec, "role": "nogroup"}, {"WORLD_SIZE": "1", "LOCAL_RANK": "0"})], root)
+        rec = {"wall_s": [wall, wall_alone], "tensor_backend": nccl["tensor_backend"],
+               "losses": nccl["losses"], "replays": nccl["replays"],
+               "captures": nccl["captures"], "launches_per_replay": nccl["launches_per_replay"],
+               "launches_on_path": nccl["launches_on_path"],
+               "chunk_step_ms": {"nccl1": nccl["chunk_step_ms"],
+                                 "nogroup": alone["chunk_step_ms"]},
+               "trace": {"nccl1": nccl["trace"], "nogroup": alone["trace"]},
+               "nccl1_all_reduce_ms": nccl["all_reduce_ms"],
+               "losses_bit_equal": nccl["losses"] == alone["losses"]
+               and len(nccl["losses"]) == DDP_GRAPH_STEPS,
+               "state_bit_equal": nccl["digest"] == alone["digest"]}
+        rec["ok"] = bool(rec["losses_bit_equal"] and rec["state_bit_equal"]
+                         and nccl["tensor_backend"] == "nccl"
+                         and alone["tensor_backend"] is None
+                         and nccl["replays"] == DDP_GRAPH_STEPS - 1
+                         and nccl["launches_per_replay"] == want_step
+                         and alone["launches_per_replay"] == want_step
+                         and nccl["launches_on_path"] == {k: v * DDP_GRAPH_STEPS
+                                                  for k, v in want_step.items()})
+        records["nccl1_graph"] = rec
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+        for parent, _, names in os.walk(root):
+            for n in names:
+                if n.endswith((".ckpt", ".pt")):
+                    os.unlink(os.path.join(parent, n))
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3952,6 +4369,14 @@ def main(argv=None) -> int:
     emit({"phase": "dispatch", **dispatch})
     if not dispatch["ok"]:
         raise AssertionError("the dispatch phase failed its checks")
+
+    # 14. data-parallel training: two ranks on the card, NCCL in the graph ---
+    ddp = ddp_phase(args.seed, device, want_step)
+    with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
+        json.dump(ddp, f, indent=1)
+    emit({"phase": "ddp", **ddp})
+    if not ddp["ok"]:
+        raise AssertionError("the ddp phase failed its checks")
     emit({"script_s": time.perf_counter() - script_t0})
 
     per_op = {name: op_records[name]["launches"]
@@ -3977,6 +4402,9 @@ def main(argv=None) -> int:
             runs = [rec[r] for r in ("g1", "g2") if r in rec]
             per_op[f"dispatch_{name}_graph"] = {
                 k: sum(r["launches_on_path"][k] for r in runs) for k in rec["structure"]}
+    for rank, counts in ddp["two_ranks"]["launches_per_rank"].items():
+        per_op[f"ddp_two_ranks_{rank}"] = counts
+    per_op["ddp_nccl1_graph"] = ddp["nccl1_graph"]["launches_on_path"]
     regular_ms = stages["regular"]["kernel_ms_per_step"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
@@ -3996,7 +4424,8 @@ def main(argv=None) -> int:
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
          "launches_per_op": {k: v["gn_adagn_silu_bwd"] for k, v in per_op.items()
                              if k in ("trainer_step", "regular_step", "ingest_step")
-                             or (k.startswith("dispatch_") and v["gn_adagn_silu_bwd"])},
+                             or (k.startswith(("dispatch_", "ddp_"))
+                                 and v["gn_adagn_silu_bwd"])},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
     ]})
     print(smi, flush=True)
@@ -4011,6 +4440,9 @@ if __name__ == "__main__":
         # a rank of the metrics phase's two-process run: it leaves the
         # files to the phase that started it
         sys.exit(rank_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        # a process of the ddp phase, likewise
+        sys.exit(ddp_worker(*sys.argv[2:4]))
     try:
         code = main()
     finally:

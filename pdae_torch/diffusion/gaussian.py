@@ -166,6 +166,16 @@ class GaussianDiffusion:
     def test_pretrained_dpms(self, ddim_style, denoise_fn, x_T, condition=None):
         return self.ddim_sample(ddim_style, denoise_fn, x_T, condition)
 
+    def train_draws(self, generator, n: int, row_shape, like, latent: bool = False):
+        """``t`` (int32 ``[n]``, over the latent schedule where ``latent``)
+        then noise (``[n, *row_shape]`` in ``like``'s dtype, on its device),
+        drawn from ``generator`` as the train losses draw them when nothing
+        is injected: the global micro-batch's draws, which a data-parallel
+        step cuts its rows from (``training.state.accumulate_grads``)."""
+        t = _randint(generator, self.latent_timesteps if latent else self.timesteps, n,
+                     like.device)
+        return t, _randn(generator, (n,) + tuple(row_shape), like)
+
     # -- regular diffusion ------------------------------------------------- #
 
     def regular_train_one_batch(self, generator, denoise_fn, x_0, condition=None,

@@ -2,39 +2,79 @@
 
 A run of several processes is started by ``torchrun``, whose environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``)
-takes the place of ``JAX_COORDINATOR_ADDRESS``. Host objects (metric
-results, latents, images, features) go between processes pickled over a
-``gloo`` group, as ``process_allgather`` of pickled bytes does in JAX: on
-the card too, which also lets two ranks share one card, where NCCL refuses
-two ranks on one device. Each process computes on ``cuda:LOCAL_RANK``
-(``pdae_torch.resolve_device``).
+takes the place of ``JAX_COORDINATOR_ADDRESS``. Each process computes on
+``cuda:LOCAL_RANK`` (``pdae_torch.resolve_device``). Two groups join the
+processes:
 
-Without ``WORLD_SIZE`` > 1 every function here is the one-process identity:
-count 1, index 0, the whole index range, the local list.
+* the default group, always ``gloo``: host objects (metric results, latents,
+  images, features, stop flags) go between processes pickled over it, as
+  ``process_allgather`` of pickled bytes does in JAX, and the barrier;
+* the tensor group, over which a data-parallel train step averages its
+  gradients and loss (``all_reduce_mean_``, where JAX's GSPMD inserts the
+  all-reduce): ``nccl`` where each rank has a card of its own, else ``gloo``,
+  which also lets two ranks share one card (NCCL refuses two ranks on one
+  device) by reducing CUDA tensors through host copies. ``init_distributed``'s
+  ``backend`` names it; nothing falls back from one backend to the other.
+
+Without ``WORLD_SIZE`` > 1 and without a ``backend`` every function here is
+the one-process identity: count 1, index 0, the whole index range, the local
+list, and no tensor group.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 
-def init_distributed() -> None:
-    """Join the process group that torchrun's environment describes; a no-op
-    without ``WORLD_SIZE`` > 1 and when the group exists already. With a
-    card, the process's current device becomes ``cuda:LOCAL_RANK``, so the
-    kernels launch on the card its tensors are on."""
+_TENSOR_GROUP = None
+_TENSOR_BACKEND: Optional[str] = None
+
+
+def default_backend() -> str:
+    """The tensor group's backend where the caller names none: ``nccl`` where
+    a card is available and this host's ranks (``LOCAL_WORLD_SIZE``, else
+    ``WORLD_SIZE``) have one each, else ``gloo``."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+    if torch.cuda.is_available() and local <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def init_distributed(backend: Optional[str] = None) -> None:
+    """Join the process group that torchrun's environment describes, and
+    form the tensor group over ``backend`` (``"nccl"`` or ``"gloo"``; None:
+    ``default_backend()``). A no-op when the group exists already, and
+    without ``WORLD_SIZE`` > 1 unless a ``backend`` is named: a named
+    backend forms the groups for a world of one too (``MASTER_ADDR`` and
+    ``MASTER_PORT`` set), whose reduction is exact. With a card, the
+    process's current device becomes ``cuda:LOCAL_RANK``, so the kernels
+    launch on the card its tensors are on."""
+    global _TENSOR_GROUP, _TENSOR_BACKEND
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world <= 1 or dist.is_initialized():
+    if dist.is_initialized() or (world <= 1 and backend is None):
         return
-    dist.init_process_group("gloo", init_method="env://", rank=int(os.environ["RANK"]),
-                            world_size=world)
+    backend = default_backend() if backend is None else backend
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"the tensor group's backend must be 'nccl' or 'gloo', got "
+                         f"{backend!r}")
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("an NCCL tensor group needs a CUDA device")
     if torch.cuda.is_available():
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("gloo", init_method="env://",
+                            rank=int(os.environ.get("RANK", "0")), world_size=world)
+    _TENSOR_GROUP = dist.new_group(backend="nccl") if backend == "nccl" else dist.group.WORLD
+    _TENSOR_BACKEND = backend
+
+
+def tensor_backend() -> Optional[str]:
+    """The tensor group's backend, None without a group."""
+    return _TENSOR_BACKEND if dist.is_initialized() else None
 
 
 def process_count() -> int:
@@ -90,3 +130,41 @@ def sync_global_devices(name: str = "barrier") -> None:
     barrier has none)."""
     if process_count() > 1:
         dist.barrier()
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], buffer: torch.Tensor) -> None:
+    """Each of ``tensors`` (on one device) replaced in place by its mean over
+    the processes of the tensor group: the tensors are copied into the flat
+    fp32 ``buffer`` (at least their total size), reduced there with one
+    ``all_reduce(SUM)``, divided by the world size (gloo has no ``AVG``) and
+    copied back in their own dtypes. Over NCCL it does not wait for the
+    card, so a CUDA graph can capture it; the buffer is the same memory at
+    every call. Collective: every process of the group must call it."""
+    n = sum(t.numel() for t in tensors)
+    flat = buffer[:n]
+    views, offset = [], 0
+    for t in tensors:
+        views.append(flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    with torch.no_grad():
+        torch._foreach_copy_(views, list(tensors))
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_TENSOR_GROUP)
+        flat.div_(dist.get_world_size(_TENSOR_GROUP))
+        torch._foreach_copy_(list(tensors), views)
+
+
+def mean_all_reducer(numel: int, device) -> Optional[Callable[[Sequence[torch.Tensor]], None]]:
+    """``reduce(tensors)``: ``all_reduce_mean_`` through one flat fp32 buffer
+    of ``numel`` elements on ``device``, allocated here, once, before any
+    step is captured; None without a tensor group, so that one process
+    issues no collective. One reduction runs here, so an NCCL communicator
+    is built before any capture. Collective."""
+    if tensor_backend() is None:
+        return None
+    buffer = torch.zeros(int(numel), dtype=torch.float32, device=device)
+    dist.all_reduce(buffer[:1], group=_TENSOR_GROUP)
+
+    def reduce(tensors):
+        all_reduce_mean_(tensors, buffer)
+    return reduce
+

@@ -11,11 +11,22 @@ the latent DPM, ``inferred_latents`` the manipulation classifier. ``--set
 dotted.key=value`` overrides a config field (repeatable; values parse as
 Python literals where they can). ``--device`` defaults to the card; pass
 ``cpu`` to train on the CPU.
+
+Data-parallel over N processes (``param_sharding: replicated``, one process
+a card; the global batch is ``batch_size * num_iterations * N``)::
+
+    torchrun --nproc_per_node N -m pdae_torch.train --config_path CONFIG \\
+        --run_path RUN
+
+The process group is joined before the trainer is built
+(``parallel.init_distributed``): gradients are averaged over NCCL, or over
+gloo with ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def pick_trainer(config: dict):
@@ -45,13 +56,25 @@ def main(argv=None) -> int:
                                           "(repeatable)")
     args = p.parse_args(argv)
 
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import init_distributed, is_primary
     from .utils import apply_overrides, load_yaml
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        init_distributed(backend="gloo" if cpu else None)
     config = apply_overrides(load_yaml(args.config_path), args.overrides, dotted=True)
     trainer_cls = pick_trainer(config)
-    print(f"trainer: {trainer_cls.__name__}", flush=True)
-    trainer = trainer_cls(config=config, run_path=args.run_path, resume=args.resume,
-                          seed=args.seed, device=args.device)
-    trainer.train(max_steps=args.max_steps)
+    if is_primary():
+        print(f"trainer: {trainer_cls.__name__}", flush=True)
+    try:
+        trainer = trainer_cls(config=config, run_path=args.run_path, resume=args.resume,
+                              seed=args.seed, device=args.device)
+        trainer.train(max_steps=args.max_steps)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -1,6 +1,6 @@
 """Base trainer: run dir, config snapshot, data plumbing, logging,
-checkpoint cadence and the step loop. The port of ``pdae_tpu/training/base.py``
-for one process on one device.
+checkpoint cadence and the step loop. The port of ``pdae_tpu/training/base.py``:
+one process on one device, or data-parallel over ``torchrun`` processes.
 
 Run dir layout as the JAX package's: ``checkpoints/`` (``latest.ckpt`` and
 ``save-{N}k.ckpt``), ``samples/``, ``config.yml`` (written as JSON text),
@@ -41,6 +41,24 @@ inside the chunk (``training/dispatch.py``: the port of JAX's scanned
 multi-step programs); with K = 1, or on the CPU (which a caller must ask
 for), each step is an eager call of ``train_step``. Both paths draw from
 generators re-seeded per step and give the same bits.
+
+Data-parallel training (``param_sharding: replicated``, the default, under
+``torchrun``; the process group joined first, ``parallel.init_distributed``):
+every process holds the whole state, loads its rank's shard of each batch
+(``Loader``'s ``process_index``/``process_count``: the global batch is
+``batch_size * num_iterations * world``, the reference's per-process batch),
+draws its rows of the global ``t``, noise, indices and coins, and averages
+the gradients and the loss over the tensor group before the update (the
+train steps' ``rows`` and ``reduce``), so params, EMA and Adam moments stay
+bit-equal on every rank. The primary alone writes ``config.yml``, the
+checkpoints, ``metrics.jsonl``, TensorBoard, the eval grids and the loop's
+lines; every rank reads the same checkpoint on a resume. An eval splits its
+images over the ranks (``_eval_shard``) and the primary gathers them. The
+ranks stop together: every ``min(display_steps, save_latest_every_steps)``
+steps, at a chunk end, they gather their stop flags (a signal, or a failed
+background write on the primary) over gloo and all leave at that step; a
+write's error is raised after every rank has left. On the card a gloo tensor
+group cannot be captured, so ``steps_per_dispatch`` > 1 needs NCCL there.
 Not ported yet, and refused by name rather than ignored: sharded params and
 checkpoints and profiler traces.
 """
@@ -61,7 +79,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import resolve_device
+from .. import parallel, resolve_device
 from ..data import Loader, build_dataset, prefetch_to_device
 from ..data.pipeline import batch_to_device
 from ..utils import (is_sharded_checkpoint, load_checkpoint, load_yaml,
@@ -91,10 +109,13 @@ class Meters:
 
 class Logger:
     """metrics.jsonl, and TensorBoard where ``torch.utils.tensorboard``
-    imports."""
+    imports; with ``enabled`` false (a process other than the primary) it
+    writes nothing."""
 
-    def __init__(self, run_path: str, purge_step: int = 0):
-        self._tb = None
+    def __init__(self, run_path: str, purge_step: int = 0, enabled: bool = True):
+        self._tb = self._jsonl = None
+        if not enabled:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -105,6 +126,8 @@ class Logger:
         self._jsonl = open(os.path.join(run_path, "metrics.jsonl"), "a")
 
     def scalars(self, step: int, values: Dict[str, float]):
+        if self._jsonl is None:
+            return
         if self._tb is not None:
             for k, v in values.items():
                 self._tb.add_scalar(k, v, step)
@@ -142,9 +165,7 @@ def refuse_unported(config: dict) -> None:
     """Raise, naming the ROADMAP item that will lift it, for every option of
     the JAX trainer that the port does not run yet."""
     rc = config.get("runner_config") or {}
-    world = int(os.environ.get("WORLD_SIZE", "1"))
     checks = [
-        (world > 1, f"WORLD_SIZE={world}: data-parallel training across processes", 15),
         (rc.get("param_sharding", "replicated") != "replicated",
          f"runner_config.param_sharding={rc.get('param_sharding')!r}", 15),
         (rc.get("checkpoint_format", "full") == "sharded",
@@ -161,6 +182,11 @@ def refuse_unported(config: dict) -> None:
     if rc.get("compute_dtype") not in (None, "float32", "bfloat16"):
         raise ValueError(f"runner_config.compute_dtype must be 'float32' or 'bfloat16', "
                          f"got {rc['compute_dtype']!r}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and parallel.process_count() != world:
+        raise RuntimeError(f"WORLD_SIZE={world}, but this process has not joined the "
+                           "process group: call pdae_torch.parallel.init_distributed() "
+                           "before building the trainer (python -m pdae_torch.train does)")
 
 
 def has_dropout(*modules) -> bool:
@@ -196,10 +222,11 @@ def with_weights(modules: Dict[str, nn.Module], weights: Dict[str, Dict], fn, *a
 
 
 class BaseTrainer:
-    """Drive a train step over an endless batch stream on one device.
+    """Drive a train step over an endless batch stream on one device, in one
+    process or as one rank of a data-parallel run (the module's docstring).
 
-    ``device``: ``cuda`` unless the caller names another; without a card it
-    must be given."""
+    ``device``: ``cuda`` unless the caller names another (``cuda:LOCAL_RANK``
+    under torchrun); without a card it must be given."""
 
     def __init__(self, config: Optional[dict] = None, config_path: Optional[str] = None,
                  run_path: str = "./runs/dev", resume: Optional[str] = None,
@@ -218,10 +245,15 @@ class BaseTrainer:
         self._dropout = False       # the trained modules have dropout (_build says)
         self.ema_every = int(self.runner_config.get("ema_every", 1))
         self._dispatch = None       # the card's captured step (training/dispatch.py)
+        self.rank, self.world = parallel.process_index(), parallel.process_count()
+        self.primary = self.rank == 0
+        self._stop_local = False    # a failed write asks the ranks to stop
+        self._save_error_deferred = None
 
-        os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
-        os.makedirs(os.path.join(run_path, "samples"), exist_ok=True)
-        save_yaml(self.config, os.path.join(run_path, "config.yml"))
+        if self.primary:
+            os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
+            os.makedirs(os.path.join(run_path, "samples"), exist_ok=True)
+            save_yaml(self.config, os.path.join(run_path, "config.yml"))
 
         self._build_datasets()
         self._build()          # subclass: models, state, step
@@ -241,7 +273,7 @@ class BaseTrainer:
             raw = load_checkpoint(path)
             self.load_state_dict(raw)
             self.start_step = int(raw["step"])
-        self.logger = Logger(run_path, purge_step=self.start_step)
+        self.logger = Logger(run_path, purge_step=self.start_step, enabled=self.primary)
 
     # -- data ----------------------------------------------------------- #
 
@@ -249,14 +281,16 @@ class BaseTrainer:
         self.train_dataset = build_dataset(self.config["train_dataset_config"])
         self.eval_dataset = build_dataset(overlay_eval_dataset_config(self.config))
         dl = self.dataloader_config.get("train", {})
-        # the batch of one optimizer step: batch_size * num_iterations
-        # micro-batches (gradient accumulation)
+        # the batch of one optimizer step on this process: batch_size *
+        # num_iterations micro-batches (gradient accumulation), its rank's
+        # shard of the global batch
         self.micro_batch = int(dl.get("batch_size", 32))
         self.num_iterations = int(self.runner_config.get("num_iterations", 1))
         self.loader = Loader(self.train_dataset,
                              batch_size=self.micro_batch * self.num_iterations,
                              shuffle=True, seed=self.seed,
-                             num_workers=int(dl.get("num_workers", 4)))
+                             num_workers=int(dl.get("num_workers", 4)),
+                             process_index=self.rank, process_count=self.world)
         ds_cfg = self.config["train_dataset_config"]
         self.device_resident = bool(ds_cfg.get("device_resident", False))
         self.resident_sampling = str(ds_cfg.get("resident_sampling", "epoch"))
@@ -304,7 +338,7 @@ class BaseTrainer:
         return sample_batch(self._resident_device_data(), self._data_gen.generator,
                             self.loader.batch_size, len(self.train_dataset),
                             flip=bool(getattr(self.train_dataset, "augmentation", False)),
-                            indices=indices)
+                            indices=indices, rows=(self.rank, self.world))
 
     def _resident_batches(self, start_step: int) -> Iterator[dict]:
         """Step N's batch gathered on the device from the resident corpus,
@@ -325,8 +359,9 @@ class BaseTrainer:
     def _resident_index_chunks(self, start_step: int, k: int,
                                max_steps: Optional[int]) -> Iterator[np.ndarray]:
         """The ``epoch`` index stream as int32 ``[c, B]`` host arrays, one a
-        chunk of ``_chunk_schedule``: row N is the host loader's batch N
-        (``resident.epoch_global_indices``), as ``pdae_tpu`` ships them."""
+        chunk of ``_chunk_schedule``: row N is the host loader's batch N, this
+        rank's columns of the global row (``resident.epoch_global_indices``),
+        as ``pdae_tpu`` ships them."""
         from .resident import epoch_global_indices
         epoch, offset = divmod(start_step, self.loader.batches_per_epoch())
 
@@ -339,8 +374,10 @@ class BaseTrainer:
                 off, e = 0, e + 1
 
         it = rows()
+        cols = slice(self.rank * self.loader.batch_size,
+                     (self.rank + 1) * self.loader.batch_size)
         for c in self._chunk_schedule(start_step, k, max_steps):
-            yield np.stack([next(it) for _ in range(c)])
+            yield np.stack([next(it)[cols] for _ in range(c)])
 
     @staticmethod
     def _chunk_schedule(start_step: int, k: int, max_steps: Optional[int]) -> Iterator[int]:
@@ -361,7 +398,8 @@ class BaseTrainer:
         replay of the captured step, draws what an uninterrupted eager run
         draws there: the train and data streams' generators and, where the
         trained modules have dropout (``self._dropout``), the global RNG
-        with (seed, ``DROPOUT``, step), restored after the step."""
+        with (seed, ``DROPOUT``, step, rank), restored after the step: rank 0
+        draws what one process draws, the other ranks masks of their own."""
         self._train_gen.at(step)
         self._data_gen.at(step)
         if not self._dropout:
@@ -369,7 +407,7 @@ class BaseTrainer:
             return
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(stream_seed(self.seed, DROPOUT, step))
+            torch.manual_seed(stream_seed(self.seed, DROPOUT, step, self.rank))
             yield
 
     # -- subclass hooks -------------------------------------------------- #
@@ -388,6 +426,15 @@ class BaseTrainer:
 
     def _build(self):
         raise NotImplementedError
+
+    def _data_parallel(self, params) -> dict:
+        """The ``rows`` and ``reduce`` arguments of ``make_*_train_step`` for
+        the trained ``params``: this rank's place in the world, and the mean
+        all-reduce of the gradients and the loss through one flat buffer
+        made here (None in one process)."""
+        numel = 1 + sum(p.numel() for p in params)
+        return {"rows": (self.rank, self.world),
+                "reduce": parallel.mean_all_reducer(numel, self.device)}
 
     @property
     def step(self) -> int:
@@ -414,6 +461,20 @@ class BaseTrainer:
     def evaluate(self, step: int):
         pass
 
+    def _eval_shard(self, total: int) -> slice:
+        """This rank's share of ``total`` eval images: the rows
+        ``parallel.dispatch_num_samples_for_process`` gives it, after the
+        lower ranks' (the reference's split, gathered in rank order)."""
+        count = parallel.dispatch_num_samples_for_process
+        offset = sum(count(total, rank=r, world=self.world) for r in range(self.rank))
+        return slice(offset, offset + count(total, rank=self.rank, world=self.world))
+
+    def _gather_eval_images(self, local_imgs: np.ndarray) -> Optional[np.ndarray]:
+        """The ranks' eval images concatenated in rank order on the primary;
+        None on the others. Collective: every rank calls it."""
+        parts = parallel.gather_objects([np.asarray(local_imgs)])
+        return np.concatenate(parts, axis=0) if self.primary else None
+
     def snapshot_state(self) -> Any:
         """Host copies of the state, taken now (the step updates tensors in
         place)."""
@@ -433,8 +494,11 @@ class BaseTrainer:
 
     def save(self, step: int, snapshot: bool = False):
         """Checkpoint ``latest.ckpt`` (and ``save-{N}k.ckpt`` when
-        ``snapshot``). The host copy happens here; the relayout, the
-        serialisation and the atomic writes run in a background thread."""
+        ``snapshot``), on the primary alone (the ranks' states are equal).
+        The host copy happens here; the relayout, the serialisation and the
+        atomic writes run in a background thread."""
+        if not self.primary:
+            return
         t0 = time.perf_counter()
         snap = self.snapshot_state()
         self._join_save()
@@ -493,8 +557,16 @@ class BaseTrainer:
             t.join()
             self._save_thread = None
             err, self._save_error = self._save_error, None
-            if err is not None:
+            if err is None:
+                return
+            if self.world == 1:
                 raise RuntimeError("background checkpoint write failed") from err
+            # raising on the primary alone would leave the other ranks in
+            # their next collective: ask for the consensus stop and raise
+            # once every rank has left the loop
+            self._save_error_deferred = err
+            self._stop_local = True
+            print(f"checkpoint write failed ({err!r}); stopping by consensus", flush=True)
 
     # -- loop ------------------------------------------------------------ #
 
@@ -511,6 +583,10 @@ class BaseTrainer:
         row; else an eager ``train_step`` on the batch stream."""
         if self._replays(k):
             from .dispatch import GraphDispatch
+            if parallel.tensor_backend() == "gloo":
+                raise ValueError(f"runner_config.steps_per_dispatch={k} on the card needs an "
+                                 "NCCL tensor group: a gloo all-reduce cannot be captured "
+                                 "into a CUDA graph (set steps_per_dispatch: 1 for gloo)")
             if self._dispatch is None:
                 self._dispatch = GraphDispatch(self)
             graph = self._dispatch
@@ -569,10 +645,16 @@ class BaseTrainer:
         chunks = self._chunk_schedule(step, k, max_steps)
         run_chunk = self._chunk_runner(step, k, max_steps)
         last_saved = step
-        stop = {"flag": False}
+        # several processes stop by consensus at a chunk end: a signal may
+        # reach one rank alone, and every rank must leave at the same step
+        multiproc = self.world > 1
+        consensus_every = min(display, save_latest)
+        stop = {"local": False, "flag": False}
 
         def _graceful(signum, frame):
-            stop["flag"] = True
+            stop["local"] = True
+            if not multiproc:
+                stop["flag"] = True
 
         old_handlers = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -603,13 +685,18 @@ class BaseTrainer:
                         **avg, "steps_per_sec": rate,
                         "time/step": window / max(window_steps, 1),
                         "time/load_data": meters.summary().get("load_data", 0.0)})
-                    print(f"step {step}: " + " ".join(f"{n}={v:.5f}" for n, v in avg.items())
-                          + f" ({rate:.2f} it/s)", flush=True)
+                    if self.primary:
+                        print(f"step {step}: " + " ".join(f"{n}={v:.5f}"
+                                                          for n, v in avg.items())
+                              + f" ({rate:.2f} it/s)", flush=True)
                     losses.clear()
                     meters.reset()
                     first_window = False
                     window_steps = 0
                     t_end = time.perf_counter()
+                if multiproc and step % consensus_every == 0:
+                    stop["flag"] = any(parallel.gather_objects(
+                        [stop["local"] or self._stop_local]))
                 if step % save_latest == 0 or step % save_snap == 0:
                     # one save covers both cadences
                     self.save(step, snapshot=step % save_snap == 0)
@@ -624,4 +711,8 @@ class BaseTrainer:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
             self._join_save()
+        err, self._save_error_deferred = self._save_error_deferred, None
+        if err is not None:
+            raise RuntimeError("background checkpoint write failed (the run stopped "
+                               "by consensus)") from err
         return step

@@ -31,6 +31,13 @@ eager step issues thousands, and never waits for the card inside a chunk.
   (``pdae_torch.ops``) count a captured launch once, at the capture;
   ``launches`` keeps those counts so a caller can multiply them by
   ``replays``.
+* **Data-parallel.** Over an NCCL tensor group the step's all-reduce of
+  the gradients and the loss (``parallel.all_reduce_mean_``) is captured
+  with the step, and each replay runs it on every rank; the trainer's
+  reducer ran one reduction when it was made, so NCCL's communicator exists
+  before the first capture. A gloo collective cannot be captured: the
+  trainer refuses ``steps_per_dispatch`` > 1 on the card over gloo by name
+  (``BaseTrainer._chunk_runner``) and never runs the chunk eagerly instead.
 * **Failure.** A capture or replay that fails raises; the step never runs
   eagerly in its place. A failed capture can leave PyTorch's generators in
   capture mode, so the trainer is not used again after it.

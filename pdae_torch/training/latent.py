@@ -13,10 +13,13 @@
   ``device_resident`` and no augmentation) encodes the corpus once
   (``resident.encode_corpus``, chunks of 512), keeps z on the device and
   steps through ``IdentityEncoder``; ``encode`` (the default) runs the
-  encoder in every step.
+  encoder in every step. Under several processes every rank encodes the
+  whole corpus onto its own card, JAX's replicated placement.
 * ``evaluate`` writes ``samples/sample{N//1000}k.png``: ``num_generations``
   images from the EMA latent DPM, its z decoded by the frozen decoder
-  (ddim100/ddim100 by default), z_T then x_T drawn with (seed, ``EVAL``, N).
+  (ddim100/ddim100 by default), z_T then x_T drawn with (seed, ``EVAL``, N);
+  under several processes each rank samples its share of both draws and the
+  primary writes the grid.
 * Checkpoints hold ``latent_denoise_fn``, ``ema_latent_denoise_fn``,
   ``optimizer`` and ``step``.
 """
@@ -61,7 +64,8 @@ class LatentDiffusionTrainer(StageTrainer):
         self._step_fn = make_latent_train_step(
             self.gd, self.model, step_encoder, self.optimizer, self.latents_mean,
             self.latents_std, ema_decay=self.ema_decay, ema_every=self.ema_every,
-            num_iters=self.num_iterations, device=self.device)
+            num_iters=self.num_iterations, device=self.device,
+            **self._data_parallel(self.model.parameters()))
 
     def _step_batch_keys(self):
         return ("x_0",)
@@ -82,6 +86,8 @@ class LatentDiffusionTrainer(StageTrainer):
         gen = generator(self.seed, EVAL, step, self.device)
         z_T = torch.randn((n, self.latent_dim), device=self.device, generator=gen)
         x_T = torch.randn((n,) + self.sample_shape, device=self.device, generator=gen)
+        mine = self._eval_shard(n)
+        z_T, x_T = z_T[mine], x_T[mine]
 
         def sample(model, z_T, x_T):
             return self.gd.latent_diffusion_sample(
@@ -95,8 +101,10 @@ class LatentDiffusionTrainer(StageTrainer):
                                     sample, z_T, x_T)
         finally:
             self.model.train()
-        grid = to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+        grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
+        self.eval_seconds.append(time.perf_counter() - t0)
+        if grid is None:
+            return
         save_image_grid(grid, os.path.join(self.run_path, "samples",
                                            f"sample{step // 1000}k.png"))
         self.logger.image(step, "result", make_grid(grid))
-        self.eval_seconds.append(time.perf_counter() - t0)

@@ -13,7 +13,8 @@ normalised z, the port of ``pdae_tpu/training/manipulation.py``.
 * ``evaluate`` takes the first eval image: a DDIM-500 shift encode, then a
   DDIM-200 decode with its z moved along the EMA classifier's row of
   ``class_id`` (31, "Smiling") by ``scale`` 0.3; it writes
-  ``samples/sample{N//1000}k.png`` (the image, then its manipulation).
+  ``samples/sample{N//1000}k.png`` (the image, then its manipulation); on the
+  primary alone under several processes.
 * Checkpoints hold ``classifier``, ``ema_classifier``, ``optimizer`` and
   ``step``.
 """
@@ -54,7 +55,7 @@ class ManipulationTrainer(StageTrainer):
         self._step_fn = make_manipulation_train_step(
             self.gd, self.model, step_encoder, self.optimizer, self.latents_mean,
             self.latents_std, ema_decay=self.ema_decay, ema_every=self.ema_every,
-            device=self.device)
+            device=self.device, reduce=self._data_parallel(self.model.parameters())["reduce"])
 
     def _step_batch_keys(self):
         return ("x_0", "label")
@@ -72,6 +73,8 @@ class ManipulationTrainer(StageTrainer):
         if not 0 <= class_id < self.num_classes:
             raise ValueError(f"class_id {class_id} is not one of the classifier's "
                              f"{self.num_classes} classes")
+        if not self.primary:
+            return
         t0 = time.perf_counter()
         batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
         x_0 = x0_from_transfer(torch.from_numpy(batch["x_0"]).to(self.device)

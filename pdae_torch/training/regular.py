@@ -11,7 +11,9 @@
   ``_compute_dtype`` and its forward runs under ``runner_config.remat``.
 * ``evaluate`` writes ``samples/step-{N}.png``: a DDIM-100 grid of
   ``num_generations`` samples from the EMA weights, from x_T drawn with
-  (seed, ``EVAL``, N); a conditional model cycles through its classes.
+  (seed, ``EVAL``, N); a conditional model cycles through its classes. Under
+  several processes each rank samples its share and the primary writes the
+  grid.
 * Checkpoints hold ``denoise_fn``, ``ema_denoise_fn``, ``optimizer`` and
   ``step`` in the flax and optax layouts.
 """
@@ -50,7 +52,8 @@ class RegularDiffusionTrainer(StageTrainer):
         self._step_fn = make_regular_train_step(
             self.gd, self.model, self.optimizer, ema_decay=self.ema_decay,
             num_iters=self.num_iterations, device=self.device, ema_every=self.ema_every,
-            remat=self.runner_config.get("remat"))
+            remat=self.runner_config.get("remat"),
+            **self._data_parallel(self.model.parameters()))
 
     def _step_batch_keys(self):
         return ("x_0", "condition") if self.num_class is not None else ("x_0",)
@@ -67,6 +70,8 @@ class RegularDiffusionTrainer(StageTrainer):
                           generator=generator(self.seed, EVAL, step, self.device))
         cond = (torch.arange(n, device=self.device) % self.num_class
                 if self.num_class is not None else None)
+        mine = self._eval_shard(n)
+        x_T, cond = x_T[mine], None if cond is None else cond[mine]
 
         def sample(model, x_T, cond):
             return self.gd.regular_ddim_sample(ddim_style, model, x_T, cond)
@@ -78,7 +83,9 @@ class RegularDiffusionTrainer(StageTrainer):
                                     sample, x_T, cond)
         finally:
             self.model.train()
-        grid = to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+        grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
+        self.eval_seconds.append(time.perf_counter() - t0)
+        if grid is None:
+            return
         save_image_grid(grid, os.path.join(self.run_path, "samples", f"step-{step}.png"))
         self.logger.image(step, "samples", make_grid(grid))
-        self.eval_seconds.append(time.perf_counter() - t0)

@@ -15,7 +15,9 @@ gradient branch trained on a frozen pre-trained DPM. The port of
 * ``evaluate`` decodes a shift-DDIM grid of ``num_generations`` eval images
   with the EMA weights (swapped in for the call by
   ``torch.func.functional_call``; the trained tensors are never touched) and
-  writes ``samples/sample{N}k.png`` with the ground truths interleaved.
+  writes ``samples/sample{N}k.png`` with the ground truths interleaved. Under
+  several processes each rank decodes its share of the images (every rank
+  draws the whole x_T) and the primary gathers them and writes the grid.
 * Checkpoints hold ``encoder``, ``ema_encoder``, ``decoder`` (trunk and
   shift branch), ``ema_decoder`` (trunk and EMA shift branch), ``optimizer``
   (optax's layout) and ``step``, every tree in the flax layout, so
@@ -82,7 +84,8 @@ class RepresentationLearningTrainer(BaseTrainer):
             self.gd, self.encoder, self.decoder, self.optimizer,
             ema_decay=float(rc.get("ema_decay", 0.9999)),
             num_iters=self.num_iterations, device=self.device,
-            ema_every=self.ema_every, remat=rc.get("remat"))
+            ema_every=self.ema_every, remat=rc.get("remat"),
+            **self._data_parallel(flat_params(params)))
         self.eval_seconds = []
 
     @property
@@ -105,6 +108,8 @@ class RepresentationLearningTrainer(BaseTrainer):
                                .permute(0, 3, 1, 2).contiguous())
         x_T = torch.randn(x_0.shape, device=self.device,
                           generator=generator(self.seed, EVAL, step, self.device))
+        mine = self._eval_shard(x_0.shape[0])
+        x_0, x_T = x_0[mine], x_T[mine]
         ema = self.state.ema_params
 
         def sample(encoder, decoder, x_0, x_T):
@@ -121,11 +126,13 @@ class RepresentationLearningTrainer(BaseTrainer):
         finally:
             self.encoder.train()
             self.decoder.train()
-        grid = to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+        grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
+        self.eval_seconds.append(time.perf_counter() - t0)
+        if grid is None:
+            return
         path = os.path.join(self.run_path, "samples", f"sample{step // 1000}k.png")
         save_image_grid(grid, path, gts=eval_batch["gts"][:grid.shape[0]])
         self.logger.image(step, "result", make_grid(grid))
-        self.eval_seconds.append(time.perf_counter() - t0)
 
     # -- checkpoints ------------------------------------------------------ #
 

@@ -16,6 +16,10 @@ Sampling (``train_dataset_config.resident_sampling``):
 * ``"uniform"``: the rows are drawn with replacement from a
   ``torch.Generator`` seeded with (seed, ``DATA_STREAM_TAG``, N).
 
+In a data-parallel run each process gathers its own rows of the global
+batch: its columns of the epoch stream's row, or its cut of the global
+uniform draws and coins (``sample_batch``'s ``rows``).
+
 Where the dataset augments, each gathered row is flipped horizontally by a
 coin from that same generator: the materialised items are the unflipped
 ones, and a flip of the raw pixels commutes with the [-1, 1] normalisation.
@@ -116,20 +120,31 @@ def encode_corpus(encoder: nn.Module, x_host: np.ndarray, device,
 
 
 def sample_batch(data: dict, generator: torch.Generator, batch_size: int, n: int,
-                 flip: bool = False, indices: Optional[torch.Tensor] = None) -> dict:
+                 flip: bool = False, indices: Optional[torch.Tensor] = None,
+                 rows=(0, 1)) -> dict:
     """A minibatch gathered on the device from the resident ``data``: the
     rows at ``indices`` (epoch mode) or at ``batch_size`` uniform draws from
     ``generator`` (uniform mode); with ``flip`` each row's ``x_0`` (NCHW) is
-    flipped along its width where a coin from ``generator`` says so."""
+    flipped along its width where a coin from ``generator`` says so.
+
+    ``rows`` is (rank, world) of a data-parallel run: the uniform indices and
+    the coins are drawn for the global batch of ``world`` times the rows and
+    this process keeps its rows ``[rank * b, (rank + 1) * b)``, as JAX's
+    ``sample_batch`` draws global indices; ``indices`` are already this
+    process's. In one process these are the draws of the batch itself."""
+    rank, world = rows
     if indices is None:
-        indices = torch.randint(0, n, (batch_size,), generator=generator,
-                                device=generator.device).to(next(iter(data.values())).device)
+        drawn = torch.randint(0, n, (world * batch_size,), generator=generator,
+                              device=generator.device)
+        indices = drawn[rank * batch_size:(rank + 1) * batch_size].to(
+            next(iter(data.values())).device)
     batch = {k: v.index_select(0, indices) for k, v in data.items()}
     if flip and "x_0" in batch:
         x = batch["x_0"]
         if x.dim() != 4:
             raise ValueError("the device-side flip takes NCHW x_0")
-        coin = torch.rand(indices.shape[0], generator=generator,
-                          device=generator.device).to(x.device) < 0.5
+        b = indices.shape[0]
+        coin = torch.rand(world * b, generator=generator,
+                          device=generator.device)[rank * b:(rank + 1) * b].to(x.device) < 0.5
         batch["x_0"] = torch.where(coin[:, None, None, None], x.flip(3), x)
     return batch

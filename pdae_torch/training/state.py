@@ -97,17 +97,36 @@ class TrainState:
 
 
 def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], x_0,
-                     generator, num_iters: int, *, t=None, noise=None, cond=None):
+                     generator, num_iters: int, *, t=None, noise=None, cond=None,
+                     draw=None, rows=(0, 1)):
     """Mean (loss, grads) over ``num_iters`` micro-batches, a Python loop
     where the JAX package runs one ``lax.scan``.
     ``loss_fn(x_b, generator, t_b, noise_b) -> scalar``, and with a ``cond``
     (the class labels of a conditional DPM) ``loss_fn(..., cond=cond_b)``;
     injected ``t`` and ``noise`` and the ``cond`` are cut into the same
-    micro-batches as ``x_0``."""
+    micro-batches as ``x_0``.
+
+    ``draw(generator, x_b, n) -> (t, noise)`` (where neither is injected)
+    draws a micro-batch's ``t`` and noise here, in the order the loss draws
+    them, for the global micro-batch of a data-parallel step: ``rows`` is
+    (rank, world), each process draws ``world`` times its micro-batch ``x_b``
+    and keeps its own rows ``[rank * mb, (rank + 1) * mb)``, so every
+    process cuts one draw that does not depend on the world size, as
+    GSPMD's processes compute their rows of one global draw. In one process
+    (``(0, 1)``) these are the draws the loss makes itself."""
+    rank, world = rows
+
     def call(cut):
+        x_b = x_0[cut]
+        t_b = None if t is None else t[cut]
+        noise_b = None if noise is None else noise[cut]
+        if draw is not None and t is None and noise is None:
+            mb = x_b.shape[0]
+            t_b, noise_b = draw(generator, x_b, world * mb)
+            keep = slice(rank * mb, (rank + 1) * mb)
+            t_b, noise_b = t_b[keep], noise_b[keep]
         extra = {} if cond is None else {"cond": cond[cut]}
-        return loss_fn(x_0[cut], generator, None if t is None else t[cut],
-                       None if noise is None else noise[cut], **extra)
+        return loss_fn(x_b, generator, t_b, noise_b, **extra)
 
     if num_iters <= 1:
         loss = call(slice(None))

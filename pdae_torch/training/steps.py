@@ -21,6 +21,14 @@ run in train mode (dropout acts where it is configured), frozen ones in eval
 mode. ``remat`` (``runner_config.remat``, the JAX steps' argument of that
 name) rematerialises the training forward of the decoder or UNet through
 ``remat_wrap``.
+
+Data-parallel (``rows`` = (rank, world) and ``reduce``, the trainer's
+``parallel.mean_all_reducer``): each process draws ``t`` and noise for the
+global micro-batch and keeps its rows (``accumulate_grads``), and between the
+gradients and the update ``reduce`` averages the gradients and the detached
+loss over the processes in one collective, so the step returns the global
+batch's loss, as JAX's GSPMD step does; without ``reduce`` (one process) no
+collective is issued.
 """
 
 from __future__ import annotations
@@ -69,6 +77,14 @@ def _modes(trained=(), frozen=()):
             m.eval()
 
 
+def _reduced(reduce, loss, grads):
+    """The loss and grads averaged over the processes in place by
+    ``reduce`` (None: one process, left as they are)."""
+    if reduce is not None:
+        reduce([loss] + list(grads))
+    return loss, grads
+
+
 def _update(state, optimizer, params, grads, ema_decay, ema_every, ema=None):
     """Adam/AdamW on ``grads``, then the EMA where ``ema`` says (None: where
     it is due at the new count), then the step count."""
@@ -87,13 +103,23 @@ def _check(state, optimizer, generator, t, noise):
         raise ValueError("a generator is needed unless t and noise are injected")
 
 
+def _image_draws(gd):
+    """``draw`` of ``accumulate_grads`` for the losses whose noise is shaped
+    as the images ``x_b``."""
+    def draw(generator, x_b, n):
+        return gd.train_draws(generator, n, x_b.shape[1:], x_b)
+    return draw
+
+
 def make_representation_train_step(gd, encoder, decoder, optimizer,
                                    ema_decay: float = 0.9999, num_iters: int = 1,
-                                   device=None, ema_every: int = 1, remat=False):
+                                   device=None, ema_every: int = 1, remat=False,
+                                   rows=(0, 1), reduce=None):
     """``step(state, x_0, generator, *, t=None, noise=None, ema=None) ->
     loss``: the PDAE loss over the encoder and the shift branch (``state`` over
     ``trainable_params(encoder, decoder)``), the ShiftUNet's trunk frozen in
-    eval mode; ``remat`` checkpoints the decoder's forward (``remat_wrap``)."""
+    eval mode; ``remat`` checkpoints the decoder's forward (``remat_wrap``);
+    ``rows`` and ``reduce`` as the module's docstring says."""
     device = _on(device, encoder, decoder)
     train_decoder = remat_wrap(decoder, remat)
 
@@ -105,8 +131,9 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
         _check(state, optimizer, generator, t, noise)
         _modes(trained=(encoder, decoder))   # the ShiftUNet keeps its trunk in eval mode
         params = flat_params(state.params)
-        loss, grads = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
-                                       generator, num_iters, t=t, noise=noise)
+        loss, grads = _reduced(reduce, *accumulate_grads(
+            loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
+            t=t, noise=noise, draw=_image_draws(gd), rows=rows))
         _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss
 
@@ -115,7 +142,7 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
 
 def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
                             num_iters: int = 1, device=None, ema_every: int = 1,
-                            remat=False):
+                            remat=False, rows=(0, 1), reduce=None):
     """``step(state, x_0, generator, *, condition=None, t=None, noise=None,
     ema=None) -> loss``: the epsilon-MSE of a DPM's UNet (``state`` over all its
     parameters); ``condition`` holds the class ids of a class-conditional
@@ -133,9 +160,10 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
         _check(state, optimizer, generator, t, noise)
         _modes(trained=(model,))
         params = flat_params(state.params)
-        loss, grads = accumulate_grads(
+        loss, grads = _reduced(reduce, *accumulate_grads(
             loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
-            t=t, noise=noise, cond=None if condition is None else condition.to(device))
+            t=t, noise=noise, cond=None if condition is None else condition.to(device),
+            draw=_image_draws(gd), rows=rows))
         _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss
 
@@ -144,7 +172,7 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
 
 def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
                            ema_decay: float = 0.9999, ema_every: int = 1,
-                           num_iters: int = 1, device=None):
+                           num_iters: int = 1, device=None, rows=(0, 1), reduce=None):
     """``step(state, x_0, generator, *, t=None, noise=None, ema=None) ->
     loss``: the latent DPM's l1 loss of the MLPSkipNet ``model`` (``state`` over its
     parameters) on the frozen ``encoder``'s z normalised with the inferred
@@ -157,12 +185,17 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
         return gd.latent_diffusion_train_one_batch(
             generator, model, encoder, x_b, mean, std, t=t, noise=noise)["prediction_loss"]
 
+    def draw(generator, x_b, n):
+        # the noise of the normalised z, (z - mean) / std: fp32, [n, latent]
+        return gd.train_draws(generator, n, mean.shape[-1:], mean, latent=True)
+
     def train_step(state, x_0, generator=None, *, t=None, noise=None, ema=None):
         _check(state, optimizer, generator, t, noise)
         _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
-        loss, grads = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
-                                       generator, num_iters, t=t, noise=noise)
+        loss, grads = _reduced(reduce, *accumulate_grads(
+            loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
+            t=t, noise=noise, draw=draw, rows=rows))
         _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
         return loss
 
@@ -171,7 +204,7 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
 
 def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
                                  ema_decay: float = 0.9999, ema_every: int = 1,
-                                 device=None):
+                                 device=None, reduce=None):
     """``step(state, x_0, label, *, ema=None) -> loss``: the BCE-with-logits of the linear
     classifier ``model`` (``state`` over its parameters) on the frozen
     ``encoder``'s normalised z against ``label > 0``; it draws nothing."""
@@ -186,8 +219,8 @@ def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
         loss = gd.manipulation_train_one_batch(
             model, encoder, x0_from_transfer(x_0.to(device)), label.to(device), mean,
             std)["bce_loss"]
-        grads = torch.autograd.grad(loss, params)
+        loss, grads = _reduced(reduce, loss.detach(), torch.autograd.grad(loss, params))
         _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
-        return loss.detach()
+        return loss
 
     return train_step

@@ -189,20 +189,23 @@ REFUSALS = {
     "param_sharding": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
     "checkpoint_format": ({"runner_config": {"checkpoint_format": "sharded"}}, 15),
     "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
-    # a torchrun launch: data-parallel training is not ported
-    "WORLD_SIZE": ({}, 15),
+    # a torchrun launch trains replicated params (tests/test_torch_ddp.py);
+    # fsdp under it is still refused by its own name
+    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
     change, item = REFUSALS[name]
+    what = name
     if name == "WORLD_SIZE":
         monkeypatch.setenv("WORLD_SIZE", "2")
+        what = "param_sharding='fsdp'"
     cfg = tiny_pdae_config()
     for section, values in change.items():
         cfg[section].update(values)
-    with pytest.raises(NotImplementedError, match=f"{name}.*item {item}\\)"):
+    with pytest.raises(NotImplementedError, match=f"{what}.*item {item}\\)"):
         _trainer(tmp_path / "run", cfg)
     assert not os.path.exists(tmp_path / "run")
 
