@@ -216,9 +216,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    are not bit-reproducible in this process from step 3, the losses, and
    its final state is recorded); the launches a capture counted, times the
    replays, must equal the structure's per step, every GN launch on the
-   cluster variant. Wall ms per step over whole chunks, and busy ms and the
-   idle share under ``torch.profiler``, graph against eager, and each
-   path's peak memory (``chiprun_out/chip_smoke_dispatch.json``).
+   cluster variant. Wall ms per step over a whole chunk, and busy ms and the
+   idle share of one more step under ``torch.profiler``, graph against
+   eager, and each path's peak memory
+   (``chiprun_out/chip_smoke_dispatch.json``).
 14. ``ddp``: data-parallel training (``param_sharding: replicated``). The
    trainer phase's celeba64 PDAE config at full width (b32 a rank, fp32,
    TF32 off, ``cudnn.deterministic``, Adam eps 1e-5) as two ranks on the one
@@ -232,12 +233,32 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    (digests), the resume bit-equal, only rank 0 writing, each rank's launches
    the structure's per step, wall ms per step at both world sizes and of the
    gloo all-reduce of the gradients alone. Then the
-   same config at its shipped K=4 from the captured graph, 12 steps, in a
+   same config at its shipped K=4 from the captured graph, 8 steps, in a
    process with an NCCL tensor group of one rank and in one with no group:
    every loss and the final state bit-equal, the launches per replay the
-   structure's; recorded: wall ms per step of each chunk, one more traced
-   chunk of each (busy ms, kernels, NCCL kernels, the costliest kernels) and
-   the eager all-reduce's ms (``chiprun_out/chip_smoke_ddp.json``). Then the script's total seconds.
+   structure's; recorded: wall ms per step of each chunk, two more traced
+   replays of each (busy ms, kernels, NCCL kernels, the costliest kernels)
+   and the eager all-reduce's ms (``chiprun_out/chip_smoke_ddp.json``). The
+   two-rank and the NCCL processes then make the fsdp phase's runs.
+15. ``fsdp``: ``param_sharding: fsdp`` (``pdae_torch/training/fsdp.py``) on
+   the ddp phase's config, run by the ddp phase's processes after their own
+   runs. Two ranks on the one card over gloo, eager, b32 a
+   rank, with ``checkpoint_format: sharded``: 4 steps with the sharded save
+   at 2, and a fresh pair resumed from that directory to 4. Every loss and
+   the final state gathered from the ranks' blocks (params, EMA, moments and
+   the reduced gradients) bit-equal to the ddp phase's two ranks, the resume
+   bit-equal, the directory exactly the manifest and the two step-tagged
+   shard files, each rank's launches the structure's per step. Then the same
+   config at K=4 from the captured graph with an NCCL group of one rank:
+   every loss and the final state bit-equal to the ddp phase's K=4 runs, the
+   launches per replay the structure's, and in the trace of two replays the
+   reduce-scatter's and the all-gather's copies (at world 1 NCCL runs each
+   as one copy on the card) beside the plan's write-back of each sharded
+   block, beyond the replicated step's copies.
+   Recorded: each rank's bytes of EMA, moments and masters beside
+   ``replicated``'s, peak memory, the sharded write's seconds and bytes, the
+   collectives' ms over gloo and NCCL, ms per step
+   (``chiprun_out/chip_smoke_fsdp.json``). Then the script's total seconds.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -1676,7 +1697,7 @@ METRIC_SIZES = (64, 320)         # InceptionV3 resizes up from one, down from th
 FID_SET = 2560                   # SYNTHETIC images a feature set: more rows than features
 LPIPS_BATCH = 16
 LPIPS_TIMED_BATCHES = 20
-FID_SAMPLES = 256                # UnconditionalSample's generated set (the phase ~120 s)
+FID_SAMPLES = 128                # UnconditionalSample's generated set
 FID_BATCH = 64
 FID_STYLES = ("ddim10", "ddim10")
 WORLD2_MEAN_RTOL = 1e-12         # the float64 means' order
@@ -3261,8 +3282,8 @@ def drop_ingest_files() -> None:
 
 DISPATCH_CUT = 3                 # the step of the checkpoint off a chunk boundary
 DISPATCH_END = {4: 9, 50: 103}   # from the cut: a realigning chunk, a whole one, a tail
-DISPATCH_TIMED_CHUNKS = 2        # timed chunks per path, then one profiled
-DISPATCH_PROFILED = 10           # at most this many steps of the profiled chunk
+DISPATCH_TIMED_CHUNKS = 1        # timed chunks per path, then one profiled
+DISPATCH_PROFILED = 1            # at most this many steps of the profiled chunk
 
 
 def dispatch_runner(k) -> dict:
@@ -3541,7 +3562,8 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
 DDP_RANKS = 2                    # two ranks on the one card, b32 each
 DDP_STEPS = 4                    # a save at DDP_CUT, resumed there
 DDP_CUT = 2
-DDP_GRAPH_STEPS = 12             # the world-1 NCCL run: chunks 4+4+4 at K=4
+DDP_GRAPH_STEPS = 8              # the world-1 NCCL run: chunks 4+4 at K=4
+TRACED_STEPS = 2                 # replays of a traced chunk
 DDP_TOL = {"loss_rel": 1e-5,     # world 2 against one process over the 64 rows
            "grad_rel": 1e-3,     # each tensor's error over its own largest value,
            "mu_rel": 1e-3,       # floored at 1e-4 of the category's largest
@@ -3612,7 +3634,10 @@ def ddp_worker(spec_path, out_path) -> int:
     """One process of the ddp phase (``python3 chip_smoke.py --ddp-worker SPEC
     OUT``): ``two_ranks``, a rank of the gloo run (A: 4 steps saved at 2, B:
     resumed from that file), or ``nccl1``/``nogroup``, the K=4 graph run with
-    an NCCL group of one rank or with none."""
+    an NCCL group of one rank or with none. A ``two_ranks`` or ``nccl1``
+    process whose spec holds ``fsdp`` then runs the fsdp phase's run of its
+    kind in the same process group (``fsdp_run``): a process start and a
+    first build fewer than a process of its own."""
     import gc
     import shutil
 
@@ -3674,6 +3699,11 @@ def ddp_worker(spec_path, out_path) -> int:
                                                    for x, y in zip(ts, got[k]))][:5]
             out["resume_files"] = files_under(run_b)
             out["all_reduce_ms"] = all_reduce_ms(b)
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+            if "fsdp" in spec:
+                out["fsdp"] = fsdp_run(spec["fsdp"], "two_ranks")
         else:
             cfg = ddp_config(spec["dpm"], k=4)
             tr = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, role),
@@ -3688,9 +3718,15 @@ def ddp_worker(spec_path, out_path) -> int:
                        captures=len(d.graphs), launches_per_replay=d.launches,
                        launches_on_path=path_launches(ops.launch_counts(), d),
                        digest=state_digest(ddp_state(tr, grads=False)))
-            out["trace"] = traced_chunk(tr, 4)
+            out["trace"] = traced_chunk(tr, TRACED_STEPS)
             if role == "nccl1":
                 out["all_reduce_ms"] = all_reduce_ms(tr)
+                drop_graphs(tr)
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+                if "fsdp" in spec:
+                    out["fsdp"] = fsdp_run(spec["fsdp"], "nccl1")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3719,6 +3755,7 @@ def traced_chunk(trainer, k) -> dict:
                                           for e in kernels]) / 1e3 / k,
             "kernels_per_step": len(kernels) / k,
             "nccl_kernels": sum(1 for e in kernels if "nccl" in e.name.lower()),
+            "events": dict(collections.Counter(e.name for e in kernels)),
             "top_ms_per_step": by_name.most_common(8)}
 
 
@@ -3796,8 +3833,10 @@ def ddp_rel_errors(got, want) -> dict:
     return out
 
 
-def ddp_phase(seed, device, want_step) -> dict:
-    """Data-parallel training (``param_sharding: replicated``) on the card.
+def ddp_phase(seed, device, want_step) -> tuple:
+    """Data-parallel training (``param_sharding: replicated``) on the card,
+    and the fsdp phase's runs in the same processes (``fsdp_run``): returns
+    (the phase's records, those runs' outputs).
     (a) The trainer phase's celeba64 PDAE config at full width as two ranks
     on the one card (both ``LOCAL_RANK`` 0; NCCL refuses two ranks on one
     device, so the tensor group is gloo and the run eager), b32 a rank, fp32
@@ -3810,7 +3849,7 @@ def ddp_phase(seed, device, want_step) -> dict:
     its shipped K=4 from the captured graph in a process with an NCCL group
     of one rank and in one with no group: every loss and the final state
     bit-equal, the launches per replay, and the NCCL kernels a traced chunk
-    of replays ran."""
+    of replays ran. Wall seconds leave out the fsdp runs."""
     import gc
     import shutil
 
@@ -3835,17 +3874,27 @@ def ddp_phase(seed, device, want_step) -> dict:
     port = str(free_port())
     env = {"WORLD_SIZE": str(DDP_RANKS), "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
            "MASTER_PORT": port}
+    # the fsdp phase's runs, made by these processes after their own
+    fsdp_root = os.path.join(OUT_DIR, "fsdp")
+    shutil.rmtree(fsdp_root, ignore_errors=True)
+    os.makedirs(fsdp_root)
+    fsdp = {"root": fsdp_root, "seed": seed, "cut_dir": os.path.join(fsdp_root, "cut.sharded")}
     spec = {"role": "two_ranks", "root": root, "config": cfg, "seed": seed,
             "cut_file": os.path.join(root, "cut.ckpt"),
-            "state_file": os.path.join(root, "rank0_state.pt")}
+            "state_file": os.path.join(root, "rank0_state.pt"),
+            "fsdp": {**fsdp, "config": fsdp_config(dpm, 1)}}
+    fsdp_runs = {}
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         ranks, wall = run_workers("rank", [(spec, {**env, "RANK": str(r)})
                                            for r in range(DDP_RANKS)], root)
+        fsdp_runs["two_ranks"] = [r.pop("fsdp") for r in ranks]
         r0, r1 = ranks
-        rec = {"wall_s": wall, "build_s": [r["build_s"] for r in ranks],
+        rec = {"wall_s": wall - max(r["s"] for r in fsdp_runs["two_ranks"]),
+               "build_s": [r["build_s"] for r in ranks],
                "losses": r0["losses"], "resume_losses": r0["resume_losses"],
+               "digest": r0["digest"],
                "ranks_bit_equal": r0["digest"] == r1["digest"]
                and r0["losses"] == r1["losses"],
                "resume_bit_equal": not r0["resume_mismatched"] and not r1["resume_mismatched"]
@@ -3901,9 +3950,11 @@ def ddp_phase(seed, device, want_step) -> dict:
         # card to itself
         graph_spec = {"root": root, "dpm": dpm, "seed": seed}
         (nccl,), wall = run_workers("nccl", [(
-            {**graph_spec, "role": "nccl1"},
+            {**graph_spec, "role": "nccl1", "fsdp": {**fsdp, "config": fsdp_config(dpm, 4)}},
             {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
              "MASTER_PORT": str(free_port())})], root)
+        fsdp_runs["nccl1"] = nccl.pop("fsdp")
+        wall -= fsdp_runs["nccl1"]["s"]
         (alone,), wall_alone = run_workers("nogroup", [(
             {**graph_spec, "role": "nogroup"}, {"WORLD_SIZE": "1", "LOCAL_RANK": "0"})], root)
         rec = {"wall_s": [wall, wall_alone], "tensor_backend": nccl["tensor_backend"],
@@ -3914,6 +3965,7 @@ def ddp_phase(seed, device, want_step) -> dict:
                                  "nogroup": alone["chunk_step_ms"]},
                "trace": {"nccl1": nccl["trace"], "nogroup": alone["trace"]},
                "nccl1_all_reduce_ms": nccl["all_reduce_ms"],
+               "digest": {"nccl1": nccl["digest"], "nogroup": alone["digest"]},
                "losses_bit_equal": nccl["losses"] == alone["losses"]
                and len(nccl["losses"]) == DDP_GRAPH_STEPS,
                "state_bit_equal": nccl["digest"] == alone["digest"]}
@@ -3928,11 +3980,265 @@ def ddp_phase(seed, device, want_step) -> dict:
         records["nccl1_graph"] = rec
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
-        for parent, _, names in os.walk(root):
+        for parent, _, names in list(os.walk(root)) + list(os.walk(fsdp_root)):
             for n in names:
-                if n.endswith((".ckpt", ".pt")):
+                if n.endswith((".ckpt", ".pt", ".msgpack")):
                     os.unlink(os.path.join(parent, n))
     records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records, fsdp_runs
+
+
+def fsdp_config(dpm_path, k) -> dict:
+    """``ddp_config`` under ``param_sharding: fsdp`` (``fsdp_min_size``
+    2**15, the default) and ``checkpoint_format: sharded``."""
+    cfg = ddp_config(dpm_path, k)
+    cfg["runner_config"] = {**cfg["runner_config"], "param_sharding": "fsdp",
+                            "checkpoint_format": "sharded"}
+    return cfg
+
+
+def gathered_state(trainer, grads=True) -> dict:
+    """``ddp_state`` of an FSDP trainer: each trained tensor's param, EMA,
+    moments (and reduced gradient) whole, gathered from the ranks' blocks on
+    the card (collective), copied to the host."""
+    snap = trainer.snapshot_state(full=True)
+    masters = trainer.state.masters
+    names = [(g, k) for g in masters for k in masters[g]]
+    whole = trainer.plan.gather([masters[g][k].grad for g, k in names]) if grads else None
+    out = {}
+    for i, (g, k) in enumerate(names):
+        ts = [snap[c][g][k].clone() for c in ("params", "ema", "mu", "nu")]
+        out[f"{g}.{k}"] = ts + ([whole[i].detach().cpu()] if grads else [])
+    return out
+
+
+def held_bytes(trainer) -> dict:
+    """Bytes this rank holds of the trained state: EMA, Adam moments and the
+    masters that are tensors of their own (a sharded tensor's block), beside
+    the bytes each would take whole (``replicated``)."""
+    state, opt = trainer.state, trainer.optimizer.state
+    masters = [m for named in state.masters.values() for m in named.values()]
+    params = [p for named in state.params.values() for p in named.values()]
+    whole = sum(p.numel() * p.element_size() for p in params)
+    return {"ema": sum(t.numel() * t.element_size() for named in state.ema_params.values()
+                       for t in named.values()),
+            "moments": sum(opt[m][s].numel() * opt[m][s].element_size() for m in masters
+                           for s in ("exp_avg", "exp_avg_sq")),
+            "masters": sum(m.numel() * m.element_size() for m, p in zip(masters, params)
+                           if m is not p),
+            "replicated": {"ema": whole, "moments": 2 * whole, "masters": 0}}
+
+
+def collective_ms(trainer, reps: int = 3) -> dict:
+    """Wall ms of an FSDP step's collectives alone, after one untimed each:
+    the gradients' reduce-scatter with the whole tensors' all-reduce
+    (``reduce_grads``, on zero gradients) and the parameters' all-gather
+    (``gather_params``, which rewrites the same values). Collective."""
+    plan = trainer.plan
+    zeros = [torch.zeros_like(p) for named in trainer.state.params.values()
+             for p in named.values()]
+    loss = torch.zeros((), device=trainer.device)
+    out = {}
+    for name, fn in (("reduce_grads_ms", lambda: plan.reduce_grads(loss, zeros)),
+                     ("gather_params_ms", plan.gather_params)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def fsdp_run(spec, kind) -> dict:
+    """The fsdp phase's run of ``kind`` in a ddp worker's process group:
+    ``two_ranks``, a rank of the gloo run under ``param_sharding: fsdp``
+    with ``checkpoint_format: sharded`` (A: 4 steps, its sharded save at 2
+    copied aside, B: resumed from that directory), or ``nccl1``, the K=4
+    graph run with the NCCL group of one rank. The run directories, which
+    both ranks share, are deleted at the end."""
+    import gc
+    import shutil
+
+    from pdae_torch import ops, parallel
+    from pdae_torch.train import pick_trainer
+
+    t0 = time.perf_counter()
+    rank, root, cfg = parallel.process_index(), spec["root"], spec["config"]
+    out = {"rank": rank, "tensor_backend": parallel.tensor_backend()}
+    runs = [os.path.join(root, kind)]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        if kind == "two_ranks":
+            run_a, run_b = runs[0] + "_a", runs[0] + "_b"
+            runs = [run_a, run_b, spec["cut_dir"]]
+            b0 = time.perf_counter()
+            a = pick_trainer(cfg)(config=cfg, run_path=run_a, seed=spec["seed"])
+            out["build_s"] = time.perf_counter() - b0
+            out["sharded_tensors"] = len(a.plan.sharded)
+            out["exceptions"] = a.plan.exceptions
+            losses, ms = timed_losses(a)
+            ops.reset_launch_counts()
+            a.train(max_steps=DDP_CUT)               # the final save: sharded, at DDP_CUT
+            latest = os.path.join(run_a, "checkpoints", "latest.ckpt")
+            shard = os.path.join(latest, f"shard-{DDP_CUT}-{rank:05d}-of-{DDP_RANKS:05d}.msgpack")
+            out["shard_bytes"] = os.path.getsize(shard)
+            out["save_s"] = list(a.save_seconds)
+            if parallel.is_primary():
+                shutil.copytree(latest, spec["cut_dir"])
+            parallel.sync_global_devices("copied")
+            out["cut_files"] = sorted(os.listdir(spec["cut_dir"]))
+            a.train(max_steps=DDP_STEPS, save_on_exit=False)
+            torch.cuda.synchronize()
+            out["launches"] = ops.launch_counts()
+            out.update(losses=losses, step_ms=ms, step=a.step, held=held_bytes(a),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            state = gathered_state(a)
+            out["digest"] = state_digest(state)
+            out["collectives"] = collective_ms(a)
+            del a
+            gc.collect()
+            torch.cuda.empty_cache()
+            b = pick_trainer(cfg)(config=cfg, run_path=run_b, resume=spec["cut_dir"],
+                                 seed=spec["seed"])
+            out["resume_start"] = b.start_step
+            resumed, _ = timed_losses(b)
+            b.train(max_steps=DDP_STEPS, save_on_exit=False)
+            got = gathered_state(b)
+            out["resume_losses"] = resumed
+            out["resume_mismatched"] = [k for k, ts in state.items()
+                                        if not all(torch.equal(x, y)
+                                                   for x, y in zip(ts, got[k]))][:5]
+            del b
+        else:
+            tr = pick_trainer(cfg)(config=cfg, run_path=runs[0], seed=spec["seed"])
+            losses, ms = timed_losses(tr)
+            ops.reset_launch_counts()
+            tr.train(max_steps=DDP_GRAPH_STEPS, save_on_exit=False)
+            torch.cuda.synchronize()
+            d = tr._dispatch
+            out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
+                       replays=d.replays, captures=len(d.graphs),
+                       launches_per_replay=d.launches,
+                       launches_on_path=path_launches(ops.launch_counts(), d),
+                       sharded_tensors=len(tr.plan.sharded), held=held_bytes(tr),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       digest=state_digest(gathered_state(tr, grads=False)))
+            out["trace"] = traced_chunk(tr, TRACED_STEPS)
+            out["collectives"] = collective_ms(tr)
+            drop_graphs(tr)
+    finally:
+        parallel.sync_global_devices("fsdp_done")
+        if parallel.is_primary():
+            for path in runs:
+                shutil.rmtree(path, ignore_errors=True)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_phase(want_step, ddp, runs) -> dict:
+    """FSDP (``param_sharding: fsdp``) on the card, held to the ddp phase's
+    ``replicated`` runs of the same config (``ddp``); ``runs`` are the fsdp
+    runs the ddp phase's processes made (``fsdp_run``). (a) Two ranks on the
+    one card over gloo, eager, b32 a rank, ``checkpoint_format: sharded``: A
+    trains 4 steps with its sharded save at 2, B resumes from that directory
+    to 4. Every loss and the gathered final state (with the reduced
+    gradients) bit-equal to the ddp phase's two ranks (its digest), B
+    bit-equal to A, the step-2 directory exactly the manifest and the two
+    step-tagged shard files, each rank's launches the structure's per step;
+    recorded: each rank's bytes of EMA, moments and masters beside
+    ``replicated``'s, its peak memory, the sharded write's seconds and bytes
+    beside the ddp phase's full write, the collectives' ms. (b) The same
+    config at K=4 from the captured graph with an NCCL group of one rank:
+    every loss and the final state bit-equal to the ddp phase's K=4 runs
+    (NCCL at world 1 and no group, ``replicated``: without a group ``fsdp`` is
+    that same one-process path), the launches per replay the structure's,
+    the reduce-scatter and the all-gather in the trace of a chunk of
+    replays; recorded: ms per step beside the ddp phase's K=4 runs."""
+    import shutil
+
+    records = {"config": {
+        "two_ranks": f"the ddp phase's celeba64 PDAE run under param_sharding fsdp "
+                     f"(fsdp_min_size 2**15) and checkpoint_format sharded, b{TRAIN_BATCH} "
+                     f"a rank x {DDP_RANKS} ranks on one card, gloo tensor group, K=1, "
+                     f"{DDP_STEPS} steps saved at {DDP_CUT} and resumed there",
+        "nccl1": f"the same at K=4 from the captured graph, {DDP_GRAPH_STEPS} steps, an NCCL "
+                 "group of one rank",
+        "numerics": "fp32, TF32 off, cudnn.deterministic, Adam eps 1e-5",
+        "processes": "the ddp phase's, after their own runs"}}
+    want_files = ["manifest.msgpack"] + [
+        f"shard-{DDP_CUT}-{r:05d}-of-{DDP_RANKS:05d}.msgpack" for r in range(DDP_RANKS)]
+    try:
+        ranks = runs["two_ranks"]
+        r0, r1 = ranks
+        want = ddp["two_ranks"]
+        rec = {"run_s": [r["s"] for r in ranks], "build_s": [r["build_s"] for r in ranks],
+               "sharded_tensors": r0["sharded_tensors"], "exceptions": r0["exceptions"],
+               "losses": r0["losses"], "resume_losses": r0["resume_losses"],
+               "losses_equal_ddp": r0["losses"] == want["losses"] == r1["losses"],
+               "state_equal_ddp": r0["digest"] == want["digest"] == r1["digest"],
+               "resume_bit_equal": not r0["resume_mismatched"] and not r1["resume_mismatched"]
+               and r0["resume_losses"] == r0["losses"][DDP_CUT:]
+               and r0["resume_start"] == DDP_CUT,
+               "cut_files": r0["cut_files"],
+               "launches_per_rank": {f"rank{r['rank']}": r["launches"] for r in ranks},
+               "held_bytes": {f"rank{r['rank']}": r["held"] for r in ranks},
+               "peak_gb": [r["peak_gb"] for r in ranks],
+               "world2_step_ms": r0["step_ms"], "ddp_world2_step_ms": want["world2_step_ms"],
+               "sharded_save_s": {f"rank{r['rank']}": r["save_s"] for r in ranks},
+               "shard_bytes": {f"rank{r['rank']}": r["shard_bytes"] for r in ranks},
+               "ddp_full_save_s": want["save_s"],
+               "collectives_gloo": {f"rank{r['rank']}": r["collectives"] for r in ranks}}
+        rec["launches_ok"] = all(r["launches"] == {k: v * DDP_STEPS
+                                                   for k, v in want_step.items()}
+                                 for r in ranks)
+        rec["ok"] = bool(rec["losses_equal_ddp"] and rec["state_equal_ddp"]
+                         and rec["resume_bit_equal"] and rec["launches_ok"]
+                         and r0["cut_files"] == want_files and r0["sharded_tensors"] > 0
+                         and all(math.isfinite(v) for v in r0["losses"]))
+        records["two_ranks"] = rec
+
+        nccl, graph = runs["nccl1"], ddp["nccl1_graph"]
+        trace, replicated = nccl["trace"], graph["trace"]["nccl1"]
+        rec = {"run_s": nccl["s"], "tensor_backend": nccl["tensor_backend"],
+               "sharded_tensors": nccl["sharded_tensors"], "losses": nccl["losses"],
+               "replays": nccl["replays"], "captures": nccl["captures"],
+               "launches_per_replay": nccl["launches_per_replay"],
+               "launches_on_path": nccl["launches_on_path"],
+               "chunk_step_ms": nccl["chunk_step_ms"],
+               "ddp_chunk_step_ms": graph["chunk_step_ms"], "held_bytes": nccl["held"],
+               "peak_gb": nccl["peak_gb"], "trace": trace,
+               "ddp_nccl1_kernels_per_step": replicated["kernels_per_step"],
+               "collectives_nccl": nccl["collectives"],
+               "losses_equal_ddp": nccl["losses"] == graph["losses"]
+               and len(nccl["losses"]) == DDP_GRAPH_STEPS,
+               "state_equal_ddp": nccl["digest"] == graph["digest"]["nccl1"]
+               == graph["digest"]["nogroup"]}
+        # the reduce-scatter and the all-gather replayed in the step's graph:
+        # at world 1 NCCL runs each as one copy on the card, so a replayed
+        # step holds, beyond the replicated step's device-to-device copies,
+        # the plan's write-back of each sharded tensor's block and those two
+        def copies(counts):
+            return sum(c for name, c in counts.items() if "memcpy" in name.lower()
+                       and "htod" not in name.lower() and "dtoh" not in name.lower())
+
+        added = (copies(trace["events"]) - copies(replicated["events"])) / TRACED_STEPS
+        rec["copies_added_per_step"] = added
+        rec["collectives_in_trace"] = added >= nccl["sharded_tensors"] + 2
+        rec["ok"] = bool(rec["losses_equal_ddp"] and rec["state_equal_ddp"]
+                         and nccl["tensor_backend"] == "nccl" and nccl["sharded_tensors"] > 0
+                         and nccl["replays"] == DDP_GRAPH_STEPS - 1
+                         and nccl["launches_per_replay"] == want_step
+                         and nccl["launches_on_path"] == {k: v * DDP_GRAPH_STEPS
+                                                          for k, v in want_step.items()}
+                         and rec["collectives_in_trace"])
+        records["nccl1_graph"] = rec
+        # the seconds its runs took in the ddp phase's processes
+        records["phase_s"] = max(rec_s for rec_s in records["two_ranks"]["run_s"]) + nccl["s"]
+    finally:
+        shutil.rmtree(os.path.join(OUT_DIR, "fsdp"), ignore_errors=True)
     records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
     return records
 
@@ -4371,12 +4677,20 @@ def main(argv=None) -> int:
         raise AssertionError("the dispatch phase failed its checks")
 
     # 14. data-parallel training: two ranks on the card, NCCL in the graph ---
-    ddp = ddp_phase(args.seed, device, want_step)
+    ddp, fsdp_runs = ddp_phase(args.seed, device, want_step)
     with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
         json.dump(ddp, f, indent=1)
     emit({"phase": "ddp", **ddp})
     if not ddp["ok"]:
         raise AssertionError("the ddp phase failed its checks")
+
+    # 15. FSDP: two ranks sharded on the card, NCCL's collectives in the graph
+    fsdp = fsdp_phase(want_step, ddp, fsdp_runs)
+    with open(os.path.join(OUT_DIR, "chip_smoke_fsdp.json"), "w") as f:
+        json.dump(fsdp, f, indent=1)
+    emit({"phase": "fsdp", **fsdp})
+    if not fsdp["ok"]:
+        raise AssertionError("the fsdp phase failed its checks")
     emit({"script_s": time.perf_counter() - script_t0})
 
     per_op = {name: op_records[name]["launches"]
@@ -4405,6 +4719,9 @@ def main(argv=None) -> int:
     for rank, counts in ddp["two_ranks"]["launches_per_rank"].items():
         per_op[f"ddp_two_ranks_{rank}"] = counts
     per_op["ddp_nccl1_graph"] = ddp["nccl1_graph"]["launches_on_path"]
+    for rank, counts in fsdp["two_ranks"]["launches_per_rank"].items():
+        per_op[f"fsdp_two_ranks_{rank}"] = counts
+    per_op["fsdp_nccl1_graph"] = fsdp["nccl1_graph"]["launches_on_path"]
     regular_ms = stages["regular"]["kernel_ms_per_step"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
@@ -4424,7 +4741,7 @@ def main(argv=None) -> int:
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
          "launches_per_op": {k: v["gn_adagn_silu_bwd"] for k, v in per_op.items()
                              if k in ("trainer_step", "regular_step", "ingest_step")
-                             or (k.startswith(("dispatch_", "ddp_"))
+                             or (k.startswith(("dispatch_", "ddp_", "fsdp_"))
                                  and v["gn_adagn_silu_bwd"])},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
     ]})

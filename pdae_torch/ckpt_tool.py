@@ -4,14 +4,17 @@
 
     python -m pdae_torch.ckpt_tool info run/checkpoints/latest.ckpt
     python -m pdae_torch.ckpt_tool to-full latest.sharded latest.ckpt
+    python -m pdae_torch.ckpt_tool to-sharded latest.ckpt latest.sharded
 
 ``info`` prints the format (a single msgpack file, or a sharded directory of
 a multi-process run), the step, and for each top-level key (``ema_denoise_fn``,
 ``ema_encoder``, ...) its leaves, parameters, megabytes and dtypes. ``to-full``
 turns a sharded directory into a single file, byte-equal to the JAX tool's,
 that any consumer (``python -m pdae_torch.convert --export``) reads without
-knowing the sharded layout. ``to-sharded`` needs the sharded write, which the
-port does not have yet.
+knowing the sharded layout. ``to-sharded`` splits a file into a sharded
+directory of one process (the manifest and ``shard-0-00000-of-00001.msgpack``),
+byte-equal to the JAX tool's, for runs that resume under
+``checkpoint_format: sharded`` (a resume reads either form).
 """
 
 from __future__ import annotations
@@ -64,8 +67,11 @@ def to_full(src: str, dst: str) -> None:
 
 
 def to_sharded(src: str, dst: str) -> None:
-    raise NotImplementedError("to-sharded needs the sharded checkpoint write, which is "
-                              "not ported yet (ROADMAP.md, queue 1 item 15)")
+    from .utils import load_checkpoint, save_sharded_checkpoint
+    if os.path.isdir(src):
+        raise SystemExit(f"{src} is already a directory")
+    save_sharded_checkpoint(dst, load_checkpoint(src))
+    print(f"wrote {dst}/")
 
 
 def main(argv=None) -> None:
@@ -76,7 +82,7 @@ def main(argv=None) -> None:
     pf = sub.add_parser("to-full", help="sharded dir -> single file")
     pf.add_argument("src")
     pf.add_argument("dst")
-    ps = sub.add_parser("to-sharded", help="single file -> sharded dir (not ported)")
+    ps = sub.add_parser("to-sharded", help="single file -> sharded dir")
     ps.add_argument("src")
     ps.add_argument("dst")
     args = p.parse_args(argv)

@@ -11,10 +11,15 @@ processes:
   ``process_allgather`` of pickled bytes does in JAX, and the barrier;
 * the tensor group, over which a data-parallel train step averages its
   gradients and loss (``all_reduce_mean_``, where JAX's GSPMD inserts the
-  all-reduce): ``nccl`` where each rank has a card of its own, else ``gloo``,
-  which also lets two ranks share one card (NCCL refuses two ranks on one
-  device) by reducing CUDA tensors through host copies. ``init_distributed``'s
-  ``backend`` names it; nothing falls back from one backend to the other.
+  all-reduce) and an FSDP step reduce-scatters its gradients and all-gathers
+  its parameters (``reduce_scatter_mean_``, ``all_gather_into_``,
+  ``gather_full``): ``nccl`` where each rank has a card of its own, else
+  ``gloo``, which also lets two ranks share one card (NCCL refuses two ranks
+  on one device) by moving CUDA tensors through host copies: gloo's own
+  all-reduce does so, and the reduce-scatter and the all-gather stage their
+  flat buffers through the host here, as part of the gloo transport.
+  ``init_distributed``'s ``backend`` names it; nothing falls back from one
+  backend to the other.
 
 Without ``WORLD_SIZE`` > 1 and without a ``backend`` every function here is
 the one-process identity: count 1, index 0, the whole index range, the local
@@ -24,7 +29,7 @@ list, and no tensor group.
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -168,3 +173,69 @@ def mean_all_reducer(numel: int, device) -> Optional[Callable[[Sequence[torch.Te
         all_reduce_mean_(tensors, buffer)
     return reduce
 
+
+
+def _through_host(collective, out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``collective(out, inp)`` over the tensor group; over gloo, CUDA
+    tensors go through host copies (the gloo transport of a card's
+    tensors)."""
+    if _TENSOR_BACKEND == "gloo" and (out.is_cuda or inp.is_cuda):
+        host = torch.empty(out.shape, dtype=out.dtype)
+        collective(host, inp.cpu())
+        out.copy_(host)
+    else:
+        collective(out, inp)
+
+
+def reduce_scatter_mean_(out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``out`` (flat, n elements) replaced by the mean over the processes of
+    their ``inp[rank * n:(rank + 1) * n]`` (``inp`` flat, world * n): one
+    ``reduce_scatter(SUM)``, then a division by the world size, as
+    ``all_reduce_mean_`` divides. Over NCCL it does not wait for the card, so
+    a CUDA graph can capture it. Collective."""
+    def rs(o, i):
+        dist.reduce_scatter_tensor(o, i, op=dist.ReduceOp.SUM, group=_TENSOR_GROUP)
+    with torch.no_grad():
+        _through_host(rs, out, inp)
+        out.div_(dist.get_world_size(_TENSOR_GROUP))
+
+
+def all_gather_into_(out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``out`` (flat, world * n elements) filled with every process's ``inp``
+    (flat, n) in rank order: one ``all_gather``. Over NCCL it does not wait
+    for the card (capturable). Collective."""
+    def ag(o, i):
+        dist.all_gather_into_tensor(o, i, group=_TENSOR_GROUP)
+    with torch.no_grad():
+        _through_host(ag, out, inp)
+
+
+def gather_full(shards: Sequence[torch.Tensor],
+                dims: Sequence[Optional[int]]) -> List[torch.Tensor]:
+    """The whole tensors of which every process holds ``shards``, split
+    evenly along ``dims`` in rank order (None: the tensor is whole on every
+    process and comes back as it is), on the shards' device, through one
+    all-gather of a flat fp32 buffer made for the call. The port's
+    ``host_copy_tree``, without the trip through the host. Without a tensor
+    group the shards are the whole tensors. Collective."""
+    if tensor_backend() is None:
+        return list(shards)
+    world = dist.get_world_size(_TENSOR_GROUP)
+    split = [(t, d) for t, d in zip(shards, dims) if d is not None]
+    if not split:
+        return list(shards)
+    total = sum(t.numel() for t, _ in split)
+    with torch.no_grad():
+        inp = torch.cat([t.detach().reshape(-1).float() for t, _ in split])
+        out = torch.empty(world * total, dtype=torch.float32, device=inp.device)
+        all_gather_into_(out, inp)
+        rows = out.view(world, total)
+        whole, offset = {}, 0
+        for t, d in split:
+            n = t.numel()
+            parts = rows[:, offset:offset + n].reshape(world, *t.shape)
+            shape = list(t.shape)
+            shape[d] *= world
+            whole[id(t)] = parts.movedim(0, d).reshape(shape).to(t.dtype)
+            offset += n
+    return [whole[id(t)] if d is not None else t for t, d in zip(shards, dims)]

@@ -20,7 +20,15 @@ a card; the global batch is ``batch_size * num_iterations * N``)::
 
 The process group is joined before the trainer is built
 (``parallel.init_distributed``): gradients are averaged over NCCL, or over
-gloo with ``--device cpu``.
+gloo with ``--device cpu``. FSDP (``--set runner_config.param_sharding=fsdp``)
+keeps each rank's block of the large trained tensors only and
+reduce-scatters and all-gathers over the same group; ``--set
+runner_config.checkpoint_format=sharded`` has every rank write its pieces of
+the checkpoint (``pdae_tpu``'s directory layout)::
+
+    torchrun --nproc_per_node 2 -m pdae_torch.train --config_path CONFIG \\
+        --run_path RUN --set runner_config.param_sharding=fsdp \\
+        --set runner_config.checkpoint_format=sharded --device cpu
 """
 
 from __future__ import annotations

@@ -59,8 +59,32 @@ steps, at a chunk end, they gather their stop flags (a signal, or a failed
 background write on the primary) over gloo and all leave at that step; a
 write's error is raised after every rank has left. On the card a gloo tensor
 group cannot be captured, so ``steps_per_dispatch`` > 1 needs NCCL there.
-Not ported yet, and refused by name rather than ignored: sharded params and
-checkpoints and profiler traces.
+
+FSDP (``param_sharding: fsdp`` under ``torchrun``, ``fsdp_min_size``): each
+rank holds only its block of every trained tensor that ``pdae_tpu``'s rule
+shards (its master, EMA and Adam moments; ``training/fsdp.py``), the step
+reduce-scatters those gradients and all-gathers the parameters, and the
+frozen modules stay whole. A ``full`` save gathers the state first (on the
+card; collective) and the primary writes it; the eval gathers the EMA on
+every rank. In one process, or without a tensor group, ``fsdp`` is the
+one-process layout, as every process function is then the identity.
+``mesh_layout`` ``auto`` and ``flat`` are the one flat group (JAX's ``auto``
+picks ``hier`` only for processes of several devices; a port process has one
+card).
+
+``checkpoint_format: sharded`` writes ``pdae_tpu``'s directory layout
+(``utils/sharded_checkpoint.py``): every rank its pieces of the sharded
+tensors, rank 0 the leaves that are whole everywhere, the primary the
+manifest last, after every shard file is on disk; with one process the
+background writer does it, with several the write is synchronous (its
+barrier is a collective), and a failed write stops the ranks by consensus as
+a failed full write does. A save switches between the formats both ways
+without a moment in which the run has no checkpoint (a file is replaced
+through ``latest.ckpt.swap``, which a resume completes), and a resume reads
+either format at any world size, each rank keeping its part.
+
+Not ported yet, and refused by name rather than ignored: the tp, sp and
+composed layouts, ``mesh_layout: hier`` and profiler traces.
 """
 
 from __future__ import annotations
@@ -87,6 +111,10 @@ from ..utils import (is_sharded_checkpoint, load_checkpoint, load_yaml,
 from ..utils.config import overlay_eval_dataset_config
 from ..utils.image import png_bytes
 from ..utils.rng import DROPOUT, INIT, TRAIN, StepGenerator, stream_seed
+from ..utils.sharded_checkpoint import (cleanup_stale_shards, manifest_skeleton,
+                                        write_manifest, write_shard_file)
+from .fsdp import FsdpPlan, local_pieces
+from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
 
 
 class Meters:
@@ -161,15 +189,26 @@ def _ours_ckpt_dir(p: str) -> bool:
                or (e.startswith("shard-") and e.endswith(".msgpack")) for e in entries)
 
 
+PARAM_SHARDINGS = ("replicated", "fsdp", "tp", "sp", "fsdp+tp", "fsdp+sp")
+
+
 def refuse_unported(config: dict) -> None:
     """Raise, naming the ROADMAP item that will lift it, for every option of
-    the JAX trainer that the port does not run yet."""
+    the JAX trainer that the port does not run yet, and for values neither
+    package takes."""
     rc = config.get("runner_config") or {}
+    sharding = rc.get("param_sharding", "replicated")
+    if sharding not in PARAM_SHARDINGS:
+        raise ValueError(f"runner_config.param_sharding must be one of "
+                         f"{', '.join(repr(m) for m in PARAM_SHARDINGS)}, got {sharding!r}")
+    layout = rc.get("mesh_layout", "auto")
+    if layout not in ("auto", "flat", "hier"):
+        raise ValueError(f"runner_config.mesh_layout must be 'auto', 'flat' or 'hier', "
+                         f"got {layout!r}")
     checks = [
-        (rc.get("param_sharding", "replicated") != "replicated",
-         f"runner_config.param_sharding={rc.get('param_sharding')!r}", 15),
-        (rc.get("checkpoint_format", "full") == "sharded",
-         "runner_config.checkpoint_format='sharded'", 15),
+        (sharding not in ("replicated", "fsdp"),
+         f"runner_config.param_sharding={sharding!r}", 15),
+        (layout == "hier", "runner_config.mesh_layout='hier'", 15),
         (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
     ]
     for bad, what, item in checks:
@@ -249,6 +288,13 @@ class BaseTrainer:
         self.primary = self.rank == 0
         self._stop_local = False    # a failed write asks the ranks to stop
         self._save_error_deferred = None
+        rc = self.runner_config
+        self.param_sharding = rc.get("param_sharding", "replicated")
+        self.checkpoint_format = rc.get("checkpoint_format", "full")
+        # leaves smaller than this stay whole under fsdp
+        self.fsdp_min_size = int(rc.get("fsdp_min_size", parallel.FSDP_MIN_SIZE))
+        self.plan = None            # the FSDP plan (_shard_state)
+        self._skeleton_cache = None
 
         if self.primary:
             os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
@@ -427,14 +473,28 @@ class BaseTrainer:
     def _build(self):
         raise NotImplementedError
 
-    def _data_parallel(self, params) -> dict:
-        """The ``rows`` and ``reduce`` arguments of ``make_*_train_step`` for
-        the trained ``params``: this rank's place in the world, and the mean
+    def _shard_state(self, params: Dict[str, Dict], to_trees: Dict[str, Any]) -> None:
+        """The trained ``params`` (``{group: {name: Parameter}}``) laid out:
+        under ``fsdp`` with a tensor group the FSDP plan (``to_trees[group]``
+        maps a group's state dict to its flax tree), then the optimizer
+        (``optimizer_config``) over the masters and the ``TrainState``."""
+        self.optimizer_config = self.config["optimizer_config"]
+        if self.param_sharding == "fsdp" and parallel.tensor_backend() is not None:
+            self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device)
+        masters = params if self.plan is None else self.plan.masters
+        self.optimizer = make_optimizer(self.optimizer_config, flat_params(masters))
+        self.state = TrainState.create(params, self.optimizer, plan=self.plan)
+
+    def _data_parallel(self) -> dict:
+        """The ``rows``, ``reduce`` and ``plan`` arguments of
+        ``make_*_train_step``: this rank's place in the world, and the mean
         all-reduce of the gradients and the loss through one flat buffer
-        made here (None in one process)."""
-        numel = 1 + sum(p.numel() for p in params)
+        made here (None in one process), or the FSDP plan in its place."""
+        if self.plan is not None:
+            return {"rows": (self.rank, self.world), "reduce": None, "plan": self.plan}
+        numel = 1 + sum(p.numel() for p in flat_params(self.state.params))
         return {"rows": (self.rank, self.world),
-                "reduce": parallel.mean_all_reducer(numel, self.device)}
+                "reduce": parallel.mean_all_reducer(numel, self.device), "plan": None}
 
     @property
     def step(self) -> int:
@@ -475,10 +535,46 @@ class BaseTrainer:
         parts = parallel.gather_objects([np.asarray(local_imgs)])
         return np.concatenate(parts, axis=0) if self.primary else None
 
-    def snapshot_state(self) -> Any:
-        """Host copies of the state, taken now (the step updates tensors in
-        place)."""
-        raise NotImplementedError
+    def _eval_ema(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The EMA of the trained tensors, whole, keyed as ``state.params``:
+        under FSDP gathered on every rank, on the card. Collective."""
+        ema = self.state.ema_params
+        if self.plan is None:
+            return ema
+        names = [(g, k) for g in ema for k in ema[g]]
+        whole = self.plan.gather([ema[g][k] for g, k in names])
+        out = {g: {} for g in ema}
+        for (g, k), t in zip(names, whole):
+            out[g][k] = t
+        return out
+
+    def _frozen_snapshot(self) -> Dict[str, Any]:
+        """What a snapshot holds besides the trained state (the
+        representation trainer's trunk tree)."""
+        return {}
+
+    def snapshot_state(self, full: bool = False) -> Dict[str, Any]:
+        """Host copies of the trained state, taken now (the step updates
+        tensors in place), in one copy (``state.host_copy``): ``count`` and,
+        each ``{group: {name: tensor}}``, ``params``, ``ema``, ``mu`` and
+        ``nu``. Under FSDP this rank's blocks, or with ``full`` the whole
+        tensors, gathered on the card (collective)."""
+        masters, ema = self.state.masters, self.state.ema_params
+        names = [(g, k) for g in masters for k in masters[g]]
+        live = [masters[g][k] for g, k in names]
+        count, mu, nu = adam_moments(self.optimizer, live)
+        held = [ema[g][k] for g, k in names] + mu + nu
+        if full and self.plan is not None:
+            live = [self.state.params[g][k] for g, k in names]
+            held = self.plan.gather(held)
+        copies = host_copy(live + held)
+        n = len(names)
+        out = {"count": count}
+        for i, cat in enumerate(("params", "ema", "mu", "nu")):
+            out[cat] = {g: {} for g in masters}
+            for (g, k), t in zip(names, copies[i * n:(i + 1) * n]):
+                out[cat][g][k] = t
+        return {**out, **self._frozen_snapshot()}
 
     def checkpoint_tree(self, snapshot) -> Dict[str, Any]:
         """The checkpoint's trees (flax layout, numpy) from a snapshot."""
@@ -488,23 +584,61 @@ class BaseTrainer:
         raise NotImplementedError
 
     def state_dict(self) -> Dict[str, Any]:
-        return self.checkpoint_tree(self.snapshot_state())
+        """The checkpoint's trees, whole (collective under FSDP)."""
+        return self.checkpoint_tree(self.snapshot_state(full=True))
+
+    def _skeleton(self) -> Dict[str, Dict]:
+        """The checkpoint's manifest skeleton, each leaf's global ``{shape,
+        dtype}`` keyed by path, made once from the whole parameters (whole
+        on every rank)."""
+        if self._skeleton_cache is None:
+            params = self.state.params
+            names = [(g, k) for g in params for k in params[g]]
+            copies = host_copy([params[g][k] for g, k in names])
+            whole = {g: {} for g in params}
+            for (g, k), t in zip(names, copies):
+                whole[g][k] = t
+            snap = {"count": 0, "params": whole, "ema": whole, "mu": whole, "nu": whole,
+                    **self._frozen_snapshot()}
+            self._skeleton_cache = manifest_skeleton(
+                {"step": np.asarray(0, np.int32), **self.checkpoint_tree(snap)})
+        return self._skeleton_cache
+
+    def _template(self) -> Dict[str, Any]:
+        """The checkpoint's tree with leaves of its shapes (zero-size
+        broadcasts), for ``restore_into``."""
+        tree: Dict[str, Any] = {}
+        for path, desc in self._skeleton().items():
+            *parents, leaf = path.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = {} if desc.get("empty") else np.broadcast_to(
+                np.float32(0), tuple(desc["shape"]))
+        return tree
 
     # -- checkpointing --------------------------------------------------- #
 
     def save(self, step: int, snapshot: bool = False):
         """Checkpoint ``latest.ckpt`` (and ``save-{N}k.ckpt`` when
-        ``snapshot``), on the primary alone (the ranks' states are equal).
-        The host copy happens here; the relayout, the serialisation and the
-        atomic writes run in a background thread."""
-        if not self.primary:
-            return
-        t0 = time.perf_counter()
-        snap = self.snapshot_state()
-        self._join_save()
+        ``snapshot``) in ``checkpoint_format``. ``full``: on the primary alone
+        (under FSDP after a gather of the state, which every rank joins). The
+        host copy happens here; the relayout, the serialisation and the
+        atomic writes run in a background thread. ``sharded``:
+        ``_save_sharded``."""
         paths = [os.path.join(self.run_path, "checkpoints", "latest.ckpt")]
         if snapshot:
             paths.append(snapshot_path(self.run_path, step))
+        if self.checkpoint_format == "sharded":
+            return self._save_sharded(step, paths)
+        t0 = time.perf_counter()
+        if self.plan is not None:
+            snap = self.snapshot_state(full=True)
+        if not self.primary:
+            return
+        if self.plan is None:
+            snap = self.snapshot_state()
+        self._join_save()
         record = [0.0, None]
 
         def tree():
@@ -538,6 +672,117 @@ class BaseTrainer:
 
         self._spawn_save(write)
 
+    def _sharded_targets(self, paths) -> list:
+        """``(path, directory to write)`` of a sharded save: a directory in
+        place (it must be a sharded checkpoint, a torn one or empty), a new
+        one at the path, or, over a file (a ``full`` save), the sibling
+        ``path.swap``, renamed over the file once its manifest is written."""
+        out = []
+        for p in paths:
+            if os.path.isdir(p):
+                if not _ours_ckpt_dir(p):
+                    raise ValueError(f"checkpoint target {p} is a directory but not "
+                                     "a sharded checkpoint; refusing to overwrite")
+                out.append((p, p))
+            else:
+                out.append((p, p + ".swap" if os.path.exists(p) else p))
+        return out
+
+    @staticmethod
+    def _clear_swap(targets) -> None:
+        """Drop what an interrupted save left at a ``.swap`` target."""
+        for p, target in targets:
+            if target == p or not os.path.lexists(target):
+                continue
+            if os.path.isdir(target):
+                if not _ours_ckpt_dir(target):
+                    raise ValueError(f"{target} is a directory but not a sharded "
+                                     "checkpoint; refusing to overwrite")
+                shutil.rmtree(target)
+            else:
+                os.unlink(target)
+
+    def _finish_sharded(self, targets, skeleton, tag: str) -> None:
+        """The primary's end of a sharded save: the manifest in each target,
+        a ``.swap`` target renamed over the file it replaces, and the shard
+        files no manifest lists removed."""
+        for p, target in targets:
+            write_manifest(target, skeleton, tag, self.world)
+            if target != p:
+                os.unlink(p)
+                os.replace(target, p)
+            cleanup_stale_shards(p)
+
+    def _save_sharded(self, step: int, paths) -> None:
+        """``checkpoint_format: sharded``: every rank writes the pieces it
+        holds of the checkpoint's leaves in the flax layout, with no gather
+        (``fsdp.local_pieces``: its blocks of the sharded tensors; on rank 0
+        the leaves whole everywhere), into ``shard-<step>-<rank>-of-<world>``;
+        the primary writes the manifest last, after every rank's file is on
+        disk, then drops stale shard files (``pdae_tpu``'s
+        ``_save_sharded``). One process: the host copy here, the rest in the
+        background writer. Several: synchronous, since the barrier before
+        the manifest is a collective; a rank whose write failed asks for the
+        consensus stop and raises once every rank has left the loop, and no
+        manifest is written."""
+        t0 = time.perf_counter()
+        targets = self._sharded_targets(paths)
+        snap = self.snapshot_state()
+        skeleton = self._skeleton()
+        tag = str(int(step))
+        self._join_save()
+        record = [0.0, None]
+        self.save_seconds.append(record)
+
+        def write_pieces():
+            tree = {"step": np.asarray(step, np.int32), **self.checkpoint_tree(snap)}
+            pieces = local_pieces(tree, skeleton, self.rank, self.world)
+            for _, target in targets:
+                os.makedirs(target, exist_ok=True)
+                write_shard_file(target, pieces, tag, self.rank, self.world)
+
+        if self.world == 1:
+            record[0] = time.perf_counter() - t0
+
+            def write():
+                w0 = time.perf_counter()
+                self._clear_swap(targets)
+                write_pieces()
+                self._finish_sharded(targets, skeleton, tag)
+                record[1] = time.perf_counter() - w0
+
+            self._spawn_save(write)
+            return
+        err = None
+        try:
+            if self.primary:
+                self._clear_swap(targets)
+        except Exception as e:           # reported below, after the barrier
+            err = e
+        parallel.sync_global_devices("sharded_ckpt_targets")
+        w0 = time.perf_counter()
+        if err is None:
+            try:
+                write_pieces()
+            except Exception as e:
+                err = e
+        written = all(parallel.gather_objects([err is None]))
+        if written and self.primary:
+            try:
+                self._finish_sharded(targets, skeleton, tag)
+            except Exception as e:
+                err = e
+        # the next save reads the targets as the primary left them
+        parallel.sync_global_devices("sharded_ckpt_done")
+        record[:] = [time.perf_counter() - t0, time.perf_counter() - w0]
+        if err is not None:
+            # raising here would leave the other ranks in their next
+            # collective: ask for the consensus stop, raise after the loop
+            self._save_error_deferred = ("sharded", err)
+            self._stop_local = True
+            print(f"sharded checkpoint write failed on rank {self.rank} ({err!r}); "
+                  "stopping by consensus", flush=True)
+
     def _spawn_save(self, fn):
         """Run ``fn`` in a background thread; an exception is kept and
         re-raised by the next ``_join_save``."""
@@ -564,7 +809,7 @@ class BaseTrainer:
             # raising on the primary alone would leave the other ranks in
             # their next collective: ask for the consensus stop and raise
             # once every rank has left the loop
-            self._save_error_deferred = err
+            self._save_error_deferred = ("background", err)
             self._stop_local = True
             print(f"checkpoint write failed ({err!r}); stopping by consensus", flush=True)
 
@@ -711,8 +956,9 @@ class BaseTrainer:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
             self._join_save()
-        err, self._save_error_deferred = self._save_error_deferred, None
-        if err is not None:
-            raise RuntimeError("background checkpoint write failed (the run stopped "
+        deferred, self._save_error_deferred = self._save_error_deferred, None
+        if deferred is not None:
+            kind, err = deferred
+            raise RuntimeError(f"{kind} checkpoint write failed (the run stopped "
                                "by consensus)") from err
         return step

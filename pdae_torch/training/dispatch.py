@@ -35,7 +35,10 @@ eager step issues thousands, and never waits for the card inside a chunk.
   the gradients and the loss (``parallel.all_reduce_mean_``) is captured
   with the step, and each replay runs it on every rank; the trainer's
   reducer ran one reduction when it was made, so NCCL's communicator exists
-  before the first capture. A gloo collective cannot be captured: the
+  before the first capture. Under FSDP the plan's reduce-scatter of the
+  gradients and all-gather of the parameters (``training/fsdp.py``) are
+  captured the same way, through flat buffers the plan made, and each ran
+  once then too. A gloo collective cannot be captured: the
   trainer refuses ``steps_per_dispatch`` > 1 on the card over gloo by name
   (``BaseTrainer._chunk_runner``) and never runs the chunk eagerly instead.
 * **Failure.** A capture or replay that fails raises; the step never runs

@@ -64,8 +64,7 @@ class LatentDiffusionTrainer(StageTrainer):
         self._step_fn = make_latent_train_step(
             self.gd, self.model, step_encoder, self.optimizer, self.latents_mean,
             self.latents_std, ema_decay=self.ema_decay, ema_every=self.ema_every,
-            num_iters=self.num_iterations, device=self.device,
-            **self._data_parallel(self.model.parameters()))
+            num_iters=self.num_iterations, device=self.device, **self._data_parallel())
 
     def _step_batch_keys(self):
         return ("x_0",)

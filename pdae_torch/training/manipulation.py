@@ -14,7 +14,8 @@ normalised z, the port of ``pdae_tpu/training/manipulation.py``.
   DDIM-200 decode with its z moved along the EMA classifier's row of
   ``class_id`` (31, "Smiling") by ``scale`` 0.3; it writes
   ``samples/sample{N//1000}k.png`` (the image, then its manipulation); on the
-  primary alone under several processes.
+  primary alone under several processes (after every rank has joined the
+  EMA's gather, under FSDP).
 * Checkpoints hold ``classifier``, ``ema_classifier``, ``optimizer`` and
   ``step``.
 """
@@ -52,10 +53,11 @@ class ManipulationTrainer(StageTrainer):
         self.latent_source = self._latent_source()
         step_encoder = (IdentityEncoder() if self.latent_source == "precomputed"
                         else self.encoder)
+        dp = self._data_parallel()
         self._step_fn = make_manipulation_train_step(
             self.gd, self.model, step_encoder, self.optimizer, self.latents_mean,
             self.latents_std, ema_decay=self.ema_decay, ema_every=self.ema_every,
-            device=self.device, reduce=self._data_parallel(self.model.parameters())["reduce"])
+            device=self.device, reduce=dp["reduce"], plan=dp["plan"])
 
     def _step_batch_keys(self):
         return ("x_0", "label")
@@ -73,13 +75,13 @@ class ManipulationTrainer(StageTrainer):
         if not 0 <= class_id < self.num_classes:
             raise ValueError(f"class_id {class_id} is not one of the classifier's "
                              f"{self.num_classes} classes")
+        weight = self.ema_weights()["weight"]       # collective under FSDP
         if not self.primary:
             return
         t0 = time.perf_counter()
         batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
         x_0 = x0_from_transfer(torch.from_numpy(batch["x_0"]).to(self.device)
                                .permute(0, 3, 1, 2).contiguous())
-        weight = self.ema_weights()["weight"]
         with torch.inference_mode():
             x_T = self.gd.representation_learning_ddim_encode(
                 encode_style, self.encoder, self.decoder, x_0)

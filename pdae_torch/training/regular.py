@@ -52,8 +52,7 @@ class RegularDiffusionTrainer(StageTrainer):
         self._step_fn = make_regular_train_step(
             self.gd, self.model, self.optimizer, ema_decay=self.ema_decay,
             num_iters=self.num_iterations, device=self.device, ema_every=self.ema_every,
-            remat=self.runner_config.get("remat"),
-            **self._data_parallel(self.model.parameters()))
+            remat=self.runner_config.get("remat"), **self._data_parallel())
 
     def _step_batch_keys(self):
         return ("x_0", "condition") if self.num_class is not None else ("x_0",)

@@ -22,6 +22,9 @@ gradient branch trained on a frozen pre-trained DPM. The port of
   shift branch), ``ema_decoder`` (trunk and EMA shift branch), ``optimizer``
   (optax's layout) and ``step``, every tree in the flax layout, so
   ``pdae_tpu``'s trainer resumes from the port's files and the port from its.
+  Under FSDP (``param_sharding: fsdp``) the encoder and the shift branch are
+  sharded by the plan (``training/fsdp.py``), the trunk stays whole on every
+  rank and rank 0 writes it in a sharded checkpoint.
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ from ..utils.rng import EVAL, generator
 from .artifacts import graft_ddpm_into_decoder, load_ddpm_params, resolve_model_config
 from .base import BaseTrainer, has_dropout, init_on_cpu, with_weights
 from .partition import split_shift_tree, trainable_params
-from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
 from .steps import make_representation_train_step
 
 def _copy_tree(tree):
@@ -75,17 +77,14 @@ class RepresentationLearningTrainer(BaseTrainer):
         self.decoder.to(self.device)
         self._dropout = has_dropout(self.decoder)
 
-        params = trainable_params(self.encoder, self.decoder)
-        self.optimizer_config = cfg["optimizer_config"]
-        self.optimizer = make_optimizer(self.optimizer_config, flat_params(params))
-        self.state = TrainState.create(params, self.optimizer)
+        self._shard_state(trainable_params(self.encoder, self.decoder),
+                          {"encoder": encoder_tree, "shift": unet_tree})
         rc = self.runner_config
         self._step_fn = make_representation_train_step(
             self.gd, self.encoder, self.decoder, self.optimizer,
             ema_decay=float(rc.get("ema_decay", 0.9999)),
             num_iters=self.num_iterations, device=self.device,
-            ema_every=self.ema_every, remat=rc.get("remat"),
-            **self._data_parallel(flat_params(params)))
+            ema_every=self.ema_every, remat=rc.get("remat"), **self._data_parallel())
         self.eval_seconds = []
 
     @property
@@ -110,7 +109,7 @@ class RepresentationLearningTrainer(BaseTrainer):
                           generator=generator(self.seed, EVAL, step, self.device))
         mine = self._eval_shard(x_0.shape[0])
         x_0, x_T = x_0[mine], x_T[mine]
-        ema = self.state.ema_params
+        ema = self._eval_ema()
 
         def sample(encoder, decoder, x_0, x_T):
             return self.gd.representation_learning_ddim_sample(ddim_style, encoder, decoder,
@@ -136,23 +135,8 @@ class RepresentationLearningTrainer(BaseTrainer):
 
     # -- checkpoints ------------------------------------------------------ #
 
-    def snapshot_state(self):
-        """Host copies of params, EMA and Adam moments, taken in one copy
-        (``state.host_copy``), so the step may change the tensors again."""
-        params, ema = self.state.params, self.state.ema_params
-        names = [(g, k) for g in ("encoder", "shift") for k in params[g]]
-        live = [params[g][k] for g, k in names]
-        count, mu, nu = adam_moments(self.optimizer, live)
-        copies = host_copy(live + [ema[g][k] for g, k in names] + mu + nu)
-
-        def grouped(i):
-            out = {"encoder": {}, "shift": {}}
-            for (g, k), t in zip(names, copies[i * len(names):(i + 1) * len(names)]):
-                out[g][k] = t
-            return out
-
-        return {"count": count, "params": grouped(0), "ema": grouped(1), "mu": grouped(2),
-                "nu": grouped(3), "trunk": self._trunk_tree}
+    def _frozen_snapshot(self):
+        return {"trunk": self._trunk_tree}
 
     def checkpoint_tree(self, snap):
         params, ema = snap["params"], snap["ema"]
@@ -166,8 +150,10 @@ class RepresentationLearningTrainer(BaseTrainer):
         }
 
     def load_state_dict(self, raw):
+        """A checkpoint's trees (either package's, whole) into the modules,
+        and this rank's part into the masters, the EMA and the moments."""
         keys = ("encoder", "ema_encoder", "decoder", "ema_decoder", "optimizer")
-        template = self.state_dict()
+        template = self._template()
         restore_into({k: template[k] for k in keys}, raw)
         shift, trunk = split_shift_tree(raw["decoder"])
         ema_shift, _ = split_shift_tree(raw["ema_decoder"])

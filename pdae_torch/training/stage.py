@@ -5,7 +5,9 @@ PDAE they read.
 
 The checkpoint of a stage holds ``<params_key>``, ``<ema_key>``,
 ``optimizer`` and ``step``, each tree as ``pdae_tpu``'s trainer of that
-stage writes it, so either package resumes the other's files.
+stage writes it, so either package resumes the other's files. Under FSDP the
+trained module is sharded by the plan (``training/fsdp.py``); the frozen
+PDAE stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from ..utils import optimizer_moments, optimizer_tree, restore_into
 from ..utils import encoder_state_dict, unet_state_dict
 from .artifacts import load_latent_stats, load_pdae, resolve_model_config
 from .base import BaseTrainer, has_dropout
-from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
 
 
 class StageTrainer(BaseTrainer):
@@ -33,10 +34,8 @@ class StageTrainer(BaseTrainer):
     def _train_module(self, model: nn.Module) -> None:
         self.model = model.to(self.device)
         self._dropout = has_dropout(model)
-        params = {"model": dict(model.named_parameters())}
-        self.optimizer_config = self.config["optimizer_config"]
-        self.optimizer = make_optimizer(self.optimizer_config, flat_params(params))
-        self.state = TrainState.create(params, self.optimizer)
+        self._shard_state({"model": dict(model.named_parameters())},
+                          {"model": type(self).to_tree})
         self.ema_decay = float(self.runner_config.get("ema_decay", 0.9999))
         self.eval_seconds = []
 
@@ -45,7 +44,9 @@ class StageTrainer(BaseTrainer):
         return int(self.state.step)
 
     def ema_weights(self) -> dict:
-        return self.state.ema_params["model"]
+        """The trained module's EMA, whole (gathered under FSDP: every rank
+        calls it)."""
+        return self._eval_ema()["model"]
 
     # -- the frozen PDAE of the latent and manipulation stages --------------- #
 
@@ -108,23 +109,13 @@ class StageTrainer(BaseTrainer):
 
     # -- checkpoints ------------------------------------------------------ #
 
-    def snapshot_state(self):
-        named, ema = self.state.params["model"], self.state.ema_params["model"]
-        keys = list(named)
-        live = [named[k] for k in keys]
-        count, mu, nu = adam_moments(self.optimizer, live)
-        copies = host_copy(live + [ema[k] for k in keys] + mu + nu)
-        n = len(keys)
-        parts = [dict(zip(keys, copies[i * n:(i + 1) * n])) for i in range(4)]
-        return {"count": count, "params": parts[0], "ema": parts[1], "mu": parts[2],
-                "nu": parts[3]}
-
     def checkpoint_tree(self, snap):
         to_tree = type(self).to_tree
-        return {self.params_key: to_tree(snap["params"]),
-                self.ema_key: to_tree(snap["ema"]),
+        return {self.params_key: to_tree(snap["params"]["model"]),
+                self.ema_key: to_tree(snap["ema"]["model"]),
                 "optimizer": optimizer_tree(self.optimizer_config, snap["count"],
-                                            snap["mu"], snap["nu"], to_tree=to_tree)}
+                                            snap["mu"]["model"], snap["nu"]["model"],
+                                            to_tree=to_tree)}
 
     def _tensors(self, tree) -> dict:
         """A flax tree as the trained module's named parameters (a state
@@ -135,7 +126,7 @@ class StageTrainer(BaseTrainer):
 
     def load_state_dict(self, raw):
         keys = (self.params_key, self.ema_key, "optimizer")
-        template = self.state_dict()
+        template = self._template()
         restore_into({k: template[k] for k in keys}, raw)
         self.state.load_converted({
             "step": int(raw["step"]), "params": self._tensors(raw[self.params_key]),

@@ -6,6 +6,11 @@ state); here the modules own the parameters and the step updates them, the
 EMA copy and the optimizer's moments **in place**. ``TrainState`` holds
 references to the modules' parameters, not copies.
 
+Under FSDP (``training/fsdp.py``) the optimizer and the EMA run on the
+plan's ``masters``: this rank's block of each sharded tensor, a tensor of its
+own, and the parameter itself where the tensor is whole; without a plan the
+masters are the parameters.
+
 On the card the optimizer is built ``capturable``: its step count lives on
 the card and the bias corrections ``1 - beta ** count`` are computed there in
 fp32 (as optax computes them), so a train step can be captured into a CUDA
@@ -19,7 +24,7 @@ is held to it too, ``tests/test_torch_steps_per_dispatch.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,37 +68,54 @@ def make_optimizer(optimizer_config: dict, params,
 class TrainState:
     step: int
     params: Dict[str, Dict]        # {"encoder": {name: Parameter}, "shift": {...}}
-    ema_params: Dict[str, Dict]    # EMA of the trainable params, same keys
+    ema_params: Dict[str, Dict]    # EMA of the masters, same keys
     optimizer: torch.optim.Optimizer
+    masters: Optional[Dict[str, Dict]] = None   # what Adam updates (module docstring)
+    plan: Any = None               # the FSDP plan, None without one
+
+    def __post_init__(self):
+        if self.masters is None:
+            self.masters = self.params
 
     @classmethod
-    def create(cls, params: Dict[str, Dict], optimizer) -> "TrainState":
+    def create(cls, params: Dict[str, Dict], optimizer, plan=None) -> "TrainState":
+        masters = params if plan is None else plan.masters
         ema = {g: {k: p.detach().clone() for k, p in group.items()}
-               for g, group in params.items()}
-        return cls(step=0, params=params, ema_params=ema, optimizer=optimizer)
+               for g, group in masters.items()}
+        return cls(step=0, params=params, ema_params=ema, optimizer=optimizer,
+                   masters=masters, plan=plan)
+
+    def _local(self, group: str, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole tensor shaped as ``group``/``key``."""
+        return whole if self.plan is None else self.plan.local(group, key, whole)
 
     def load_converted(self, converted: dict) -> None:
         """Copy a train state carried over by
-        ``pdae_torch.utils.convert.train_state_tensors`` into the modules'
-        parameters, the EMA copy and the optimizer's moments."""
+        ``pdae_torch.utils.convert.train_state_tensors`` (whole tensors) into
+        the modules' parameters, and this rank's part of it into the masters,
+        the EMA copy and the optimizer's moments."""
         self.step = int(converted["step"])
         with torch.no_grad():
             for group, named in self.params.items():
                 if sorted(named) != sorted(converted["params"][group]):
                     raise KeyError(f"{group}: the converted state has other keys")
                 for key, p in named.items():
+                    m = self.masters[group][key]
                     p.copy_(converted["params"][group][key])
+                    if m is not p:
+                        m.copy_(self._local(group, key, p))
                     self.ema_params[group][key].copy_(
-                        converted["ema_params"][group][key])
+                        self._local(group, key, converted["ema_params"][group][key]))
                     if "mu" in converted:
                         # a capturable optimizer keeps its count beside the
                         # parameter, the other on the host
                         capturable = self.optimizer.param_groups[0]["capturable"]
-                        self.optimizer.state[p] = {
+                        self.optimizer.state[m] = {
                             "step": torch.tensor(float(converted["count"]),
-                                                 device=p.device if capturable else "cpu"),
-                            "exp_avg": converted["mu"][group][key].to(p).clone(),
-                            "exp_avg_sq": converted["nu"][group][key].to(p).clone()}
+                                                 device=m.device if capturable else "cpu"),
+                            **{name: self._local(group, key, converted[src][group][key]).to(
+                                m).clone(memory_format=torch.contiguous_format)
+                               for name, src in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
 
 
 def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], x_0,
@@ -149,9 +171,10 @@ def accumulate_grads(loss_fn: Callable, params: Sequence[torch.Tensor], x_0,
 
 
 def host_copy(tensors: Sequence[torch.Tensor]) -> list:
-    """Host copies of ``tensors``, taken when this returns: they go into one
-    flat device buffer, which crosses to the host in one copy (pinned on a
-    card); the results are views of it shaped as the inputs."""
+    """Host copies of ``tensors`` (whole, or a rank's blocks), taken when
+    this returns: they go into one flat device buffer, which crosses to the
+    host in one copy (pinned on a card); the results are views of it shaped
+    as the inputs."""
     with torch.no_grad():
         flat = torch.cat([t.detach().reshape(-1) for t in tensors])
         if flat.device.type == "cuda":
@@ -167,8 +190,9 @@ def host_copy(tensors: Sequence[torch.Tensor]) -> list:
 
 
 def adam_moments(optimizer, params: Sequence[torch.Tensor]):
-    """(count, exp_avg list, exp_avg_sq list) of ``params``; before the first
-    step, count 0 and zeros, as optax's fresh state holds."""
+    """(count, exp_avg list, exp_avg_sq list) of ``params`` (the masters:
+    under FSDP a rank's blocks); before the first step, count 0 and zeros,
+    as optax's fresh state holds."""
     state = optimizer.state
     count = int(next(iter(state.values()))["step"]) if state else 0
     mu = [state[p]["exp_avg"] if p in state else torch.zeros_like(p) for p in params]

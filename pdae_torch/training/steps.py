@@ -28,7 +28,11 @@ global micro-batch and keeps its rows (``accumulate_grads``), and between the
 gradients and the update ``reduce`` averages the gradients and the detached
 loss over the processes in one collective, so the step returns the global
 batch's loss, as JAX's GSPMD step does; without ``reduce`` (one process) no
-collective is issued.
+collective is issued. Under FSDP ``plan`` (``training/fsdp.py``, the
+state's own) takes ``reduce``'s place: it reduce-scatters the sharded
+tensors' gradients into this rank's blocks and all-reduces the rest with the
+loss, Adam and the EMA update the state's masters, and the plan's all-gather
+then rewrites the whole parameters from the updated blocks.
 """
 
 from __future__ import annotations
@@ -77,28 +81,41 @@ def _modes(trained=(), frozen=()):
             m.eval()
 
 
-def _reduced(reduce, loss, grads):
-    """The loss and grads averaged over the processes in place by
-    ``reduce`` (None: one process, left as they are)."""
+def _reduced(reduce, plan, loss, grads):
+    """The loss and the grads of the state's masters, averaged over the
+    processes: by the FSDP ``plan``, or in place by ``reduce`` (both None:
+    one process, left as they are)."""
+    if plan is not None:
+        return plan.reduce_grads(loss, grads)
     if reduce is not None:
         reduce([loss] + list(grads))
     return loss, grads
 
 
-def _update(state, optimizer, params, grads, ema_decay, ema_every, ema=None):
-    """Adam/AdamW on ``grads``, then the EMA where ``ema`` says (None: where
-    it is due at the new count), then the step count."""
-    for p, g in zip(params, grads):
+def _update(state, optimizer, grads, ema_decay, ema_every, ema=None):
+    """Adam/AdamW of the masters on ``grads``, then the EMA where ``ema``
+    says (None: where it is due at the new count), then, under FSDP, the
+    whole parameters gathered from the updated blocks, then the step
+    count."""
+    for p, g in zip(flat_params(state.masters), grads):
         p.grad = g
     optimizer.step()
     if ema_due(state.step + 1, ema_every) if ema is None else ema:
-        ema_update(state.ema_params, state.params, ema_decay)
+        ema_update(state.ema_params, state.masters, ema_decay)
+    if state.plan is not None:
+        state.plan.gather_params()
     state.step += 1
 
 
-def _check(state, optimizer, generator, t, noise):
+def _check_state(state, optimizer, plan):
     if state.optimizer is not optimizer:
         raise ValueError("the state was built with another optimizer")
+    if state.plan is not plan:
+        raise ValueError("the state was built with another FSDP plan")
+
+
+def _check(state, optimizer, plan, generator, t, noise):
+    _check_state(state, optimizer, plan)
     if generator is None and (t is None or noise is None):
         raise ValueError("a generator is needed unless t and noise are injected")
 
@@ -114,12 +131,12 @@ def _image_draws(gd):
 def make_representation_train_step(gd, encoder, decoder, optimizer,
                                    ema_decay: float = 0.9999, num_iters: int = 1,
                                    device=None, ema_every: int = 1, remat=False,
-                                   rows=(0, 1), reduce=None):
+                                   rows=(0, 1), reduce=None, plan=None):
     """``step(state, x_0, generator, *, t=None, noise=None, ema=None) ->
     loss``: the PDAE loss over the encoder and the shift branch (``state`` over
     ``trainable_params(encoder, decoder)``), the ShiftUNet's trunk frozen in
     eval mode; ``remat`` checkpoints the decoder's forward (``remat_wrap``);
-    ``rows`` and ``reduce`` as the module's docstring says."""
+    ``rows``, ``reduce`` and ``plan`` as the module's docstring says."""
     device = _on(device, encoder, decoder)
     train_decoder = remat_wrap(decoder, remat)
 
@@ -128,13 +145,13 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
             generator, encoder, train_decoder, x_b, t=t, noise=noise)["prediction_loss"]
 
     def train_step(state, x_0, generator=None, *, t=None, noise=None, ema=None):
-        _check(state, optimizer, generator, t, noise)
+        _check(state, optimizer, plan, generator, t, noise)
         _modes(trained=(encoder, decoder))   # the ShiftUNet keeps its trunk in eval mode
         params = flat_params(state.params)
-        loss, grads = _reduced(reduce, *accumulate_grads(
+        loss, grads = _reduced(reduce, plan, *accumulate_grads(
             loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
             t=t, noise=noise, draw=_image_draws(gd), rows=rows))
-        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
+        _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step
@@ -142,7 +159,7 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
 
 def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
                             num_iters: int = 1, device=None, ema_every: int = 1,
-                            remat=False, rows=(0, 1), reduce=None):
+                            remat=False, rows=(0, 1), reduce=None, plan=None):
     """``step(state, x_0, generator, *, condition=None, t=None, noise=None,
     ema=None) -> loss``: the epsilon-MSE of a DPM's UNet (``state`` over all its
     parameters); ``condition`` holds the class ids of a class-conditional
@@ -157,14 +174,14 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
 
     def train_step(state, x_0, generator=None, *, condition=None, t=None, noise=None,
                    ema=None):
-        _check(state, optimizer, generator, t, noise)
+        _check(state, optimizer, plan, generator, t, noise)
         _modes(trained=(model,))
         params = flat_params(state.params)
-        loss, grads = _reduced(reduce, *accumulate_grads(
+        loss, grads = _reduced(reduce, plan, *accumulate_grads(
             loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
             t=t, noise=noise, cond=None if condition is None else condition.to(device),
             draw=_image_draws(gd), rows=rows))
-        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
+        _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step
@@ -172,7 +189,8 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
 
 def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
                            ema_decay: float = 0.9999, ema_every: int = 1,
-                           num_iters: int = 1, device=None, rows=(0, 1), reduce=None):
+                           num_iters: int = 1, device=None, rows=(0, 1), reduce=None,
+                           plan=None):
     """``step(state, x_0, generator, *, t=None, noise=None, ema=None) ->
     loss``: the latent DPM's l1 loss of the MLPSkipNet ``model`` (``state`` over its
     parameters) on the frozen ``encoder``'s z normalised with the inferred
@@ -190,13 +208,13 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
         return gd.train_draws(generator, n, mean.shape[-1:], mean, latent=True)
 
     def train_step(state, x_0, generator=None, *, t=None, noise=None, ema=None):
-        _check(state, optimizer, generator, t, noise)
+        _check(state, optimizer, plan, generator, t, noise)
         _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
-        loss, grads = _reduced(reduce, *accumulate_grads(
+        loss, grads = _reduced(reduce, plan, *accumulate_grads(
             loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
             t=t, noise=noise, draw=draw, rows=rows))
-        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
+        _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step
@@ -204,7 +222,7 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
 
 def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
                                  ema_decay: float = 0.9999, ema_every: int = 1,
-                                 device=None, reduce=None):
+                                 device=None, reduce=None, plan=None):
     """``step(state, x_0, label, *, ema=None) -> loss``: the BCE-with-logits of the linear
     classifier ``model`` (``state`` over its parameters) on the frozen
     ``encoder``'s normalised z against ``label > 0``; it draws nothing."""
@@ -212,15 +230,15 @@ def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
     mean, std = mean.to(device), std.to(device)
 
     def train_step(state, x_0, label, *, ema=None):
-        if state.optimizer is not optimizer:
-            raise ValueError("the state was built with another optimizer")
+        _check_state(state, optimizer, plan)
         _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
         loss = gd.manipulation_train_one_batch(
             model, encoder, x0_from_transfer(x_0.to(device)), label.to(device), mean,
             std)["bce_loss"]
-        loss, grads = _reduced(reduce, loss.detach(), torch.autograd.grad(loss, params))
-        _update(state, optimizer, params, grads, ema_decay, ema_every, ema)
+        loss, grads = _reduced(reduce, plan, loss.detach(),
+                               torch.autograd.grad(loss, params))
+        _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
     return train_step

@@ -9,7 +9,8 @@ from .convert import (classifier_state_dict, classifier_tree, encoder_state_dict
 from .image import (from_uint8, make_grid, paste_rows, save_image_grid, to_uint8,
                     write_png)
 from .rng import BASE_SEED, stream_seed
-from .sharded_checkpoint import is_sharded_checkpoint, load_sharded_checkpoint
+from .sharded_checkpoint import (is_sharded_checkpoint, load_sharded_checkpoint,
+                                 save_sharded_checkpoint)
 
 __all__ = ["checkpoint_paths", "load_checkpoint", "merge_partial", "restore_into",
            "save_checkpoint", "snapshot_path", "apply_overrides", "load_yaml",
@@ -19,4 +20,4 @@ __all__ = ["checkpoint_paths", "load_checkpoint", "merge_partial", "restore_into
            "classifier_tree", "optimizer_moments", "optimizer_tree",
            "train_state_tensors", "train_state_trees", "from_uint8", "make_grid",
            "paste_rows", "save_image_grid", "to_uint8", "write_png", "BASE_SEED", "stream_seed",
-           "is_sharded_checkpoint", "load_sharded_checkpoint"]
+           "is_sharded_checkpoint", "load_sharded_checkpoint", "save_sharded_checkpoint"]

@@ -8,8 +8,7 @@ same tree and reads such files back, without flax or the ``msgpack`` package:
 * maps with str keys, written in sorted key order (flax's
   ``msgpack_serialize`` passes the tree through ``jax.tree_util.tree_map``,
   which sorts dict keys); str, bin, int, float (float64), bool and nil;
-  arrays are read (a sharded checkpoint's manifest holds lists), not
-  written;
+  arrays from lists (a sharded checkpoint's manifest and piece starts);
 * ``ExtType(1)``: an ndarray, as ``packb((shape, dtype.name, C-order
   bytes))``; ``ExtType(3)``: a numpy scalar, the same body;
 * arrays above ``MAX_CHUNK_SIZE`` bytes in flax's chunked form
@@ -154,6 +153,10 @@ def _pack(obj: Any, out: List, chunk_ok: bool) -> None:
         out.append(_str(obj))
     elif type(obj) is bytes:
         out.append(_bin_header(len(obj)) + obj)
+    elif type(obj) is list:
+        out.append(_array_header(len(obj)))
+        for v in obj:
+            _pack(v, out, True)
     elif type(obj) is dict:
         keys = sorted(obj)
         if not all(type(k) is str for k in keys):

@@ -364,7 +364,7 @@ def train_state_trees(state) -> Dict:
     moments = state.optimizer.state
     if moments:
         named = {g: {k: moments[p] for k, p in group.items()}
-                 for g, group in state.params.items()}
+                 for g, group in state.masters.items()}
         out["mu"] = _groups_trees({g: {k: m["exp_avg"] for k, m in group.items()}
                                    for g, group in named.items()})
         out["nu"] = _groups_trees({g: {k: m["exp_avg_sq"] for k, m in group.items()}

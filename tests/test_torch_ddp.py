@@ -148,7 +148,7 @@ def _jobs(root, configs, parity_inputs):
     return jobs
 
 
-def _run_world2(root, jobs):
+def _run_world2(root, jobs, worker="_torch_ddp_worker.py"):
     spec = root / "spec.json"
     with open(spec, "w") as f:
         json.dump({"jobs": jobs, "out_dir": str(root)}, f)
@@ -158,7 +158,7 @@ def _run_world2(root, jobs):
         env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(WORLD),
                    LOCAL_WORLD_SIZE=str(WORLD), MASTER_ADDR="localhost", MASTER_PORT=port)
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_ddp_worker.py"), str(spec),
+            [sys.executable, os.path.join(HERE, worker), str(spec),
              str(root / f"rank{rank}.json")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     try:

@@ -299,8 +299,23 @@ def test_ckpt_tool_to_full_byte_equal_and_to_sharded_refused(converted, sharded,
         assert got == f.read()
     with pytest.raises(SystemExit, match="not a sharded"):
         ckpt_tool.main(["to-full", port, str(tmp_path / "x.ckpt")])
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        ckpt_tool.main(["to-sharded", port, str(tmp_path / "x.sharded")])
+    # to-sharded, no longer refused: byte-equal to the JAX tool's directory
+    # (the manifest and shard-0-00000-of-00001.msgpack), and to-full of it
+    # byte-equal to the file it came from
+    ours, theirs = tmp_path / "port.sharded", tmp_path / "jax.sharded"
+    ckpt_tool.main(["to-sharded", port, str(ours)])
+    _script("ckpt_tool").main(["to-sharded", port, str(theirs)])
+    names = sorted(os.listdir(theirs))
+    assert names == ["manifest.msgpack", "shard-0-00000-of-00001.msgpack"]
+    assert sorted(os.listdir(ours)) == names
+    for name in names:
+        assert (ours / name).read_bytes() == (theirs / name).read_bytes(), name
+    back = str(tmp_path / "back.ckpt")
+    ckpt_tool.main(["to-full", str(ours), back])
+    with open(back, "rb") as f:
+        assert f.read() == got
+    with pytest.raises(SystemExit, match="already a directory"):
+        ckpt_tool.main(["to-sharded", str(ours), str(tmp_path / "y.sharded")])
 
 
 def test_the_port_names_its_own_converter(tmp_path):

@@ -185,23 +185,32 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
     assert tr.train(max_steps=2) == 2
 
 
+# fsdp and the sharded write train (tests/test_torch_fsdp.py); the tp, sp and
+# composed layouts and the hierarchical mesh are refused by their own names
 REFUSALS = {
-    "param_sharding": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
-    "checkpoint_format": ({"runner_config": {"checkpoint_format": "sharded"}}, 15),
+    "param_sharding": ({"runner_config": {"param_sharding": "tp"}}, 15),
+    "param_sharding_sp": ({"runner_config": {"param_sharding": "sp"}}, 15),
+    "param_sharding_fsdp+sp": ({"runner_config": {"param_sharding": "fsdp+sp"}}, 15),
+    "mesh_layout": ({"runner_config": {"param_sharding": "fsdp", "mesh_layout": "hier"}},
+                    15),
     "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
-    # a torchrun launch trains replicated params (tests/test_torch_ddp.py);
-    # fsdp under it is still refused by its own name
-    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp"}}, 15),
+    # a torchrun launch trains replicated or fsdp params; the composed
+    # layout under it is still refused by its own name, before the join
+    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp+tp"}}, 15),
 }
+REFUSED_AS = {"param_sharding": "param_sharding='tp'",
+              "param_sharding_sp": "param_sharding='sp'",
+              "param_sharding_fsdp+sp": "param_sharding='fsdp\\+sp'",
+              "mesh_layout": "mesh_layout='hier'",
+              "WORLD_SIZE": "param_sharding='fsdp\\+tp'"}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
     change, item = REFUSALS[name]
-    what = name
+    what = REFUSED_AS.get(name, name)
     if name == "WORLD_SIZE":
         monkeypatch.setenv("WORLD_SIZE", "2")
-        what = "param_sharding='fsdp'"
     cfg = tiny_pdae_config()
     for section, values in change.items():
         cfg[section].update(values)
