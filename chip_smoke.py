@@ -179,7 +179,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    ``bf16_bound_ms``; bf16 attention's bound on the tensor cores' 989
    TFLOP/s), and the summary sums them over a train step.
 12. ``ingest``: the files a user brings, through the port's CLIs and the
-   native host code. 256 seeded JPEGs at CelebA's 178x218 (quality 95) packed
+   native host code. 128 seeded JPEGs at CelebA's 178x218 (quality 95) packed
    by ``python -m pdae_torch.prepare_lmdb --key-format 'None-%07d'``; the
    trainer phase's DPM exported to a reference ``.pt`` by ``python -m
    pdae_torch.convert --export`` and converted back, bit-equal on every leaf
@@ -258,7 +258,25 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    Recorded: each rank's bytes of EMA, moments and masters beside
    ``replicated``'s, peak memory, the sharded write's seconds and bytes, the
    collectives' ms over gloo and NCCL, ms per step
-   (``chiprun_out/chip_smoke_fsdp.json``). Then the script's total seconds.
+   (``chiprun_out/chip_smoke_fsdp.json``).
+16. ``tp``: tensor parallelism (``pdae_torch/parallel/tp.py``). The ddp
+   phase's two processes, after their fsdp runs, train its config at tp 2
+   (b32, 3 steps, gloo through the host): the losses and the gathered state
+   against one process over the same rows within ``DDP_TOL``, the ranks
+   bit-equal, each rank's launches the structure's per step and every
+   launch's input at the rank's local shape (``tp_local_keys``: the
+   attention on half the heads, GN on half the channels with 16 groups;
+   the kernels phase holds every such shape to the plain versions); then
+   ``PDAEService(tp_size=2)``'s b8 ddim10/ddim10 autoencode against the
+   one-process service within the larger of one uint8 level and the
+   whole-path phase's control. Four processes of their own, started with the
+   ddp phase and released when the two ranks' train run ends (they share
+   the card with the service run), run ``fsdp+tp`` (tp 2 x data 2, b8 a data
+   rank, 2 steps) against one process over the 16 rows. The ddp phase's NCCL process runs the tp path at ``tp_size`` 1 from
+   the captured graph (K=4), bit-equal to the ``replicated`` K=4 run.
+   Recorded per rank: bytes of parameters (trained and frozen), EMA and
+   moments beside ``replicated``'s, peak memory, ms per step
+   (``chiprun_out/chip_smoke_tp.json``). Then the script's total seconds.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
@@ -269,9 +287,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
+import signal
 import struct
 import subprocess
 import sys
@@ -609,8 +629,10 @@ def check_gn(key, gen, device, timed=True):
     from pdae_torch.ops import groupnorm
 
     shape, has_st, has_z = key[1:5], key[5], key[6]
-    groups = 32
+    groups = key[7] if len(key) > 7 else 32     # a tp rank's chain: its groups
     res = {"shape": list(shape), "adagn": has_st, "z": has_z, "err": {}, "variant": {}}
+    if groups != 32:
+        res["groups"] = groups
     for dtype in (torch.float32, torch.bfloat16):
         args = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
         before = dict(groupnorm.variant_launches)
@@ -668,9 +690,11 @@ def check_gn_bwd(key, gen, device, timed=True):
     from pdae_torch.ops import groupnorm, groupnorm_train
 
     shape, has_st, has_z, need_dx = key[1:5], key[5], key[6], key[7]
-    groups = 32
+    groups = key[8] if len(key) > 8 else 32     # a tp rank's chain: its groups
     res = {"shape": list(shape), "adagn": has_st, "z": has_z, "dx": need_dx, "err": {},
            "variant": {}, "bit_equal_repeat": {}}
+    if groups != 32:
+        res["groups"] = groups
     for dtype in (torch.float32, torch.bfloat16):
         args = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
         x, gamma, beta, coef = args[0], args[1], args[2], args[3:]
@@ -1668,10 +1692,9 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     save_yaml(dict(base, image_index=1), cli_cfg)
     cli_out = path("denoise_one_step_cli.png")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "pdae_torch.sample", "--sampler",
-                           "denoise_one_step", "--config", cli_cfg, "--set",
-                           f"output_path={cli_out}"], cwd=ROOT, capture_output=True,
-                          text=True, timeout=600)
+    proc = run_child([sys.executable, "-m", "pdae_torch.sample", "--sampler",
+                      "denoise_one_step", "--config", cli_cfg, "--set",
+                      f"output_path={cli_out}"], 600, cwd=ROOT)
     records["cli_denoise_one_step"] = {
         "s": time.perf_counter() - t0, "returncode": proc.returncode,
         "stdout_tail": proc.stdout.strip().splitlines()[-1:],
@@ -1697,7 +1720,7 @@ METRIC_SIZES = (64, 320)         # InceptionV3 resizes up from one, down from th
 FID_SET = 2560                   # SYNTHETIC images a feature set: more rows than features
 LPIPS_BATCH = 16
 LPIPS_TIMED_BATCHES = 20
-FID_SAMPLES = 128                # UnconditionalSample's generated set
+FID_SAMPLES = 64                 # UnconditionalSample's generated set
 FID_BATCH = 64
 FID_STYLES = ("ddim10", "ddim10")
 WORLD2_MEAN_RTOL = 1e-12         # the float64 means' order
@@ -1781,11 +1804,123 @@ def rel_to_largest(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
+_PORTS = set()
+
+
 def free_port() -> int:
+    """A free localhost port that no earlier call handed out."""
     import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        if port not in _PORTS:
+            _PORTS.add(port)
+            return port
+
+
+# every process the script starts, each the leader of a session of its own,
+# so that ending its process group ends whatever it started too
+_CHILDREN = []
+
+
+def spawn(cmd, **kw) -> subprocess.Popen:
+    """``subprocess.Popen(cmd, **kw)`` in a session of its own, kept for
+    ``stop_children``."""
+    p = subprocess.Popen(cmd, start_new_session=True, **kw)
+    _CHILDREN.append(p)
+    return p
+
+
+def end_group(p) -> None:
+    """Kill ``p``'s process group (``p`` and every process it started that
+    is still running) and reap ``p``."""
+    try:
+        os.killpg(p.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    p.wait()
+
+
+def run_child(cmd, timeout, **kw) -> subprocess.CompletedProcess:
+    """``subprocess.run(cmd, capture_output=True, text=True)`` through
+    ``spawn``: what the command started ends with it."""
+    p = spawn(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, **kw)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    finally:
+        end_group(p)
+    return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def descendants(pid) -> list:
+    """``(pid, command line)`` of every process under ``pid``, from Linux's
+    ``/proc``."""
+    children = collections.defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                args = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        except (OSError, ValueError):
+            continue
+        children[ppid].append((int(entry), args or stat.split()[1]))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child[0])
+    return out
+
+
+def adopt_orphans() -> None:
+    """Make this process the child subreaper of everything under it (Linux
+    ``prctl(PR_SET_CHILD_SUBREAPER)``): a process whose parent ends comes
+    under this one instead of under init, which may not reap it, and
+    ``stop_children`` ends and reaps it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:          # PR_SET_CHILD_SUBREAPER
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed: "
+              f"{os.strerror(ctypes.get_errno())}", file=sys.stderr)
+
+
+def stop_children() -> list:
+    """End every process the script started, with what each started, and
+    every other process under this one (orphans too, after
+    ``adopt_orphans``); reap them. Returns the command lines of the
+    processes that were still there, ended or not yet reaped."""
+    left = [" ".join(map(str, p.args)) for p in _CHILDREN if p.poll() is None]
+    for p in _CHILDREN:
+        end_group(p)
+    seen = set()
+    for _ in range(100):
+        under = descendants(os.getpid())
+        if not under:
+            break
+        for pid, args in under:
+            if pid not in seen:
+                seen.add(pid)
+                left.append(args)
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.05)
+        # reap what has ended: this process's children, and the orphans
+        # that came under it
+        while True:
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+    return left
 
 
 def rank_worker(spec_path, out_path) -> int:
@@ -1834,7 +1969,7 @@ def world2(spec, root) -> dict:
         for rank in range(2):
             env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
                        MASTER_ADDR="localhost", MASTER_PORT=port)
-            procs.append(subprocess.Popen(
+            procs.append(spawn(
                 [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank-worker",
                  spec_path, os.path.join(root, f"rank{rank}.json")],
                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1842,9 +1977,7 @@ def world2(spec, root) -> dict:
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            end_group(p)
     wall = time.perf_counter() - t0
     for rank, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
@@ -3010,7 +3143,7 @@ def ffhq_remat_runs(tr, keys, inputs, dtype, device) -> dict:
     return out
 
 
-INGEST_IMAGES = 256              # synthetic JPEGs at CelebA's geometry, packed by the CLI
+INGEST_IMAGES = 128              # synthetic JPEGs at CelebA's geometry, packed by the CLI
 INGEST_HW = (218, 178)           # CelebA's aligned images, height x width
 INGEST_QUALITY = 95
 INGEST_STEPS = 5                 # the first is a warm-up
@@ -3038,8 +3171,7 @@ def run_module(*args) -> dict:
     """``python -m ARGS`` from the checkout's root, as a user runs the port's
     CLIs: its seconds and the last line it printed. Fails on a non-zero exit."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
-                          text=True, timeout=900)
+    proc = run_child([sys.executable, "-m", *args], 900, cwd=ROOT)
     if proc.returncode != 0:
         raise AssertionError(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
@@ -3652,9 +3784,21 @@ def ddp_worker(spec_path, out_path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     role, root = spec["role"], spec["root"]
-    if role == "two_ranks":
+    if "wait_for" in spec:
+        # the four-rank processes start with the ddp phase and wait for the
+        # two-rank processes to end their tp train run (they share the card
+        # with their tp service run); the graph runs' processes start then
+        # too and wait for their turn
+        t0 = time.perf_counter()
+        while not os.path.exists(spec["wait_for"]):
+            if time.perf_counter() - t0 > 1200:
+                raise TimeoutError(f"no {spec['wait_for']}")
+            time.sleep(0.2)
+    if role in ("two_ranks", "four_ranks"):
         parallel.init_distributed(backend="gloo")
     elif role == "nccl1":
+        # one rank: its own store, on a port free now that its turn came
+        os.environ["MASTER_PORT"] = str(free_port())
         parallel.init_distributed(backend="nccl")
     rank = parallel.process_index()
     out = {"role": role, "rank": rank, "world": parallel.process_count(),
@@ -3704,6 +3848,10 @@ def ddp_worker(spec_path, out_path) -> int:
             torch.cuda.empty_cache()
             if "fsdp" in spec:
                 out["fsdp"] = fsdp_run(spec["fsdp"], "two_ranks")
+            if "tp" in spec:
+                out["tp"] = tp_run(spec["tp"], "two_ranks")
+        elif role == "four_ranks":
+            out["tp"] = tp_run(spec["tp"], "four_ranks")
         else:
             cfg = ddp_config(spec["dpm"], k=4)
             tr = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, role),
@@ -3727,6 +3875,8 @@ def ddp_worker(spec_path, out_path) -> int:
                 torch.cuda.empty_cache()
                 if "fsdp" in spec:
                     out["fsdp"] = fsdp_run(spec["fsdp"], "nccl1")
+                if "tp" in spec:
+                    out["tp"] = tp_run(spec["tp"], "nccl1")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3777,10 +3927,9 @@ def all_reduce_ms(trainer, reps: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def run_workers(kind, specs, root) -> tuple:
+def start_workers(kind, specs, root) -> tuple:
     """Start one ``chip_smoke.py --ddp-worker`` process per (spec, env) of
-    ``specs`` at once; their outputs and the wall seconds. A process that
-    fails fails the phase."""
+    ``specs`` at once; ``finish_workers`` waits for them."""
     procs, outs = [], []
     t0 = time.perf_counter()
     try:
@@ -3789,25 +3938,51 @@ def run_workers(kind, specs, root) -> tuple:
             with open(path, "w") as f:
                 json.dump(spec, f)
             outs.append(os.path.join(root, f"{kind}{i}.json"))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--ddp-worker", path,
-                 outs[-1]], cwd=ROOT, env=dict(os.environ, **env), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
+            # the log goes to a file: a process may run while nobody reads it
+            with open(outs[-1] + ".log", "w") as log:
+                procs.append(spawn(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--ddp-worker",
+                     path, outs[-1]], cwd=ROOT, env=dict(os.environ, **env), stdout=log,
+                    stderr=subprocess.STDOUT))
+    except BaseException:
+        stop_workers((kind, procs, outs, t0))
+        raise
+    return kind, procs, outs, t0
+
+
+def stop_workers(started) -> None:
+    """End ``start_workers``' processes that still run, and whatever any of
+    them started."""
+    for p in started[1]:
+        end_group(p)
+
+
+def finish_workers(started) -> tuple:
+    """The outputs of ``start_workers``' processes and the wall seconds since
+    their start. A process that fails fails the phase."""
+    kind, procs, outs, t0 = started
+    try:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            p.wait(timeout=900)
+    finally:
+        stop_workers(started)
     wall = time.perf_counter() - t0
-    for i, (p, log) in enumerate(zip(procs, logs)):
+    for i, (p, path) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
+            with open(path + ".log") as f:
+                log = f.read()
             raise AssertionError(f"{kind} process {i} exited {p.returncode}:\n{log[-3000:]}")
     results = []
     for path in outs:
         with open(path) as f:
             results.append(json.load(f))
     return results, wall
+
+
+def run_workers(kind, specs, root) -> tuple:
+    """``start_workers`` then ``finish_workers``: the outputs and the wall
+    seconds."""
+    return finish_workers(start_workers(kind, specs, root))
 
 
 def ddp_rel_errors(got, want) -> dict:
@@ -3882,16 +4057,63 @@ def ddp_phase(seed, device, want_step) -> tuple:
     spec = {"role": "two_ranks", "root": root, "config": cfg, "seed": seed,
             "cut_file": os.path.join(root, "cut.ckpt"),
             "state_file": os.path.join(root, "rank0_state.pt"),
-            "fsdp": {**fsdp, "config": fsdp_config(dpm, 1)}}
-    fsdp_runs = {}
+            "fsdp": {**fsdp, "config": fsdp_config(dpm, 1)},
+            "tp": {"root": os.path.join(OUT_DIR, "tp"), "seed": seed,
+                   "config": tp_config(dpm), "serve_images": TP_SERVE_IMAGES,
+                   "go": os.path.join(OUT_DIR, "tp", "go")}}
+    tp_root = spec["tp"]["root"]
+    shutil.rmtree(tp_root, ignore_errors=True)
+    os.makedirs(tp_root)
+    # the workers share the card with this process: hand back what its
+    # earlier phases left cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    records["main_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    fsdp_runs, tp_runs = {}, {}
+    # the tp phase's fsdp+tp run: four processes that wait for the two-rank
+    # processes' tp train run to end and share the card with their tp
+    # service run (tp_phase collects them)
+    four = {"role": "four_ranks", "root": tp_root, "seed": seed,
+            "wait_for": spec["tp"]["go"], "tp": {
+                "root": tp_root, "seed": seed,
+                "config": tp_config(dpm, mode="fsdp+tp", batch=TP4_BATCH)}}
+    env4 = {"WORLD_SIZE": "4", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(free_port())}
+    tp_runs["four_ranks"] = start_workers(
+        "tp4_", [(four, {**env4, "RANK": str(r)}) for r in range(4)], tp_root)
+    # (b)'s two processes start now too and wait for their turn: their
+    # starts overlap the two ranks' runs
+    graph_spec = {"root": root, "dpm": dpm, "seed": seed}
+    graph_runs = {
+        "nccl1": start_workers("nccl", [(
+            {**graph_spec, "role": "nccl1", "wait_for": os.path.join(root, "go_nccl1"),
+             "fsdp": {**fsdp, "config": fsdp_config(dpm, 4)},
+             "tp": {"root": os.path.join(OUT_DIR, "tp"), "seed": seed,
+                    "config": tp_config(dpm, k=4, tp_size=1)}},
+            {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+             "MASTER_ADDR": "localhost"})], root),
+        "nogroup": start_workers("nogroup", [(
+            {**graph_spec, "role": "nogroup", "wait_for": os.path.join(root, "go_nogroup")},
+            {"WORLD_SIZE": "1", "LOCAL_RANK": "0"})], root)}
+
+    def graph_run(role):
+        """``graph_runs[role]``'s output and its wall seconds from its go."""
+        t0 = time.perf_counter()
+        with open(os.path.join(root, f"go_{role}"), "w"):
+            pass
+        (out,), _ = finish_workers(graph_runs[role])
+        return out, time.perf_counter() - t0
+
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         ranks, wall = run_workers("rank", [(spec, {**env, "RANK": str(r)})
                                            for r in range(DDP_RANKS)], root)
         fsdp_runs["two_ranks"] = [r.pop("fsdp") for r in ranks]
+        tp_runs["two_ranks"] = [r.pop("tp") for r in ranks]
         r0, r1 = ranks
-        rec = {"wall_s": wall - max(r["s"] for r in fsdp_runs["two_ranks"]),
+        rec = {"wall_s": wall - max(r["s"] for r in fsdp_runs["two_ranks"])
+               - max(r["s"] for r in tp_runs["two_ranks"]),
                "build_s": [r["build_s"] for r in ranks],
                "losses": r0["losses"], "resume_losses": r0["resume_losses"],
                "digest": r0["digest"],
@@ -3948,15 +4170,11 @@ def ddp_phase(seed, device, want_step) -> tuple:
         # (b) the all-reduce in the captured graph: NCCL at world 1, then the
         # same run with no group, one after the other so that each has the
         # card to itself
-        graph_spec = {"root": root, "dpm": dpm, "seed": seed}
-        (nccl,), wall = run_workers("nccl", [(
-            {**graph_spec, "role": "nccl1", "fsdp": {**fsdp, "config": fsdp_config(dpm, 4)}},
-            {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
-             "MASTER_PORT": str(free_port())})], root)
+        nccl, wall = graph_run("nccl1")
         fsdp_runs["nccl1"] = nccl.pop("fsdp")
-        wall -= fsdp_runs["nccl1"]["s"]
-        (alone,), wall_alone = run_workers("nogroup", [(
-            {**graph_spec, "role": "nogroup"}, {"WORLD_SIZE": "1", "LOCAL_RANK": "0"})], root)
+        tp_runs["nccl1"] = nccl.pop("tp")
+        wall -= fsdp_runs["nccl1"]["s"] + tp_runs["nccl1"]["s"]
+        alone, wall_alone = graph_run("nogroup")
         rec = {"wall_s": [wall, wall_alone], "tensor_backend": nccl["tensor_backend"],
                "losses": nccl["losses"], "replays": nccl["replays"],
                "captures": nccl["captures"], "launches_per_replay": nccl["launches_per_replay"],
@@ -3978,6 +4196,10 @@ def ddp_phase(seed, device, want_step) -> tuple:
                          and nccl["launches_on_path"] == {k: v * DDP_GRAPH_STEPS
                                                   for k, v in want_step.items()})
         records["nccl1_graph"] = rec
+    except BaseException:
+        for started in (tp_runs["four_ranks"], *graph_runs.values()):
+            stop_workers(started)
+        raise
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
         for parent, _, names in list(os.walk(root)) + list(os.walk(fsdp_root)):
@@ -3986,7 +4208,7 @@ def ddp_phase(seed, device, want_step) -> tuple:
                     os.unlink(os.path.join(parent, n))
     records["phase_s"] = time.perf_counter() - phase_t0
     records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
-    return records, fsdp_runs
+    return records, fsdp_runs, tp_runs
 
 
 def fsdp_config(dpm_path, k) -> dict:
@@ -4243,6 +4465,438 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
     return records
 
 
+TP_SIZE = 2                      # two model ranks on the one card, over gloo
+TP_STEPS = 3                     # b32 steps of the tp run, then its control's
+TP4_BATCH = 8                    # a data rank's batch under fsdp+tp at world 4
+TP4_STEPS = 2
+TP_SERVE_IMAGES = 8              # the tp service's b8 autoencode
+TP_SERVE_STYLE = "ddim10"
+
+
+def tp_config(dpm_path, k=1, mode="tp", tp_size=TP_SIZE, batch=TRAIN_BATCH) -> dict:
+    """``ddp_config`` under ``param_sharding`` ``mode`` (``tp`` or
+    ``fsdp+tp``) with ``tp_size`` model ranks, ``batch`` a data rank."""
+    cfg = ddp_config(dpm_path, k)
+    cfg["runner_config"] = {**cfg["runner_config"], "param_sharding": mode,
+                            "tp_size": tp_size}
+    cfg["dataloader_config"] = {**cfg["dataloader_config"], "train": {
+        **cfg["dataloader_config"]["train"], "batch_size": batch}}
+    return cfg
+
+
+def tp_local_keys(counts, tp=TP_SIZE, batch=None) -> collections.Counter:
+    """A path's kernel inputs (``path_shapes``' keys) as one of ``tp`` model
+    ranks gives them (``parallel/tp.py``): an attention of heads that divide
+    by ``tp`` on the rank's heads, a GN chain whose groups divide on the
+    rank's channels with its share of the groups (the groups end every GN
+    key); ``batch`` replaces the keys' batch."""
+    from pdae_torch.models.blocks import num_groups
+
+    out = collections.Counter()
+    for k, n in counts.items():
+        if batch is not None:
+            k = (k[0], batch) + k[2:]
+        if k[0] == "attention":
+            _, b, h, t, d = k
+            out[("attention", b, h // tp, t, d) if h % tp == 0 else k] += n
+            continue
+        c, g = k[2], num_groups(k[2])
+        out[(k[0], k[1], c // tp) + k[3:] + (g // tp,) if g % tp == 0 else k + (g,)] += n
+    return out
+
+
+@contextlib.contextmanager
+def recorded_kernel_inputs(seen: collections.Counter):
+    """Every launch of the three kernel wrappers while the block runs, keyed
+    as ``tp_local_keys`` keys them, counted into ``seen``."""
+    from pdae_torch.ops import attention, groupnorm, groupnorm_train
+
+    fwd, bwd, attn = groupnorm.gn_cuda, groupnorm_train.gn_bwd_cuda, attention.attention_cuda
+
+    def gn(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None, groups=32,
+           **kw):
+        seen[("gn",) + tuple(x.shape) + (scale is not None, z_scale is not None,
+                                          groups)] += 1
+        return fwd(x, gamma, beta, scale, shift, z_scale, z_shift, groups, **kw)
+
+    def gn_bwd(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+               z_shift=None, groups=32, need_dx=True):
+        seen[("gn_bwd",) + tuple(x.shape) + (scale is not None, z_scale is not None,
+                                              need_dx, groups)] += 1
+        return bwd(x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift,
+                   groups=groups, need_dx=need_dx)
+
+    def att(q, k, v):
+        seen[("attention",) + tuple(q.shape)] += 1
+        return attn(q, k, v)
+
+    groupnorm.gn_cuda, groupnorm_train.gn_bwd_cuda, attention.attention_cuda = gn, gn_bwd, att
+    try:
+        yield seen
+    finally:
+        groupnorm.gn_cuda, groupnorm_train.gn_bwd_cuda = fwd, bwd
+        attention.attention_cuda = attn
+
+
+@contextlib.contextmanager
+def timed_tp_collectives(record: dict):
+    """The wall ms and the count of the model group's collectives
+    (``parallel/tp.py``'s all-gather, all-reduce and reduce-scatter) while
+    the block runs, into ``record``: the card is synchronised on entry to
+    each (gloo's host copy waits for it anyway), so the time is the
+    collective's own."""
+    from pdae_torch.parallel import tp
+
+    originals = {name: getattr(tp, name) for name in ("_all_gather", "_all_reduce",
+                                                      "_reduce_scatter")}
+    record.update(ms=0.0, count=0, bytes=0)
+
+    def timed(fn):
+        def wrapped(x, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, *args)
+            torch.cuda.synchronize()
+            record["ms"] += (time.perf_counter() - t0) * 1e3
+            record["count"] += 1
+            record["bytes"] += x.numel() * x.element_size()
+            return out
+        return wrapped
+
+    for name, fn in originals.items():
+        setattr(tp, name, timed(fn))
+    try:
+        yield record
+    finally:
+        for name, fn in originals.items():
+            setattr(tp, name, fn)
+
+
+def tp_all_gather_ms(groups, device, reps: int = 5) -> dict:
+    """Wall ms of the model group's all-gather alone (``parallel/tp.py``),
+    after one untimed, of a tiny block (an AdaGN ``[32, 2C]`` half) and of
+    a 64x64-level activation block (``[32, 64, 64, 64]``, 32 MiB): the
+    latency and the rate of the transport under the tp step. Collective."""
+    from pdae_torch.parallel import tp
+
+    out = {}
+    for name, shape in (("tiny_32x128", (32, 128)), ("block_32MiB", (32, 64, 64, 64))):
+        x = torch.ones(shape, device=device)
+        tp._all_gather(x, groups, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tp._all_gather(x, groups, 1)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def tp_state(trainer) -> dict:
+    """``ddp_state`` of a tensor-parallel trainer: each trained tensor's
+    param, EMA, moments and reduced gradient whole, gathered from the ranks'
+    blocks on the card (collective), copied to the host."""
+    snap = trainer.snapshot_state(full=True)
+    masters, params = trainer.state.masters, trainer.state.params
+    names = [(g, k) for g in masters for k in masters[g]]
+    grads = [masters[g][k].grad for g, k in names]
+    if trainer.plan is not None:
+        grads = trainer.plan.gather(grads)
+    grads = trainer.tp_layout.gather(grads, [params[g][k] for g, k in names])
+    return {f"{g}.{k}": [snap[c][g][k].clone() for c in ("params", "ema", "mu", "nu")]
+            + [grads[i].detach().cpu()] for i, (g, k) in enumerate(names)}
+
+
+def param_nbytes(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def tp_held_bytes(trainer) -> dict:
+    """Bytes this rank holds: every parameter of its modules (the trained
+    ones and the frozen trunk, each its block where sharded), the EMA and
+    the Adam moments, beside the bytes each would take whole."""
+    modules = [trainer.encoder, trainer.decoder]
+    state, opt = trainer.state, trainer.optimizer.state
+    masters = [m for named in state.masters.values() for m in named.values()]
+    trained = [p for named in state.params.values() for p in named.values()]
+    frozen = [p for m in modules for p in m.parameters() if not p.requires_grad]
+    whole = sum(int(np.prod(trainer.tp_layout.whole_shape(p))) * 4 for p in trained)
+    return {"trained_params": param_nbytes(trained), "frozen_params": param_nbytes(frozen),
+            "ema": param_nbytes(t for named in state.ema_params.values()
+                                for t in named.values()),
+            "moments": sum(opt[m][s].numel() * opt[m][s].element_size() for m in masters
+                           for s in ("exp_avg", "exp_avg_sq")),
+            "trained_elements": sum(int(np.prod(trainer.tp_layout.whole_shape(p)))
+                                    for p in trained),
+            "replicated": {"trained_params": whole, "ema": whole, "moments": 2 * whole,
+                           "frozen_params": sum(
+                               int(np.prod(trainer.tp_layout.whole_shape(p))) * 4
+                               for p in frozen)}}
+
+
+def tp_run(spec, kind) -> dict:
+    """The tp phase's run of ``kind`` in a ddp worker's process group:
+    ``two_ranks``, a rank of the gloo run at tp 2 (``TP_STEPS`` b32 steps,
+    the kernels' inputs recorded, then ``PDAEService(tp_size=2)``'s b8
+    autoencode); ``four_ranks``, a rank of ``fsdp+tp`` at tp 2 x data 2
+    (``TP4_STEPS`` steps at b8 a data rank); ``nccl1``, the tp path at
+    ``tp_size`` 1 from the captured graph with the NCCL group of one rank.
+    The run directories, which the ranks share, are deleted at the end."""
+    import gc
+    import shutil
+
+    from pdae_torch import ops, parallel
+    from pdae_torch.train import pick_trainer
+
+    t0 = time.perf_counter()
+    rank, root, cfg = parallel.process_index(), spec["root"], spec["config"]
+    run = os.path.join(root, kind)
+    out = {"rank": rank, "tensor_backend": parallel.tensor_backend()}
+    gc.collect()
+    torch.cuda.empty_cache()          # what the process's earlier runs left cached
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        b0 = time.perf_counter()
+        tr = pick_trainer(cfg)(config=cfg, run_path=run, seed=spec["seed"])
+        out["build_s"] = time.perf_counter() - b0
+        g = tr.tp_layout.groups
+        out.update(model_index=g.model_index, data_index=g.data_index,
+                   sharded=sum(1 for i in tr.tp_layout.infos.values() if i.role == "block"))
+        losses, ms = timed_losses(tr)
+        ops.reset_launch_counts()
+        if kind == "nccl1":
+            tr.train(max_steps=DDP_GRAPH_STEPS, save_on_exit=False)
+            torch.cuda.synchronize()
+            d = tr._dispatch
+            out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
+                       replays=d.replays, launches_per_replay=d.launches,
+                       launches_on_path=path_launches(ops.launch_counts(), d),
+                       digest=state_digest(ddp_state(tr, grads=False)))
+            drop_graphs(tr)
+            return out
+        seen, comm = collections.Counter(), {}
+        steps = TP_STEPS if kind == "two_ranks" else TP4_STEPS
+        with recorded_kernel_inputs(seen), timed_tp_collectives(comm):
+            tr.train(max_steps=steps, save_on_exit=False)
+            torch.cuda.synchronize()
+        out["collectives_per_step"] = {k: v / steps for k, v in comm.items()}
+        out.update(losses=losses, step_ms=ms, step=tr.step, launches=ops.launch_counts(),
+                   kernel_inputs=[[list(k), n] for k, n in sorted(seen.items(), key=str)],
+                   held=tp_held_bytes(tr), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if kind == "two_ranks":
+            out["all_gather_ms"] = tp_all_gather_ms(tr.tp_layout.groups, tr.device)
+        state = tp_state(tr)
+        out["digest"] = state_digest(state)
+        if rank == 0:
+            torch.save(state, os.path.join(root, f"{kind}_state.pt"))
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        if kind == "two_ranks":
+            # the card's memory is back: the fsdp+tp processes may start
+            parallel.sync_global_devices("tp_trained")
+            if rank == 0:
+                with open(spec["go"], "w"):
+                    pass
+            out["service"] = tp_service(spec)
+    finally:
+        parallel.sync_global_devices("tp_done")
+        if parallel.is_primary():
+            shutil.rmtree(run, ignore_errors=True)
+        out["s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_service(spec) -> dict:
+    """``PDAEService(tp_size=2)`` on the main path's seeded models: one b8
+    ``TP_SERVE_STYLE`` autoencode (its seconds hold the first call's
+    set-up), its launches, the bytes of parameters this rank holds and its
+    result."""
+    from pdae_torch import ops
+    from pdae_torch.models import CELEBA64_DPM
+    from pdae_torch.serving import PDAEService
+
+    decoder, encoder, _ = build_models(spec["seed"], torch.device("cpu"))
+    config = {"trained_ddpm_config": CELEBA64_DPM, "decoder_config": {"latent_dim": LATENT},
+              "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
+              "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
+              "image_size": 64, "max_batch": 64, "tp_size": TP_SIZE}
+    torch.cuda.reset_peak_memory_stats()
+    service = PDAEService(config, encoder.state_dict(), decoder.state_dict())
+    del decoder, encoder
+    images = np.random.RandomState(spec["seed"]).randint(
+        0, 256, (spec["serve_images"], 64, 64, 3), np.uint8)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recon = service.autoencode(images, TP_SERVE_STYLE, TP_SERVE_STYLE)
+    torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t0, "launches": ops.launch_counts(),
+            "params_bytes": param_nbytes(p for m in (service.encoder, service.decoder)
+                                         for p in m.parameters()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "recon": recon.tolist()}
+
+
+def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, bound) -> dict:
+    """Tensor parallelism (``param_sharding: tp``/``fsdp+tp``, the service's
+    ``tp_size``) on the card. (a) The ddp phase's celeba64 PDAE config at tp
+    2 as two ranks on the one card over gloo, b32, fp32, TF32 off,
+    ``cudnn.deterministic``: ``TP_STEPS`` steps against one process over the
+    same rows (``DDP_TOL``), the ranks bit-equal, each rank's launches the
+    structure's per step, every launch's input at the rank's local shape
+    (``tp_local_keys``); recorded: bytes of parameters, EMA and moments and
+    the peak memory per rank beside ``replicated``'s, ms per step beside the
+    ddp phase's. (b) ``PDAEService(tp_size=2)``'s b8 ``TP_SERVE_STYLE``
+    autoencode against the one-process service, within the larger of one
+    uint8 level and ``bound`` (the whole-path phase's control). (c)
+    ``fsdp+tp`` at world 4 (tp 2 x data 2), b8 a data rank, ``TP4_STEPS``
+    steps against one process over the 16 rows. (d) The tp path at
+    ``tp_size`` 1 with an NCCL group of one rank, from the captured graph at
+    K=4: bit-equal to the ddp phase's ``replicated`` K=4 run."""
+    import gc
+    import shutil
+
+    from pdae_torch.data import Loader
+    from pdae_torch.data.pipeline import batch_to_device
+    from pdae_torch.train import pick_trainer
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "tp")
+    dpm = os.path.join(OUT_DIR, "trainer", "dpm.ckpt")
+    records = {"config": {
+        "two_ranks": f"celeba64 PDAE at tp {TP_SIZE}, b{TRAIN_BATCH}, {TP_SIZE} ranks on one "
+                     f"card, gloo tensor group, K=1, {TP_STEPS} steps; control: one process",
+        "service": f"PDAEService(tp_size={TP_SIZE}), b{TP_SERVE_IMAGES} "
+                   f"{TP_SERVE_STYLE}/{TP_SERVE_STYLE} autoencode; control: one process",
+        "four_ranks": f"fsdp+tp, tp {TP_SIZE} x data 2 on one card, b{TP4_BATCH} a data "
+                      f"rank, {TP4_STEPS} steps; control: one process at b{2 * TP4_BATCH}",
+        "nccl1": f"the tp path at tp_size 1, K=4 from the captured graph, {DDP_GRAPH_STEPS} "
+                 "steps, an NCCL group of one rank; against the ddp phase's replicated run",
+        "numerics": "fp32, TF32 off, cudnn.deterministic, Adam eps 1e-5",
+        "tolerances": DDP_TOL}}
+    saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        def control(cfg, ranks, batch, steps):
+            """One process over the ``ranks`` data ranks' rows at ``batch``
+            each, ``steps`` steps: its losses and state."""
+            tr = pick_trainer(cfg)(config={**cfg, "runner_config": {
+                **cfg["runner_config"], "param_sharding": "replicated"},
+                "dataloader_config": {**cfg["dataloader_config"], "train": {
+                    **cfg["dataloader_config"]["train"], "batch_size": ranks * batch}}},
+                run_path=os.path.join(root, "control"), seed=seed)
+            loaders = [Loader(tr.train_dataset, batch, shuffle=True, seed=seed,
+                              num_workers=4, process_index=r, process_count=ranks).infinite()
+                       for r in range(ranks)]
+            tr._batch_iterator = lambda start: (batch_to_device(
+                {"x_0": np.concatenate([next(it)["x_0"] for it in loaders])}, device)
+                for _ in iter(int, 1))
+            losses, ms = timed_losses(tr)
+            tr.train(max_steps=steps, save_on_exit=False)
+            state = ddp_state(tr)
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(os.path.join(root, "control"), ignore_errors=True)
+            return losses, ms, state
+
+        # (c) ran in four processes of their own beside the two ranks' tp run
+        four, wall4 = finish_workers(runs["four_ranks"])
+        four = [r["tp"] for r in four]
+        # the one-process runs the tp runs are held to, and the one-process
+        # service's autoencode
+        made = {"two_ranks": control(tp_config(dpm), 1, TRAIN_BATCH, TP_STEPS),
+                "four_ranks": control(tp_config(dpm, batch=TP4_BATCH), 2, TP4_BATCH,
+                                      TP4_STEPS),
+                "service": service.autoencode(images[:TP_SERVE_IMAGES], TP_SERVE_STYLE,
+                                              TP_SERVE_STYLE)}
+
+        def held_to(run, kind, ranks, batch, steps, want_launches):
+            r0 = run[0]
+            want_losses, want_ms, want = made[kind]
+            got = torch.load(os.path.join(root, f"{kind}_state.pt"))
+            rec = {"run_s": [r["s"] for r in run], "build_s": [r["build_s"] for r in run],
+                   "sharded_tensors": r0["sharded"], "losses": r0["losses"],
+                   "control_losses": want_losses, "step_ms": r0["step_ms"],
+                   "control_step_ms": want_ms,
+                   "loss_rel": max(abs(a - b) / abs(b)
+                                   for a, b in zip(r0["losses"], want_losses)),
+                   "errors": ddp_rel_errors(got, want),
+                   "ranks_bit_equal": all(r["digest"] == r0["digest"]
+                                          and r["losses"] == r0["losses"] for r in run),
+                   "launches_per_rank": {f"rank{r['rank']}": r["launches"] for r in run},
+                   "collectives_per_step": [r["collectives_per_step"] for r in run],
+                   "all_gather_ms": [r.get("all_gather_ms") for r in run],
+                   "collective_share": [r["collectives_per_step"]["ms"] / (
+                       sum(r["step_ms"]) / len(r["step_ms"])) for r in run],
+                   "held_bytes": {f"rank{r['rank']}": r["held"] for r in run},
+                   "peak_gb": [r["peak_gb"] for r in run]}
+            rec["launches_ok"] = all(r["launches"] == {k: v * steps for k, v in
+                                                       want_launches.items()} for r in run)
+            local = {str(list(k)): n * steps for k, n in tp_local_keys(
+                per_step, batch=batch).items()}
+            rec["kernel_inputs_local"] = all(
+                {str(k): n for k, n in r["kernel_inputs"]} == local for r in run)
+            rec["ok"] = bool(rec["loss_rel"] <= DDP_TOL["loss_rel"]
+                             and all(v["ok"] for v in rec["errors"].values())
+                             and rec["ranks_bit_equal"] and rec["launches_ok"]
+                             and rec["kernel_inputs_local"] and r0["sharded"] > 0
+                             and all(math.isfinite(v) for v in r0["losses"]))
+            os.unlink(os.path.join(root, f"{kind}_state.pt"))
+            return rec
+
+        # (a) two ranks at tp 2 (their runs came from the ddp phase's processes)
+        two = runs["two_ranks"]
+        rec = held_to(two, "two_ranks", 1, TRAIN_BATCH, TP_STEPS, want_step)
+        rec["ddp_world2_step_ms"] = ddp["two_ranks"]["world2_step_ms"]
+        records["two_ranks"] = rec
+        rec = held_to(four, "four_ranks", 2, TP4_BATCH, TP4_STEPS, want_step)
+        records["four_ranks"] = rec
+        # (b) the service
+        got = [np.asarray(r["service"]["recon"], np.uint8) for r in two]
+        want = made["service"]
+        diff = max(int(np.abs(g.astype(int) - want.astype(int)).max()) for g in got)
+        srv = [r["service"] for r in two]
+        records["service"] = {
+            "s": [r["s"] for r in srv], "peak_gb": [r["peak_gb"] for r in srv],
+            "params_bytes": [r["params_bytes"] for r in srv],
+            "launches_per_rank": {f"rank{r['rank']}": r["service"]["launches"] for r in two},
+            "max_uint8_diff": diff, "bound_uint8": max(1, bound),
+            "ranks_equal": all(np.array_equal(g, got[0]) for g in got),
+            "ok": diff <= max(1, bound) and all(np.array_equal(g, got[0]) for g in got)
+            and all(r["launches"]["attention"] > 0 and r["launches"]["gn_adagn_silu"] > 0
+                    for r in srv)}
+        # (d) tp_size 1 from the graph against the replicated K=4 run
+        n1 = runs["nccl1"]
+        rec = {"losses": n1["losses"], "chunk_step_ms": n1["chunk_step_ms"],
+               "launches_on_path": n1["launches_on_path"],
+               "tensor_backend": n1["tensor_backend"],
+               "digest": n1["digest"], "replicated_digest": ddp["nccl1_graph"]["digest"]["nccl1"],
+               "losses_equal_replicated": n1["losses"] == ddp["nccl1_graph"]["losses"],
+               "state_equal_replicated": n1["digest"] == ddp["nccl1_graph"]["digest"]["nccl1"]}
+        rec["ok"] = bool(rec["losses_equal_replicated"] and rec["state_equal_replicated"]
+                         and n1["tensor_backend"] == "nccl" and n1["sharded"] == 0
+                         and n1["replays"] == DDP_GRAPH_STEPS - 1
+                         and n1["launches_per_replay"] == want_step
+                         and n1["launches_on_path"] == {k: v * DDP_GRAPH_STEPS
+                                                        for k, v in want_step.items()})
+        records["nccl1_graph"] = rec
+        records["shapes"] = {"two_ranks": two[0]["kernel_inputs"],
+                             "four_ranks": four[0]["kernel_inputs"]}
+        records["run_s"] = {"two_ranks": max(r["s"] for r in two),
+                            "four_ranks": max(r["s"] for r in four), "nccl1": n1["s"],
+                            "four_ranks_wall_from_ddp_start": wall4}
+    finally:
+        stop_workers(runs["four_ranks"])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
+        shutil.rmtree(root, ignore_errors=True)
+    records["phase_s"] = time.perf_counter() - phase_t0 + records.get("run_s", {}).get(
+        "two_ranks", 0.0) + records.get("run_s", {}).get("nccl1", 0.0)
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4270,9 +4924,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = pdae_torch.resolve_device()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = run_child(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                    60)
+    smi.check_returncode()
+    smi = smi.stdout.strip().splitlines()[0]
 
     # 1. build ------------------------------------------------------------
     seconds = _build.build()
@@ -4309,8 +4964,17 @@ def main(argv=None) -> int:
             bucket_res[k] = (check_attention(k[1:], gen, device, timed=False)
                              if k[0] == "attention" else
                              check_gn(k, gen, device, timed=False))
+    # the shapes a tp rank gives the kernels (the tp phase's runs: the b32
+    # step and the b8 request at tp 2, the b8 step of fsdp+tp), compared,
+    # not timed
+    tp_keys = sorted(set(tp_local_keys(per_step)) | set(tp_local_keys(per_request))
+                     | set(tp_local_keys(per_step, batch=TP4_BATCH)))
+    tp_res = {k: (check_attention(k[1:], gen, device, timed=False) if k[0] == "attention"
+                  else check_gn(k, gen, device, timed=False) if k[0] == "gn"
+                  else check_gn_bwd(k, gen, device, timed=False)) for k in tp_keys}
     failed = [(r["shape"], k) for r in list(attn_res.values()) + list(gn_res.values())
-              + list(bwd_res.values()) + list(bucket_res.values()) + edges["attention"]
+              + list(bwd_res.values()) + list(bucket_res.values()) + list(tp_res.values())
+              + edges["attention"]
               + edges["gn_adagn_silu"] + edges["gn_adagn_silu_bwd"]
               for k, v in r["err"].items() if not v["ok"]]
     if not edges["gn_misaligned"]["ok"]:
@@ -4329,6 +4993,7 @@ def main(argv=None) -> int:
                    "gn_adagn_silu": list(gn_res.values()),
                    "gn_adagn_silu_bwd": list(bwd_res.values()),
                    "buckets": list(bucket_res.values()),
+                   "tp_local": list(tp_res.values()),
                    "edges": edges},
                   f, indent=1)
     emit({"phase": "kernels", "tolerances": {f"{k[0]}/{str(k[1])[6:]}": v
@@ -4339,6 +5004,7 @@ def main(argv=None) -> int:
              for name, results in (("attention", attn_res), ("gn_adagn_silu", gn_res),
                                    ("gn_adagn_silu_bwd", bwd_res))},
           "buckets": [brief(r, 0, 0) for r in bucket_res.values()],
+          "tp_local": [brief(r, 0, 0) for r in tp_res.values()],
           "edges": {**{k: [brief(r, 0, 0) for r in edges[k]]
                        for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")},
                     **{k: v for k, v in edges.items()
@@ -4677,7 +5343,7 @@ def main(argv=None) -> int:
         raise AssertionError("the dispatch phase failed its checks")
 
     # 14. data-parallel training: two ranks on the card, NCCL in the graph ---
-    ddp, fsdp_runs = ddp_phase(args.seed, device, want_step)
+    ddp, fsdp_runs, tp_runs = ddp_phase(args.seed, device, want_step)
     with open(os.path.join(OUT_DIR, "chip_smoke_ddp.json"), "w") as f:
         json.dump(ddp, f, indent=1)
     emit({"phase": "ddp", **ddp})
@@ -4691,6 +5357,15 @@ def main(argv=None) -> int:
     emit({"phase": "fsdp", **fsdp})
     if not fsdp["ok"]:
         raise AssertionError("the fsdp phase failed its checks")
+
+    # 16. tensor parallelism: two ranks split on the card, four under fsdp+tp
+    tp = tp_phase(args.seed, device, want_step, per_step, ddp, tp_runs, service, images,
+                  max(v["bound_uint8"] for v in res["ops"].values()))
+    with open(os.path.join(OUT_DIR, "chip_smoke_tp.json"), "w") as f:
+        json.dump(tp, f, indent=1)
+    emit({"phase": "tp", **{k: v for k, v in tp.items() if k != "shapes"}})
+    if not tp["ok"]:
+        raise AssertionError("the tp phase failed its checks")
     emit({"script_s": time.perf_counter() - script_t0})
 
     per_op = {name: op_records[name]["launches"]
@@ -4722,6 +5397,11 @@ def main(argv=None) -> int:
     for rank, counts in fsdp["two_ranks"]["launches_per_rank"].items():
         per_op[f"fsdp_two_ranks_{rank}"] = counts
     per_op["fsdp_nccl1_graph"] = fsdp["nccl1_graph"]["launches_on_path"]
+    for run in ("two_ranks", "four_ranks"):
+        for rank, counts in tp[run]["launches_per_rank"].items():
+            per_op[f"tp_{run}_{rank}"] = counts
+    per_op["tp_service_rank0"] = tp["service"]["launches_per_rank"]["rank0"]
+    per_op["tp_nccl1_graph"] = tp["nccl1_graph"]["launches_on_path"]
     regular_ms = stages["regular"]["kernel_ms_per_step"]
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
@@ -4741,7 +5421,7 @@ def main(argv=None) -> int:
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
          "launches_per_op": {k: v["gn_adagn_silu_bwd"] for k, v in per_op.items()
                              if k in ("trainer_step", "regular_step", "ingest_step")
-                             or (k.startswith(("dispatch_", "ddp_", "fsdp_"))
+                             or (k.startswith(("dispatch_", "ddp_", "fsdp_", "tp_"))
                                  and v["gn_adagn_silu_bwd"])},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
     ]})
@@ -4760,8 +5440,16 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         # a process of the ddp phase, likewise
         sys.exit(ddp_worker(*sys.argv[2:4]))
+    # a SIGTERM ends the script through its clean-up, which stops the
+    # processes it started
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(128 + signum))
+    adopt_orphans()
     try:
         code = main()
     finally:
         drop_heavy_files()
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: stopped {len(left)} process(es) still running at its end: "
+                  + "; ".join(a[:200] for a in left), file=sys.stderr, flush=True)
     sys.exit(code)

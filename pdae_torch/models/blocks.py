@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..parallel import tp as _tp
 
 
 def num_groups(channels: int) -> int:
@@ -46,7 +47,11 @@ class _ComputeDtype:
 
 
 class _CastConv(_ComputeDtype):
+    tp = None          # the split of a tensor-parallel module (parallel/tp.py)
+
     def forward(self, x):
+        if self.tp is not None:
+            return _tp.dense(self, x, False, False, 1)[0]
         dt = self.compute_dtype
         return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
@@ -63,9 +68,24 @@ class Conv1d(_CastConv, nn.Conv1d):
 class Linear(_ComputeDtype, nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` (flax ``Dense(dtype=)``)."""
 
+    tp = None
+
     def forward(self, x):
+        if self.tp is not None:
+            return _tp.dense(self, x, False, False, -1)[0]
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` that runs split in a tensor-parallel module."""
+
+    tp = None
+
+    def forward(self, x):
+        if self.tp is not None:
+            return _tp.dense(self, x, False, False, -1)[0]
+        return super().forward(x)
 
 
 class GroupNorm(_ComputeDtype, nn.GroupNorm):
@@ -94,6 +114,8 @@ class GNSiluChain(nn.Module):
     """GroupNorm(+AdaGN)+SiLU with GroupNorm's parameters (``weight``,
     ``bias``); runs the model-mode op (the CUDA kernel on the card)."""
 
+    tp = None
+
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
@@ -101,6 +123,11 @@ class GNSiluChain(nn.Module):
         self.groups = num_groups(channels)
 
     def forward(self, x, scale=None, shift=None, z_scale=None, z_shift=None):
+        if self.tp is not None:
+            # whole in, whole out: the kernel on the rank's channels (the
+            # AdaGN inputs, where given, are the rank's channels too)
+            h, _ = _tp.gn_chain(self, x, False, scale, shift, z_scale, z_shift)
+            return _tp.gather(h, self.tp.groups, 1)
         return ops.gn_adagn_silu(x, self.weight, self.bias, scale, shift,
                                  z_scale, z_shift, self.groups)
 
@@ -192,7 +219,11 @@ class ResBlock(nn.Module):
         else:
             self.skip_connection = Conv2d(channels, out_ch, 1, compute_dtype=dtype)
 
+    tp = None
+
     def forward(self, x, emb, emb_z=None):
+        if self.tp is not None:
+            return self._forward_tp(x, emb, emb_z)
         h = self.in_layers[0](x)
         if self.up:
             x = F.interpolate(x, scale_factor=2, mode="nearest")
@@ -209,6 +240,48 @@ class ResBlock(nn.Module):
         h = self.out_layers[0](h, scale, shift, z_scale, z_shift)
         h = self.out_layers[3](self.out_layers[2](h))
         return self.skip_connection(x) + h
+
+    def _adagn(self, linear, emb):
+        """(scale, shift) of the out chain from ``linear`` on ``silu(emb)``:
+        its ``[B, 2C]`` output whole (gathered: a rank's out block of ``2C``
+        is not the scale and shift of its channels), then, where the chain
+        runs on the rank's channels, those channels of each half."""
+        g = self.tp.groups
+        y, _ = _tp.dense(linear, F.silu(emb), False, False, -1, g)
+        if self.out_layers[0].tp is None:
+            return y.chunk(2, dim=1)
+        return _tp.split(y.unflatten(1, (2, -1)), g, 2).unbind(1)
+
+    def _forward_tp(self, x, emb, emb_z):
+        """The forward of a tensor-parallel module (``parallel/tp.py``):
+        ``x`` and the result whole, the convs and chains inside on the
+        rank's channel blocks where their splits allow."""
+        g = self.tp.groups
+        h, hb = _tp.gn_chain(self.in_layers[0], x, False, groups=g)
+        if self.up:
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
+            h = F.interpolate(h, scale_factor=2, mode="nearest")
+        elif self.down:
+            h = F.avg_pool2d(h, 2)
+            x = F.avg_pool2d(x, 2)
+        h, hb = _tp.dense(self.in_layers[2], h, hb, True, 1, g)
+        scale, shift = self._adagn(self.emb_layers[1], emb)
+        z_scale = z_shift = None
+        if self.shift:
+            z_scale, z_shift = self._adagn(self.emb_z_layers[1], emb_z)
+        h, hb = _tp.gn_chain(self.out_layers[0], h, hb, scale, shift, z_scale, z_shift,
+                             groups=g)
+        h = _tp.dropout(self.out_layers[2], h, hb, g)
+        h, hb = _tp.dense(self.out_layers[3], h, hb, True, 1, g)
+        s, sb = ((x, False) if isinstance(self.skip_connection, nn.Identity) else
+                 _tp.dense(self.skip_connection, x, False, True, 1, g))
+        if hb and sb:
+            return _tp.gather(s + h, g, 1)
+        if hb:
+            h = _tp.gather(h, g, 1)
+        if sb:
+            s = _tp.gather(s, g, 1)
+        return s + h
 
 
 class ResBlockShift(ResBlock):
@@ -259,8 +332,33 @@ class AttentionBlock(nn.Module):
         self.qkv = Conv1d(channels, 3 * channels, 1, compute_dtype=dtype)
         self.proj_out = zero_init(Conv1d(channels, channels, 1, compute_dtype=dtype))
 
+    tp = None
+
     def forward(self, x):
+        if self.tp is not None:
+            return self._forward_tp(x)
         b, c, h, w = x.shape
         tokens = x.reshape(b, c, h * w)
         a = qkv_attention(self.qkv(self.norm(tokens)), self.num_heads, self.new_order)
         return (tokens + self.proj_out(a)).reshape(b, c, h, w)
+
+    def _forward_tp(self, x):
+        """The forward of a tensor-parallel module: with the legacy
+        heads-major order and heads that divide by ``tp``, the rank's out
+        block of the column-parallel qkv holds whole heads, and the
+        attention runs on them (``[B, heads / tp, T, D]``); otherwise qkv is
+        gathered and the attention runs whole."""
+        g = self.tp.groups
+        b, c, h, w = x.shape
+        tokens = x.reshape(b, c, h * w)
+        normed = self.norm(tokens)
+        qkv = self.qkv
+        if (qkv.tp is not None and qkv.tp.kind == "col" and not self.new_order
+                and self.num_heads % g.tp == 0):
+            part, _ = _tp.dense(qkv, normed, False, True, 1, g)
+            a, ab = qkv_attention(part, self.num_heads // g.tp, False), True
+        else:
+            whole, _ = _tp.dense(qkv, normed, False, False, 1, g)
+            a, ab = qkv_attention(whole, self.num_heads, self.new_order), False
+        out, _ = _tp.dense(self.proj_out, a, ab, False, 1, g)
+        return (tokens + out).reshape(b, c, h, w)

@@ -28,8 +28,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .blocks import (AttentionBlock, GNSiluChain, Linear, ResBlock, ResBlockShift,
-                     conv3x3, timestep_embedding, zero_init)
+from .blocks import (AttentionBlock, Embedding, GNSiluChain, Linear, ResBlock,
+                     ResBlockShift, conv3x3, timestep_embedding, zero_init)
 
 
 def time_embed_mlp(base_channel: int, dtype=torch.float32) -> nn.Sequential:
@@ -193,7 +193,7 @@ class UNet(nn.Module):
         self.dtype = dtype
         self.time_embed = time_embed_mlp(base_channel, dtype)
         if num_class is not None:
-            self.label_emb = nn.Embedding(num_class, base_channel * 4)
+            self.label_emb = Embedding(num_class, base_channel * 4)
         geometry = (base_channel, channel_multiplier, num_residual_blocks_of_a_block,
                     attention_resolutions, num_heads, head_channel,
                     use_new_attention_order, dropout)

@@ -137,9 +137,11 @@ def sync_global_devices(name: str = "barrier") -> None:
         dist.barrier()
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], buffer: torch.Tensor) -> None:
-    """Each of ``tensors`` (on one device) replaced in place by its mean over
-    the processes of the tensor group: the tensors are copied into the flat
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], buffer: torch.Tensor,
+                     group=None, mean: bool = True) -> None:
+    """Each of ``tensors`` (on one device) replaced in place by its mean
+    (its sum where not ``mean``) over the processes of ``group`` (None: the
+    tensor group): the tensors are copied into the flat
     fp32 ``buffer`` (at least their total size), reduced there with one
     ``all_reduce(SUM)``, divided by the world size (gloo has no ``AVG``) and
     copied back in their own dtypes. Over NCCL it does not wait for the
@@ -153,74 +155,169 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], buffer: torch.Tensor) -> N
         offset += t.numel()
     with torch.no_grad():
         torch._foreach_copy_(views, list(tensors))
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_TENSOR_GROUP)
-        flat.div_(dist.get_world_size(_TENSOR_GROUP))
+        group = _TENSOR_GROUP if group is None else group
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        if mean:
+            flat.div_(dist.get_world_size(group))
         torch._foreach_copy_(list(tensors), views)
 
 
-def mean_all_reducer(numel: int, device) -> Optional[Callable[[Sequence[torch.Tensor]], None]]:
-    """``reduce(tensors)``: ``all_reduce_mean_`` through one flat fp32 buffer
-    of ``numel`` elements on ``device``, allocated here, once, before any
-    step is captured; None without a tensor group, so that one process
-    issues no collective. One reduction runs here, so an NCCL communicator
-    is built before any capture. Collective."""
+def mean_all_reducer(numel: int, device, group=None,
+                     mean: bool = True) -> Optional[Callable[[Sequence[torch.Tensor]], None]]:
+    """``reduce(tensors)``: ``all_reduce_mean_`` over ``group`` (None: the
+    tensor group) through one flat fp32 buffer of ``numel`` elements on
+    ``device``, allocated here, once, before any step is captured; None
+    without a tensor group, so that one process issues no collective. One
+    reduction runs here, so an NCCL communicator is built before any
+    capture. Collective."""
     if tensor_backend() is None:
         return None
+    group = _TENSOR_GROUP if group is None else group
     buffer = torch.zeros(int(numel), dtype=torch.float32, device=device)
-    dist.all_reduce(buffer[:1], group=_TENSOR_GROUP)
+    dist.all_reduce(buffer[:1], group=group)
 
     def reduce(tensors):
-        all_reduce_mean_(tensors, buffer)
+        all_reduce_mean_(tensors, buffer, group, mean)
     return reduce
 
 
-
-def _through_host(collective, out: torch.Tensor, inp: torch.Tensor) -> None:
-    """``collective(out, inp)`` over the tensor group; over gloo, CUDA
-    tensors go through host copies (the gloo transport of a card's
-    tensors)."""
-    if _TENSOR_BACKEND == "gloo" and (out.is_cuda or inp.is_cuda):
-        host = torch.empty(out.shape, dtype=out.dtype)
-        collective(host, inp.cpu())
-        out.copy_(host)
-    else:
-        collective(out, inp)
+def new_tensor_group(ranks: Sequence[int]):
+    """A subgroup of the tensor group over ``ranks``, on the tensor group's
+    backend (the same rule, no fallback). Collective over the default group:
+    every process calls it for every subgroup, in the same order."""
+    return dist.new_group(ranks=list(ranks), backend=_TENSOR_BACKEND)
 
 
-def reduce_scatter_mean_(out: torch.Tensor, inp: torch.Tensor) -> None:
+def tensor_group():
+    """The tensor group (None without one)."""
+    return _TENSOR_GROUP if dist.is_initialized() else None
+
+
+
+# gloo moves a large buffer through one TCP pair per collective; pieces of
+# about this many bytes, issued at once, travel over its worker threads
+# together (on a one-card host, two ranks' all-gather of 64 MB: 0.3 GB/s in
+# one piece, 1.0 GB/s in 8)
+GLOO_PIECE_BYTES = 1 << 22
+GLOO_MAX_PIECES = 16
+
+
+def host_stage(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of the CUDA tensor ``t`` in page-locked memory (PyTorch's
+    caching host allocator keeps the blocks for the next call), taken when
+    this returns."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _pieces(n: int, itemsize: int) -> List[tuple]:
+    """``(offset, length)`` pieces of a flat buffer of ``n`` elements."""
+    k = max(1, min(GLOO_MAX_PIECES, n * itemsize // GLOO_PIECE_BYTES))
+    step = -(-n // k)
+    return [(o, min(step, n - o)) for o in range(0, n, step)]
+
+
+def _gloo_all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``all_gather_into_tensor`` of host ``inp`` (flat, n) into ``out``
+    (flat, world * n), in pieces issued together."""
+    world, n = dist.get_world_size(group), inp.numel()
+    parts = _pieces(n, inp.element_size())
+    if len(parts) == 1:
+        dist.all_gather_into_tensor(out, inp, group=group)
+        return
+    bufs = [torch.empty(world * m, dtype=inp.dtype) for _, m in parts]
+    works = [dist.all_gather_into_tensor(b, inp[o:o + m], group=group, async_op=True)
+             for b, (o, m) in zip(bufs, parts)]
+    rows = out.view(world, n)
+    for w, b, (o, m) in zip(works, bufs, parts):
+        w.wait()
+        rows[:, o:o + m].copy_(b.view(world, m))
+
+
+def _gloo_reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``reduce_scatter_tensor(SUM)`` of host ``inp`` (flat, world * n) into
+    ``out`` (flat, n), in pieces issued together."""
+    world, n = dist.get_world_size(group), out.numel()
+    parts = _pieces(n, out.element_size())
+    if len(parts) == 1:
+        dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, group=group)
+        return
+    rows = inp.view(world, n)
+    works = [dist.reduce_scatter_tensor(out[o:o + m], rows[:, o:o + m].reshape(-1),
+                                        op=dist.ReduceOp.SUM, group=group, async_op=True)
+             for o, m in parts]
+    for w in works:
+        w.wait()
+
+
+def gloo_all_reduce_(t: torch.Tensor, group) -> None:
+    """``all_reduce(SUM)`` of the contiguous host tensor ``t`` in place, in
+    pieces issued together."""
+    flat = t.view(-1)
+    works = [dist.all_reduce(flat[o:o + m], group=group, async_op=True)
+             for o, m in _pieces(flat.numel(), flat.element_size())]
+    for w in works:
+        w.wait()
+
+
+def _through_host(kind: str, out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """The collective ``kind`` (``all_gather``: ``out`` flat world * n from
+    ``inp`` flat n; ``reduce_scatter``: the sum's rank piece) over ``group``,
+    of the tensor group's backend. Over gloo, CUDA tensors go through
+    page-locked host copies (the gloo transport of a card's tensors), and a
+    large buffer travels in pieces."""
+    if _TENSOR_BACKEND != "gloo":
+        if kind == "all_gather":
+            dist.all_gather_into_tensor(out, inp, group=group)
+        else:
+            dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, group=group)
+        return
+    run = _gloo_all_gather if kind == "all_gather" else _gloo_reduce_scatter
+    if not (out.is_cuda or inp.is_cuda):
+        run(out, inp, group)
+        return
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    run(host, host_stage(inp) if inp.is_cuda else inp, group)
+    out.copy_(host)
+
+
+def reduce_scatter_mean_(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
     """``out`` (flat, n elements) replaced by the mean over the processes of
     their ``inp[rank * n:(rank + 1) * n]`` (``inp`` flat, world * n): one
     ``reduce_scatter(SUM)``, then a division by the world size, as
     ``all_reduce_mean_`` divides. Over NCCL it does not wait for the card, so
-    a CUDA graph can capture it. Collective."""
-    def rs(o, i):
-        dist.reduce_scatter_tensor(o, i, op=dist.ReduceOp.SUM, group=_TENSOR_GROUP)
+    a CUDA graph can capture it. ``group``: None, the tensor group.
+    Collective."""
+    group = _TENSOR_GROUP if group is None else group
     with torch.no_grad():
-        _through_host(rs, out, inp)
-        out.div_(dist.get_world_size(_TENSOR_GROUP))
+        _through_host("reduce_scatter", out, inp, group)
+        out.div_(dist.get_world_size(group))
 
 
-def all_gather_into_(out: torch.Tensor, inp: torch.Tensor) -> None:
+def all_gather_into_(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
     """``out`` (flat, world * n elements) filled with every process's ``inp``
     (flat, n) in rank order: one ``all_gather``. Over NCCL it does not wait
-    for the card (capturable). Collective."""
-    def ag(o, i):
-        dist.all_gather_into_tensor(o, i, group=_TENSOR_GROUP)
+    for the card (capturable). ``group``: None, the tensor group.
+    Collective."""
+    group = _TENSOR_GROUP if group is None else group
     with torch.no_grad():
-        _through_host(ag, out, inp)
+        _through_host("all_gather", out, inp, group)
 
 
-def gather_full(shards: Sequence[torch.Tensor],
-                dims: Sequence[Optional[int]]) -> List[torch.Tensor]:
+def gather_full(shards: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
+                group=None) -> List[torch.Tensor]:
     """The whole tensors of which every process holds ``shards``, split
     evenly along ``dims`` in rank order (None: the tensor is whole on every
     process and comes back as it is), on the shards' device, through one
     all-gather of a flat fp32 buffer made for the call. The port's
     ``host_copy_tree``, without the trip through the host. Without a tensor
-    group the shards are the whole tensors. Collective."""
+    group the shards are the whole tensors. ``group``: None, the tensor
+    group. Collective."""
     if tensor_backend() is None:
         return list(shards)
-    world = dist.get_world_size(_TENSOR_GROUP)
+    group = _TENSOR_GROUP if group is None else group
+    world = dist.get_world_size(group)
     split = [(t, d) for t, d in zip(shards, dims) if d is not None]
     if not split:
         return list(shards)
@@ -228,7 +325,7 @@ def gather_full(shards: Sequence[torch.Tensor],
     with torch.no_grad():
         inp = torch.cat([t.detach().reshape(-1).float() for t, _ in split])
         out = torch.empty(world * total, dtype=torch.float32, device=inp.device)
-        all_gather_into_(out, inp)
+        all_gather_into_(out, inp, group)
         rows = out.view(world, total)
         whole, offset = {}, 0
         for t, d in split:

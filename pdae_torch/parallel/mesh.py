@@ -1,6 +1,7 @@
-"""The FSDP rule of ``pdae_tpu/parallel/mesh.py`` (``fsdp_sharding``), as a
-pure function of a leaf's shape: which of its dims a world of processes
-splits, or none.
+"""The layout rules of ``pdae_tpu/parallel/mesh.py`` as pure functions of a
+flax leaf's shape: which of its dims FSDP (``fsdp_sharding``), tensor
+parallelism (``tp_sharding``) and both together (``fsdp_tp_sharding``) split,
+or none; and a rank's place on the ``[data, model]`` grid (``make_tp_mesh``).
 
 ``pdae_tpu`` lays a leaf out over the data axis of its mesh by this rule; the
 port's ``param_sharding: fsdp`` (``training/fsdp.py``) applies it to the
@@ -10,7 +11,7 @@ JAX process of that rank holds.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -30,3 +31,55 @@ def fsdp_dim(shape: Sequence[int], world: int,
         if shape[i] >= world and shape[i] % world == 0:
             return i
     return None
+
+
+def tp_dim(shape: Sequence[int], tp: int, min_size: int = FSDP_MIN_SIZE) -> Optional[int]:
+    """The dim of a flax leaf of ``shape`` that tensor parallelism shards
+    over ``tp`` model ranks (``pdae_tpu``'s ``tp_sharding``): None for ``tp``
+    1, for fewer than 2 dims and below ``min_size`` elements; else the last
+    dim (the out channels: column-parallel) where it is at least ``tp`` and
+    divisible by it, else dim -2 (the in channels: row-parallel) on the same
+    terms, else None (the leaf stays whole on every rank)."""
+    ndim = len(shape)
+    if tp == 1 or ndim < 2 or int(np.prod(shape)) < min_size:
+        return None
+    for i in (ndim - 1, ndim - 2):
+        if shape[i] >= tp and shape[i] % tp == 0:
+            return i
+    return None
+
+
+def fsdp_tp_dims(shape: Sequence[int], dp: int, tp: int,
+                 min_size: int = FSDP_MIN_SIZE) -> Tuple[Optional[int], Optional[int]]:
+    """``(tp dim, data dim)`` of a flax leaf of ``shape`` under ``fsdp+tp``
+    (``pdae_tpu``'s ``fsdp_tp_sharding``): below ``min_size`` elements (of
+    the whole shape) neither; else the tp dim by ``tp_dim``'s order, then the
+    largest other dim that is at least ``dp`` and divisible by it (ties to
+    the lower dim) for the data axis."""
+    ndim = len(shape)
+    if int(np.prod(shape)) < min_size:
+        return None, None
+    model = None
+    if ndim >= 2 and tp > 1:
+        for i in (ndim - 1, ndim - 2):
+            if shape[i] >= tp and shape[i] % tp == 0:
+                model = i
+                break
+    data = None
+    if dp > 1:
+        for i in sorted((i for i in range(ndim) if i != model), key=lambda i: shape[i],
+                        reverse=True):
+            if shape[i] >= dp and shape[i] % dp == 0:
+                data = i
+                break
+    return model, data
+
+
+def tp_coords(rank: int, world: int, tp: int) -> Tuple[int, int]:
+    """``(data index, model index)`` of ``rank`` on ``pdae_tpu``'s
+    ``reshape(world // tp, tp)`` grid: a row is a data replica, a column a
+    model rank. Raises ``pdae_tpu``'s ``ValueError`` where ``tp`` does not
+    divide ``world``."""
+    if tp < 1 or world % tp:
+        raise ValueError(f"model_size={tp} must divide the device count {world}")
+    return rank // tp, rank % tp

@@ -18,8 +18,18 @@ each with ``{"error": ...}``.
     python -m pdae_torch.serve --config configs/sampler/unconditional_sample.yml \\
         --port 8080 [--device cpu]
 
-It serves on the card unless ``--device`` names another. Tensor and spatial
-parallelism (``--tp-size``/``--sp-size``) are not ported and are refused.
+It serves on the card unless ``--device`` names another. ``--tp-size K``
+serves tensor-parallel under ``torchrun`` (``PDAEService``'s ``tp_size``; K
+divides the world): rank 0 runs the HTTP server and the batcher and
+broadcasts each op, its arguments and its batch over the default group
+before it runs it; every other rank runs a follower loop that takes each
+broadcast and runs the op; at shutdown rank 0 broadcasts a stop. A follower
+whose op fails as the request's own fault (``ValueError``, ``KeyError``,
+``TypeError``: the leader answers it with a 400) goes on; any other error
+ends the follower with a nonzero exit. Spatial parallelism (``--sp-size``)
+is not ported and is refused.
+
+    torchrun --nproc-per-node 2 -m pdae_torch.serve --config YML --tp-size 2
 """
 
 from __future__ import annotations
@@ -34,6 +44,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .utils.image import png_bytes
+
+# a malformed request's errors: bad JSON or base64, an unknown attribute, an
+# oversized batch, wrong types (a 400; anything else is a 500)
+REQUEST_ERRORS = (ValueError, KeyError, TypeError)
 
 
 def _png_to_array(b64: str, channels: int = 3) -> np.ndarray:
@@ -115,7 +129,7 @@ def make_handler(service, lock, batcher=None):
                     self._reply(404, {"error": "not found"})
                     return
                 self._reply(200, {"images": [_array_to_png(im) for im in out]})
-            except (ValueError, KeyError, TypeError) as e:
+            except REQUEST_ERRORS as e:
                 # a malformed request: bad JSON or base64, an unknown
                 # attribute, an oversized batch, wrong types
                 self._reply(400, {"error": f"{type(e).__name__}: {e}"})
@@ -127,15 +141,67 @@ def make_handler(service, lock, batcher=None):
     return Handler
 
 
+OPS = ("encode", "autoencode", "decode", "generate", "manipulate")
+
+
+class Lockstep:
+    """The service on rank 0 of a tensor-parallel server: each op's name,
+    arguments and batch are broadcast over the default group before it
+    runs, one op at a time, so that the followers run it too; ``stop()``
+    broadcasts the end."""
+
+    def __init__(self, service):
+        self._service = service
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        attr = getattr(self._service, name)
+        if name not in OPS:
+            return attr
+
+        def call(*args, **kwargs):
+            import torch.distributed as dist
+            with self._lock:
+                dist.broadcast_object_list([(name, args, kwargs)], src=0)
+                return attr(*args, **kwargs)
+        return call
+
+    def stop(self):
+        import torch.distributed as dist
+        with self._lock:
+            dist.broadcast_object_list([None], src=0)
+
+
+def follow(service) -> int:
+    """A follower rank's loop: run each op rank 0 broadcasts until the
+    stop; returns the number of ops run. A request's own error (the leader
+    answers it with a 400) is passed over; any other raises."""
+    import torch.distributed as dist
+    done = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return done
+        name, args, kwargs = msg[0]
+        try:
+            getattr(service, name)(*args, **kwargs)
+        except REQUEST_ERRORS:
+            pass
+        done += 1
+
+
 def make_server(config: dict, host: str = "127.0.0.1", port: int = 8080,
-                coalesce_ms: float = 3.0, device=None):
+                coalesce_ms: float = 3.0, device=None, service=None):
     """``(server, batcher)``: a ``ThreadingHTTPServer`` bound to (host, port)
-    over ``PDAEService.from_config(config, device)``; ``batcher`` is None when
-    ``coalesce_ms`` is 0. The caller runs ``serve_forever`` and, at the end,
-    ``server.server_close()`` and ``batcher.close()``."""
+    over ``service`` (by default ``PDAEService.from_config(config,
+    device)``); ``batcher`` is None when ``coalesce_ms`` is 0. The caller
+    runs ``serve_forever`` and, at the end, ``server.server_close()`` and
+    ``batcher.close()``."""
     from .serving import CoalescingBatcher, PDAEService
 
-    service = PDAEService.from_config(config, device=device)
+    if service is None:
+        service = PDAEService.from_config(config, device=device)
     batcher = CoalescingBatcher(service, window_ms=coalesce_ms) if coalesce_ms > 0 else None
     server = ThreadingHTTPServer((host, port),
                                  make_handler(service, threading.Lock(), batcher))
@@ -152,19 +218,43 @@ def main(argv=None):
                         "serves them one at a time under one lock")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' to run without one)")
-    p.add_argument("--tp-size", type=int, default=None, help="not ported; refused")
+    p.add_argument("--tp-size", type=int, default=None,
+                   help="tensor-parallel model ranks, under torchrun (module docstring)")
     p.add_argument("--sp-size", type=int, default=None, help="not ported; refused")
     args = p.parse_args(argv)
-    for flag, value in (("--tp-size", args.tp_size), ("--sp-size", args.sp_size)):
-        if value is not None:
-            raise SystemExit(f"{flag}: tensor and spatial parallelism are not ported "
-                             "(ROADMAP.md, queue 1 item 15); the port serves on one card")
+    if args.sp_size is not None:
+        raise SystemExit("--sp-size: spatial parallelism is not ported (ROADMAP.md, "
+                         "queue 1 item 15)")
 
     from .utils import load_yaml
 
-    server, batcher = make_server(load_yaml(args.config), args.host, args.port,
-                                  args.coalesce_ms, args.device)
-    print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
+    config = load_yaml(args.config)
+    if args.tp_size is None:
+        server, batcher = make_server(config, args.host, args.port, args.coalesce_ms,
+                                      args.device)
+        _serve(server, batcher, args.host)
+        return
+    from . import parallel
+    from .serving import PDAEService
+
+    parallel.init_distributed()
+    service = PDAEService.from_config({**config, "tp_size": args.tp_size},
+                                      device=args.device)
+    if not parallel.is_primary():
+        print(f"rank {parallel.process_index()}: following", flush=True)
+        follow(service)
+        return
+    leader = Lockstep(service)
+    try:
+        server, batcher = make_server(config, args.host, args.port, args.coalesce_ms,
+                                      service=leader)
+        _serve(server, batcher, args.host)
+    finally:
+        leader.stop()
+
+
+def _serve(server, batcher, host):
+    print(f"serving on http://{host}:{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()
     finally:

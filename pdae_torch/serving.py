@@ -24,11 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import parallel, resolve_device
 from .data import CELEBAHQ_LABEL_TO_ID
 from .diffusion import GaussianDiffusion
 from .models import (build_classifier, build_decoder, build_encoder,
                      build_latent_denoise_fn)
+from .parallel import tp as tensor_parallel
+from .utils import encoder_tree, mlp_skip_net_tree, unet_tree
 from .sampling import SamplerContext
 from .sampling.context import DEFAULT_DIFFUSION
 from .utils import load_checkpoint, to_uint8
@@ -58,7 +60,16 @@ class PDAEService:
     generate's latent loop), ``encode_ddim_style``/``decode_ddim_style``
     (``ddim500``/``ddim200``: manipulate), ``latent_config`` (the
     ``latent_denoise_fn_config`` of the latent DPM) and ``num_classes`` (40).
-    ``tp_size``/``sp_size`` above 1 raise: the port serves on one card.
+    ``tp_size`` (1) above 1 serves tensor-parallel over the processes of
+    an initialized group (``parallel.init_distributed``), as ``pdae_tpu``'s
+    service does over its local chips: ``tp_size`` must divide the world,
+    every rank builds the service and calls each op in lockstep, the models
+    hold each rank's blocks (``parallel/tp.py``, leaves of at least
+    ``tp_min_size``, 2**15, elements) and run split over the model group,
+    the padded bucket is split over the ``world // tp_size`` data groups as
+    ``pad_shard_batch`` splits it, and every rank returns the whole result.
+    The classifier's rows are read, not run, and stay whole. ``sp_size``
+    above 1 raises: spatial parallelism is not ported.
 
     ``encoder_state``/``decoder_state`` are state dicts in the reference
     layout (``pdae_torch.utils.convert``). ``generate`` also needs
@@ -78,11 +89,17 @@ class PDAEService:
     def __init__(self, config: dict, encoder_state: dict, decoder_state: dict,
                  device=None, *, latent_state: Optional[dict] = None,
                  latent_stats=None, classifier_state: Optional[dict] = None):
-        for key in ("tp_size", "sp_size"):
-            if int(config.get(key, 1)) > 1:
-                raise NotImplementedError(
-                    f"{key}={config[key]}: tensor and spatial parallelism are not "
-                    "ported (ROADMAP.md, queue 1 item 15); the port serves on one card")
+        if int(config.get("sp_size", 1)) > 1:
+            raise NotImplementedError(
+                f"sp_size={config['sp_size']}: spatial parallelism is not ported "
+                "(ROADMAP.md, queue 1 item 15)")
+        self.tp_layout = None
+        self._data = (0, 1)         # (data index, data groups)
+        if int(config.get("tp_size", 1)) > 1:
+            groups = tensor_parallel.tp_groups(int(config["tp_size"]))
+            self.tp_layout = tensor_parallel.Layout(
+                groups, int(config.get("tp_min_size", parallel.FSDP_MIN_SIZE)))
+            self._data = (groups.data_index, groups.dp)
         fused = str(config.get("fused_upsample", "auto")).lower()
         if fused not in ("on", "off", "auto", "true", "false", "1", "0"):
             raise ValueError(f"fused_upsample must be on|off|auto, got {fused!r}")
@@ -97,10 +114,12 @@ class PDAEService:
         self.encoder = build_encoder(config["encoder_config"], image_size=self.size)
         self.decoder = build_decoder(config["decoder_config"],
                                      config["trained_ddpm_config"])
-        for model, state in ((self.encoder, encoder_state),
-                             (self.decoder, decoder_state)):
+        for model, state, to_tree in ((self.encoder, encoder_state, encoder_tree),
+                                      (self.decoder, decoder_state, unet_tree)):
             model.load_state_dict(state, strict=True)
             model.to(self.device).eval()
+            if self.tp_layout is not None:
+                self.tp_layout.add(model, to_tree)
         self.latent_dim = int(config["encoder_config"]["latent_dim"])
         self._latent_state = latent_state
         self._latent_stats_in = latent_stats
@@ -187,7 +206,10 @@ class PDAEService:
                 with torch.inference_mode(False):
                     model = build_latent_denoise_fn(self.config["latent_config"])
                     model.load_state_dict(self._latent_state, strict=True)
-                    self._latent_model = model.to(self.device).eval()
+                    model.to(self.device).eval()
+                    if self.tp_layout is not None:
+                        self.tp_layout.add(model, mlp_skip_net_tree)
+                    self._latent_model = model
             return self._latent_model, self._latent_stats()
 
     def _classifier(self):
@@ -204,6 +226,32 @@ class PDAEService:
                     self._clf_weight = clf.weight.detach().to(self.device)
             return self._clf_weight, self._latent_stats()
 
+    def _rows(self, *tensors):
+        """This data group's rows of each padded bucket: wrap-padded to a
+        multiple of the data groups, then cut evenly (``pad_shard_batch``);
+        the tensors themselves with one data group."""
+        index, count = self._data
+        if count == 1:
+            return tensors if len(tensors) > 1 else tensors[0]
+        out = []
+        for t in tensors:
+            b = t.shape[0]
+            pad = (-b) % count
+            if pad:
+                t = torch.cat([t] * (1 + -(-pad // b)))[:b + pad]
+            per = t.shape[0] // count
+            out.append(t[index * per:(index + 1) * per])
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def _whole(self, local: torch.Tensor) -> torch.Tensor:
+        """The data groups' results concatenated in order, on every rank
+        (each model group's first rank's, gathered over gloo); ``local``
+        itself with one data group. Collective."""
+        if self._data[1] == 1:
+            return local
+        parts = parallel.gather_objects([local.cpu()])
+        return torch.cat(parts[::self.tp_layout.groups.tp]).to(local.device)
+
     @staticmethod
     def _to_nhwc(x: torch.Tensor, n: int) -> np.ndarray:
         """The first n images of a model output as NHWC numpy; a non-finite
@@ -219,7 +267,7 @@ class PDAEService:
     def encode(self, images) -> np.ndarray:
         """images -> semantic latents z ``[N, latent_dim]``."""
         x, n = self._to_model_input(images)
-        return self.encoder(x)[:n].cpu().numpy()
+        return self._whole(self.encoder(self._rows(x)))[:n].cpu().numpy()
 
     @torch.inference_mode()
     def autoencode(self, images, encode_style: Optional[str] = None,
@@ -229,8 +277,8 @@ class PDAEService:
         ds = decode_style or self.config.get("decoder_ddim_style", "ddim100")
         x, n = self._to_model_input(images)
         out = self.gd.representation_learning_autoencoding(
-            es, ds, self.encoder, self.decoder, x)
-        return to_uint8(self._to_nhwc(out, n))
+            es, ds, self.encoder, self.decoder, self._rows(x))
+        return to_uint8(self._to_nhwc(self._whole(out), n))
 
     @torch.inference_mode()
     def decode(self, z, x_T, decode_style: Optional[str] = None,
@@ -243,10 +291,10 @@ class PDAEService:
             raise ValueError(f"{zz.shape[0]} latents for {n} images")
         if x.shape[0] > n:
             zz = np.concatenate([zz, np.repeat(zz[:1], x.shape[0] - n, axis=0)])
+        x, zz = self._rows(x, torch.from_numpy(zz).to(self.device))
         out = self.gd.representation_learning_ddim_sample(
-            ds, None, self.decoder, None, x, torch.from_numpy(zz).to(self.device),
-            stop_percent=stop_percent)
-        return to_uint8(self._to_nhwc(out, n))
+            ds, None, self.decoder, None, x, zz, stop_percent=stop_percent)
+        return to_uint8(self._to_nhwc(self._whole(out), n))
 
     @torch.inference_mode()
     def generate(self, n: int, seed: int = 0, latent_style: Optional[str] = None,
@@ -268,10 +316,11 @@ class PDAEService:
         z_T = torch.randn((b, latent_dim), generator=gen, device=self.device)
         x_T = torch.randn((b, self.channels, self.size, self.size), generator=gen,
                           device=self.device)
+        z_T, x_T = self._rows(z_T, x_T)
         out = self.gd.latent_diffusion_sample(
             None, ls, ds, latent_denoise_fn, self.decoder, x_T, mean, std,
             latent_dim=latent_dim, z_T=z_T)
-        return to_uint8(self._to_nhwc(out, n))
+        return to_uint8(self._to_nhwc(self._whole(out), n))
 
     @torch.inference_mode()
     def manipulate(self, images, attribute: Optional[str] = None, class_id: int = 31,
@@ -291,12 +340,13 @@ class PDAEService:
         es = encode_style or self.config.get("encode_ddim_style", "ddim500")
         ds = decode_style or self.config.get("decode_ddim_style", "ddim200")
         x, n = self._to_model_input(images)
+        x = self._rows(x)
         x_T = self.gd.representation_learning_ddim_encode(
             es, self.encoder, self.decoder, x)
         out = self.gd.manipulation_sample(
             ds, weight, self.encoder, self.decoder, x, x_T, mean, std,
             int(class_id), float(scale))
-        return to_uint8(self._to_nhwc(out, n))
+        return to_uint8(self._to_nhwc(self._whole(out), n))
 
 
 class CoalescingBatcher:

@@ -83,8 +83,23 @@ without a moment in which the run has no checkpoint (a file is replaced
 through ``latest.ckpt.swap``, which a resume completes), and a resume reads
 either format at any world size, each rank keeping its part.
 
-Not ported yet, and refused by name rather than ignored: the tp, sp and
-composed layouts, ``mesh_layout: hier`` and profiler traces.
+Tensor parallelism (``param_sharding: tp``, ``tp_size`` model ranks, by
+default the whole world; ``parallel/tp.py``): rank r has data index ``r //
+tp_size`` and model index ``r % tp_size``; every module (the frozen ones
+too) holds the rank's block of each parameter that ``pdae_tpu``'s rule
+shards, and its forward runs split over the model group. The batch shards
+over the data group: the loader, the resident corpus's index rows and every
+global draw (t, noise, indices, coins, dropout) take the data index's rows,
+so every rank of a model group sees the same rows. The step sums the
+gradients of the whole vectors a rank used a slice of over the model group,
+then averages every gradient and the loss over the data group. ``fsdp+tp``
+adds the FSDP plan over the data group on the dims of ``pdae_tpu``'s
+``fsdp_tp_sharding``, inside each tp block. A ``full`` save gathers over both
+groups; a ``sharded`` one writes each rank's replica-0 pieces, a start on
+every dim.
+
+Not ported yet, and refused by name rather than ignored: the sp layouts,
+``mesh_layout: hier`` and profiler traces.
 """
 
 from __future__ import annotations
@@ -113,6 +128,7 @@ from ..utils.image import png_bytes
 from ..utils.rng import DROPOUT, INIT, TRAIN, StepGenerator, stream_seed
 from ..utils.sharded_checkpoint import (cleanup_stale_shards, manifest_skeleton,
                                         write_manifest, write_shard_file)
+from ..parallel import tp as tensor_parallel
 from .fsdp import FsdpPlan, local_pieces
 from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
 
@@ -205,9 +221,11 @@ def refuse_unported(config: dict) -> None:
     if layout not in ("auto", "flat", "hier"):
         raise ValueError(f"runner_config.mesh_layout must be 'auto', 'flat' or 'hier', "
                          f"got {layout!r}")
+    if layout == "hier" and "tp" in sharding.split("+"):
+        raise ValueError("mesh_layout 'hier' applies to fsdp; tp builds its own [data, "
+                         "model] mesh")
     checks = [
-        (sharding not in ("replicated", "fsdp"),
-         f"runner_config.param_sharding={sharding!r}", 15),
+        (sharding in ("sp", "fsdp+sp"), f"runner_config.param_sharding={sharding!r}", 15),
         (layout == "hier", "runner_config.mesh_layout='hier'", 15),
         (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
     ]
@@ -295,6 +313,14 @@ class BaseTrainer:
         self.fsdp_min_size = int(rc.get("fsdp_min_size", parallel.FSDP_MIN_SIZE))
         self.plan = None            # the FSDP plan (_shard_state)
         self._skeleton_cache = None
+        # tensor parallelism: the layout of the sharded modules, and the
+        # batch's shard by data index (every rank's own without tp)
+        self.tp_layout = None
+        self.data_rank, self.data_world = self.rank, self.world
+        if "tp" in self.param_sharding.split("+"):
+            groups = tensor_parallel.tp_groups(int(rc.get("tp_size", self.world)))
+            self.tp_layout = tensor_parallel.Layout(groups, self.fsdp_min_size)
+            self.data_rank, self.data_world = groups.data_index, groups.dp
 
         if self.primary:
             os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
@@ -336,7 +362,7 @@ class BaseTrainer:
                              batch_size=self.micro_batch * self.num_iterations,
                              shuffle=True, seed=self.seed,
                              num_workers=int(dl.get("num_workers", 4)),
-                             process_index=self.rank, process_count=self.world)
+                             process_index=self.data_rank, process_count=self.data_world)
         ds_cfg = self.config["train_dataset_config"]
         self.device_resident = bool(ds_cfg.get("device_resident", False))
         self.resident_sampling = str(ds_cfg.get("resident_sampling", "epoch"))
@@ -384,7 +410,7 @@ class BaseTrainer:
         return sample_batch(self._resident_device_data(), self._data_gen.generator,
                             self.loader.batch_size, len(self.train_dataset),
                             flip=bool(getattr(self.train_dataset, "augmentation", False)),
-                            indices=indices, rows=(self.rank, self.world))
+                            indices=indices, rows=(self.data_rank, self.data_world))
 
     def _resident_batches(self, start_step: int) -> Iterator[dict]:
         """Step N's batch gathered on the device from the resident corpus,
@@ -420,8 +446,8 @@ class BaseTrainer:
                 off, e = 0, e + 1
 
         it = rows()
-        cols = slice(self.rank * self.loader.batch_size,
-                     (self.rank + 1) * self.loader.batch_size)
+        cols = slice(self.data_rank * self.loader.batch_size,
+                     (self.data_rank + 1) * self.loader.batch_size)
         for c in self._chunk_schedule(start_step, k, max_steps):
             yield np.stack([next(it)[cols] for _ in range(c)])
 
@@ -444,8 +470,9 @@ class BaseTrainer:
         replay of the captured step, draws what an uninterrupted eager run
         draws there: the train and data streams' generators and, where the
         trained modules have dropout (``self._dropout``), the global RNG
-        with (seed, ``DROPOUT``, step, rank), restored after the step: rank 0
-        draws what one process draws, the other ranks masks of their own."""
+        with (seed, ``DROPOUT``, step, data index), restored after the step:
+        rank 0 draws what one process draws, the other data indices masks of
+        their own, and the ranks of a model group the same masks."""
         self._train_gen.at(step)
         self._data_gen.at(step)
         if not self._dropout:
@@ -453,7 +480,7 @@ class BaseTrainer:
             return
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(stream_seed(self.seed, DROPOUT, step, self.rank))
+            torch.manual_seed(stream_seed(self.seed, DROPOUT, step, self.data_rank))
             yield
 
     # -- subclass hooks -------------------------------------------------- #
@@ -473,28 +500,52 @@ class BaseTrainer:
     def _build(self):
         raise NotImplementedError
 
+    def _tp_shard(self, module: nn.Module, to_tree) -> None:
+        """Under tensor parallelism, ``module`` laid out over the model
+        group (``parallel/tp.py``; ``to_tree`` maps its state dict to the flax
+        tree): its sharded parameters become the rank's blocks. Call it
+        before the module's parameters go into the state."""
+        if self.tp_layout is not None:
+            self.tp_layout.add(module, to_tree)
+
     def _shard_state(self, params: Dict[str, Dict], to_trees: Dict[str, Any]) -> None:
-        """The trained ``params`` (``{group: {name: Parameter}}``) laid out:
-        under ``fsdp`` with a tensor group the FSDP plan (``to_trees[group]``
-        maps a group's state dict to its flax tree), then the optimizer
-        (``optimizer_config``) over the masters and the ``TrainState``."""
+        """The trained ``params`` (``{group: {name: Parameter}}``, the
+        rank's tp blocks under tensor parallelism) laid out: under ``fsdp``
+        or ``fsdp+tp`` with a tensor group the FSDP plan (``to_trees[group]``
+        maps a group's state dict to its flax tree; over the data group under
+        ``fsdp+tp``), then the optimizer (``optimizer_config``) over the
+        masters and the ``TrainState``."""
         self.optimizer_config = self.config["optimizer_config"]
-        if self.param_sharding == "fsdp" and parallel.tensor_backend() is not None:
-            self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device)
+        if parallel.tensor_backend() is not None:
+            if self.param_sharding == "fsdp":
+                self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device)
+            elif self.param_sharding == "fsdp+tp":
+                g = self.tp_layout.groups
+                self.plan = FsdpPlan(
+                    params, to_trees, self.fsdp_min_size, self.device, g.data_group,
+                    (g.data_index, g.dp), self.tp_layout.fsdp_rule(params),
+                    self.tp_layout.model_sum(flat_params(params), self.device))
         masters = params if self.plan is None else self.plan.masters
         self.optimizer = make_optimizer(self.optimizer_config, flat_params(masters))
-        self.state = TrainState.create(params, self.optimizer, plan=self.plan)
+        self.state = TrainState.create(params, self.optimizer, plan=self.plan,
+                                       tp=self.tp_layout)
 
     def _data_parallel(self) -> dict:
         """The ``rows``, ``reduce`` and ``plan`` arguments of
-        ``make_*_train_step``: this rank's place in the world, and the mean
-        all-reduce of the gradients and the loss through one flat buffer
-        made here (None in one process), or the FSDP plan in its place."""
+        ``make_*_train_step``: this rank's place among the data shards, and
+        the mean all-reduce of the gradients and the loss through one flat
+        buffer made here (None in one process; under tensor parallelism the
+        layout's reducer), or the FSDP plan in its place."""
+        rows = (self.data_rank, self.data_world)
         if self.plan is not None:
-            return {"rows": (self.rank, self.world), "reduce": None, "plan": self.plan}
-        numel = 1 + sum(p.numel() for p in flat_params(self.state.params))
-        return {"rows": (self.rank, self.world),
-                "reduce": parallel.mean_all_reducer(numel, self.device), "plan": None}
+            return {"rows": rows, "reduce": None, "plan": self.plan}
+        params = flat_params(self.state.params)
+        if self.tp_layout is not None:
+            return {"rows": rows, "reduce": self.tp_layout.reducer(params, self.device),
+                    "plan": None}
+        numel = 1 + sum(p.numel() for p in params)
+        return {"rows": rows, "reduce": parallel.mean_all_reducer(numel, self.device),
+                "plan": None}
 
     @property
     def step(self) -> int:
@@ -526,18 +577,23 @@ class BaseTrainer:
         ``parallel.dispatch_num_samples_for_process`` gives it, after the
         lower ranks' (the reference's split, gathered in rank order)."""
         count = parallel.dispatch_num_samples_for_process
-        offset = sum(count(total, rank=r, world=self.world) for r in range(self.rank))
-        return slice(offset, offset + count(total, rank=self.rank, world=self.world))
+        rank, world = self.data_rank, self.data_world
+        offset = sum(count(total, rank=r, world=world) for r in range(rank))
+        return slice(offset, offset + count(total, rank=rank, world=world))
 
     def _gather_eval_images(self, local_imgs: np.ndarray) -> Optional[np.ndarray]:
-        """The ranks' eval images concatenated in rank order on the primary;
-        None on the others. Collective: every rank calls it."""
+        """The data shards' eval images concatenated in order on the
+        primary (under tensor parallelism, those of each model group's first
+        rank); None on the others. Collective: every rank calls it."""
         parts = parallel.gather_objects([np.asarray(local_imgs)])
-        return np.concatenate(parts, axis=0) if self.primary else None
+        step = self.world // self.data_world
+        return np.concatenate(parts[::step], axis=0) if self.primary else None
 
     def _eval_ema(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """The EMA of the trained tensors, whole, keyed as ``state.params``:
-        under FSDP gathered on every rank, on the card. Collective."""
+        """The EMA of the trained tensors, keyed as ``state.params``: whole,
+        under FSDP gathered on every rank, on the card (collective); under
+        tensor parallelism the rank's tp blocks, which the split forward
+        takes."""
         ema = self.state.ema_params
         if self.plan is None:
             return ema
@@ -567,6 +623,10 @@ class BaseTrainer:
         if full and self.plan is not None:
             live = [self.state.params[g][k] for g, k in names]
             held = self.plan.gather(held)
+        if full and self.tp_layout is not None:
+            params = [self.state.params[g][k] for g, k in names]
+            whole = self.tp_layout.gather(live + held, params * 4)
+            live, held = whole[:len(names)], whole[len(names):]
         copies = host_copy(live + held)
         n = len(names)
         out = {"count": count}
@@ -590,11 +650,16 @@ class BaseTrainer:
     def _skeleton(self) -> Dict[str, Dict]:
         """The checkpoint's manifest skeleton, each leaf's global ``{shape,
         dtype}`` keyed by path, made once from the whole parameters (whole
-        on every rank)."""
+        on every rank; zeros of the whole shapes under tensor
+        parallelism)."""
         if self._skeleton_cache is None:
             params = self.state.params
             names = [(g, k) for g in params for k in params[g]]
-            copies = host_copy([params[g][k] for g, k in names])
+            if self.tp_layout is None:
+                copies = host_copy([params[g][k] for g, k in names])
+            else:
+                copies = [torch.zeros(self.tp_layout.whole_shape(params[g][k]))
+                          for g, k in names]
             whole = {g: {} for g in params}
             for (g, k), t in zip(names, copies):
                 whole[g][k] = t
@@ -632,11 +697,12 @@ class BaseTrainer:
         if self.checkpoint_format == "sharded":
             return self._save_sharded(step, paths)
         t0 = time.perf_counter()
-        if self.plan is not None:
+        gathered = self.plan is not None or self.tp_layout is not None
+        if gathered:
             snap = self.snapshot_state(full=True)
         if not self.primary:
             return
-        if self.plan is None:
+        if not gathered:
             snap = self.snapshot_state()
         self._join_save()
         record = [0.0, None]
@@ -736,7 +802,9 @@ class BaseTrainer:
 
         def write_pieces():
             tree = {"step": np.asarray(step, np.int32), **self.checkpoint_tree(snap)}
-            pieces = local_pieces(tree, skeleton, self.rank, self.world)
+            index = (None if self.tp_layout is None else
+                     self.tp_layout.piece_index(self.plan is not None))
+            pieces = local_pieces(tree, skeleton, self.rank, self.world, index)
             for _, target in targets:
                 os.makedirs(target, exist_ok=True)
                 write_shard_file(target, pieces, tag, self.rank, self.world)

@@ -88,13 +88,30 @@ def _carries(leaf: np.ndarray, base: int, d: int, shape: Tuple[int, ...], t: int
     return bool((along == want).all())
 
 
+def fsdp_rule(world: int, min_size: int) -> Callable:
+    """``rule(group, name, flax shape) -> (the rule's dim, the dims to try
+    in order)``: ``parallel.fsdp_dim``, then every dim that divides
+    ``world`` from the largest (``layout`` takes the first that carries a
+    torch dim)."""
+    def rule(group, name, shape):
+        dim = parallel.fsdp_dim(shape, world, min_size)
+        if dim is None:
+            return None, []
+        order = sorted(range(len(shape)), key=lambda i: shape[i], reverse=True)
+        return dim, [d for d in order if shape[d] >= world and shape[d] % world == 0]
+    return rule
+
+
 def layout(params: Dict[str, Dict[str, torch.Tensor]], to_trees: Dict[str, Callable],
-           world: int, min_size: int) -> Tuple[List[Leaf], List[Tuple[str, int, int]]]:
+           world: int, min_size: int, rule: Optional[Callable] = None
+           ) -> Tuple[List[Leaf], List[Tuple[str, int, int]]]:
     """The plan's leaves in ``params``' order, and its exceptions
     ``(flax path, the rule's dim, the dim used or None)``: each group's
     tensors go through ``to_trees[group]`` as probes of their element
     indices, which give each tensor's flax path and shape and which flax
-    dims carry a torch dim."""
+    dims carry a torch dim. ``rule`` (default ``fsdp_rule(world,
+    min_size)``) names each leaf's dim and the dims to try."""
+    rule = fsdp_rule(world, min_size) if rule is None else rule
     leaves, exceptions = [], []
     for group, named in params.items():
         probes, base, offset = {}, {}, 0
@@ -111,20 +128,17 @@ def layout(params: Dict[str, Dict[str, torch.Tensor]], to_trees: Dict[str, Calla
             first = int(leaf.min())
             name = by_start[int(starts[np.searchsorted(starts, first, side="right") - 1])]
             shape = tuple(named[name].shape)
-            rule = parallel.fsdp_dim(leaf.shape, world, min_size)
+            want, order = rule(group, name, leaf.shape)
             flax_dim = torch_dim = None
-            if rule is not None:
-                order = sorted(range(leaf.ndim), key=lambda i: leaf.shape[i], reverse=True)
+            if want is not None:
                 for d in order:
-                    if not (leaf.shape[d] >= world and leaf.shape[d] % world == 0):
-                        continue
                     t = next((t for t in range(len(shape)) if _carries(
                         leaf, base[name], d, shape, t)), None)
                     if t is not None:
                         flax_dim, torch_dim = d, t
                         break
-                if flax_dim != rule:
-                    exceptions.append((f"{group}/{path}", rule, flax_dim))
+                if flax_dim != want:
+                    exceptions.append((f"{group}/{path}", want, flax_dim))
             found[name] = Leaf(group, name, path, tuple(leaf.shape), flax_dim, torch_dim)
         missing = sorted(set(named) - set(found))
         if missing:
@@ -140,10 +154,18 @@ class FsdpPlan:
     docstring). ``masters`` are keyed as ``params``."""
 
     def __init__(self, params: Dict[str, Dict[str, torch.Tensor]],
-                 to_trees: Dict[str, Callable], min_size: int, device):
-        self.rank, self.world = parallel.process_index(), parallel.process_count()
+                 to_trees: Dict[str, Callable], min_size: int, device, group=None,
+                 place: Optional[Tuple[int, int]] = None, rule: Optional[Callable] = None,
+                 pre_reduce: Optional[Callable] = None):
+        """``group``/``place`` (rank, world in it): the processes the plan
+        shards over, by default the tensor group; ``rule`` as ``layout``
+        takes it; ``pre_reduce(grads)``, where given, runs on the gradients
+        before the plan's collectives (``fsdp+tp``: the model group's sums)."""
+        self.rank, self.world = (parallel.process_index(), parallel.process_count()
+                                 ) if place is None else place
+        self.group, self.pre_reduce = group, pre_reduce
         self.params = params
-        self.leaves, self.exceptions = layout(params, to_trees, self.world, min_size)
+        self.leaves, self.exceptions = layout(params, to_trees, self.world, min_size, rule)
         self._by_name = {(lf.group, lf.name): lf for lf in self.leaves}
         self.sharded = [lf for lf in self.leaves if lf.torch_dim is not None]
         offset = 0
@@ -160,7 +182,7 @@ class FsdpPlan:
                         memory_format=torch.contiguous_format)
         whole = sum(params[lf.group][lf.name].numel() for lf in self.leaves
                     if lf.torch_dim is None)
-        self._reduce = parallel.mean_all_reducer(1 + whole, device)
+        self._reduce = parallel.mean_all_reducer(1 + whole, device, group)
         # the flat buffers, made here once; one collective of each kind runs
         # now, so the communicator exists before any capture
         self._wide = torch.zeros(self.world * self.shard_numel, dtype=torch.float32,
@@ -168,8 +190,8 @@ class FsdpPlan:
         self._grads = torch.zeros(self.shard_numel, dtype=torch.float32, device=device)
         self._send = torch.zeros(self.shard_numel, dtype=torch.float32, device=device)
         if self.sharded:
-            parallel.reduce_scatter_mean_(self._grads[:1], self._wide[:self.world])
-            parallel.all_gather_into_(self._wide[:self.world], self._send[:1])
+            parallel.reduce_scatter_mean_(self._grads[:1], self._wide[:self.world], group)
+            parallel.all_gather_into_(self._wide[:self.world], self._send[:1], group)
 
     # -- placement -------------------------------------------------------- #
 
@@ -201,6 +223,8 @@ class FsdpPlan:
         in ``params``' order) reduce-scattered into this rank's blocks as a
         mean where the tensor is sharded, all-reduced with the loss where it
         is whole. Collective; capturable over NCCL."""
+        if self.pre_reduce is not None:
+            self.pre_reduce(grads)
         pairs = list(zip(self.leaves, grads))
         if self._reduce is not None:
             self._reduce([loss] + [g for lf, g in pairs if lf.torch_dim is None])
@@ -211,7 +235,7 @@ class FsdpPlan:
                                   if lf.torch_dim is not None],
                                  [self._split(g, lf) for lf, g in pairs
                                   if lf.torch_dim is not None])
-            parallel.reduce_scatter_mean_(self._grads, self._wide)
+            parallel.reduce_scatter_mean_(self._grads, self._wide, self.group)
         return loss, [g if lf.torch_dim is None else self._block_of(self._grads, lf)
                       for lf, g in pairs]
 
@@ -229,7 +253,7 @@ class FsdpPlan:
         with torch.no_grad():
             torch._foreach_copy_([self._block_of(self._send, lf) for lf in self.sharded],
                                  [self.masters[lf.group][lf.name] for lf in self.sharded])
-            parallel.all_gather_into_(self._wide, self._send)
+            parallel.all_gather_into_(self._wide, self._send, self.group)
             for lf in self.sharded:
                 self._split(self.params[lf.group][lf.name], lf).copy_(
                     self._blocks(self._wide, lf))
@@ -239,31 +263,39 @@ class FsdpPlan:
         order, repeated: EMA, then moments, ...), on every rank. Collective."""
         dims = [lf.torch_dim for lf in self.leaves]
         dims = dims * (len(tensors) // len(dims))
-        return parallel.gather_full(list(tensors), dims)
+        return parallel.gather_full(list(tensors), dims, self.group)
 
 
-def local_pieces(tree: Dict, skeleton: Dict[str, Dict], rank: int,
-                 world: int) -> Dict[str, List]:
+def local_pieces(tree: Dict, skeleton: Dict[str, Dict], rank: int, world: int,
+                 index: Optional[Callable] = None) -> Dict[str, List]:
     """The pieces of a sharded save this rank writes, from ``tree`` (its
     checkpoint tree in the flax layout, built from its blocks) and
-    ``skeleton`` (each path's global ``{shape, dtype}``): a leaf that is
-    smaller than its global shape in one dim is this rank's block of it
-    (``world`` times smaller there, starting at ``rank`` blocks); a leaf of
-    the global shape is whole on every rank and rank 0 writes it."""
+    ``skeleton`` (each path's global ``{shape, dtype}``). By default a leaf
+    that is smaller than its global shape in one dim is this rank's block of
+    it (``world`` times smaller there, starting at ``rank`` blocks), and a
+    leaf of the global shape is whole on every rank and rank 0 writes it.
+    ``index(global shape, split dims) -> ({dim: block index}, whether this
+    rank writes the piece)`` places the blocks of a leaf split in several
+    dims (``fsdp+tp``), or held on several ranks (``tp``'s replicas)."""
     out = {}
     for path, leaf in flatten_dict(tree).items():
         if isinstance(leaf, dict):
             continue
         data = np.asarray(leaf)
         want = tuple(skeleton[path]["shape"])
-        if data.shape == want:
-            out[path] = [{"start": [0] * data.ndim, "data": data}] if rank == 0 else []
-            continue
-        split = [d for d in range(data.ndim) if data.shape[d] != want[d]]
-        if len(split) != 1 or data.ndim != len(want) or data.shape[split[0]] * world != want[
-                split[0]]:
-            raise ValueError(f"{path}: a block {data.shape} of {want} over {world} processes")
+        split = [d for d in range(data.ndim) if data.ndim == len(want)
+                 and data.shape[d] != want[d]]
+        if data.ndim != len(want) or any(want[d] % data.shape[d] for d in split):
+            raise ValueError(f"{path}: a block {data.shape} of {want}")
+        if index is None:
+            if len(split) > 1 or (split and data.shape[split[0]] * world != want[split[0]]):
+                raise ValueError(f"{path}: a block {data.shape} of {want} over {world} "
+                                 "processes")
+            at, writes = {d: rank for d in split}, bool(split) or rank == 0
+        else:
+            at, writes = index(want, split)
         start = [0] * data.ndim
-        start[split[0]] = rank * data.shape[split[0]]
-        out[path] = [{"start": start, "data": data}]
+        for d, i in at.items():
+            start[d] = i * data.shape[d]
+        out[path] = [{"start": start, "data": data}] if writes else []
     return out

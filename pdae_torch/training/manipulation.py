@@ -75,8 +75,10 @@ class ManipulationTrainer(StageTrainer):
         if not 0 <= class_id < self.num_classes:
             raise ValueError(f"class_id {class_id} is not one of the classifier's "
                              f"{self.num_classes} classes")
-        weight = self.ema_weights()["weight"]       # collective under FSDP
-        if not self.primary:
+        weight = self.ema_weights(whole=True)["weight"]      # collective under FSDP/tp
+        # under tensor parallelism the frozen PDAE runs split: every rank
+        # decodes, the primary writes
+        if not self.primary and self.tp_layout is None:
             return
         t0 = time.perf_counter()
         batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
@@ -88,6 +90,8 @@ class ManipulationTrainer(StageTrainer):
             imgs = self.gd.manipulation_sample(
                 decode_style, weight, self.encoder, self.decoder, x_0, x_T,
                 self.latents_mean, self.latents_std, class_id, scale)
+        if not self.primary:
+            return
         grid = to_uint8(torch.cat([x_0, imgs]).permute(0, 2, 3, 1).cpu().numpy())
         save_image_grid(grid, os.path.join(self.run_path, "samples",
                                            f"sample{step // 1000}k.png"),

@@ -24,7 +24,10 @@ gradient branch trained on a frozen pre-trained DPM. The port of
   ``pdae_tpu``'s trainer resumes from the port's files and the port from its.
   Under FSDP (``param_sharding: fsdp``) the encoder and the shift branch are
   sharded by the plan (``training/fsdp.py``), the trunk stays whole on every
-  rank and rank 0 writes it in a sharded checkpoint.
+  rank and rank 0 writes it in a sharded checkpoint. Under tensor
+  parallelism the encoder and the whole decoder, trunk too, hold the rank's
+  tp blocks and run split (``parallel/tp.py``); the trunk's checkpoint tree
+  stays the whole host copy made at the graft.
 """
 
 from __future__ import annotations
@@ -77,6 +80,8 @@ class RepresentationLearningTrainer(BaseTrainer):
         self.decoder.to(self.device)
         self._dropout = has_dropout(self.decoder)
 
+        self._tp_shard(self.encoder, encoder_tree)
+        self._tp_shard(self.decoder, unet_tree)
         self._shard_state(trainable_params(self.encoder, self.decoder),
                           {"encoder": encoder_tree, "shift": unet_tree})
         rc = self.runner_config

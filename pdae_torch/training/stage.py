@@ -7,7 +7,9 @@ The checkpoint of a stage holds ``<params_key>``, ``<ema_key>``,
 ``optimizer`` and ``step``, each tree as ``pdae_tpu``'s trainer of that
 stage writes it, so either package resumes the other's files. Under FSDP the
 trained module is sharded by the plan (``training/fsdp.py``); the frozen
-PDAE stays whole on every rank.
+PDAE stays whole on every rank. Under tensor parallelism the trained module
+and the frozen PDAE hold the rank's tp blocks and run split
+(``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from ..models import build_decoder, build_encoder
 from ..utils import optimizer_moments, optimizer_tree, restore_into
-from ..utils import encoder_state_dict, unet_state_dict
+from ..utils import encoder_state_dict, encoder_tree, unet_state_dict, unet_tree
 from .artifacts import load_latent_stats, load_pdae, resolve_model_config
 from .base import BaseTrainer, has_dropout
 
@@ -34,6 +36,7 @@ class StageTrainer(BaseTrainer):
     def _train_module(self, model: nn.Module) -> None:
         self.model = model.to(self.device)
         self._dropout = has_dropout(model)
+        self._tp_shard(model, type(self).to_tree)
         self._shard_state({"model": dict(model.named_parameters())},
                           {"model": type(self).to_tree})
         self.ema_decay = float(self.runner_config.get("ema_decay", 0.9999))
@@ -43,10 +46,18 @@ class StageTrainer(BaseTrainer):
     def step(self) -> int:
         return int(self.state.step)
 
-    def ema_weights(self) -> dict:
-        """The trained module's EMA, whole (gathered under FSDP: every rank
-        calls it)."""
-        return self._eval_ema()["model"]
+    def ema_weights(self, whole: bool = False) -> dict:
+        """The trained module's EMA (gathered under FSDP: every rank calls
+        it); under tensor parallelism the rank's tp blocks, or with
+        ``whole`` gathered over the model group too."""
+        ema = self._eval_ema()["model"]
+        if whole and self.tp_layout is not None:
+            params = self.state.params["model"]
+            names = list(ema)
+            copies = self.tp_layout.gather([ema[k] for k in names],
+                                           [params[k] for k in names])
+            ema = dict(zip(names, copies))
+        return ema
 
     # -- the frozen PDAE of the latent and manipulation stages --------------- #
 
@@ -70,6 +81,8 @@ class StageTrainer(BaseTrainer):
         for m in (self.encoder, self.decoder):
             m.requires_grad_(False)
             m.to(self.device).eval()
+        self._tp_shard(self.encoder, encoder_tree)
+        self._tp_shard(self.decoder, unet_tree)
         mean, std = load_latent_stats(cfg["inferred_latents"])
         self.latents_mean, self.latents_std = mean.to(self.device), std.to(self.device)
         self.latent_dim = int(pdae_cfg["encoder_config"]["latent_dim"])

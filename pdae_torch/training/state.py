@@ -9,7 +9,8 @@ references to the modules' parameters, not copies.
 Under FSDP (``training/fsdp.py``) the optimizer and the EMA run on the
 plan's ``masters``: this rank's block of each sharded tensor, a tensor of its
 own, and the parameter itself where the tensor is whole; without a plan the
-masters are the parameters.
+masters are the parameters. Under tensor parallelism (``parallel/tp.py``)
+the parameters themselves are the rank's tp blocks.
 
 On the card the optimizer is built ``capturable``: its step count lives on
 the card and the bias corrections ``1 - beta ** count`` are computed there in
@@ -72,22 +73,30 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     masters: Optional[Dict[str, Dict]] = None   # what Adam updates (module docstring)
     plan: Any = None               # the FSDP plan, None without one
+    tp: Any = None                 # the tensor-parallel layout, None without one
 
     def __post_init__(self):
         if self.masters is None:
             self.masters = self.params
 
     @classmethod
-    def create(cls, params: Dict[str, Dict], optimizer, plan=None) -> "TrainState":
+    def create(cls, params: Dict[str, Dict], optimizer, plan=None, tp=None) -> "TrainState":
         masters = params if plan is None else plan.masters
         ema = {g: {k: p.detach().clone() for k, p in group.items()}
                for g, group in masters.items()}
         return cls(step=0, params=params, ema_params=ema, optimizer=optimizer,
-                   masters=masters, plan=plan)
+                   masters=masters, plan=plan, tp=tp)
 
     def _local(self, group: str, key: str, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's part of a whole tensor shaped as ``group``/``key``."""
-        return whole if self.plan is None else self.plan.local(group, key, whole)
+        """This rank's part, shaped as its master, of a whole tensor shaped
+        as ``group``/``key``: its tp block, then its FSDP block."""
+        part = self._param_part(group, key, whole)
+        return part if self.plan is None else self.plan.local(group, key, part)
+
+    def _param_part(self, group: str, key: str, whole: torch.Tensor) -> torch.Tensor:
+        """The part of a whole tensor that the parameter ``group``/``key``
+        holds: its tp block under tensor parallelism."""
+        return whole if self.tp is None else self.tp.local(self.params[group][key], whole)
 
     def load_converted(self, converted: dict) -> None:
         """Copy a train state carried over by
@@ -101,9 +110,10 @@ class TrainState:
                     raise KeyError(f"{group}: the converted state has other keys")
                 for key, p in named.items():
                     m = self.masters[group][key]
-                    p.copy_(converted["params"][group][key])
+                    whole = converted["params"][group][key]
+                    p.copy_(self._param_part(group, key, whole))
                     if m is not p:
-                        m.copy_(self._local(group, key, p))
+                        m.copy_(self._local(group, key, whole))
                     self.ema_params[group][key].copy_(
                         self._local(group, key, converted["ema_params"][group][key]))
                     if "mu" in converted:

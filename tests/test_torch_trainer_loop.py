@@ -185,24 +185,26 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
     assert tr.train(max_steps=2) == 2
 
 
-# fsdp and the sharded write train (tests/test_torch_fsdp.py); the tp, sp and
-# composed layouts and the hierarchical mesh are refused by their own names
+# fsdp, tp, fsdp+tp and the sharded write train (tests/test_torch_fsdp.py,
+# tests/test_torch_tp.py); the sp layouts and the hierarchical mesh are
+# refused by their own names
 REFUSALS = {
-    "param_sharding": ({"runner_config": {"param_sharding": "tp"}}, 15),
+    "param_sharding": ({"runner_config": {"param_sharding": "sp", "sp_size": 2}}, 15),
     "param_sharding_sp": ({"runner_config": {"param_sharding": "sp"}}, 15),
     "param_sharding_fsdp+sp": ({"runner_config": {"param_sharding": "fsdp+sp"}}, 15),
     "mesh_layout": ({"runner_config": {"param_sharding": "fsdp", "mesh_layout": "hier"}},
                     15),
     "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
-    # a torchrun launch trains replicated or fsdp params; the composed
-    # layout under it is still refused by its own name, before the join
-    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp+tp"}}, 15),
+    # a torchrun launch trains replicated, fsdp, tp or fsdp+tp params; the
+    # composed sp layout under it is still refused by its own name, before
+    # the join
+    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp+sp"}}, 15),
 }
-REFUSED_AS = {"param_sharding": "param_sharding='tp'",
+REFUSED_AS = {"param_sharding": "param_sharding='sp'",
               "param_sharding_sp": "param_sharding='sp'",
               "param_sharding_fsdp+sp": "param_sharding='fsdp\\+sp'",
               "mesh_layout": "mesh_layout='hier'",
-              "WORLD_SIZE": "param_sharding='fsdp\\+tp'"}
+              "WORLD_SIZE": "param_sharding='fsdp\\+sp'"}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
@@ -217,6 +219,30 @@ def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match=f"{what}.*item {item}\\)"):
         _trainer(tmp_path / "run", cfg)
     assert not os.path.exists(tmp_path / "run")
+
+
+def test_tp_in_one_process_is_the_one_process_layout_and_hier_is_refused(tmp_path,
+                                                                          monkeypatch):
+    """``tp`` lifted its refusal: in one process ``tp_size`` defaults to the
+    world of one, nothing splits, and the trainer takes a step; a
+    ``tp_size`` that does not divide the world and ``mesh_layout: hier``
+    with tp raise ``pdae_tpu``'s ``ValueError``s."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    patch_tiny_encoders(monkeypatch)
+    for sharding in ("tp", "fsdp+tp"):
+        cfg = tiny_pdae_config()
+        cfg["runner_config"].update(param_sharding=sharding)
+        tr = _trainer(tmp_path / sharding.replace("+", "_"), cfg)
+        assert tr.tp_layout.groups.tp == 1 and tr.data_world == 1
+        assert all(i.role == "whole" for i in tr.tp_layout.infos.values())
+        assert tr.train(max_steps=1) == 1
+    cfg = tiny_pdae_config()
+    cfg["runner_config"].update(param_sharding="tp", tp_size=2)
+    with pytest.raises(ValueError, match="model_size=2 must divide the device count 1"):
+        _trainer(tmp_path / "tp2", cfg)
+    cfg["runner_config"].update(mesh_layout="hier")
+    with pytest.raises(ValueError, match="mesh_layout 'hier' applies to fsdp"):
+        _trainer(tmp_path / "hier", cfg)
 
 
 # the options whose refusals the compute dtype and remat lifted: each trains
