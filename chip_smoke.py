@@ -27,8 +27,16 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    variant), a cluster of 8, an H*W that is no power of two, and a cluster
    launch inside a CUDA graph; for the backward also a chain without dx.
    ``launch_floor_ms`` is an empty kernel's device time, the floor under the
-   small shapes. Every comparison in full goes to
-   ``chiprun_out/chip_smoke_kernels.json``.
+   small shapes. The split passes of spatial parallelism (``check_split``:
+   the GN stats and apply passes, the backward's moments and dx passes, and
+   the attention of a rank's query rows against every key) are held to
+   their plain versions in fp32 and bf16 at every local shape the sp phase's
+   runs give them, and timed in fp32 at the b32 train step's with their
+   bound and a library call's time; the apply pass on the fused kernel's
+   saved stats, and the ``Tq < Tk`` attention against the same rows of the
+   ``Tq = Tk`` launch, are held bit for bit. The checks draw their inputs on
+   the card. Every comparison in full
+   goes to ``chiprun_out/chip_smoke_kernels.json``.
 3. ``serving``: ``PDAEService`` at the full celeba64 width (ShiftUNet
    ``CELEBA64_DPM`` + 64px encoder, latent 512, seeded random weights with the
    zero-init layers perturbed) answers an ``encode`` and an ``autoencode``
@@ -99,10 +107,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    per evaluation; ``from_config`` serves a b8 dpm20 ``autoencode``,
    ``generate`` and ``manipulate`` bit-equal to the service built in memory
    from the same trees (``cudnn.deterministic``); every other sampler runs
-   once at ddim20/dpm20 styles, ``gap_measure`` and ``autoencoding_example``
+   once at ddim10 styles, ``gap_measure`` and ``autoencoding_example``
    (whose DDPM row runs every step) under a 100-step schedule, each PNG of
    its layout's size, and ``denoise_one_step`` once more through
-   ``python -m pdae_torch.sample``. Each run's model calls and kernel
+   ``python -m pdae_torch.sample`` (a process that runs beside them). Each run's model calls and kernel
    launches must equal the structure's, every GN launch on the cluster
    variant. Every attention and GN input shape those runs give (b2, b3,
    b5, b9, b16 ... as each sampler batches) is then held to the plain
@@ -125,9 +133,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    with ``fid`` (256 samples, b64, ddim10/ddim10, against the features of
    2,560 SYNTHETIC images), each run's model calls and kernel launches held
    to the structure and every new kernel shape to the plain versions
-   (``chiprun_out/chip_smoke_metrics_shapes.json``); then ``AutoencodingEval``
+   (``chiprun_out/chip_smoke_metrics_shapes.json``); and ``AutoencodingEval``
    (with LPIPS) and ``InferLatents`` again as two ranks on the one card
-   (``python3 chip_smoke.py --rank-worker``, gloo for the objects), each
+   (``python3 chip_smoke.py --rank-worker``, gloo for the objects; started
+   after the first ``AutoencodingEval``, beside the rest of the phase), each
    within the one-process run's values plus the gap of a control (one
    process over the ranks' batches, in their order) and the means' order.
 10. ``stages``: the regular, latent and manipulation trainers through
@@ -140,9 +149,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    ``configs/dpm_celebahq.yml`` trunk and the 128px encoder that the phase
    writes), each on SYNTHETIC data that is uint8 and device-resident (the
    regular corpus flipped on the card). Each: run A 6 steps (saves at 3 and 6,
-   the eval at 6: an 8-image ddim100 grid, a ddim100/ddim100 latent sample
-   of 8, a ddim100/ddim100 manipulation where the trainer's default is
-   ddim500/ddim200), run B resumed from A's step-3 file to 6 and bit-equal to
+   the eval at 6, each at ddim20: an 8-image grid, a latent sample of 8, a
+   manipulation (the trainers' defaults: ddim100, ddim100/ddim100,
+   ddim500/ddim200)), run B resumed from A's step-3 file to 6 and bit-equal to
    A (``cudnn.deterministic``); for the latent and manipulation stages run
    P with ``latent_train_source: precomputed`` (the corpus encoded once in
    chunks of 512), each loss within 1e-5 of A's. Every step's launches equal
@@ -182,8 +191,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    native host code. 128 seeded JPEGs at CelebA's 178x218 (quality 95) packed
    by ``python -m pdae_torch.prepare_lmdb --key-format 'None-%07d'``; the
    trainer phase's DPM exported to a reference ``.pt`` by ``python -m
-   pdae_torch.convert --export`` and converted back, bit-equal on every leaf
-   and byte-equal as a file; the celeba64 ``RepresentationLearningTrainer``
+   pdae_torch.convert --export`` (beside the packing) and converted back,
+   bit-equal on every leaf and byte-equal as a file; the celeba64 ``RepresentationLearningTrainer``
    (the trainer phase's config, b32, fp32, TF32 off) from the converted DPM
    on CELEBA64 over the LMDB with ``fast_decode`` at its default (the train
    split cut to the packed images), one warm-up and 4 timed steps, each
@@ -225,8 +234,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    TF32 off, ``cudnn.deterministic``, Adam eps 1e-5) as two ranks on the one
    card (``python3 chip_smoke.py --ddp-worker``, both ``LOCAL_RANK`` 0: NCCL
    refuses two ranks on one device, so their tensor group is gloo and the
-   run eager): 4 steps saved at 2, then a fresh pair resumed from that file
-   to 4. Against it one process (b64) over the same 64 rows in the ranks'
+   run eager): 3 steps saved at 2, then a fresh pair resumed from that file
+   to 3. Against it one process (b64) over the same 64 rows in the ranks'
    order, after the ranks have left the card: every loss within
    ``DDP_TOL["loss_rel"]``, the last reduced gradients, params, EMA and Adam
    moments within their ``DDP_TOL``; the ranks' states and losses bit-equal
@@ -234,7 +243,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the structure's per step, wall ms per step at both world sizes and of the
    gloo all-reduce of the gradients alone. Then the
    same config at its shipped K=4 from the captured graph, 8 steps, in a
-   process with an NCCL tensor group of one rank and in one with no group:
+   process with an NCCL tensor group of one rank and in one with no group,
+   side by side on the card:
    every loss and the final state bit-equal, the launches per replay the
    structure's; recorded: wall ms per step of each chunk, two more traced
    replays of each (busy ms, kernels, NCCL kernels, the costliest kernels)
@@ -243,8 +253,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 15. ``fsdp``: ``param_sharding: fsdp`` (``pdae_torch/training/fsdp.py``) on
    the ddp phase's config, run by the ddp phase's processes after their own
    runs. Two ranks on the one card over gloo, eager, b32 a
-   rank, with ``checkpoint_format: sharded``: 4 steps with the sharded save
-   at 2, and a fresh pair resumed from that directory to 4. Every loss and
+   rank, with ``checkpoint_format: sharded``: 3 steps with the sharded save
+   at 2, and a fresh pair resumed from that directory to 3. Every loss and
    the final state gathered from the ranks' blocks (params, EMA, moments and
    the reduced gradients) bit-equal to the ddp phase's two ranks, the resume
    bit-equal, the directory exactly the manifest and the two step-tagged
@@ -261,13 +271,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    (``chiprun_out/chip_smoke_fsdp.json``).
 16. ``tp``: tensor parallelism (``pdae_torch/parallel/tp.py``). The ddp
    phase's two processes, after their fsdp runs, train its config at tp 2
-   (b32, 3 steps, gloo through the host): the losses and the gathered state
+   (b32, 1 step, gloo through the host): the losses and the gathered state
    against one process over the same rows within ``DDP_TOL``, the ranks
    bit-equal, each rank's launches the structure's per step and every
    launch's input at the rank's local shape (``tp_local_keys``: the
    attention on half the heads, GN on half the channels with 16 groups;
    the kernels phase holds every such shape to the plain versions); then
-   ``PDAEService(tp_size=2)``'s b8 ddim10/ddim10 autoencode against the
+   ``PDAEService(tp_size=2)``'s b8 ddim2/ddim2 autoencode against the
    one-process service within the larger of one uint8 level and the
    whole-path phase's control. Four processes of their own, started with the
    ddp phase and released when the two ranks' train run ends (they share
@@ -276,9 +286,31 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the captured graph (K=4), bit-equal to the ``replicated`` K=4 run.
    Recorded per rank: bytes of parameters (trained and frozen), EMA and
    moments beside ``replicated``'s, peak memory, ms per step
-   (``chiprun_out/chip_smoke_tp.json``). Then the script's total seconds.
+   (``chiprun_out/chip_smoke_tp.json``).
+17. ``sp``: spatial parallelism (``pdae_torch/parallel/sp.py``). The ddp
+   phase's two processes, after their tp runs, serve
+   ``PDAEService(sp_size=2)``'s b8 and b1 ddim2/ddim2 autoencodes (while
+   the four processes below hold the card) against the one-process service
+   within the larger of one uint8 level and the whole-path phase's control,
+   then train its config at sp 2 (every image's rows split over the two
+   ranks, b32, ``SP_STEPS`` steps, gloo through the host): the losses and
+   the state against the tp phase's one process over the same rows within
+   ``DDP_TOL``, the ranks bit-equal, each rank's launches those of
+   ``sp_local_keys`` per step (the GN chains as the stats and apply passes
+   and, backward, the moments and dx passes; no launch of the fused GN
+   kernels) and every launch's input at the rank's local shape (the
+   attention's queries half the keys); the service's launches and inputs
+   are held likewise. The
+   tp phase's four processes, after their ``fsdp+tp`` run, run ``fsdp+sp``
+   (sp 2 x data 2, b8 a data rank, 2 steps) against the tp phase's one
+   process over the 16 rows. Recorded per rank: the sp collectives' count,
+   bytes and ms per step, ms per step, parameter bytes and peak memory
+   beside one process's (``chiprun_out/chip_smoke_sp.json``). Then the
+   script's total seconds.
 
-Then a ``{"kernels": [...]}`` summary line, the card's name and power limit as
+Then a ``{"kernels": [...]}`` summary line (the split passes each as a kernel
+of its own, their times summed over one sp rank's train step; the attention's
+``Tq < Tk`` launches under ``sp_train_step``), the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints them,
 and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -370,7 +402,29 @@ GN_BWD_EDGES = [(((1, 64, 128, 256), True, True), ("cluster", 8)),
                 (((1, 64, 384, 384), False, True), ("general", 0))]
 
 
+FUSED_KERNELS = ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")
+
+
+def named_launches(counts=None) -> dict:
+    """``ops.launch_counts()`` (or ``counts``, a graph's) as the checks name
+    the kernels: the three fused kernels always, a split pass of the GN
+    kernels where it launched. The paths before the sp phase expect the
+    fused kernels alone, so a split pass launched there shows as a key they
+    do not expect."""
+    from pdae_torch import ops
+
+    counts = ops.launch_counts() if counts is None else counts
+    return {k: n for k, n in counts.items() if k in FUSED_KERNELS or n}
+
+
+_STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's record gets ``at_s``, the script's seconds
+    when it ended."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -449,8 +503,7 @@ def perturb_zero_params(module, gen) -> None:
 
 def build_models(seed, device):
     """The celeba64 ShiftUNet and 64px encoder at full width on ``device``, in
-    eval mode, with seeded random weights; and the seeded CPU generator that
-    made them, which goes on to make the kernels' inputs."""
+    eval mode, with seeded random weights."""
     from pdae_torch.models import CELEBA64_DPM, ShiftUNet, encoder_for_resolution
 
     gen = torch.Generator().manual_seed(seed)
@@ -459,7 +512,7 @@ def build_models(seed, device):
     encoder = encoder_for_resolution(64, LATENT)
     perturb_zero_params(decoder, gen)
     perturb_zero_params(encoder, gen)
-    return decoder.to(device).eval(), encoder.to(device).eval(), gen
+    return decoder.to(device).eval(), encoder.to(device).eval()
 
 
 def path_shapes(decoder, encoder, device, train=False, batch=BATCH):
@@ -766,6 +819,132 @@ def check_gn_bwd(key, gen, device, timed=True):
     return res
 
 
+def library_stats(x, groups):
+    """The stats pass's sums from ``torch.var_mean`` over each slab."""
+    xg = x.float().reshape(x.shape[0], groups, -1)
+    var, mean = torch.var_mean(xg, dim=2, correction=0)
+    n = xg.shape[2]
+    return torch.stack([mean * n, (var + mean * mean) * n], dim=2)
+
+
+def check_split(key, gen, device, timed=True):
+    """A split pass of spatial parallelism (``sp_local_keys``' keys) against
+    its plain version at a rank's local shape, in fp32 and bf16 within
+    ``TOL``: the stats pass (the sums, atol times their largest), the apply
+    pass from a given mean and rstd (and, from the fused kernel's saved
+    stats, bit-equal to the fused kernel), the backward's moments pass (dA,
+    dB and the moments) and dx pass; or the attention of ``Tq`` query rows
+    against ``Tk`` keys (and those rows of the ``Tq = Tk`` launch, recorded
+    bit for bit). Timed in fp32: the pass's device ms, its plain version's,
+    a library call's (``torch.var_mean`` and the sums; ``library_gn``,
+    which computes the statistics too; ``library_gn_backward`` without and
+    with dx; ``scaled_dot_product_attention``) and the bytes and operations
+    of its bound."""
+    from pdae_torch import ops
+    from pdae_torch.ops import attention, groupnorm, groupnorm_train
+
+    kind = key[0]
+    res = {"kind": kind, "shape": list(key[1:]), "err": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        if kind == "attention":
+            b, h, tq, tk, d = key[1:]
+            scale = 1.0 / math.sqrt(math.sqrt(d))
+            q, k, v = (torch.randn((b, h, tk, d), generator=gen, device=gen.device).to(
+                device, dtype) for _ in range(3))
+            rows = q[:, :, :tq].contiguous()
+            got = attention.attention_cuda(rows, k, v)
+            whole = attention.attention_cuda(q, k, v)
+            torch.cuda.synchronize()
+            plan = attention.attention_plan(b * h, tq, d, q.element_size(), tk)
+            if attention.library_smem_bytes(plan, tk, d, q.element_size()) != plan.smem_bytes:
+                raise AssertionError(f"attention {key} {name}: the plan's shared memory "
+                                     "is not the built source's")
+            res.setdefault("tiling", {})[name] = plan._asdict()
+            res.setdefault("rows_bit_equal_whole", {})[name] = bool(
+                torch.equal(got, whole[:, :, :tq]))
+            res["err"][name] = compare(got, ops.reference_attention(rows, k, v, scale),
+                                       TOL[("attention", dtype)])
+            if dtype == torch.float32 and timed:
+                res.update(
+                    ms=device_ms(lambda: attention.attention_cuda(rows, k, v)),
+                    plain_ms=device_ms(lambda: ops.reference_attention(rows, k, v, scale)),
+                    library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                        rows, k, v, scale=1.0 / math.sqrt(d))),
+                    bytes=(2 * rows.numel() + 2 * k.numel()) * rows.element_size(),
+                    flops=4 * b * h * tq * tk * d)
+            continue
+        shape = key[1:5]
+        has_st, has_z = (key[5], key[6]) if len(key) > 5 else (False, False)
+        args = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
+        x, gamma, beta, coef = args[0], args[1], args[2], args[3:]
+        n = x[0].numel() // 32
+        sums_p = ops.gn_stats_plain(x, 32)
+        mean, rstd = ops.moments_from_sums(sums_p, n)
+        if kind == "gn_stats":
+            got = groupnorm.gn_stats_cuda(x, 32)
+            res["err"][name] = compare(got, sums_p, scaled(TOL[("gn_stats", dtype)], sums_p))
+            kernel = lambda: groupnorm.gn_stats_cuda(x, 32)          # noqa: E731
+            plain = lambda: ops.gn_stats_plain(x, 32)                # noqa: E731
+            library = lambda: library_stats(x, 32)                   # noqa: E731
+            nbytes, flops = x.numel() * x.element_size() + 8 * shape[0] * 32, 3 * x.numel()
+        elif kind == "gn_apply":
+            got = groupnorm.gn_apply_cuda(x, mean, rstd, gamma, beta, *coef, groups=32)
+            res["err"][name] = compare(got, ops.gn_apply_plain(
+                x, mean, rstd, gamma, beta, *coef, groups=32), TOL[("gn_model", dtype)])
+            fused, m_f, r_f = groupnorm.gn_cuda(*args, groups=32, save_stats=True)
+            res.setdefault("equals_fused_on_its_stats", {})[name] = bool(torch.equal(
+                groupnorm.gn_apply_cuda(x, m_f, r_f, gamma, beta, *coef, groups=32), fused))
+            kernel = lambda: groupnorm.gn_apply_cuda(                # noqa: E731
+                x, mean, rstd, gamma, beta, *coef, groups=32)
+            plain = lambda: ops.gn_apply_plain(                      # noqa: E731
+                x, mean, rstd, gamma, beta, *coef, groups=32)
+            library = lambda: library_gn(*args, 32)                  # noqa: E731
+            nbytes = (2 * x.numel() * x.element_size() + 8 * shape[1] + 8 * shape[0] * 32
+                      + sum(a.numel() * a.element_size() for a in coef if a is not None))
+            flops = 15 * x.numel()
+        else:
+            g = torch.randn(shape, generator=gen, device=gen.device).to(device, dtype)
+            m_p = groupnorm_train.gn_bwd_moments_plain(x, g, mean, rstd, gamma, beta, *coef,
+                                                       groups=32)
+            if kind == "gn_bwd_moments":
+                got = groupnorm_train.gn_bwd_moments_cuda(x, g, mean, rstd, gamma, beta,
+                                                          *coef, groups=32)
+                for part, a, w in zip(("dA", "dB", "moments"), got, m_p):
+                    res["err"][f"{part}_{name}"] = compare(a, w, scaled(TOL[("gn_bwd", dtype)],
+                                                                        w))
+                kernel = lambda: groupnorm_train.gn_bwd_moments_cuda(  # noqa: E731
+                    x, g, mean, rstd, gamma, beta, *coef, groups=32)
+                plain = lambda: groupnorm_train.gn_bwd_moments_plain(  # noqa: E731
+                    x, g, mean, rstd, gamma, beta, *coef, groups=32)
+                need_dx, rw, fl = False, 2, 25
+            else:
+                mom = (m_p[2] / n).contiguous()
+                got = groupnorm_train.gn_bwd_dx_cuda(x, g, mean, rstd, mom, gamma, beta,
+                                                     *coef, groups=32)
+                want = groupnorm_train.gn_bwd_dx_plain(x, g, mean, rstd, mom, gamma, beta,
+                                                       *coef, groups=32)
+                res["err"][f"dx_{name}"] = compare(got, want, scaled(TOL[("gn_bwd", dtype)],
+                                                                    want))
+                kernel = lambda: groupnorm_train.gn_bwd_dx_cuda(  # noqa: E731
+                    x, g, mean, rstd, mom, gamma, beta, *coef, groups=32)
+                plain = lambda: groupnorm_train.gn_bwd_dx_plain(  # noqa: E731
+                    x, g, mean, rstd, mom, gamma, beta, *coef, groups=32)
+                need_dx, rw, fl = True, 3, 20
+            saved = (library_gn_saved(x, gamma, beta, *coef, 32)
+                     if dtype == torch.float32 and timed else None)
+            library = lambda: library_gn_backward(g, saved, need_dx)  # noqa: E731
+            nbytes = (rw * x.numel() * x.element_size() + 8 * shape[1] + 16 * shape[0] * 32
+                      + 8 * shape[0] * shape[1] * (not need_dx)
+                      + sum(a.numel() * a.element_size() for a in coef if a is not None))
+            flops = fl * x.numel()
+        torch.cuda.synchronize()
+        if dtype == torch.float32 and timed:
+            res.update(ms=device_ms(kernel), plain_ms=device_ms(plain),
+                       library_ms=device_ms(library), bytes=nbytes, flops=flops)
+    return res
+
+
 def check_edges(gen, device) -> dict:
     """The redesigned kernels where their tilings end, compared and not
     timed: every record's ``err`` entries are held to ``TOL`` like a path
@@ -841,7 +1020,7 @@ def check_edges(gen, device) -> dict:
     shape = (2, 64, 8, 8)
     args = gn_coefficients(shape, True, True, gen, device, torch.float32)
     x, gamma, beta, coef = args[0], args[1], args[2], args[3:]
-    g = torch.randn(shape, generator=gen).to(device)
+    g = torch.randn(shape, generator=gen, device=gen.device).to(device)
     _, mean, rstd = groupnorm.gn_cuda(*args, groups=32, save_stats=True)
 
     def shifted(t):
@@ -863,7 +1042,7 @@ def check_edges(gen, device) -> dict:
     # a cluster launch of the backward (4 blocks per slab) inside a CUDA graph
     shape = (8, 256, 64, 64)
     args = gn_coefficients(shape, False, False, gen, device, torch.float32)
-    g = torch.randn(shape, generator=gen).to(device)
+    g = torch.randn(shape, generator=gen, device=gen.device).to(device)
     _, mean, rstd = groupnorm.gn_cuda(*args, groups=32, save_stats=True)
     bwd_args = (args[0], g, mean, rstd, args[1], args[2])
     eager = groupnorm_train.gn_bwd_cuda(*bwd_args)
@@ -929,7 +1108,7 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, {"s": seconds, "launches": ops.launch_counts(),
+    return out, {"s": seconds, "launches": named_launches(),
                  "gn_variants": ops.gn_variant_counts(),
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -1143,7 +1322,7 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
             out = inner_step(batch)
             torch.cuda.synchronize()
             records["s"].append(time.perf_counter() - s0)
-            records["launches"].append(ops.launch_counts())
+            records["launches"].append(named_launches())
             records["gn"].append(ops.gn_variant_counts())
             records["gn_bwd"].append(ops.gn_bwd_variant_counts())
             records["loss"].append(float(out["prediction_loss"]))
@@ -1157,7 +1336,7 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
             s0 = time.perf_counter()
             inner_eval(step)
             torch.cuda.synchronize()
-            eval_rec["run"] = {"s": time.perf_counter() - s0, "launches": ops.launch_counts(),
+            eval_rec["run"] = {"s": time.perf_counter() - s0, "launches": named_launches(),
                                "gn_variants": ops.gn_variant_counts()}
 
         run_a.train_step, run_a.evaluate = counted_step, counted_eval
@@ -1359,7 +1538,7 @@ def compare_new_shapes(seen, compared, seed, device, table) -> dict:
     to the plain versions in fp32 and bf16 (compared, not timed), each GN
     shape on the cluster variant; the full table goes to ``table`` under
     ``chiprun_out/``, and ``compared`` takes the new shapes."""
-    shape_gen = torch.Generator().manual_seed(seed)
+    shape_gen = torch.Generator(device=device).manual_seed(seed)
     new = sorted(k for k in seen if k not in compared)
     shape_res = [dict(check_attention(k[1:], shape_gen, device, timed=False)
                       if k[0] == "attention" else
@@ -1475,8 +1654,8 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
                          "SYNTHETIC 64px RGB, 64 images; fp32, TF32 off",
                "depth_cut": "gap_measure and autoencoding_example (its DDPM row runs every "
                             "step) under a 100-step linear schedule; every other sampler on "
-                            "the run's 1000 steps; styles ddim20/dpm20; interpolation at 3 "
-                            "alphas"}
+                            "the run's 1000 steps; styles ddim10 (AutoencodingEval and the "
+                            "file-built service dpm20); interpolation at 3 alphas"}
 
     # 1. InferLatents: the stats the later steps read ----------------------------
     cfg = dict(base, batch_size=32, output_path=path("synthetic.ckpt"))
@@ -1634,36 +1813,46 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
 
+    # one sampler end to end through the CLI, in a process of its own: started
+    # here, beside the runs of 4., and collected after them
+    cli_cfg = path("denoise_one_step_cli.yml")
+    save_yaml(dict(base, image_index=1), cli_cfg)
+    cli_out = path("denoise_one_step_cli.png")
+    cli_t0 = time.perf_counter()
+    cli = start_child([sys.executable, "-m", "pdae_torch.sample", "--sampler",
+                       "denoise_one_step", "--config", cli_cfg, "--set",
+                       f"output_path={cli_out}"], cwd=ROOT)
+
     # 4. every other sampler once ------------------------------------------------
     alphas = [0.0, 0.5, 1.0]
     scales = [-0.3, -0.1, 0.1, 0.3]
-    ddim20 = steps("ddim20")
+    ddim10 = steps("ddim10")
     others = {
         "test_dpms": ({"config_path": path("dpm.yml"),
                        "checkpoint_path": os.path.join(trainer, "dpm.ckpt"),
                        "image_size": 64, "image_channel": 3, "num_samples": 9,
-                       "ddim_style": "ddim20"},
-                      {"UNet": ddim20}, grid_hw(9, 3)),
-        "autoencoding_example": (dict(base, image_index=0, encoder_ddim_style="ddim20",
-                                      decoder_ddim_style="ddim20", diffusion_config=short),
-                                 {"ShiftUNet": 3 * steps("ddim20", gd_short)
+                       "ddim_style": "ddim10"},
+                      {"UNet": ddim10}, grid_hw(9, 3)),
+        "autoencoding_example": (dict(base, image_index=0, encoder_ddim_style="ddim10",
+                                      decoder_ddim_style="ddim10", diffusion_config=short),
+                                 {"ShiftUNet": 3 * steps("ddim10", gd_short)
                                   + short["timesteps"], "SemanticEncoder": 3},
                                  grid_hw(12, 12)),
         "denoise_one_step": (dict(base, image_index=0),
                              {"ShiftUNet": 1, "SemanticEncoder": 1}, rows_hw(6, 6)),
-        "interpolation": (dict(base, image_index_1=0, image_index_2=1, ddim_style="ddim20",
+        "interpolation": (dict(base, image_index_1=0, image_index_2=1, ddim_style="ddim10",
                                alphas=alphas),
-                          {"ShiftUNet": ddim20 + 3 * ddim20 * len(alphas),
+                          {"ShiftUNet": ddim10 + 3 * ddim10 * len(alphas),
                            "SemanticEncoder": 1},
                           rows_hw(len(alphas) + 2, len(alphas) + 2)),
-        "manipulation": (dict(base, image_index=0, encode_ddim_style="ddim20",
-                              decode_ddim_style="ddim20", scale_list=scales),
-                         {"ShiftUNet": ddim20 * (1 + len(scales)),
+        "manipulation": (dict(base, image_index=0, encode_ddim_style="ddim10",
+                              decode_ddim_style="ddim10", scale_list=scales),
+                         {"ShiftUNet": ddim10 * (1 + len(scales)),
                           "SemanticEncoder": 1 + len(scales)},
                          grid_hw(len(scales) + 1, len(scales) + 1)),
-        "unconditional_sample": (dict(base, num_samples=8, latent_ddim_style="ddim20",
-                                      decoder_ddim_style="ddim20"),
-                                 {"ShiftUNet": ddim20}, grid_hw(8)),
+        "unconditional_sample": (dict(base, num_samples=8, latent_ddim_style="ddim10",
+                                      decoder_ddim_style="ddim10"),
+                                 {"ShiftUNet": ddim10}, grid_hw(8)),
         "gap_measure": (dict(base, batch_size=2, num_samples=2, diffusion_config=short),
                         {"ShiftUNet": short["timesteps"], "SemanticEncoder": 1}, None),
     }
@@ -1687,16 +1876,9 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
                 list(rec["png_hw"]) == list(hw)
         records[name] = rec
 
-    # one sampler end to end through the CLI, in a process of its own
-    cli_cfg = path("denoise_one_step_cli.yml")
-    save_yaml(dict(base, image_index=1), cli_cfg)
-    cli_out = path("denoise_one_step_cli.png")
-    t0 = time.perf_counter()
-    proc = run_child([sys.executable, "-m", "pdae_torch.sample", "--sampler",
-                      "denoise_one_step", "--config", cli_cfg, "--set",
-                      f"output_path={cli_out}"], 600, cwd=ROOT)
+    proc = finish_child(cli, 600)
     records["cli_denoise_one_step"] = {
-        "s": time.perf_counter() - t0, "returncode": proc.returncode,
+        "s": time.perf_counter() - cli_t0, "returncode": proc.returncode,
         "stdout_tail": proc.stdout.strip().splitlines()[-1:],
         "stderr_tail": proc.stderr.strip().splitlines()[-3:],
         "png_hw": png_size(cli_out) if os.path.exists(cli_out) else None,
@@ -1842,15 +2024,27 @@ def end_group(p) -> None:
     p.wait()
 
 
-def run_child(cmd, timeout, **kw) -> subprocess.CompletedProcess:
-    """``subprocess.run(cmd, capture_output=True, text=True)`` through
-    ``spawn``: what the command started ends with it."""
-    p = spawn(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, **kw)
+def start_child(cmd, **kw) -> tuple:
+    """``cmd`` started through ``spawn``, its output captured as text;
+    ``finish_child`` waits for it."""
+    return cmd, spawn(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, **kw)
+
+
+def finish_child(started, timeout) -> subprocess.CompletedProcess:
+    """What ``subprocess.run(cmd, capture_output=True, text=True)`` returns
+    for a ``start_child`` command: what the command started ends with it."""
+    cmd, p = started
     try:
         out, err = p.communicate(timeout=timeout)
     finally:
         end_group(p)
     return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def run_child(cmd, timeout, **kw) -> subprocess.CompletedProcess:
+    """``subprocess.run(cmd, capture_output=True, text=True)`` through
+    ``spawn``."""
+    return finish_child(start_child(cmd, **kw), timeout)
 
 
 def descendants(pid) -> list:
@@ -1954,26 +2148,32 @@ def rank_worker(spec_path, out_path) -> int:
     return 0
 
 
-def world2(spec, root) -> dict:
-    """The spec's samplers as two ranks on the one card (both ``LOCAL_RANK``
-    0, as two hosts of one card each would be), gloo carrying the objects;
-    each rank's output, and the run's wall seconds. A rank that fails fails
-    the phase."""
+def start_world2(spec, root) -> tuple:
+    """The spec's samplers started as two ranks on the one card (both
+    ``LOCAL_RANK`` 0, as two hosts of one card each would be), gloo carrying
+    the objects; ``finish_world2`` waits for them."""
     spec_path = os.path.join(root, "world2_spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     port = str(free_port())
     procs = []
     t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=port)
+        procs.append(spawn(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank-worker",
+             spec_path, os.path.join(root, f"rank{rank}.json")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return t0, root, procs
+
+
+def finish_world2(started) -> dict:
+    """Each rank's output of a ``start_world2`` run, and the run's wall
+    seconds. A rank that fails fails the phase."""
+    t0, root, procs = started
     try:
-        for rank in range(2):
-            env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
-                       MASTER_ADDR="localhost", MASTER_PORT=port)
-            procs.append(spawn(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank-worker",
-                 spec_path, os.path.join(root, f"rank{rank}.json")],
-                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
         for p in procs:
@@ -2130,6 +2330,13 @@ def metrics_phase(seed, device, dec_counts, enc_counts, samplers, compared) -> d
                  and math.isfinite(w1_eval["lpips"]) and w1_eval["lpips"] >= 0.0)
     records["autoencoding_eval_lpips"] = rec
 
+    # 4.'s two ranks start here: they run beside the FID run, the new shapes'
+    # comparison and 4.'s one-process control
+    w2_cfg = {"autoencoding_eval": eval_cfg,
+              "infer_latents": dict(base, batch_size=32,
+                                    output_path=os.path.join(root, "latents_w2.ckpt"))}
+    w2_started = start_world2(w2_cfg, root)
+
     lat_style, dec_style = FID_STYLES
     fid_cfg = dict(base, num_samples=FID_SAMPLES, batch_size=FID_BATCH,
                    latent_ddim_style=lat_style, decoder_ddim_style=dec_style,
@@ -2153,10 +2360,6 @@ def metrics_phase(seed, device, dec_counts, enc_counts, samplers, compared) -> d
                                                   "chip_smoke_metrics_shapes.json")
 
     # 4. two ranks on the one card against one process ----------------------------------
-    w2_cfg = {"autoencoding_eval": eval_cfg,
-              "infer_latents": dict(base, batch_size=32,
-                                    output_path=os.path.join(root, "latents_w2.ckpt"))}
-    w2 = world2(w2_cfg, root)
     # the control: one process over the ranks' batches, in the ranks' order
     order = {n: np.concatenate([process_shard_indices(n, r, 2, pad_to_even=pad)
                                 for r in range(2)])
@@ -2169,6 +2372,7 @@ def metrics_phase(seed, device, dec_counts, enc_counts, samplers, compared) -> d
         built("infer_latents", dict(w2_cfg["infer_latents"], output_path=ctrl_path)).start()
     finally:
         sampler_module.process_shard_indices = real_shards
+    w2 = finish_world2(w2_started)
     got = [r["autoencoding_eval"]["result"] for r in w2["ranks"]]
     eval_rec = {k: {"world1": w1_eval[k], "world2": got[0][k], "control": ctrl_eval[k],
                     "world2_minus_world1": got[0][k] - w1_eval[k],
@@ -2219,7 +2423,12 @@ STAGE_STEPS = 6                  # saves at 3 and 6, the eval at 6
 STAGE_LENGTH = {"regular": 320, "latent": 640, "manipulation": 640}
 STAGE_BATCH = {"regular": 32, "latent": 128, "manipulation": 128}   # the configs'
 # the depth cut of the manipulation eval (the trainer's default ddim500/ddim200)
-MANIPULATION_EVAL = {"encode_style": "ddim100", "decode_style": "ddim100"}
+STAGE_EVAL = "ddim20"           # every stage's eval style (the trainers' are ddim100-500)
+STAGE_EVAL_KWARGS = {"regular": {"ddim_style": STAGE_EVAL},
+                     "latent": {"latent_ddim_style": STAGE_EVAL,
+                                "decoder_ddim_style": STAGE_EVAL},
+                     "manipulation": {"encode_style": STAGE_EVAL,
+                                      "decode_style": STAGE_EVAL}}
 LATENT_LOSS_RTOL = 1e-5          # precomputed z against the encoder in the step
 
 
@@ -2382,7 +2591,7 @@ def drive_stage(trainer, keys, name, eval_kwargs=None, keep_step3=None,
         torch.cuda.synchronize()
         rec["s"].append(time.perf_counter() - s0)
         keys.name = None
-        rec["launches"].append(ops.launch_counts())
+        rec["launches"].append(named_launches())
         rec["gn"].append(ops.gn_variant_counts())
         rec["gn_bwd"].append(ops.gn_bwd_variant_counts())
         rec["loss"].append(float(next(iter(out.values()))))
@@ -2396,7 +2605,7 @@ def drive_stage(trainer, keys, name, eval_kwargs=None, keep_step3=None,
         inner_eval(step, **(eval_kwargs or {}))
         torch.cuda.synchronize()
         keys.name = None
-        rec["eval"] = {"s": time.perf_counter() - s0, "launches": ops.launch_counts(),
+        rec["eval"] = {"s": time.perf_counter() - s0, "launches": named_launches(),
                        "gn_variants": ops.gn_variant_counts()}
 
     trainer.train_step, trainer.evaluate = counted_step, counted_eval
@@ -2513,8 +2722,9 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
                         "1e-4; a seeded PDAE over the configs/dpm_celebahq.yml trunk and "
                         "the 128px encoder; SYNTHETIC 128px, 640 items, 40 labels, uint8, "
                         "resident",
-        "cuts": "6 steps each; manipulation eval ddim100/ddim100 (the trainer's "
-                "ddim500/ddim200); steps_per_dispatch 1 (the dispatch phase runs K)",
+        "cuts": f"6 steps each; evals at {STAGE_EVAL} (the trainers' ddim100, "
+                "ddim100/ddim100 and ddim500/ddim200); steps_per_dispatch 1 (the "
+                "dispatch phase runs K)",
         "numerics": "fp32, TF32 off, cudnn.deterministic"}}
 
     def build(stage, run, config=None, resume=None):
@@ -2545,9 +2755,8 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
                 per = per_call(a.model, torch.zeros(1, 3, 64, 64, device=device),
                                torch.zeros(1, dtype=torch.int32, device=device))
                 want_step = {**per, "gn_adagn_silu_bwd": per["gn_adagn_silu"]}
-                want_eval = {k: v * a.gd.ddim_schedule("ddim100").num_steps
+                want_eval = {k: v * a.gd.ddim_schedule(STAGE_EVAL).num_steps
                              for k, v in per.items()}
-                eval_kwargs = None
             else:
                 size = cfg["train_dataset_config"]["image_size"]
                 x = torch.zeros(1, 3, size, size, device=device)
@@ -2555,17 +2764,13 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
                 dec = per_call(a.decoder, x, torch.zeros(1, dtype=torch.int32, device=device),
                                torch.zeros(1, LATENT, device=device))
                 want_step = enc
-                if stage == "latent":
-                    n_dec, n_enc = a.gd.ddim_schedule("ddim100").num_steps, 0
-                    eval_kwargs = None
-                else:
-                    eval_kwargs = MANIPULATION_EVAL
-                    n_dec = sum(a.gd.ddim_schedule(s).num_steps
-                                for s in MANIPULATION_EVAL.values())
-                    n_enc = 2
+                n_dec = a.gd.ddim_schedule(STAGE_EVAL).num_steps * (
+                    1 if stage == "latent" else 2)
+                n_enc = 0 if stage == "latent" else 2
                 want_eval = {k: n_dec * dec[k] + n_enc * enc[k] for k in dec}
             step3 = os.path.join(root, stage, "step3.ckpt")
-            run_a = drive_stage(a, keys, f"{stage}_a", eval_kwargs, keep_step3=step3)
+            run_a = drive_stage(a, keys, f"{stage}_a", STAGE_EVAL_KWARGS[stage],
+                                keep_step3=step3)
             latest = os.path.join(root, stage, "a", "checkpoints", "latest.ckpt")
             a._join_save()
             ckpt_bytes = os.path.getsize(latest)
@@ -3109,7 +3314,7 @@ def ffhq_remat_runs(tr, keys, inputs, dtype, device) -> dict:
             rec["s"].append(time.perf_counter() - s0)
             keys.name = None
             rec["loss"].append(float(loss))
-            rec["launches"].append(ops.launch_counts())
+            rec["launches"].append(named_launches())
             rec["gn"].append(ops.gn_variant_counts())
             rec["gn_bwd"].append(ops.gn_bwd_variant_counts())
             if i == 0:
@@ -3167,16 +3372,27 @@ def synthetic_photos(seed, n, hw=INGEST_HW) -> np.ndarray:
     return out
 
 
-def run_module(*args) -> dict:
-    """``python -m ARGS`` from the checkout's root, as a user runs the port's
-    CLIs: its seconds and the last line it printed. Fails on a non-zero exit."""
-    t0 = time.perf_counter()
-    proc = run_child([sys.executable, "-m", *args], 900, cwd=ROOT)
+def start_module(*args) -> tuple:
+    """``python -m ARGS`` started from the checkout's root, as a user runs the
+    port's CLIs; ``finish_module`` waits for it."""
+    return time.perf_counter(), args, start_child([sys.executable, "-m", *args], cwd=ROOT)
+
+
+def finish_module(started) -> dict:
+    """A ``start_module`` run's seconds from its start and the last line it
+    printed. Fails on a non-zero exit."""
+    t0, args, child = started
+    proc = finish_child(child, 900)
     if proc.returncode != 0:
         raise AssertionError(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
     lines = proc.stdout.strip().splitlines()
     return {"s": time.perf_counter() - t0, "said": lines[-1] if lines else ""}
+
+
+def run_module(*args) -> dict:
+    """``python -m ARGS`` run to its end (``start_module``, ``finish_module``)."""
+    return finish_module(start_module(*args))
 
 
 def same_trees(a, b) -> bool:
@@ -3246,22 +3462,23 @@ def ingest_phase(seed, device, want_step, want_request, trainer_step_s) -> dict:
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
-        # 1. the user's images, packed ------------------------------------------------
+        # 1. the user's images, packed, while 2. the DPM goes to a reference
+        # .pt and back (two CLI processes side by side) --------------------------------
+        dpm = os.path.join(OUT_DIR, "trainer", "dpm.ckpt")
+        exporting = start_module("pdae_torch.convert", dpm, path("dpm.pt"), "--export")
         t0 = time.perf_counter()
         os.makedirs(path("images"))
         for i, img in enumerate(synthetic_photos(seed + 20, INGEST_IMAGES)):
             Image.fromarray(img).save(path(f"images/{i:06d}.jpg"), quality=INGEST_QUALITY)
         write_s = time.perf_counter() - t0
-        packed = run_module("pdae_torch.prepare_lmdb", path("images"), path("lmdb"),
-                            "--key-format", CELEBA64.key_fmt)
+        packing = start_module("pdae_torch.prepare_lmdb", path("images"), path("lmdb"),
+                               "--key-format", CELEBA64.key_fmt)
+        export = finish_module(exporting)
+        back = run_module("pdae_torch.convert", path("dpm.pt"), path("dpm.ckpt"))
+        packed = finish_module(packing)
         rec["pack"] = {"write_jpegs_s": write_s, "prepare_lmdb_s": packed["s"],
                        "said": packed["said"],
                        "lmdb_bytes": os.path.getsize(path("lmdb/data.mdb"))}
-
-        # 2. the DPM to a reference .pt and back ---------------------------------------
-        dpm = os.path.join(OUT_DIR, "trainer", "dpm.ckpt")
-        export = run_module("pdae_torch.convert", dpm, path("dpm.pt"), "--export")
-        back = run_module("pdae_torch.convert", path("dpm.pt"), path("dpm.ckpt"))
         with open(dpm, "rb") as a, open(path("dpm.ckpt"), "rb") as b:
             dpm_bytes_equal = a.read() == b.read()
         rec["dpm_round_trip"] = {
@@ -3291,7 +3508,7 @@ def ingest_phase(seed, device, want_step, want_request, trainer_step_s) -> dict:
             out = inner(batch)
             torch.cuda.synchronize()
             steps["s"].append(time.perf_counter() - s0)
-            steps["launches"].append(ops.launch_counts())
+            steps["launches"].append(named_launches())
             steps["gn"].append(ops.gn_variant_counts())
             steps["gn_bwd"].append(ops.gn_bwd_variant_counts())
             steps["loss"].append(float(out["prediction_loss"]))
@@ -3595,17 +3812,18 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
         d = trainer._dispatch
-        counted, gn = ops.launch_counts(), ops.gn_variant_counts()
+        counted, gn = named_launches(), ops.gn_variant_counts()
         bwd = ops.gn_bwd_variant_counts()
         captures = len(d.graphs)
         launches = path_launches(counted, d)
         steps = d.replays + 1
-        ok = (d.launches == want and launches == {k: v * steps for k, v in want.items()}
+        per_replay = named_launches(d.launches)
+        ok = (per_replay == want and launches == {k: v * steps for k, v in want.items()}
               and gn == {"cluster": want["gn_adagn_silu"] * (1 + captures), "general": 0}
               and bwd == {"cluster": want["gn_adagn_silu_bwd"] * (1 + captures),
                           "general": 0})
         return losses, {"s": s, "steps": steps, "replays": d.replays, "captures": captures,
-                        "launches_counted": counted, "launches_per_replay": d.launches,
+                        "launches_counted": counted, "launches_per_replay": per_replay,
                         "launches_on_path": launches, "launches_ok": bool(ok)}
 
     try:
@@ -3621,7 +3839,7 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
             ops.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             eager.train(max_steps=end, save_on_exit=False)
-            eager_launches = ops.launch_counts()
+            eager_launches = named_launches()
             rec = {"k": k, "steps": end, "build_s": build_s, "structure": want,
                    "start_allocated_gb": base / 1e9, "start_free_gb": free_gb,
                    "eager_peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
@@ -3691,8 +3909,27 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
     return records
 
 
+def summarise_split(kind, results, weights, per) -> dict:
+    """A split pass's (or the ``Tq < Tk`` attention's) times summed over
+    ``weights``' launches (one sp rank's train step) at its local shapes
+    (fp32), with its bound and largest fp32 error."""
+    compared = {k: r for k, r in results.items() if k[0] == kind}
+    timed = {k: r for k, r in compared.items() if k in weights}
+
+    def total(field):
+        return sum(weights[k] * r[field] for k, r in timed.items())
+
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = total("flops") / FP32_FLOPS * 1e3
+    return {"max_abs_err": max(v["max_abs_err"] for r in compared.values()
+                               for key, v in r["err"].items() if key.endswith("float32")),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "library_ms": total("library_ms"), "per": per}
+
+
 DDP_RANKS = 2                    # two ranks on the one card, b32 each
-DDP_STEPS = 4                    # a save at DDP_CUT, resumed there
+DDP_STEPS = 3                    # a save at DDP_CUT, resumed there
 DDP_CUT = 2
 DDP_GRAPH_STEPS = 8              # the world-1 NCCL run: chunks 4+4 at K=4
 TRACED_STEPS = 2                 # replays of a traced chunk
@@ -3700,7 +3937,7 @@ DDP_TOL = {"loss_rel": 1e-5,     # world 2 against one process over the 64 rows
            "grad_rel": 1e-3,     # each tensor's error over its own largest value,
            "mu_rel": 1e-3,       # floored at 1e-4 of the category's largest
            "nu_rel": 2e-3,
-           "param_abs": 1e-6,    # lr 1e-4, Adam eps 1e-5, 4 steps
+           "param_abs": 1e-6,    # lr 1e-4, Adam eps 1e-5, 3-4 steps
            "ema_abs": 1e-6}
 
 
@@ -3764,7 +4001,7 @@ def timed_losses(trainer) -> tuple:
 
 def ddp_worker(spec_path, out_path) -> int:
     """One process of the ddp phase (``python3 chip_smoke.py --ddp-worker SPEC
-    OUT``): ``two_ranks``, a rank of the gloo run (A: 4 steps saved at 2, B:
+    OUT``): ``two_ranks``, a rank of the gloo run (A: 3 steps saved at 2, B:
     resumed from that file), or ``nccl1``/``nogroup``, the K=4 graph run with
     an NCCL group of one rank or with none. A ``two_ranks`` or ``nccl1``
     process whose spec holds ``fsdp`` then runs the fsdp phase's run of its
@@ -3820,7 +4057,7 @@ def ddp_worker(spec_path, out_path) -> int:
             parallel.sync_global_devices("copied")
             a.train(max_steps=DDP_STEPS, save_on_exit=False)
             torch.cuda.synchronize()
-            out["launches"] = ops.launch_counts()
+            out["launches"] = named_launches()
             out.update(losses=losses, step_ms=ms, step=a.step, files=files_under(run_a),
                        save_s=a.save_seconds)
             state = ddp_state(a)
@@ -3850,8 +4087,12 @@ def ddp_worker(spec_path, out_path) -> int:
                 out["fsdp"] = fsdp_run(spec["fsdp"], "two_ranks")
             if "tp" in spec:
                 out["tp"] = tp_run(spec["tp"], "two_ranks")
+            if "sp" in spec:
+                out["sp"] = sp_run(spec["sp"], "two_ranks")
         elif role == "four_ranks":
             out["tp"] = tp_run(spec["tp"], "four_ranks")
+            if "sp" in spec:
+                out["sp"] = sp_run(spec["sp"], "four_ranks")
         else:
             cfg = ddp_config(spec["dpm"], k=4)
             tr = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, role),
@@ -3863,8 +4104,8 @@ def ddp_worker(spec_path, out_path) -> int:
             d = tr._dispatch
             out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
                        replays=d.replays,
-                       captures=len(d.graphs), launches_per_replay=d.launches,
-                       launches_on_path=path_launches(ops.launch_counts(), d),
+                       captures=len(d.graphs), launches_per_replay=named_launches(d.launches),
+                       launches_on_path=path_launches(named_launches(), d),
                        digest=state_digest(ddp_state(tr, grads=False)))
             out["trace"] = traced_chunk(tr, TRACED_STEPS)
             if role == "nccl1":
@@ -3959,19 +4200,24 @@ def stop_workers(started) -> None:
 
 def finish_workers(started) -> tuple:
     """The outputs of ``start_workers``' processes and the wall seconds since
-    their start. A process that fails fails the phase."""
+    their start. A process that fails fails the phase at once: the others,
+    waiting for it in a collective, are stopped, and the error names the
+    first that failed."""
     kind, procs, outs, t0 = started
+    deadline = time.perf_counter() + 900
     try:
-        for p in procs:
-            p.wait(timeout=900)
+        while (any(p.poll() is None for p in procs) and time.perf_counter() < deadline
+               and not any(p.returncode not in (None, 0) for p in procs)):
+            time.sleep(0.2)
     finally:
         stop_workers(started)
     wall = time.perf_counter() - t0
-    for i, (p, path) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            with open(path + ".log") as f:
-                log = f.read()
-            raise AssertionError(f"{kind} process {i} exited {p.returncode}:\n{log[-3000:]}")
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        i = next((i for i in failed if procs[i].returncode != -signal.SIGKILL), failed[0])
+        with open(outs[i] + ".log") as f:
+            log = f.read()
+        raise AssertionError(f"{kind} process {i} exited {procs[i].returncode}:\n{log[-3000:]}")
     results = []
     for path in outs:
         with open(path) as f:
@@ -4015,16 +4261,16 @@ def ddp_phase(seed, device, want_step) -> tuple:
     (a) The trainer phase's celeba64 PDAE config at full width as two ranks
     on the one card (both ``LOCAL_RANK`` 0; NCCL refuses two ranks on one
     device, so the tensor group is gloo and the run eager), b32 a rank, fp32
-    with TF32 off, ``cudnn.deterministic``: A trains 4 steps saved at 2, B
-    resumes from that file to 4. Against it one process (b64) over the same
+    with TF32 off, ``cudnn.deterministic``: A trains 3 steps saved at 2, B
+    resumes from that file to 3. Against it one process (b64) over the same
     64 rows in the ranks' order: the losses, and the largest errors of the
     last reduced gradients, params, EMA and moments, each beside its
     tolerance; the ranks' states bit-equal, B bit-equal to A, only rank 0
     writing, wall ms per step at both world sizes. (b) The same config at
     its shipped K=4 from the captured graph in a process with an NCCL group
-    of one rank and in one with no group: every loss and the final state
-    bit-equal, the launches per replay, and the NCCL kernels a traced chunk
-    of replays ran. Wall seconds leave out the fsdp runs."""
+    of one rank and in one with no group, side by side: every loss and the
+    final state bit-equal, the launches per replay, and the NCCL kernels a
+    traced chunk of replays ran. Wall seconds leave out the fsdp runs."""
     import gc
     import shutil
 
@@ -4060,10 +4306,14 @@ def ddp_phase(seed, device, want_step) -> tuple:
             "fsdp": {**fsdp, "config": fsdp_config(dpm, 1)},
             "tp": {"root": os.path.join(OUT_DIR, "tp"), "seed": seed,
                    "config": tp_config(dpm), "serve_images": TP_SERVE_IMAGES,
-                   "go": os.path.join(OUT_DIR, "tp", "go")}}
-    tp_root = spec["tp"]["root"]
-    shutil.rmtree(tp_root, ignore_errors=True)
-    os.makedirs(tp_root)
+                   "go": os.path.join(OUT_DIR, "tp", "go")},
+            "sp": {"root": os.path.join(OUT_DIR, "sp"), "seed": seed,
+                   "config": sp_config(dpm), "serve_images": SP_SERVE_IMAGES,
+                   "wait_for": os.path.join(OUT_DIR, "sp", "go")}}
+    tp_root, sp_root = spec["tp"]["root"], spec["sp"]["root"]
+    for d in (tp_root, sp_root):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
     # the workers share the card with this process: hand back what its
     # earlier phases left cached
     gc.collect()
@@ -4076,7 +4326,9 @@ def ddp_phase(seed, device, want_step) -> tuple:
     four = {"role": "four_ranks", "root": tp_root, "seed": seed,
             "wait_for": spec["tp"]["go"], "tp": {
                 "root": tp_root, "seed": seed,
-                "config": tp_config(dpm, mode="fsdp+tp", batch=TP4_BATCH)}}
+                "config": tp_config(dpm, mode="fsdp+tp", batch=TP4_BATCH)},
+            "sp": {"root": sp_root, "seed": seed, "go": spec["sp"]["wait_for"],
+                   "config": sp_config(dpm, mode="fsdp+sp", batch=SP4_BATCH)}}
     env4 = {"WORLD_SIZE": "4", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
             "MASTER_PORT": str(free_port())}
     tp_runs["four_ranks"] = start_workers(
@@ -4096,13 +4348,18 @@ def ddp_phase(seed, device, want_step) -> tuple:
             {**graph_spec, "role": "nogroup", "wait_for": os.path.join(root, "go_nogroup")},
             {"WORLD_SIZE": "1", "LOCAL_RANK": "0"})], root)}
 
-    def graph_run(role):
-        """``graph_runs[role]``'s output and its wall seconds from its go."""
+    def graph_runs_together():
+        """Both graph runs' outputs and wall seconds from their go: released
+        at once, beside each other (each holds a b32 step; bit-equality does
+        not depend on what shares the card)."""
         t0 = time.perf_counter()
-        with open(os.path.join(root, f"go_{role}"), "w"):
-            pass
-        (out,), _ = finish_workers(graph_runs[role])
-        return out, time.perf_counter() - t0
+        for role in graph_runs:
+            with open(os.path.join(root, f"go_{role}"), "w"):
+                pass
+        (nccl,), _ = finish_workers(graph_runs["nccl1"])
+        wall = time.perf_counter() - t0
+        (alone,), _ = finish_workers(graph_runs["nogroup"])
+        return nccl, wall, alone, time.perf_counter() - t0
 
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -4111,9 +4368,11 @@ def ddp_phase(seed, device, want_step) -> tuple:
                                            for r in range(DDP_RANKS)], root)
         fsdp_runs["two_ranks"] = [r.pop("fsdp") for r in ranks]
         tp_runs["two_ranks"] = [r.pop("tp") for r in ranks]
+        tp_runs["sp_two_ranks"] = [r.pop("sp") for r in ranks]
         r0, r1 = ranks
         rec = {"wall_s": wall - max(r["s"] for r in fsdp_runs["two_ranks"])
-               - max(r["s"] for r in tp_runs["two_ranks"]),
+               - max(r["s"] for r in tp_runs["two_ranks"])
+               - max(r["s"] for r in tp_runs["sp_two_ranks"]),
                "build_s": [r["build_s"] for r in ranks],
                "losses": r0["losses"], "resume_losses": r0["resume_losses"],
                "digest": r0["digest"],
@@ -4167,14 +4426,12 @@ def ddp_phase(seed, device, want_step) -> tuple:
                          and all(math.isfinite(v) for v in r0["losses"]))
         records["two_ranks"] = rec
 
-        # (b) the all-reduce in the captured graph: NCCL at world 1, then the
-        # same run with no group, one after the other so that each has the
-        # card to itself
-        nccl, wall = graph_run("nccl1")
+        # (b) the all-reduce in the captured graph: NCCL at world 1 and the
+        # same run with no group, side by side on the card
+        nccl, wall, alone, wall_alone = graph_runs_together()
         fsdp_runs["nccl1"] = nccl.pop("fsdp")
         tp_runs["nccl1"] = nccl.pop("tp")
         wall -= fsdp_runs["nccl1"]["s"] + tp_runs["nccl1"]["s"]
-        alone, wall_alone = graph_run("nogroup")
         rec = {"wall_s": [wall, wall_alone], "tensor_backend": nccl["tensor_backend"],
                "losses": nccl["losses"], "replays": nccl["replays"],
                "captures": nccl["captures"], "launches_per_replay": nccl["launches_per_replay"],
@@ -4277,7 +4534,7 @@ def collective_ms(trainer, reps: int = 3) -> dict:
 def fsdp_run(spec, kind) -> dict:
     """The fsdp phase's run of ``kind`` in a ddp worker's process group:
     ``two_ranks``, a rank of the gloo run under ``param_sharding: fsdp``
-    with ``checkpoint_format: sharded`` (A: 4 steps, its sharded save at 2
+    with ``checkpoint_format: sharded`` (A: 3 steps, its sharded save at 2
     copied aside, B: resumed from that directory), or ``nccl1``, the K=4
     graph run with the NCCL group of one rank. The run directories, which
     both ranks share, are deleted at the end."""
@@ -4314,7 +4571,7 @@ def fsdp_run(spec, kind) -> dict:
             out["cut_files"] = sorted(os.listdir(spec["cut_dir"]))
             a.train(max_steps=DDP_STEPS, save_on_exit=False)
             torch.cuda.synchronize()
-            out["launches"] = ops.launch_counts()
+            out["launches"] = named_launches()
             out.update(losses=losses, step_ms=ms, step=a.step, held=held_bytes(a),
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
             state = gathered_state(a)
@@ -4343,8 +4600,8 @@ def fsdp_run(spec, kind) -> dict:
             d = tr._dispatch
             out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
                        replays=d.replays, captures=len(d.graphs),
-                       launches_per_replay=d.launches,
-                       launches_on_path=path_launches(ops.launch_counts(), d),
+                       launches_per_replay=named_launches(d.launches),
+                       launches_on_path=path_launches(named_launches(), d),
                        sharded_tensors=len(tr.plan.sharded), held=held_bytes(tr),
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                        digest=state_digest(gathered_state(tr, grads=False)))
@@ -4365,8 +4622,8 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
     ``replicated`` runs of the same config (``ddp``); ``runs`` are the fsdp
     runs the ddp phase's processes made (``fsdp_run``). (a) Two ranks on the
     one card over gloo, eager, b32 a rank, ``checkpoint_format: sharded``: A
-    trains 4 steps with its sharded save at 2, B resumes from that directory
-    to 4. Every loss and the gathered final state (with the reduced
+    trains 3 steps with its sharded save at 2, B resumes from that directory
+    to 3. Every loss and the gathered final state (with the reduced
     gradients) bit-equal to the ddp phase's two ranks (its digest), B
     bit-equal to A, the step-2 directory exactly the manifest and the two
     step-tagged shard files, each rank's launches the structure's per step;
@@ -4466,11 +4723,11 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
 
 
 TP_SIZE = 2                      # two model ranks on the one card, over gloo
-TP_STEPS = 3                     # b32 steps of the tp run, then its control's
+TP_STEPS = 1                     # b32 steps of the tp run, then its control's
 TP4_BATCH = 8                    # a data rank's batch under fsdp+tp at world 4
 TP4_STEPS = 2
 TP_SERVE_IMAGES = 8              # the tp service's b8 autoencode
-TP_SERVE_STYLE = "ddim10"
+TP_SERVE_STYLE = "ddim2"
 
 
 def tp_config(dpm_path, k=1, mode="tp", tp_size=TP_SIZE, batch=TRAIN_BATCH) -> dict:
@@ -4669,8 +4926,8 @@ def tp_run(spec, kind) -> dict:
             torch.cuda.synchronize()
             d = tr._dispatch
             out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
-                       replays=d.replays, launches_per_replay=d.launches,
-                       launches_on_path=path_launches(ops.launch_counts(), d),
+                       replays=d.replays, launches_per_replay=named_launches(d.launches),
+                       launches_on_path=path_launches(named_launches(), d),
                        digest=state_digest(ddp_state(tr, grads=False)))
             drop_graphs(tr)
             return out
@@ -4680,7 +4937,7 @@ def tp_run(spec, kind) -> dict:
             tr.train(max_steps=steps, save_on_exit=False)
             torch.cuda.synchronize()
         out["collectives_per_step"] = {k: v / steps for k, v in comm.items()}
-        out.update(losses=losses, step_ms=ms, step=tr.step, launches=ops.launch_counts(),
+        out.update(losses=losses, step_ms=ms, step=tr.step, launches=named_launches(),
                    kernel_inputs=[[list(k), n] for k, n in sorted(seen.items(), key=str)],
                    held=tp_held_bytes(tr), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         if kind == "two_ranks":
@@ -4716,7 +4973,7 @@ def tp_service(spec) -> dict:
     from pdae_torch.models import CELEBA64_DPM
     from pdae_torch.serving import PDAEService
 
-    decoder, encoder, _ = build_models(spec["seed"], torch.device("cpu"))
+    decoder, encoder = build_models(spec["seed"], torch.device("cpu"))
     config = {"trained_ddpm_config": CELEBA64_DPM, "decoder_config": {"latent_dim": LATENT},
               "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
               "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
@@ -4731,14 +4988,15 @@ def tp_service(spec) -> dict:
     t0 = time.perf_counter()
     recon = service.autoencode(images, TP_SERVE_STYLE, TP_SERVE_STYLE)
     torch.cuda.synchronize()
-    return {"s": time.perf_counter() - t0, "launches": ops.launch_counts(),
+    return {"s": time.perf_counter() - t0, "launches": named_launches(),
             "params_bytes": param_nbytes(p for m in (service.encoder, service.decoder)
                                          for p in m.parameters()),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "recon": recon.tolist()}
 
 
-def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, bound) -> dict:
+def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, bound,
+             controls=None) -> dict:
     """Tensor parallelism (``param_sharding: tp``/``fsdp+tp``, the service's
     ``tp_size``) on the card. (a) The ddp phase's celeba64 PDAE config at tp
     2 as two ranks on the one card over gloo, b32, fp32, TF32 off,
@@ -4753,7 +5011,10 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
     ``fsdp+tp`` at world 4 (tp 2 x data 2), b8 a data rank, ``TP4_STEPS``
     steps against one process over the 16 rows. (d) The tp path at
     ``tp_size`` 1 with an NCCL group of one rank, from the captured graph at
-    K=4: bit-equal to the ddp phase's ``replicated`` K=4 run."""
+    K=4: bit-equal to the ddp phase's ``replicated`` K=4 run. The
+    one-process runs and the service's result go into ``controls``, and
+    the four processes' sp runs into ``runs["sp_four_ranks"]``, for the sp
+    phase."""
     import gc
     import shutil
 
@@ -4803,6 +5064,7 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
 
         # (c) ran in four processes of their own beside the two ranks' tp run
         four, wall4 = finish_workers(runs["four_ranks"])
+        runs["sp_four_ranks"] = [r.pop("sp") for r in four]
         four = [r["tp"] for r in four]
         # the one-process runs the tp runs are held to, and the one-process
         # service's autoencode
@@ -4811,6 +5073,8 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
                                       TP4_STEPS),
                 "service": service.autoencode(images[:TP_SERVE_IMAGES], TP_SERVE_STYLE,
                                               TP_SERVE_STYLE)}
+        if controls is not None:
+            controls.update(made)
 
         def held_to(run, kind, ranks, batch, steps, want_launches):
             r0 = run[0]
@@ -4897,6 +5161,401 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
     return records
 
 
+SP_SIZE = 2                      # two ranks share every image's rows on the one card
+SP_STEPS = TP_STEPS              # b32 steps of the sp run: the tp run's control serves it
+SP4_BATCH, SP4_STEPS = TP4_BATCH, TP4_STEPS   # fsdp+sp at world 4: the fsdp+tp run's control
+SP_SERVE_IMAGES = (8, 1)         # the sp service's autoencode requests
+SP_SERVE_STYLE = TP_SERVE_STYLE  # the tp phase's one-process b8 result serves as control
+SP_PASSES = ("gn_stats", "gn_apply", "gn_bwd_moments", "gn_bwd_dx")
+
+
+def sp_config(dpm_path, mode="sp", batch=TRAIN_BATCH) -> dict:
+    """``ddp_config`` under ``param_sharding`` ``mode`` (``sp`` or
+    ``fsdp+sp``) with ``SP_SIZE`` ranks per image, ``batch`` a data rank."""
+    cfg = ddp_config(dpm_path)
+    cfg["runner_config"] = {**cfg["runner_config"], "param_sharding": mode,
+                            "sp_size": SP_SIZE}
+    cfg["dataloader_config"] = {**cfg["dataloader_config"], "train": {
+        **cfg["dataloader_config"]["train"], "batch_size": batch}}
+    return cfg
+
+
+def sp_local_keys(counts, sp=SP_SIZE, batch=None) -> collections.Counter:
+    """A path's kernel inputs (``path_shapes``' keys) as one of ``sp`` ranks
+    gives them (``parallel/sp.py``): a map whose height divides by ``sp`` on
+    the rank's rows, its GN chain as the stats and apply passes (a backward
+    as the moments pass, and the dx pass where the chain's input needs one),
+    its attention as ``("attention", B, H, Tq, Tk, D)`` with the rank's
+    queries against every key; a map that does not divide stays whole, on
+    the fused kernels. ``batch`` replaces the keys' batch."""
+    out = collections.Counter()
+    for k, n in counts.items():
+        if batch is not None:
+            k = (k[0], batch) + k[2:]
+        if k[0] == "attention":
+            _, b, h, t, d = k
+            q = t // sp if math.isqrt(t) % sp == 0 else t
+            out[("attention", b, h, q, t, d)] += n
+            continue
+        if k[3] % sp:
+            out[k] += n
+            continue
+        local = (k[1], k[2], k[3] // sp, k[4])
+        if k[0] == "gn":
+            out[("gn_stats",) + local] += n
+            out[("gn_apply",) + local + k[5:7]] += n
+        else:
+            out[("gn_bwd_moments",) + local + k[5:7]] += n
+            if k[7]:
+                out[("gn_bwd_dx",) + local + k[5:7]] += n
+    return out
+
+
+def sp_launches(local) -> dict:
+    """The launch counts of ``sp_local_keys``' keys, as ``ops.launch_counts``
+    names them (the fused GN kernels' launches too: none where every map
+    splits)."""
+    out = {"attention": 0, "gn_adagn_silu": 0, "gn_adagn_silu_bwd": 0}
+    for k, n in local.items():
+        name = {"gn": "gn_adagn_silu", "gn_bwd": "gn_adagn_silu_bwd"}.get(k[0], k[0])
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+@contextlib.contextmanager
+def recorded_split_inputs(seen: collections.Counter):
+    """Every launch of the kernel wrappers while the block runs, keyed as
+    ``sp_local_keys`` keys them, counted into ``seen``."""
+    from pdae_torch.ops import attention, groupnorm, groupnorm_train
+
+    orig = {"stats": groupnorm.gn_stats_cuda, "apply": groupnorm.gn_apply_cuda,
+            "moments": groupnorm_train.gn_bwd_moments_cuda,
+            "dx": groupnorm_train.gn_bwd_dx_cuda, "attn": attention.attention_cuda,
+            "gn": groupnorm.gn_cuda, "bwd": groupnorm_train.gn_bwd_cuda}
+
+    def stats(x, groups):
+        seen[("gn_stats",) + tuple(x.shape)] += 1
+        return orig["stats"](x, groups)
+
+    def apply(x, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+              z_shift=None, groups=32):
+        seen[("gn_apply",) + tuple(x.shape) + (scale is not None, z_scale is not None)] += 1
+        return orig["apply"](x, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift,
+                             groups)
+
+    def moments(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+                z_shift=None, groups=32):
+        seen[("gn_bwd_moments",) + tuple(x.shape) + (scale is not None,
+                                                     z_scale is not None)] += 1
+        return orig["moments"](x, g, mean, rstd, gamma, beta, scale, shift, z_scale,
+                               z_shift, groups)
+
+    def dx(x, g, mean, rstd, m, gamma, beta, scale=None, shift=None, z_scale=None,
+           z_shift=None, groups=32):
+        seen[("gn_bwd_dx",) + tuple(x.shape) + (scale is not None, z_scale is not None)] += 1
+        return orig["dx"](x, g, mean, rstd, m, gamma, beta, scale, shift, z_scale, z_shift,
+                          groups)
+
+    def attn(q, k, v):
+        seen[("attention",) + tuple(q.shape[:3]) + (k.shape[2], q.shape[3])] += 1
+        return orig["attn"](q, k, v)
+
+    def fused(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None,
+              groups=32, **kw):
+        seen[("gn",) + tuple(x.shape) + (scale is not None, z_scale is not None)] += 1
+        return orig["gn"](x, gamma, beta, scale, shift, z_scale, z_shift, groups, **kw)
+
+    def fused_bwd(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+                  z_shift=None, groups=32, need_dx=True):
+        seen[("gn_bwd",) + tuple(x.shape) + (scale is not None, z_scale is not None,
+                                              need_dx)] += 1
+        return orig["bwd"](x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift,
+                           groups=groups, need_dx=need_dx)
+
+    groupnorm.gn_stats_cuda, groupnorm.gn_apply_cuda = stats, apply
+    groupnorm_train.gn_bwd_moments_cuda, groupnorm_train.gn_bwd_dx_cuda = moments, dx
+    attention.attention_cuda, groupnorm.gn_cuda = attn, fused
+    groupnorm_train.gn_bwd_cuda = fused_bwd
+    try:
+        yield seen
+    finally:
+        groupnorm.gn_stats_cuda, groupnorm.gn_apply_cuda = orig["stats"], orig["apply"]
+        groupnorm_train.gn_bwd_moments_cuda = orig["moments"]
+        groupnorm_train.gn_bwd_dx_cuda = orig["dx"]
+        attention.attention_cuda, groupnorm.gn_cuda = orig["attn"], orig["gn"]
+        groupnorm_train.gn_bwd_cuda = orig["bwd"]
+
+
+@contextlib.contextmanager
+def timed_sp_collectives(record: dict):
+    """The wall ms, the count and the bytes of the sp group's collectives
+    (``parallel/sp.py``'s all-gather, all-reduce and reduce-scatter) while
+    the block runs, into ``record``, the card synchronised on entry to each
+    (as ``timed_tp_collectives``)."""
+    from pdae_torch.parallel import sp
+
+    originals = {name: getattr(sp, name) for name in ("_all_gather", "all_reduce",
+                                                      "_reduce_scatter")}
+    record.update(ms=0.0, count=0, bytes=0)
+
+    def timed(fn):
+        def wrapped(x, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, *args)
+            torch.cuda.synchronize()
+            record["ms"] += (time.perf_counter() - t0) * 1e3
+            record["count"] += 1
+            record["bytes"] += x.numel() * x.element_size()
+            return out
+        return wrapped
+
+    for name, fn in originals.items():
+        setattr(sp, name, timed(fn))
+    try:
+        yield record
+    finally:
+        for name, fn in originals.items():
+            setattr(sp, name, fn)
+
+
+def sp_state(trainer) -> dict:
+    """``ddp_state`` of a spatial-parallel trainer: each trained tensor's
+    param, EMA, moments and reduced gradient whole (gathered from the data
+    group's blocks under ``fsdp+sp``: collective), copied to the host."""
+    snap = trainer.snapshot_state(full=True)
+    masters = trainer.state.masters
+    names = [(g, k) for g in masters for k in masters[g]]
+    grads = [masters[g][k].grad for g, k in names]
+    if trainer.plan is not None:
+        grads = trainer.plan.gather(grads)
+    return {f"{g}.{k}": [snap[c][g][k].clone() for c in ("params", "ema", "mu", "nu")]
+            + [grads[i].detach().cpu()] for i, (g, k) in enumerate(names)}
+
+
+def sp_run(spec, kind) -> dict:
+    """The sp phase's run of ``kind`` in a ddp worker's process group:
+    ``two_ranks``, a rank of ``PDAEService(sp_size=2)``'s requests, then of
+    the gloo run at sp 2 (``SP_STEPS`` b32 steps, the kernels' inputs and
+    the collectives recorded); ``four_ranks``, a rank of
+    ``fsdp+sp`` at sp 2 x data 2 (``SP4_STEPS`` steps at b8 a data rank).
+    The run directories, which the ranks share, are deleted at the end."""
+    import gc
+    import shutil
+
+    from pdae_torch import ops, parallel
+    from pdae_torch.train import pick_trainer
+
+    t0 = time.perf_counter()
+    rank, root, cfg = parallel.process_index(), spec["root"], spec["config"]
+    run = os.path.join(root, kind)
+    out = {"rank": rank, "tensor_backend": parallel.tensor_backend()}
+    if "go" in spec:
+        # the four-rank processes' tp run has left the card: the two ranks'
+        # sp run may take its memory (``wait_for``)
+        parallel.sync_global_devices("sp_go")
+        if rank == 0:
+            with open(spec["go"], "w"):
+                pass
+    if kind == "two_ranks":
+        # the service first, while the four-rank processes' tp run holds the
+        # card (the tp service ran beside it too): off the path to their go
+        out["service"] = sp_service(spec)
+    if "wait_for" in spec:
+        w0 = time.perf_counter()
+        while not os.path.exists(spec["wait_for"]):
+            if time.perf_counter() - w0 > 600:
+                raise TimeoutError(f"no {spec['wait_for']}")
+            time.sleep(0.2)
+        out["waited_s"] = time.perf_counter() - w0
+    gc.collect()
+    torch.cuda.empty_cache()          # what the process's earlier runs left cached
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        b0 = time.perf_counter()
+        tr = pick_trainer(cfg)(config=cfg, run_path=run, seed=spec["seed"])
+        out["build_s"] = time.perf_counter() - b0
+        g = tr.sp_groups
+        out.update(sp_index=g.sp_index, data_index=g.data_index,
+                   split_modules=sum(1 for m in (tr.encoder, tr.decoder)
+                                     if getattr(m, "sp", None) is g))
+        losses, ms = timed_losses(tr)
+        seen, comm = collections.Counter(), {}
+        steps = SP_STEPS if kind == "two_ranks" else SP4_STEPS
+        ops.reset_launch_counts()
+        with recorded_split_inputs(seen), timed_sp_collectives(comm):
+            tr.train(max_steps=steps, save_on_exit=False)
+            torch.cuda.synchronize()
+        out["collectives_per_step"] = {k: v / steps for k, v in comm.items()}
+        out.update(losses=losses, step_ms=ms, step=tr.step, launches=named_launches(),
+                   kernel_inputs=[[list(k), n] for k, n in sorted(seen.items(), key=str)],
+                   params_bytes=param_nbytes(p for m in (tr.encoder, tr.decoder)
+                                             for p in m.parameters()),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        state = sp_state(tr)
+        out["digest"] = state_digest(state)
+        if rank == 0:
+            torch.save(state, os.path.join(root, f"{kind}_state.pt"))
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        parallel.sync_global_devices("sp_done")
+        if parallel.is_primary():
+            shutil.rmtree(run, ignore_errors=True)
+        out["s"] = time.perf_counter() - t0
+    return out
+
+
+def sp_service(spec) -> dict:
+    """``PDAEService(sp_size=2)`` on the main path's seeded models: a
+    ``SP_SERVE_STYLE`` autoencode of each of ``SP_SERVE_IMAGES`` (the
+    first call's seconds hold its set-up), with its launches, its kernels'
+    inputs and its result; the service's peak memory."""
+    from pdae_torch import ops
+    from pdae_torch.models import CELEBA64_DPM
+    from pdae_torch.serving import PDAEService
+
+    decoder, encoder = build_models(spec["seed"], torch.device("cpu"))
+    config = {"trained_ddpm_config": CELEBA64_DPM, "decoder_config": {"latent_dim": LATENT},
+              "encoder_config": {"model": "CELEBA64Encoder", "latent_dim": LATENT},
+              "diffusion_config": {"timesteps": 1000, "betas_type": "linear"},
+              "image_size": 64, "max_batch": 64, "sp_size": SP_SIZE}
+    torch.cuda.reset_peak_memory_stats()
+    service = PDAEService(config, encoder.state_dict(), decoder.state_dict())
+    del decoder, encoder
+    images = np.random.RandomState(spec["seed"]).randint(
+        0, 256, (max(spec["serve_images"]), 64, 64, 3), np.uint8)
+    out = {}
+    for n in spec["serve_images"]:
+        seen = collections.Counter()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recorded_split_inputs(seen):
+            recon = service.autoencode(images[:n], SP_SERVE_STYLE, SP_SERVE_STYLE)
+        torch.cuda.synchronize()
+        out[f"b{n}"] = {"s": time.perf_counter() - t0, "launches": named_launches(),
+                        "kernel_inputs": [[list(k), c] for k, c in
+                                          sorted(seen.items(), key=str)],
+                        "recon": recon.tolist()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def sp_phase(device, per_step, serve_counts, runs, controls, service, images, bound,
+             one_process_peak_gb) -> dict:
+    """Spatial parallelism (``param_sharding: sp``/``fsdp+sp``, the service's
+    ``sp_size``) on the card. (a) The ddp phase's celeba64 PDAE config at sp
+    2 as two ranks on the one card over gloo (run by the ddp phase's two
+    processes after their tp runs), b32, fp32, TF32 off,
+    ``cudnn.deterministic``: ``SP_STEPS`` steps against the tp phase's one
+    process over the same rows (``DDP_TOL``), the ranks bit-equal, each
+    rank's launches those of ``sp_local_keys`` per step (the split passes,
+    no fused GN launch) and every launch's input at the rank's local shape;
+    recorded: the collectives' count, bytes and ms per step, ms per step,
+    the parameter bytes and the peak memory per rank beside one process's.
+    (b) ``PDAEService(sp_size=2)``: a b8 and a b1 ``SP_SERVE_STYLE``
+    autoencode against the one-process service within the larger of one
+    uint8 level and ``bound``, the ranks equal, the launches and inputs
+    ``sp_local_keys``' (``serve_counts``: one request's path keys at each
+    batch). (c) ``fsdp+sp`` at world 4 (sp 2 x data 2, the tp phase's four
+    processes), b8 a data rank, ``SP4_STEPS`` steps against the tp phase's
+    one process over the 16 rows."""
+    import shutil
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(OUT_DIR, "sp")
+    records = {"config": {
+        "two_ranks": f"celeba64 PDAE at sp {SP_SIZE}, b{TRAIN_BATCH}, {SP_SIZE} ranks on one "
+                     f"card, gloo tensor group, K=1, {SP_STEPS} steps; control: one process "
+                     "(the tp phase's)",
+        "service": f"PDAEService(sp_size={SP_SIZE}), b{SP_SERVE_IMAGES[0]} and "
+                   f"b{SP_SERVE_IMAGES[1]} {SP_SERVE_STYLE}/{SP_SERVE_STYLE} autoencode; "
+                   "control: one process",
+        "four_ranks": f"fsdp+sp, sp {SP_SIZE} x data 2 on one card, b{SP4_BATCH} a data "
+                      f"rank, {SP4_STEPS} steps; control: one process at b{2 * SP4_BATCH} "
+                      "(the tp phase's)",
+        "numerics": "fp32, TF32 off, cudnn.deterministic, Adam eps 1e-5",
+        "tolerances": DDP_TOL}}
+    try:
+        def held_to(run, kind, batch, steps):
+            r0 = run[0]
+            want_losses, want_ms, want = controls[kind]
+            got = torch.load(os.path.join(root, f"{kind}_state.pt"))
+            local = sp_local_keys(per_step, batch=batch)
+            want_launches = {k: v * steps for k, v in sp_launches(local).items()}
+            rec = {"run_s": [r["s"] for r in run], "build_s": [r["build_s"] for r in run],
+                   "losses": r0["losses"], "control_losses": want_losses,
+                   "step_ms": r0["step_ms"], "control_step_ms": want_ms,
+                   "loss_rel": max(abs(a - b) / abs(b)
+                                   for a, b in zip(r0["losses"], want_losses)),
+                   "errors": ddp_rel_errors(got, want),
+                   "ranks_bit_equal": all(r["digest"] == r0["digest"]
+                                          and r["losses"] == r0["losses"] for r in run),
+                   "grid": [[r["sp_index"], r["data_index"]] for r in run],
+                   "launches_per_rank": {f"rank{r['rank']}": r["launches"] for r in run},
+                   "launches_expected": want_launches,
+                   "collectives_per_step": [r["collectives_per_step"] for r in run],
+                   "collective_share": [r["collectives_per_step"]["ms"] / (
+                       sum(r["step_ms"]) / len(r["step_ms"])) for r in run],
+                   "params_bytes": [r["params_bytes"] for r in run],
+                   "peak_gb": [r["peak_gb"] for r in run]}
+            rec["launches_ok"] = all(r["launches"] == want_launches for r in run)
+            want_inputs = {str(list(k)): n * steps for k, n in local.items()}
+            rec["kernel_inputs_local"] = all(
+                {str(k): n for k, n in r["kernel_inputs"]} == want_inputs for r in run)
+            rec["ok"] = bool(rec["loss_rel"] <= DDP_TOL["loss_rel"]
+                             and all(v["ok"] for v in rec["errors"].values())
+                             and rec["ranks_bit_equal"] and rec["launches_ok"]
+                             and rec["kernel_inputs_local"]
+                             and all(r["split_modules"] == 2 for r in run)
+                             and all(math.isfinite(v) for v in r0["losses"]))
+            return rec
+
+        two = runs["sp_two_ranks"]
+        rec = held_to(two, "two_ranks", TRAIN_BATCH, SP_STEPS)
+        rec["one_process_peak_gb"] = one_process_peak_gb
+        records["two_ranks"] = rec
+        records["four_ranks"] = held_to(runs["sp_four_ranks"], "four_ranks", SP4_BATCH,
+                                        SP4_STEPS)
+        srv = {}
+        for n in SP_SERVE_IMAGES:
+            got = [np.asarray(r["service"][f"b{n}"]["recon"], np.uint8) for r in two]
+            want = (controls["service"][:n] if n == TP_SERVE_IMAGES else
+                    service.autoencode(images[:n], SP_SERVE_STYLE, SP_SERVE_STYLE))
+            diff = max(int(np.abs(g.astype(int) - want.astype(int)).max()) for g in got)
+            local = sp_local_keys(serve_counts[n])
+            want_inputs = {str(list(k)): c for k, c in local.items()}
+            runs_n = [r["service"][f"b{n}"] for r in two]
+            srv[f"b{n}"] = {
+                "s": [r["s"] for r in runs_n], "max_uint8_diff": diff,
+                "bound_uint8": max(1, bound),
+                "ranks_equal": all(np.array_equal(g, got[0]) for g in got),
+                "launches_per_rank": {f"rank{r['rank']}": r["service"][f"b{n}"]["launches"]
+                                      for r in two},
+                "launches_expected": sp_launches(local),
+                "kernel_inputs_local": all({str(k): c for k, c in r["kernel_inputs"]}
+                                           == want_inputs for r in runs_n)}
+            srv[f"b{n}"]["ok"] = bool(
+                diff <= max(1, bound) and srv[f"b{n}"]["ranks_equal"]
+                and srv[f"b{n}"]["kernel_inputs_local"]
+                and all(r["launches"] == sp_launches(local) for r in runs_n))
+        srv["peak_gb"] = [r["service"]["peak_gb"] for r in two]
+        srv["ok"] = all(v["ok"] for k, v in srv.items() if k.startswith("b"))
+        records["service"] = srv
+        records["shapes"] = {"two_ranks": two[0]["kernel_inputs"],
+                             "four_ranks": runs["sp_four_ranks"][0]["kernel_inputs"]}
+        records["run_s"] = {"two_ranks": max(r["s"] for r in two),
+                            "four_ranks": max(r["s"] for r in runs["sp_four_ranks"])}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    records["phase_s"] = time.perf_counter() - phase_t0 + records.get("run_s", {}).get(
+        "two_ranks", 0.0)
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4939,7 +5598,7 @@ def main(argv=None) -> int:
                     for src, log in _build.build_logs.items()}})
 
     # the models of the path, and the shapes they give the kernels
-    decoder, encoder, gen = build_models(args.seed, device)
+    decoder, encoder = build_models(args.seed, device)
     dec_counts, enc_counts = path_shapes(decoder, encoder, device)
     per_request = {k: STEPS * 2 * dec_counts[k] + enc_counts[k]
                    for k in set(dec_counts) | set(enc_counts)}
@@ -4950,33 +5609,59 @@ def main(argv=None) -> int:
     # the forward kernels at the shapes of both paths: the request's (b8) and
     # the train step's (b32)
     both = sorted(set(per_request) | set(per_step))
+    # the checks draw their inputs on the card, as the stage and precision
+    # phases' do: a host draw of the large slabs takes longer than the checks
+    check_gen = torch.Generator(device=device).manual_seed(args.seed + 17)
     launch_floor_ms = device_ms(lambda: groupnorm.launch_empty(device))
-    attn_res = {k: check_attention(k[1:], gen, device)
+    attn_res = {k: check_attention(k[1:], check_gen, device)
                 for k in both if k[0] == "attention"}
-    gn_res = {k: check_gn(k, gen, device) for k in both if k[0] == "gn"}
-    bwd_res = {k: check_gn_bwd(k, gen, device) for k in both if k[0] == "gn_bwd"}
-    edges = check_edges(gen, device)
+    gn_res = {k: check_gn(k, check_gen, device) for k in both if k[0] == "gn"}
+    bwd_res = {k: check_gn_bwd(k, check_gen, device) for k in both if k[0] == "gn_bwd"}
+    edges = check_edges(check_gen, device)
     # the shapes of the smaller buckets (the batcher's, and the whole path's
     # b2), compared and variant-checked, not timed
     bucket_res = {}
     for b in BUCKETS:
         for k in sorted(set().union(*path_shapes(decoder, encoder, device, batch=b))):
-            bucket_res[k] = (check_attention(k[1:], gen, device, timed=False)
+            bucket_res[k] = (check_attention(k[1:], check_gen, device, timed=False)
                              if k[0] == "attention" else
-                             check_gn(k, gen, device, timed=False))
+                             check_gn(k, check_gen, device, timed=False))
     # the shapes a tp rank gives the kernels (the tp phase's runs: the b32
     # step and the b8 request at tp 2, the b8 step of fsdp+tp), compared,
     # not timed
     tp_keys = sorted(set(tp_local_keys(per_step)) | set(tp_local_keys(per_request))
                      | set(tp_local_keys(per_step, batch=TP4_BATCH)))
-    tp_res = {k: (check_attention(k[1:], gen, device, timed=False) if k[0] == "attention"
-                  else check_gn(k, gen, device, timed=False) if k[0] == "gn"
-                  else check_gn_bwd(k, gen, device, timed=False)) for k in tp_keys}
+    tp_res = {k: (check_attention(k[1:], check_gen, device, timed=False)
+                  if k[0] == "attention" else
+                  check_gn(k, check_gen, device, timed=False) if k[0] == "gn"
+                  else check_gn_bwd(k, check_gen, device, timed=False)) for k in tp_keys}
+    # the split passes an sp rank launches: timed at the train step's local
+    # shapes (b32), compared at those of the fsdp+sp run (b8) and of the sp
+    # service's requests; every map of these paths splits, so no fused key
+    serve_counts = {}
+    for n in SP_SERVE_IMAGES:
+        dec_n, enc_n = ((dec_counts, enc_counts) if n == BATCH
+                        else path_shapes(decoder, encoder, device, batch=n))
+        serve_counts[n] = collections.Counter(
+            {k: 2 * int(SP_SERVE_STYLE[len("ddim"):]) * dec_n[k] + enc_n[k]
+             for k in set(dec_n) | set(enc_n)})
+    sp_step = sp_local_keys(per_step)
+    sp_other = set(sp_local_keys(per_step, batch=SP4_BATCH)).union(
+        *(sp_local_keys(c) for c in serve_counts.values()))
+    sp_res = {k: check_split(k, check_gen, device) for k in sorted(sp_step, key=str)}
+    sp_res.update({k: check_split(k, check_gen, device, timed=False)
+                   for k in sorted(sp_other - set(sp_res), key=str)})
     failed = [(r["shape"], k) for r in list(attn_res.values()) + list(gn_res.values())
               + list(bwd_res.values()) + list(bucket_res.values()) + list(tp_res.values())
+              + list(sp_res.values())
               + edges["attention"]
               + edges["gn_adagn_silu"] + edges["gn_adagn_silu_bwd"]
               for k, v in r["err"].items() if not v["ok"]]
+    # a Tq < Tk launch gives those rows of the Tq = Tk launch, and the apply
+    # pass on the fused kernel's saved stats gives its output, bit for bit
+    failed += [(r["shape"], f"{check}_{name}") for r in sp_res.values()
+               for check in ("rows_bit_equal_whole", "equals_fused_on_its_stats")
+               for name, same in r.get(check, {}).items() if not same]
     if not edges["gn_misaligned"]["ok"]:
         failed.append(("gn misaligned", "model_float32"))
     failed += [("gn backward misaligned", k) for k, v in edges["gn_bwd_misaligned"].items()
@@ -4994,6 +5679,7 @@ def main(argv=None) -> int:
                    "gn_adagn_silu_bwd": list(bwd_res.values()),
                    "buckets": list(bucket_res.values()),
                    "tp_local": list(tp_res.values()),
+                   "sp_local": list(sp_res.values()),
                    "edges": edges},
                   f, indent=1)
     emit({"phase": "kernels", "tolerances": {f"{k[0]}/{str(k[1])[6:]}": v
@@ -5005,6 +5691,7 @@ def main(argv=None) -> int:
                                    ("gn_adagn_silu_bwd", bwd_res))},
           "buckets": [brief(r, 0, 0) for r in bucket_res.values()],
           "tp_local": [brief(r, 0, 0) for r in tp_res.values()],
+          "sp_local": [brief(r, 0, sp_step.get(k, 0)) for k, r in sp_res.items()],
           "edges": {**{k: [brief(r, 0, 0) for r in edges[k]]
                        for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")},
                     **{k: v for k, v in edges.items()
@@ -5100,7 +5787,7 @@ def main(argv=None) -> int:
         loss = train_step(state, x_0, train_gen)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        step_launches.append(ops.launch_counts())
+        step_launches.append(named_launches())
         step_variants.append(ops.gn_variant_counts())
         step_bwd_variants.append(ops.gn_bwd_variant_counts())
         losses.append(float(loss))
@@ -5359,13 +6046,23 @@ def main(argv=None) -> int:
         raise AssertionError("the fsdp phase failed its checks")
 
     # 16. tensor parallelism: two ranks split on the card, four under fsdp+tp
+    controls = {}
     tp = tp_phase(args.seed, device, want_step, per_step, ddp, tp_runs, service, images,
-                  max(v["bound_uint8"] for v in res["ops"].values()))
+                  max(v["bound_uint8"] for v in res["ops"].values()), controls)
     with open(os.path.join(OUT_DIR, "chip_smoke_tp.json"), "w") as f:
         json.dump(tp, f, indent=1)
     emit({"phase": "tp", **{k: v for k, v in tp.items() if k != "shapes"}})
     if not tp["ok"]:
         raise AssertionError("the tp phase failed its checks")
+
+    # 17. spatial parallelism: two ranks on each image's rows, four under fsdp+sp
+    sp = sp_phase(device, per_step, serve_counts, tp_runs, controls, service, images,
+                  max(v["bound_uint8"] for v in res["ops"].values()), train_peak_gb)
+    with open(os.path.join(OUT_DIR, "chip_smoke_sp.json"), "w") as f:
+        json.dump(sp, f, indent=1)
+    emit({"phase": "sp", **{k: v for k, v in sp.items() if k != "shapes"}})
+    if not sp["ok"]:
+        raise AssertionError("the sp phase failed its checks")
     emit({"script_s": time.perf_counter() - script_t0})
 
     per_op = {name: op_records[name]["launches"]
@@ -5402,13 +6099,23 @@ def main(argv=None) -> int:
             per_op[f"tp_{run}_{rank}"] = counts
     per_op["tp_service_rank0"] = tp["service"]["launches_per_rank"]["rank0"]
     per_op["tp_nccl1_graph"] = tp["nccl1_graph"]["launches_on_path"]
+    for run in ("two_ranks", "four_ranks"):
+        for rank, counts in sp[run]["launches_per_rank"].items():
+            per_op[f"sp_{run}_{rank}"] = counts
+    for n in SP_SERVE_IMAGES:
+        per_op[f"sp_service_b{n}_rank0"] = sp["service"][f"b{n}"]["launches_per_rank"]["rank0"]
+    sp_main = sp["two_ranks"]["launches_per_rank"]["rank0"]
     regular_ms = stages["regular"]["kernel_ms_per_step"]
+    sp_per = (f"one b{TRAIN_BATCH} train step of one rank at sp {SP_SIZE} (sum over its "
+              "launches)")
     emit({"kernels": [
         {**summarise("attention", "pdae_torch/csrc/attention.cu",
                      "pdae_tpu/ops/attention.py:40", attn_res, per_request, per_step,
                      ae_launches["attention"], train_launches["attention"]),
          "launches_per_op": {k: v["attention"] for k, v in per_op.items()},
-         "regular_step": regular_ms["attention"]},
+         "regular_step": regular_ms["attention"],
+         "sp_train_step": {**summarise_split("attention", sp_res, sp_step, sp_per),
+                           "launches": sp_main["attention"]}},
         {**summarise("gn_adagn_silu", "pdae_torch/csrc/groupnorm.cu",
                      "pdae_tpu/ops/groupnorm.py:55", gn_res, per_request, per_step,
                      ae_launches["gn_adagn_silu"], train_launches["gn_adagn_silu"]),
@@ -5424,6 +6131,18 @@ def main(argv=None) -> int:
                              or (k.startswith(("dispatch_", "ddp_", "fsdp_", "tp_"))
                                  and v["gn_adagn_silu_bwd"])},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
+        *({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sp_main.get(name, 0),
+           **summarise_split(name, sp_res, sp_step, sp_per),
+           "launches_per_op": {k: v.get(name, 0) for k, v in per_op.items()
+                               if k.startswith("sp_")}}
+          for name, source, replaces in (
+              ("gn_stats", "pdae_torch/csrc/groupnorm.cu", "pdae_tpu/ops/groupnorm.py:55"),
+              ("gn_apply", "pdae_torch/csrc/groupnorm.cu", "pdae_tpu/ops/groupnorm.py:55"),
+              ("gn_bwd_moments", "pdae_torch/csrc/groupnorm_bwd.cu",
+               "pdae_tpu/ops/groupnorm_train.py:196"),
+              ("gn_bwd_dx", "pdae_torch/csrc/groupnorm_bwd.cu",
+               "pdae_tpu/ops/groupnorm_train.py:196"))),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

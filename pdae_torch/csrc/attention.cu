@@ -7,7 +7,10 @@
 // (max-subtract, exp, divide by the sum), the weights are cast to v's dtype,
 // and w.v is summed in fp32 and cast to the output dtype.
 //
-// Layout: q, k, v, out are contiguous [B*H, T, D]; the wrapper
+// Layout: q, k, v, out are contiguous [B*H, T, D]: or, under spatial
+// parallelism, q and out [B*H, Tq, D] (a rank's query rows) against k and v
+// [B*H, Tk, D] (every key, gathered), where the score rows are [BM, Tk]
+// and Tq sets the grid; Tq == Tk runs the same instructions as before; the wrapper
 // (pdae_torch/ops/attention.py) permutes the head split into that layout and
 // picks the tiling (attention_plan) that this file's launcher dispatches on.
 //
@@ -197,13 +200,13 @@ template <typename T, int BM, int BN, int NW, int R>
 __global__ void __launch_bounds__(NW * 32)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     int t, int d, float scale) {
+                     int nq, int nk, int d, float scale) {
   constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte copy
   constexpr int kThreads = NW * 32;
   constexpr int RW = BM / NW;                // query rows per warp
   constexpr int CK = BN / 32;                // keys per lane, logits sweep
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ts = score_stride(t);
+  const int ts = score_stride(nk);
   const int kv_stride = d + VEC;             // K/V row in shared memory, 16 bytes of padding
   const int tile_elems = BN * kv_stride;
   T* qs = reinterpret_cast<T*>(smem);                // [BM][d] scaled query rows
@@ -214,22 +217,23 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int row0 = blockIdx.x * BM;
-  const size_t base = (size_t)blockIdx.y * t * d;
-  const int nt = (t + BN - 1) / BN;          // key tiles; tiles [0,nt) are K, [nt,2nt) are V
+  const size_t qbase = (size_t)blockIdx.y * nq * d;
+  const size_t kbase = (size_t)blockIdx.y * nk * d;
+  const int nt = (nk + BN - 1) / BN;         // key tiles; tiles [0,nt) are K, [nt,2nt) are V
 
   const ChunkWalk walk(d / VEC, tid, kThreads);
   auto fetch = [&](int tile) {
     if (tile < 2 * nt) {
       const bool is_k = tile < nt;
       copy_rows(walk, ring + (tile % kStages) * tile_elems, kv_stride,
-                (is_k ? k : v) + base, d, (is_k ? tile : tile - nt) * BN, BN, t);
+                (is_k ? k : v) + kbase, d, (is_k ? tile : tile - nt) * BN, BN, nk);
     }
     cp_async_commit();   // an empty group keeps the wait counts uniform
   };
 
   // The query tile, in the first K tile's group; rows past T are zeros
   // (their scores are computed and never stored).
-  copy_rows(walk, qs, d, q + base, d, row0, BM, t);
+  copy_rows(walk, qs, d, q + qbase, d, row0, BM, nq);
   for (int s = 0; s < kStages - 1; ++s) fetch(s);
 
   // The w.v sweep's items: (group of R rows, float4 of output columns).
@@ -289,20 +293,20 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int cc = 0; cc < CK; ++cc) {
           const int j = j0 + lane + 32 * cc;
-          if (j < t) sc[(warp * RW + rr) * ts + j] = a[rr][cc];
+          if (j < nk) sc[(warp * RW + rr) * ts + j] = a[rr][cc];
         }
 
       if (i == nt - 1) {
         // the full-row softmax; a warp owns its RW rows
         __syncthreads();
-        softmax_rows<T>(sc + warp * RW * ts, ts, RW, t, (t + 3) & ~3, lane);
+        softmax_rows<T>(sc + warp * RW * ts, ts, RW, nk, (nk + 3) & ~3, lane);
         // the next iteration's __syncthreads publishes the weights
       }
     } else {
       // w.v over this tile's keys, four at a time; rows past T are zero in
       // the tile and their weights are zero in the padding
       const int j0 = (i - nt) * BN;
-      const int jn = min(BN, ((t - j0) + 3) & ~3);
+      const int jn = min(BN, ((nk - j0) + 3) & ~3);
 #pragma unroll
       for (int u = 0; u < kItems; ++u) {
         if (!it_ok[u]) continue;
@@ -337,7 +341,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
       const int row = row0 + it_row[u] + rr;
-      if (row < t) store4(out + base + (size_t)row * d + it_col[u], acc[u][rr]);
+      if (row < nq) store4(out + qbase + (size_t)row * d + it_col[u], acc[u][rr]);
     }
   }
 }
@@ -401,14 +405,15 @@ __global__ void __launch_bounds__(128)
 attention_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ out, int t, float scale) {
+                              __nv_bfloat16* __restrict__ out, int nq, int nk,
+                              float scale) {
   using T = __nv_bfloat16;
   constexpr int BM = 16 * MT, BN = 64, NW = 4;
   constexpr int STR = DH + 8;                // a Q, K or V row in shared memory
   constexpr int NPW = DH / 32;               // 8-column output fragments per warp
   constexpr int tile_elems = BN * STR;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ts = mma_score_stride(t);
+  const int ts = mma_score_stride(nk);
   T* qs = reinterpret_cast<T*>(smem);                   // [BM][STR]
   float* sc = reinterpret_cast<float*>(qs + BM * STR);  // [BM][ts]
   T* ring = reinterpret_cast<T*>(sc + BM * ts);         // [kStages][BN][STR]
@@ -419,19 +424,20 @@ attention_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, tq = lane & 3;    // fragment row and column pair
   const int lm = lane >> 3, lr = lane & 7;   // ldmatrix: matrix and row this lane addresses
   const int row0 = blockIdx.x * BM;
-  const size_t base = (size_t)blockIdx.y * t * DH;
-  const int nt = (t + BN - 1) / BN;
+  const size_t qbase = (size_t)blockIdx.y * nq * DH;
+  const size_t kbase = (size_t)blockIdx.y * nk * DH;
+  const int nt = (nk + BN - 1) / BN;
 
   const ChunkWalk walk(DH / 8, tid, NW * 32);
   auto fetch = [&](int tile) {
     if (tile < 2 * nt) {
       const bool is_k = tile < nt;
-      copy_rows(walk, ring + (tile % kStages) * tile_elems, STR, (is_k ? k : v) + base,
-                DH, (is_k ? tile : tile - nt) * BN, BN, t);
+      copy_rows(walk, ring + (tile % kStages) * tile_elems, STR, (is_k ? k : v) + kbase,
+                DH, (is_k ? tile : tile - nt) * BN, BN, nk);
     }
     cp_async_commit();
   };
-  copy_rows(walk, qs, STR, q + base, DH, row0, BM, t);
+  copy_rows(walk, qs, STR, q + qbase, DH, row0, BM, nq);
   for (int s = 0; s < kStages - 1; ++s) fetch(s);
 
   float acc[MT][NPW][4];
@@ -484,19 +490,19 @@ attention_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
           const int col = j0 + h * 8 + 2 * tq;
           float* lo = sc + (mt * 16 + g) * ts + col;
           float* hi = lo + 8 * ts;
-          if (col < t) { lo[0] = c[mt][h][0]; hi[0] = c[mt][h][2]; }
-          if (col + 1 < t) { lo[1] = c[mt][h][1]; hi[1] = c[mt][h][3]; }
+          if (col < nk) { lo[0] = c[mt][h][0]; hi[0] = c[mt][h][2]; }
+          if (col + 1 < nk) { lo[1] = c[mt][h][1]; hi[1] = c[mt][h][3]; }
         }
 
       if (i == nt - 1) {
         __syncthreads();
-        softmax_rows<T>(sc + warp * (BM / NW) * ts, ts, BM / NW, t, (t + 15) & ~15, lane);
+        softmax_rows<T>(sc + warp * (BM / NW) * ts, ts, BM / NW, nk, (nk + 15) & ~15, lane);
       }
     } else {
       // w.v: 16 keys a step; rows past T are zero in the tile and their
       // weights are zero in the padding
       const int j0 = (i - nt) * BN;
-      const int jn = min(BN, ((t - j0) + 15) & ~15);
+      const int jn = min(BN, ((nk - j0) + 15) & ~15);
       for (int kk = 0; kk < jn; kk += 16) {
         uint32_t pf[MT][4];
 #pragma unroll
@@ -541,11 +547,11 @@ attention_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int np = 0; np < NPW; ++np) {
       const int col = (warp * NPW + np) * 8 + 2 * tq;
       const int row = row0 + mt * 16 + g;
-      if (row < t)
-        *reinterpret_cast<uint32_t*>(out + base + (size_t)row * DH + col) =
+      if (row < nq)
+        *reinterpret_cast<uint32_t*>(out + qbase + (size_t)row * DH + col) =
             pack_bf16(acc[mt][np][0], acc[mt][np][1]);
-      if (row + 8 < t)
-        *reinterpret_cast<uint32_t*>(out + base + (size_t)(row + 8) * DH + col) =
+      if (row + 8 < nq)
+        *reinterpret_cast<uint32_t*>(out + qbase + (size_t)(row + 8) * DH + col) =
             pack_bf16(acc[mt][np][2], acc[mt][np][3]);
     }
 }
@@ -584,7 +590,7 @@ cudaError_t ensure_smem(size_t smem) {
 struct Args {
   const void *q, *k, *v;
   void* out;
-  int bh, t, d, elt;
+  int bh, nq, nk, d, elt;
   float scale;
   cudaStream_t stream;
 };
@@ -592,13 +598,13 @@ struct Args {
 template <typename T, int BM, int BN, int NW, int R>
 int launch(const Args& a) {
   if ((BM / R) * (a.d / 4) > kItems * NW * 32) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.t, a.d, (int)sizeof(T), BM, BN);
+  const size_t smem = smem_bytes(a.nk, a.d, (int)sizeof(T), BM, BN);
   cudaError_t err = ensure_smem<T, BM, BN, NW, R>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.t + BM - 1) / BM, a.bh);
+  dim3 grid((a.nq + BM - 1) / BM, a.bh);
   attention_fwd_kernel<T, BM, BN, NW, R><<<grid, NW * 32, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.t, a.d, a.scale);
+      static_cast<T*>(a.out), a.nq, a.nk, a.d, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -636,7 +642,7 @@ int launch_tiles(const Args& a, int bm, int bn, int warps, int r) {
 template <int MT, int DH>
 int launch_mma(const Args& a) {
   static size_t set_bytes[kMaxDevices] = {};
-  const size_t smem = mma_smem_bytes(a.t, DH, 16 * MT);
+  const size_t smem = mma_smem_bytes(a.nk, DH, 16 * MT);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -646,11 +652,11 @@ int launch_mma(const Args& a) {
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) set_bytes[dev] = smem;
   }
-  dim3 grid((a.t + 16 * MT - 1) / (16 * MT), a.bh);
+  dim3 grid((a.nq + 16 * MT - 1) / (16 * MT), a.bh);
   attention_fwd_bf16_mma_kernel<MT, DH><<<grid, 128, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out), a.t,
-      a.scale);
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out), a.nq,
+      a.nk, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -675,18 +681,21 @@ int launch_mma_tiles(const Args& a, int bm) {
 
 extern "C" {
 
-// Shared memory one block needs for [*, t, d] of elt-byte elements with bm
-// query rows and bn-key tiles; the wrapper's attention_plan computes the same
+// Shared memory one block needs for t keys of [*, t, d] of elt-byte elements
+// with bm query rows and bn-key tiles; the wrapper's attention_plan computes the same
 // number and checks it against the card's per-block limit before it launches.
 size_t pdae_attention_smem_bytes(int t, int d, int elt, int bm, int bn) {
   return smem_bytes(t, d, elt, bm, bn);
 }
 
-// The same for the bf16 tensor-core kernel (64-key tiles).
+// The same for the bf16 tensor-core kernel (t keys, 64-key tiles).
 size_t pdae_attention_mma_smem_bytes(int t, int d, int bm) {
   return mma_smem_bytes(t, d, bm);
 }
 
+// q, out: [bh, nq, d]; k, v: [bh, nk, d] (nq < nk: a rank's query rows
+// against every key, the spatial split of models/blocks.py; nq == nk is the
+// kernel of one process, computed by the same instructions).
 // dtype: 0 = float32, 1 = bfloat16. (bm, warps): query rows and warps per
 // block, bn: keys per tile, r: rows per thread in the w.v sweep, with
 // (bm / r) * (d / 4) at most twice the block's threads (the combinations
@@ -697,14 +706,14 @@ size_t pdae_attention_mma_smem_bytes(int t, int d, int bm) {
 // warps and r are then not read). Returns cudaGetLastError() after the
 // launch.
 int pdae_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                       int bh, int t, int d, float scale, int dtype, int bm, int bn,
-                       int warps, int r, int mma, void* stream) {
+                       int bh, int nq, int nk, int d, float scale, int dtype, int bm,
+                       int bn, int warps, int r, int mma, void* stream) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.out = out;
-  a.bh = bh; a.t = t; a.d = d; a.elt = dtype == 0 ? 4 : 2;
+  a.bh = bh; a.nq = nq; a.nk = nk; a.d = d; a.elt = dtype == 0 ? 4 : 2;
   a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
-  if (t < 1 || d < 4 || d > 256 || (d * a.elt) % 16 != 0)
+  if (nq < 1 || nk < 1 || d < 4 || d > 256 || (d * a.elt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (mma) return dtype == 1 ? launch_mma_tiles(a, bm) : (int)cudaErrorInvalidValue;

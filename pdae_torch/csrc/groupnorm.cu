@@ -58,6 +58,21 @@
 // Bound: bytes. Each element is read once and written once (8 bytes in
 // fp32, 4 in bf16) for ~15 flops, far below the card's ops-per-byte ridge.
 // The slabs of 16 KB and under are bound by the latency of a launch instead.
+//
+// The split passes (model mode; spatial parallelism, pdae_torch/parallel/sp.py):
+// a rank holds some rows of each slab, so the statistics span ranks and the
+// fused kernel above cannot compute them alone. Two kernels take its place:
+//
+//   stats pass (gn_stats_kernel): one block per (batch, group) slab of the
+//     rank's rows writes the fp32 partial sums of x and of x^2, [B, G, 2];
+//     the wrapper adds the ranks' sums (one all-reduce) and forms the mean
+//     and rsqrt(var + eps) with the one-pass formula above. Bound: bytes,
+//     one read of x;
+//   apply pass (gn_apply_kernel): the model-mode chain of each element from
+//     a given fp32 [B, G] mean and rstd (the Chain of the fused kernel, so
+//     the same mean and rstd give the same bits), 16 bytes a thread where
+//     H*W is a multiple of the vector, else one element. Bound: bytes, one
+//     read of x and one write.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -73,6 +88,8 @@ constexpr int kThreads = 512;          // the general variant's block
 constexpr int kMaxClusterThreads = 512;
 constexpr int kMaxPartBytes = 65536;   // the cluster variant's shared-memory cap per block
 constexpr int kLoadGroups = 4;         // cp.async groups a part is loaded in
+constexpr int kApplyThreads = 256;     // the apply pass's block
+constexpr int kApplyBlocks = 132 * 8;  // the most blocks of the apply pass (a grid-stride loop)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -453,6 +470,77 @@ gn_adagn_silu_cluster_kernel(const T* __restrict__ x, const float* __restrict__ 
   if (csize > 1) cluster_wait();
 }
 
+// ---------------------------------------------------------- split passes
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ sums, int n, int vec) {
+  __shared__ float red[66];
+  const int bg = blockIdx.x;
+  const T* xs = x + (size_t)bg * n;
+  float s1 = 0.f, s2 = 0.f;
+  if (vec) {
+    constexpr int VEC = Vec<T>::kN;
+    for (int i = threadIdx.x * VEC; i < n; i += kThreads * VEC) {
+      float v[VEC];
+      Vec<T>::load(xs + i, v);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        s1 += v[u];
+        s2 = fmaf(v[u], v[u], s2);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const float v = to_f(xs[i]);
+      s1 += v;
+      s2 = fmaf(v, v, s2);
+    }
+  }
+  const float2 tot = block_sum2(s1, s2, red);
+  if (threadIdx.x == 0) {
+    sums[2 * bg] = tot.x;
+    sums[2 * bg + 1] = tot.y;
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kApplyThreads)
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta, const T* __restrict__ scale,
+                const T* __restrict__ shift, int st_stride, const T* __restrict__ z_scale,
+                const T* __restrict__ z_shift, int z_stride, T* __restrict__ out,
+                const float* __restrict__ mean, const float* __restrict__ rstd, int c, int hw,
+                int groups, long long nvec) {
+  const int cs = c / groups;
+  const bool has_st = scale != nullptr, has_z = z_scale != nullptr;
+  for (long long vi = (long long)blockIdx.x * blockDim.x + threadIdx.x; vi < nvec;
+       vi += (long long)gridDim.x * blockDim.x) {
+    const long long e = vi * V;
+    const long long row = e / hw;              // b * c + channel: a vector lies in one row
+    const int b = (int)(row / c);
+    const int ch = (int)(row - (long long)b * c);
+    const int bg = b * groups + ch / cs;
+    Chain<T, false> chain;
+    chain.load(gamma, beta, scale, shift, (size_t)b * st_stride + ch, z_scale, z_shift,
+               (size_t)b * z_stride + ch, ch);
+    const float m = mean[bg], inv = rstd[bg];
+    float v[V];
+    if constexpr (V > 1) {
+      Vec<T>::load(x + e, v);
+    } else {
+      v[0] = to_f(x[e]);
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = chain.apply(v[u], m, inv, has_st, has_z);
+    if constexpr (V > 1) {
+      Vec<T>::store(out + e, v);
+    } else {
+      out[e] = from_f<T>(v[0]);
+    }
+  }
+}
+
 __global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------- launchers
@@ -531,9 +619,82 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_stats(const void* x, float* sums, int b, int c, int hw, int groups,
+                 cudaStream_t stream) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const int n = c / groups * hw;
+  const int vec = n % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  gn_stats_kernel<T><<<b * groups, kThreads, 0, stream>>>(static_cast<const T*>(x), sums, n,
+                                                           vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_apply(const Args& a, const float* mean, const float* rstd) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const long long total = (long long)a.b * a.c * a.hw;
+  const bool vec = a.hw % VEC == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0
+                   && reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  const long long nvec = vec ? total / VEC : total;
+  long long blocks = (nvec + kApplyThreads - 1) / kApplyThreads;
+  if (blocks > kApplyBlocks) blocks = kApplyBlocks;
+  if (blocks < 1) blocks = 1;
+  const T* x = static_cast<const T*>(a.x);
+  const T* scale = static_cast<const T*>(a.scale);
+  const T* shift = static_cast<const T*>(a.shift);
+  const T* z_scale = static_cast<const T*>(a.z_scale);
+  const T* z_shift = static_cast<const T*>(a.z_shift);
+  T* out = static_cast<T*>(a.out);
+  if (vec)
+    gn_apply_kernel<T, VEC><<<(unsigned)blocks, kApplyThreads, 0, a.stream>>>(
+        x, a.gamma, a.beta, scale, shift, a.st_stride, z_scale, z_shift, a.z_stride, out, mean,
+        rstd, a.c, a.hw, a.groups, nvec);
+  else
+    gn_apply_kernel<T, 1><<<(unsigned)blocks, kApplyThreads, 0, a.stream>>>(
+        x, a.gamma, a.beta, scale, shift, a.st_stride, z_scale, z_shift, a.z_stride, out, mean,
+        rstd, a.c, a.hw, a.groups, nvec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The stats pass: sums fp32 [b * groups, 2] (sum of x, sum of x^2 over each
+// slab of the contiguous [b, c, hw] x). dtype as below. Returns the launch's
+// error code, 0 on success.
+int pdae_gn_stats(const void* x, void* sums, int b, int c, int hw, int groups, int dtype,
+                  void* stream) {
+  if (c % groups != 0) return (int)cudaErrorInvalidValue;
+  float* s = static_cast<float*>(sums);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_stats<float>(x, s, b, c, hw, groups, st);
+  if (dtype == 1) return launch_stats<__nv_bfloat16>(x, s, b, c, hw, groups, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The apply pass (model mode): out from x as pdae_gn_adagn_silu_fwd's
+// arguments, with the statistics read from mean, rstd fp32 [b * groups].
+int pdae_gn_apply(const void* x, const void* gamma, const void* beta, const void* scale,
+                  const void* shift, int st_stride, const void* z_scale, const void* z_shift,
+                  int z_stride, void* out, const void* mean, const void* rstd, int b, int c,
+                  int hw, int groups, int dtype, void* stream) {
+  Args a = {};
+  a.x = x; a.scale = scale; a.shift = shift; a.z_scale = z_scale; a.z_shift = z_shift;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.out = out;
+  a.st_stride = st_stride; a.z_stride = z_stride;
+  a.b = b; a.c = c; a.hw = hw; a.groups = groups;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (c % groups != 0) return (int)cudaErrorInvalidValue;
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  if (dtype == 0) return launch_apply<float>(a, m, r);
+  if (dtype == 1) return launch_apply<__nv_bfloat16>(a, m, r);
+  return (int)cudaErrorInvalidValue;
+}
 
 // x, out: contiguous [b, c, hw]; gamma, beta: fp32 [c]; scale/shift: rows of
 // c at st_stride (or both null), z_scale/z_shift likewise at z_stride.

@@ -65,6 +65,20 @@
 //     slabs of the celeba64 train step they do not: [32,384,64,64] holds
 //     ~528 slab pairs of 384 KB in flight, ~200 MB against 50 MB of L2, and
 //     moves ~20 bytes per element in fp32 where the bound counts 12.
+//
+// The split passes (spatial parallelism, pdae_torch/parallel/sp.py): a rank
+// holds some rows of each slab, so m1 and m2 span ranks. Two kernels take
+// the fused one's place:
+//
+//   moments pass (the general variant with kMoments): dA and dB of the
+//     rank's rows, and the partial sums sum_c A dB and sum_c A dA of each
+//     (batch, group), [B, G, 2], not yet divided by n; the wrapper adds the
+//     ranks' moments (one all-reduce) and divides by the whole slab's n.
+//     Bound: bytes, one read of x and g;
+//   dx pass (gn_bwd_dx_kernel): dx = inv * (dy * A - m1 - xhat * m2) of each
+//     element from the given fp32 [B, G, 2] m1, m2, recomputing dy and xhat
+//     as the fused kernels do, 16 bytes a thread where H*W is a multiple of
+//     the vector. Bound: bytes, one read of x and g, one write of dx.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -146,7 +160,8 @@ __device__ __forceinline__ void fold(const float* __restrict__ gamma,
 // ---------------------------------------------------------------- general
 
 // Shared memory: coef_a[cs], coef_b[cs], part_a[tasks], part_b[tasks].
-template <typename T>
+// kMoments: the moments pass (no dx; the unnormalised m1, m2 to moments).
+template <typename T, bool kMoments>
 __global__ void __launch_bounds__(kThreads)
 gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                          const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -155,7 +170,7 @@ gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
                          const T* __restrict__ z_shift, int z_stride,
                          const float* __restrict__ mean_bg, const float* __restrict__ rstd_bg,
                          T* __restrict__ dx, float* __restrict__ d_a, float* __restrict__ d_b,
-                         int c, int hw, int groups, int segs) {
+                         float* __restrict__ moments, int c, int hw, int groups, int segs) {
   extern __shared__ float smem[];
   __shared__ float red[33];
   const int bg = blockIdx.x;
@@ -220,6 +235,15 @@ gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     m1 = fmaf(coef_a[j], sb, m1);
     m2 = fmaf(coef_a[j], sa, m2);
   }
+  if (kMoments) {
+    m1 = block_sum(m1, red);
+    m2 = block_sum(m2, red);
+    if (threadIdx.x == 0) {
+      moments[2 * bg] = m1;
+      moments[2 * bg + 1] = m2;
+    }
+    return;
+  }
   if (dx == nullptr) return;
   m1 = block_sum(m1, red) / (float)n;
   m2 = block_sum(m2, red) / (float)n;
@@ -231,6 +255,39 @@ gn_adagn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     float dy, xhat;
     point(to_f(xs[i]), to_f(gs[i]), mean, inv, coef_a[j], coef_b[j], &dy, &xhat);
     dxs[i] = from_f<T>(inv * (dy * coef_a[j] - m1 - xhat * m2));
+  }
+}
+
+// ---------------------------------------------------------------- dx pass
+
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
+                 const T* __restrict__ scale, const T* __restrict__ shift, int st_stride,
+                 const T* __restrict__ z_scale, const T* __restrict__ z_shift, int z_stride,
+                 const float* __restrict__ mean_bg, const float* __restrict__ rstd_bg,
+                 const float* __restrict__ moments, T* __restrict__ dx, int c, int hw,
+                 int groups, long long nvec) {
+  const int cs = c / groups;
+  for (long long vi = (long long)blockIdx.x * blockDim.x + threadIdx.x; vi < nvec;
+       vi += (long long)gridDim.x * blockDim.x) {
+    const long long e = vi * V;
+    const long long row = e / hw;              // b * c + channel: a vector lies in one row
+    const int b = (int)(row / c);
+    const int ch = (int)(row - (long long)b * c);
+    const int bg = b * groups + ch / cs;
+    float a, bb;
+    fold(gamma, beta, scale, shift, (size_t)b * st_stride + ch, z_scale, z_shift,
+         (size_t)b * z_stride + ch, ch, &a, &bb);
+    const float mean = mean_bg[bg], inv = rstd_bg[bg];
+    const float m1 = moments[2 * bg], m2 = moments[2 * bg + 1];
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      float dy, xhat;
+      point(to_f(x[e + u]), to_f(g[e + u]), mean, inv, a, bb, &dy, &xhat);
+      dx[e + u] = from_f<T>(inv * (dy * a - m1 - xhat * m2));
+    }
   }
 }
 
@@ -566,8 +623,8 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T>
-int launch_general(const Args& a) {
+template <typename T, bool kMoments = false>
+int launch_general(const Args& a, float* moments = nullptr) {
   const int cs = a.c / a.groups;
   // fewer rows than warps: cut each row into segments, one warp each
   int segs = kWarps / cs;
@@ -576,11 +633,12 @@ int launch_general(const Args& a) {
   if (segs < 1) segs = 1;
   const size_t smem = (size_t)(2 * cs + 2 * cs * segs) * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  gn_adagn_silu_bwd_kernel<T><<<a.b * a.groups, kThreads, smem, a.stream>>>(
+  gn_adagn_silu_bwd_kernel<T, kMoments><<<a.b * a.groups, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.g), a.gamma, a.beta,
       static_cast<const T*>(a.scale), static_cast<const T*>(a.shift), a.st_stride,
       static_cast<const T*>(a.z_scale), static_cast<const T*>(a.z_shift), a.z_stride,
-      a.mean, a.rstd, static_cast<T*>(a.dx), a.d_a, a.d_b, a.c, a.hw, a.groups, segs);
+      a.mean, a.rstd, static_cast<T*>(a.dx), a.d_a, a.d_b, moments, a.c, a.hw, a.groups,
+      segs);
   return (int)cudaGetLastError();
 }
 
@@ -640,9 +698,91 @@ int launch(const Args& a) {
   return launch_cluster<T, true>(a, hw_shift, (int)part, smem);
 }
 
+template <typename T>
+int launch_dx(const Args& a, const float* moments) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int kDxThreads = 256, kDxBlocks = 132 * 8;
+  const long long total = (long long)a.b * a.c * a.hw;
+  const bool vec = a.hw % VEC == 0;
+  const long long nvec = vec ? total / VEC : total;
+  long long blocks = (nvec + kDxThreads - 1) / kDxThreads;
+  if (blocks > kDxBlocks) blocks = kDxBlocks;
+  if (blocks < 1) blocks = 1;
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  const T* scale = static_cast<const T*>(a.scale);
+  const T* shift = static_cast<const T*>(a.shift);
+  const T* z_scale = static_cast<const T*>(a.z_scale);
+  const T* z_shift = static_cast<const T*>(a.z_shift);
+  T* dx = static_cast<T*>(a.dx);
+  if (vec)
+    gn_bwd_dx_kernel<T, VEC><<<(unsigned)blocks, kDxThreads, 0, a.stream>>>(
+        x, g, a.gamma, a.beta, scale, shift, a.st_stride, z_scale, z_shift, a.z_stride, a.mean,
+        a.rstd, moments, dx, a.c, a.hw, a.groups, nvec);
+  else
+    gn_bwd_dx_kernel<T, 1><<<(unsigned)blocks, kDxThreads, 0, a.stream>>>(
+        x, g, a.gamma, a.beta, scale, shift, a.st_stride, z_scale, z_shift, a.z_stride, a.mean,
+        a.rstd, moments, dx, a.c, a.hw, a.groups, nvec);
+  return (int)cudaGetLastError();
+}
+
+Args split_args(const void* x, const void* g, const void* gamma, const void* beta,
+                const void* scale, const void* shift, int st_stride, const void* z_scale,
+                const void* z_shift, int z_stride, const void* mean, const void* rstd, int b,
+                int c, int hw, int groups, void* stream) {
+  Args a = {};
+  a.x = x; a.g = g; a.scale = scale; a.shift = shift; a.z_scale = z_scale;
+  a.z_shift = z_shift;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.mean = static_cast<const float*>(mean);
+  a.rstd = static_cast<const float*>(rstd);
+  a.st_stride = st_stride; a.z_stride = z_stride;
+  a.b = b; a.c = c; a.hw = hw; a.groups = groups;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The moments pass: d_a, d_b fp32 [b, c] of the rank's rows and moments fp32
+// [b * groups, 2] (sum_c A dB, sum_c A dA, not divided by n); the other
+// arguments as pdae_gn_adagn_silu_bwd's. Returns the launch's error code.
+int pdae_gn_bwd_moments(const void* x, const void* g, const void* gamma, const void* beta,
+                        const void* scale, const void* shift, int st_stride,
+                        const void* z_scale, const void* z_shift, int z_stride,
+                        const void* mean, const void* rstd, void* d_a, void* d_b,
+                        void* moments, int b, int c, int hw, int groups, int dtype,
+                        void* stream) {
+  Args a = split_args(x, g, gamma, beta, scale, shift, st_stride, z_scale, z_shift, z_stride,
+                      mean, rstd, b, c, hw, groups, stream);
+  a.d_a = static_cast<float*>(d_a);
+  a.d_b = static_cast<float*>(d_b);
+  if (c % groups != 0) return (int)cudaErrorInvalidValue;
+  float* m = static_cast<float*>(moments);
+  if (dtype == 0) return launch_general<float, true>(a, m);
+  if (dtype == 1) return launch_general<__nv_bfloat16, true>(a, m);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dx pass: dx [b, c, hw] from x, g and moments fp32 [b * groups, 2]
+// (m1, m2: the whole slab's, divided by its n).
+int pdae_gn_bwd_dx(const void* x, const void* g, const void* gamma, const void* beta,
+                   const void* scale, const void* shift, int st_stride, const void* z_scale,
+                   const void* z_shift, int z_stride, const void* mean, const void* rstd,
+                   const void* moments, void* dx, int b, int c, int hw, int groups, int dtype,
+                   void* stream) {
+  Args a = split_args(x, g, gamma, beta, scale, shift, st_stride, z_scale, z_shift, z_stride,
+                      mean, rstd, b, c, hw, groups, stream);
+  a.dx = dx;
+  if (c % groups != 0) return (int)cudaErrorInvalidValue;
+  const float* m = static_cast<const float*>(moments);
+  if (dtype == 0) return launch_dx<float>(a, m);
+  if (dtype == 1) return launch_dx<__nv_bfloat16>(a, m);
+  return (int)cudaErrorInvalidValue;
+}
 
 // x, g, dx: contiguous [b, c, hw] (dx may be null); gamma, beta: fp32 [c];
 // scale/shift: rows of c at st_stride (or both null), z_scale/z_shift likewise

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..parallel import sp as _sp
 from ..parallel import tp as _tp
 
 
@@ -221,25 +222,38 @@ class ResBlock(nn.Module):
 
     tp = None
 
-    def forward(self, x, emb, emb_z=None):
+    def forward(self, x, emb, emb_z=None, sp=_sp.ONE, height=None):
+        """``x`` a map of ``height`` rows (its own by default); under spatial
+        parallelism (``sp``, the groups of ``parallel/sp.py``) the rank's
+        rows where the map splits, and the result likewise at
+        ``out_height``; the embeddings whole."""
         if self.tp is not None:
             return self._forward_tp(x, emb, emb_z)
-        h = self.in_layers[0](x)
+        height = x.shape[2] if height is None else height
+        h_out = self.out_height(height)
+        h = _sp.chain(self.in_layers[0], x, sp, height)
         if self.up:
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-            h = F.interpolate(h, scale_factor=2, mode="nearest")
+            def up(t):
+                return F.interpolate(t, scale_factor=2, mode="nearest")
+            x, h = (_sp.resample(up, t, sp, height, h_out) for t in (x, h))
         elif self.down:
-            h = F.avg_pool2d(h, 2)
-            x = F.avg_pool2d(x, 2)
-        h = self.in_layers[2](h)
-
+            def down(t):
+                return F.avg_pool2d(t, 2)
+            h, x = (_sp.resample(down, t, sp, height, h_out) for t in (h, x))
+        h, _ = _sp.conv(self.in_layers[2], h, sp, h_out)
         scale, shift = self.emb_layers[1](F.silu(emb)).chunk(2, dim=1)
         z_scale = z_shift = None
         if self.shift:
             z_scale, z_shift = self.emb_z_layers[1](F.silu(emb_z)).chunk(2, dim=1)
-        h = self.out_layers[0](h, scale, shift, z_scale, z_shift)
-        h = self.out_layers[3](self.out_layers[2](h))
-        return self.skip_connection(x) + h
+        h = _sp.chain(self.out_layers[0], h, sp, h_out, scale, shift, z_scale, z_shift)
+        h, _ = _sp.conv(self.out_layers[3], _sp.dropout(self.out_layers[2], h, sp, h_out), sp,
+                        h_out)
+        if isinstance(self.skip_connection, nn.Identity):
+            return x + h
+        return _sp.conv(self.skip_connection, x, sp, h_out)[0] + h
+
+    def out_height(self, height: int) -> int:
+        return height * 2 if self.up else height // 2 if self.down else height
 
     def _adagn(self, linear, emb):
         """(scale, shift) of the out chain from ``linear`` on ``silu(emb)``:
@@ -292,14 +306,9 @@ class ResBlockShift(ResBlock):
         super().__init__(*args, shift=True, **kwargs)
 
 
-def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.Tensor:
-    """Multi-head self-attention over flattened spatial tokens.
-
-    ``qkv``: ``[B, 3C, T]``, the conv1d layout. ``new_order=False`` is the
-    reference's legacy heads-major split (``[B, H, 3, D, T]``), ``True`` its
-    qkv-major split (``[B, 3, H, D, T]``). q, k and v are permuted into
-    contiguous ``[B, H, T, D]`` for the kernel; returns ``[B, C, T]``.
-    """
+def split_heads(qkv: torch.Tensor, num_heads: int, new_order: bool):
+    """``(q, k, v)``, each a contiguous ``[B, H, T, D]``, from ``qkv`` ``[B,
+    3C, T]`` in the head order of ``qkv_attention``."""
     b, w, t = qkv.shape
     if w % (3 * num_heads):
         raise ValueError(f"{w} qkv channels do not split into 3 x {num_heads} heads")
@@ -308,9 +317,21 @@ def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.T
         q, k, v = qkv.reshape(b, 3, num_heads, ch, t).unbind(1)
     else:
         q, k, v = qkv.reshape(b, num_heads, 3, ch, t).unbind(2)
-    q, k, v = (a.transpose(-1, -2).contiguous() for a in (q, k, v))
+    return tuple(a.transpose(-1, -2).contiguous() for a in (q, k, v))
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.Tensor:
+    """Multi-head self-attention over flattened spatial tokens.
+
+    ``qkv``: ``[B, 3C, T]``, the conv1d layout. ``new_order=False`` is the
+    reference's legacy heads-major split (``[B, H, 3, D, T]``), ``True`` its
+    qkv-major split (``[B, 3, H, D, T]``). q, k and v are permuted into
+    contiguous ``[B, H, T, D]`` for the kernel; returns ``[B, C, T]``.
+    """
+    b, _, t = qkv.shape
+    q, k, v = split_heads(qkv, num_heads, new_order)
     out = ops.fused_qkv_attention(q, k, v)
-    return out.transpose(-1, -2).reshape(b, num_heads * ch, t)
+    return out.transpose(-1, -2).reshape(b, -1, t)
 
 
 class AttentionBlock(nn.Module):
@@ -334,12 +355,22 @@ class AttentionBlock(nn.Module):
 
     tp = None
 
-    def forward(self, x):
+    def forward(self, x, sp=_sp.ONE, height=None):
+        """``x`` a map of ``height`` rows (its own by default); under spatial
+        parallelism (``sp``) the rank's rows where the map splits: the
+        norm's statistics summed over the sp group, and the rank's query
+        tokens against k and v gathered in token order."""
         if self.tp is not None:
             return self._forward_tp(x)
         b, c, h, w = x.shape
+        split = sp.splits(h if height is None else height)
         tokens = x.reshape(b, c, h * w)
-        a = qkv_attention(self.qkv(self.norm(tokens)), self.num_heads, self.new_order)
+        normed = _sp.group_norm(self.norm, tokens, sp) if split else self.norm(tokens)
+        q, k, v = split_heads(self.qkv(normed), self.num_heads, self.new_order)
+        if split:
+            k, v = (t.contiguous() for t in _sp.gather_tokens(torch.stack([k, v]), sp,
+                                                               3).unbind(0))
+        a = ops.fused_qkv_attention(q, k, v).transpose(-1, -2).reshape(b, c, h * w)
         return (tokens + self.proj_out(a)).reshape(b, c, h, w)
 
     def _forward_tp(self, x):

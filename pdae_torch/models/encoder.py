@@ -11,6 +11,12 @@ SiLU indices hold ``nn.Identity`` (fused into the GN chain before them).
 
 Both end at 4x4, so the flatten is ``channels[-1] * 16`` wide. ``dtype`` is
 the compute dtype (``models/blocks.py``): x is cast to it, z is fp32.
+
+Under spatial parallelism (``sp``, ``parallel/sp.py``) x comes in whole, the
+convs, chains and the attention run on the rank's rows of each map whose
+height splits, and the rows are gathered before the flatten (``pdae_tpu``'s
+``constrain_batch`` there), so z is whole on every rank; the gather's
+backward sums the ranks' partial gradients of z.
 """
 
 from __future__ import annotations
@@ -20,10 +26,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import AttentionBlock, GNSiluChain, Linear, conv3x3
+from ..parallel import sp as _sp
+from .blocks import AttentionBlock, Conv2d, GNSiluChain, Linear, conv3x3
 
 
 class SemanticEncoder(nn.Module):
+
+    sp = _sp.ONE       # the groups of spatial parallelism (parallel/sp.py)
 
     def __init__(self, latent_dim: int, channels: Sequence[int] = (64, 128, 128, 128),
                  attn_after_stage: int = 2, attn_heads: int = 4,
@@ -46,7 +55,21 @@ class SemanticEncoder(nn.Module):
         self.encoder = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.encoder(x.to(self.dtype)).float()
+        x = x.to(self.dtype)
+        g = self.sp
+        height, h = x.shape[2], _sp.enter(x, g)
+        for layer in self.encoder:
+            if isinstance(layer, GNSiluChain):
+                h = _sp.chain(layer, h, g, height)
+            elif isinstance(layer, Conv2d):
+                h, height = _sp.conv(layer, h, g, height)
+            elif isinstance(layer, AttentionBlock):
+                h = layer(h, g, height)
+            elif isinstance(layer, nn.Flatten):
+                h = layer(_sp.whole(h, g, height))
+            else:
+                h = layer(h)
+        return h.float()
 
 
 def encoder_for_resolution(image_size: int, latent_dim: int,

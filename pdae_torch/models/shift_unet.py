@@ -22,7 +22,9 @@ backward keeps the trunk's skips and recomputes the shift branch alone;
 ``"full"`` on the trunk and the shift branch together (the epsilon decode,
 which no gradient reaches, runs outside, as JAX's remat leaves it out of the
 recompute); the RNG state is stashed only where the model draws
-(``unet.draws``).
+(``unet.draws``). Under spatial parallelism (``sp``, ``parallel/sp.py``) x
+and z come in whole, the trunk and both decodes run on the rank's rows, and
+both outputs are whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ from torch import nn
 from .blocks import Linear, timestep_embedding
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import sp as _sp
 from .unet import (apply_stage, build_decode_stack, build_input_stack, check_remat,
-                   decode, draws, output_head, rematerialised, time_embed_mlp)
+                   decode, draws, output_head, rematerialised, skip_heights, time_embed_mlp)
 
 
 # Top-level names of the trainable PDAE branch, in the port's key layout
@@ -49,6 +52,8 @@ FROZEN_PREFIXES = ("time_embed", "input_blocks", "middle_block", "output_blocks"
 
 
 class ShiftUNet(nn.Module):
+
+    sp = _sp.ONE       # the groups of spatial parallelism (parallel/sp.py)
 
     def __init__(self, input_channel: int, base_channel: int,
                  channel_multiplier: Sequence[int],
@@ -87,19 +92,25 @@ class ShiftUNet(nn.Module):
 
     def _trunk(self, x, emb):
         hs = []
-        h = x
-        for stage in self.input_blocks:
-            h = apply_stage(stage, h, emb)
+        h, inputs = x, [x.shape[2]] + skip_heights(self.input_blocks, x.shape[2])[:-1]
+        h = _sp.enter(h, self.sp)
+        for stage, height in zip(self.input_blocks, inputs):
+            h = apply_stage(stage, h, emb, None, self.sp, height)
             hs.append(h)
         return hs
 
-    def _shift(self, hs, emb, shift_emb):
-        return decode(self.shift_middle_block, self.shift_output_blocks, self.shift_out, hs,
-                      emb, shift_emb)
+    def _decode(self, middle, outputs, head, hs, height, emb, emb_z=None):
+        """A decode from the skips ``hs`` of an input of ``height`` rows."""
+        return decode(middle, outputs, head, hs, emb, emb_z, self.sp,
+                      skip_heights(self.input_blocks, height))
+
+    def _shift(self, hs, height, emb, shift_emb):
+        return self._decode(self.shift_middle_block, self.shift_output_blocks, self.shift_out,
+                            hs, height, emb, shift_emb)
 
     def _trunk_and_shift(self, x, emb, shift_emb):
         hs = self._trunk(x, emb)
-        return (self._shift(hs, emb, shift_emb), *hs)
+        return (self._shift(hs, x.shape[2], emb, shift_emb), *hs)
 
     def forward(self, x, time, condition, remat=None):
         """``condition`` is the semantic latent z ``[N, latent_dim]``."""
@@ -107,14 +118,17 @@ class ShiftUNet(nn.Module):
         emb = self.time_embed(timestep_embedding(time, self.base_channel))
         shift_emb = self.label_emb(condition.to(self.dtype))
         x = x.to(self.dtype)
+        height = x.shape[2]
         rng = remat is not None and draws(self)
         if remat == "full":
             gradient, *hs = checkpoint(self._trunk_and_shift, x, emb, shift_emb,
                                        use_reentrant=False, preserve_rng_state=rng)
-            epsilon = decode(self.middle_block, self.output_blocks, self.out, hs, emb)
+            epsilon = self._decode(self.middle_block, self.output_blocks, self.out, hs, height,
+                                   emb)
         else:
             hs = self._trunk(x, emb)
-            epsilon = decode(self.middle_block, self.output_blocks, self.out, hs, emb)
-            gradient = rematerialised(remat == "skips", self._shift, hs, emb, shift_emb,
-                                      rng=rng)
+            epsilon = self._decode(self.middle_block, self.output_blocks, self.out, hs, height,
+                                   emb)
+            gradient = rematerialised(remat == "skips", self._shift, hs, height, emb,
+                                      shift_emb, rng=rng)
         return epsilon.float(), gradient.float()

@@ -18,6 +18,11 @@ recomputes the rest from them. A checkpoint stashes and restores the RNG
 state only where a module of the model draws (``draws``: dropout in train
 mode), so that a forward without draws reads no RNG state on the host and
 can be captured into a CUDA graph like any other.
+
+Under spatial parallelism (``parallel/sp.py``: ``sp`` set by ``shard_rows``)
+the forward takes ``x`` whole, runs every stage on the rank's rows of each
+map whose height splits (``apply_stage`` and ``decode`` with the sp groups
+and the maps' heights) and returns the whole output on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import sp as _sp
 from .blocks import (AttentionBlock, Embedding, GNSiluChain, Linear, ResBlock,
                      ResBlockShift, conv3x3, timestep_embedding, zero_init)
 
@@ -148,26 +154,55 @@ def build_decode_stack(base_channel: int, channel_multiplier: Sequence[int],
     return middle_block, output_blocks, ch
 
 
-def apply_stage(layers, h, emb, emb_z=None):
-    """Apply one stage list, dispatching on layer kind."""
+def stage_height(layers, height: int) -> int:
+    """The height of a stage's output from its input's ``height``."""
     for layer in layers:
-        if isinstance(layer, ResBlockShift):
-            h = layer(h, emb, emb_z)
-        elif isinstance(layer, ResBlock):
-            h = layer(h, emb)
+        if isinstance(layer, ResBlock):
+            height = layer.out_height(height)
+        elif not isinstance(layer, AttentionBlock):
+            height //= layer.stride[0]
+    return height
+
+
+def skip_heights(input_blocks, height: int) -> list:
+    """The heights of the input stages' outputs (the skips) from the
+    input's ``height``."""
+    out = []
+    for stage in input_blocks:
+        height = stage_height(stage, height)
+        out.append(height)
+    return out
+
+
+def apply_stage(layers, h, emb, emb_z=None, sp=_sp.ONE, height=None):
+    """Apply one stage list, dispatching on layer kind, to a map of
+    ``height`` rows (its own by default); under spatial parallelism
+    (``sp``, the groups) on the rank's rows where it splits."""
+    height = h.shape[2] if height is None else height
+    for layer in layers:
+        if isinstance(layer, ResBlock):
+            h = layer(h, emb, emb_z, sp, height)
+            height = layer.out_height(height)
+        elif isinstance(layer, AttentionBlock):
+            h = layer(h, sp, height)
         else:
-            h = layer(h)
+            h, height = _sp.conv(layer, h, sp, height)
     return h
 
 
-def decode(middle_block, output_blocks, head, skips, emb, emb_z=None):
+def decode(middle_block, output_blocks, head, skips, emb, emb_z=None, sp=_sp.ONE,
+           heights=None):
     """The middle block from the last skip, the output stages each on the
     concat with its skip (the last first), then the output head; ``skips``
-    is not modified."""
-    h = apply_stage(middle_block, skips[-1], emb, emb_z)
-    for stage, skip in zip(output_blocks, reversed(skips)):
-        h = apply_stage(stage, torch.cat([h, skip], dim=1), emb, emb_z)
-    return head[2](head[0](h))
+    is not modified. ``heights`` are the skips' heights (their own by
+    default); under spatial parallelism (``sp``) the output is whole on
+    every rank."""
+    heights = heights or [s.shape[2] for s in skips]
+    h = apply_stage(middle_block, skips[-1], emb, emb_z, sp, heights[-1])
+    for stage, skip, height in zip(output_blocks, reversed(skips), reversed(heights)):
+        h = apply_stage(stage, torch.cat([h, skip], dim=1), emb, emb_z, sp, height)
+    out, height = _sp.conv(head[2], _sp.chain(head[0], h, sp, heights[0]), sp, heights[0])
+    return _sp.leave(out, sp, height)
 
 
 def output_head(final_ch: int, out_ch: int, dtype=torch.float32) -> nn.ModuleList:
@@ -180,6 +215,8 @@ def output_head(final_ch: int, out_ch: int, dtype=torch.float32) -> nn.ModuleLis
 class UNet(nn.Module):
     """Epsilon-prediction UNet. ``x`` is NCHW, ``time`` an int [N] vector on
     the original diffusion time axis, ``condition`` an optional [N] class."""
+
+    sp = _sp.ONE       # the groups of spatial parallelism (parallel/sp.py)
 
     def __init__(self, input_channel: int, base_channel: int,
                  channel_multiplier: Sequence[int],
@@ -218,8 +255,12 @@ class UNet(nn.Module):
             emb = emb + self.label_emb(condition).to(self.dtype)
         hs = []
         h = x.to(self.dtype)
-        for stage in self.input_blocks:
-            h = rematerialised(remat_skips, apply_stage, stage, h, emb, rng=rng)
+        heights = skip_heights(self.input_blocks, h.shape[2])
+        inputs = [h.shape[2]] + heights[:-1]
+        h = _sp.enter(h, self.sp)
+        for stage, height in zip(self.input_blocks, inputs):
+            h = rematerialised(remat_skips, apply_stage, stage, h, emb, None, self.sp,
+                               height, rng=rng)
             hs.append(h)
         return rematerialised(remat_skips, decode, self.middle_block, self.output_blocks,
-                              self.out, hs, emb, rng=rng).float()
+                              self.out, hs, emb, None, self.sp, heights, rng=rng).float()

@@ -14,7 +14,10 @@ module keeps a plain integer ``launches`` that its wrapper raises by one per
 launch; ``launch_counts``/``reset_launch_counts`` read and clear them. The GN
 forward and the GN backward each have two hand-written variants, chosen from
 the shape before the launch; ``gn_variant_counts`` and
-``gn_bwd_variant_counts`` say how many of their launches each served.
+``gn_bwd_variant_counts`` say how many of their launches each served. The
+split passes of the two GN kernels (spatial parallelism: ``gn_stats``,
+``gn_apply``, ``gn_bwd_moments``, ``gn_bwd_dx``) are counted under those
+names.
 """
 
 from __future__ import annotations
@@ -23,15 +26,18 @@ from . import attention, groupnorm, groupnorm_train
 from ._dispatch import set_use_kernels
 from .attention import fused_qkv_attention, reference_attention
 from .groupnorm import (fused_gn_adagn_silu, gn_adagn_silu, gn_adagn_silu_fwd,
-                        reference_gn_adagn_silu)
-from .groupnorm_train import gn_adagn_silu_bwd_plain, gn_adagn_silu_train
+                        gn_apply, gn_apply_plain, gn_stats, gn_stats_plain,
+                        moments_from_sums, reference_gn_adagn_silu)
+from .groupnorm_train import (gn_adagn_silu_bwd_plain, gn_adagn_silu_split,
+                              gn_adagn_silu_train, gn_bwd_dx_plain, gn_bwd_moments_plain)
 
 _KERNEL_MODULES = {"attention": attention, "gn_adagn_silu": groupnorm,
                    "gn_adagn_silu_bwd": groupnorm_train}
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
+    return {**{name: mod.launches for name, mod in _KERNEL_MODULES.items()},
+            **groupnorm.pass_launches, **groupnorm_train.pass_launches}
 
 
 def gn_variant_counts() -> dict:
@@ -45,7 +51,8 @@ def gn_bwd_variant_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
-    for counts in (groupnorm.variant_launches, groupnorm_train.variant_launches):
+    for counts in (groupnorm.variant_launches, groupnorm_train.variant_launches,
+                   groupnorm.pass_launches, groupnorm_train.pass_launches):
         for variant in counts:
             counts[variant] = 0
 
@@ -54,4 +61,6 @@ __all__ = ["set_use_kernels", "launch_counts", "gn_variant_counts", "gn_bwd_vari
            "reset_launch_counts", "fused_qkv_attention", "reference_attention",
            "gn_adagn_silu", "gn_adagn_silu_fwd", "fused_gn_adagn_silu",
            "reference_gn_adagn_silu", "gn_adagn_silu_train",
-           "gn_adagn_silu_bwd_plain"]
+           "gn_adagn_silu_bwd_plain", "gn_adagn_silu_split", "gn_stats", "gn_stats_plain",
+           "gn_apply", "gn_apply_plain", "moments_from_sums", "gn_bwd_moments_plain",
+           "gn_bwd_dx_plain"]

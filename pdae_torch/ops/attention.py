@@ -6,6 +6,9 @@ are ``[B, H, T, D]``; the kernel takes them contiguous (the head split in
 ``D^-1/4`` on both q and k, fp32 logits and softmax, weights cast to v's
 dtype, fp32 sums. The kernel is bound by bytes at the celeba64 shapes of the
 UNet middle blocks and by fp32 operations at the encoder's (see the source).
+Under spatial parallelism (``parallel/sp.py``) q is a rank's ``[B, H, Tq, D]``
+query rows and k, v every ``[B, H, Tk, D]`` key; the kernel takes ``Tq !=
+Tk`` (score rows of ``Tk``), and ``Tq == Tk`` runs what it ran before.
 ``attention_plan`` picks the kernel's tiling from the shape alone: query rows
 per block, keys per streamed tile, rows per thread in the w.v sweep, and the
 shared memory that layout needs, which grows with T + D and not with T * D.
@@ -66,8 +69,8 @@ class AttentionPlan(NamedTuple):
 
 
 def attention_smem_bytes(t: int, d: int, elt: int, bm: int, bn: int) -> int:
-    """Shared memory of one block: ``bm`` scaled query rows, ``bm`` score
-    rows in fp32 (T rounded up to 4, plus 4 floats), and the ring of
+    """Shared memory of one block over ``t`` keys: ``bm`` scaled query rows,
+    ``bm`` score rows in fp32 (T rounded up to 4, plus 4 floats), and the ring of
     ``RING_STAGES`` tiles (fewer where K and V together are fewer) of ``bn``
     K or V rows, each padded by 16 bytes."""
     stride = (t + 3) // 4 * 4 + 4
@@ -76,8 +79,9 @@ def attention_smem_bytes(t: int, d: int, elt: int, bm: int, bn: int) -> int:
 
 
 def attention_mma_smem_bytes(t: int, d: int, bm: int) -> int:
-    """Shared memory of one block of the bf16 tensor-core kernel: Q, K and V
-    rows padded by 16 bytes, score rows of T rounded up to 32 plus 8 floats."""
+    """Shared memory of one block of the bf16 tensor-core kernel over ``t``
+    keys: Q, K and V rows padded by 16 bytes, score rows of T rounded up to 32
+    plus 8 floats."""
     stride = (t + 31) // 32 * 32 + 8
     slots = min(RING_STAGES, 2 * -(-t // 64))
     return bm * ((d + 8) * 2 + 4 * stride) + slots * 64 * (d + 8) * 2
@@ -91,9 +95,10 @@ def wv_rows(bm: int, warps: int, d: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def attention_plan(bh: int, t: int, d: int, elt: int) -> AttentionPlan:
-    """Tiling for ``bh`` heads of ``[t, d]`` with ``elt``-byte elements; raises
-    on what the kernel does not take. 64-key tiles while a K/V row is at most
+def attention_plan(bh: int, t: int, d: int, elt: int, tk=None) -> AttentionPlan:
+    """Tiling for ``bh`` heads of ``t`` query rows against ``tk`` keys (None:
+    ``t``) of ``d`` ``elt``-byte elements; raises on what the kernel does not
+    take. The query rows set the blocks, the keys the shared memory. 64-key tiles while a K/V row is at most
     512 bytes, else 32. The query tile is the tallest of ``TILINGS`` that
     fills the card: a tile of 32 or 64 rows must give every SM two blocks (one
     block's loads hide behind the other's sweeps) and fit shared memory
@@ -102,8 +107,9 @@ def attention_plan(bh: int, t: int, d: int, elt: int) -> AttentionPlan:
     read (rule and thresholds measured with ``pdae_torch.tools.tune_kernels``).
     bf16 with D of 32, 64 or 128 takes the tensor-core kernel, in tiles of 16
     or 32 rows; at any other D, the CUDA-core kernel's smallest tile."""
-    if not (1 <= t <= MAX_T and 4 <= d <= MAX_D):
-        raise ValueError(f"attention kernel: T={t}, D={d} outside T <= {MAX_T}, "
+    tk = t if tk is None else tk
+    if not (1 <= t <= MAX_T and 1 <= tk <= MAX_T and 4 <= d <= MAX_D):
+        raise ValueError(f"attention kernel: Tq={t}, Tk={tk}, D={d} outside T <= {MAX_T}, "
                          f"4 <= D <= {MAX_D}")
     if (d * elt) % 16:
         raise ValueError(f"attention kernel: a row of D={d} {elt}-byte elements "
@@ -112,15 +118,15 @@ def attention_plan(bh: int, t: int, d: int, elt: int) -> AttentionPlan:
         # four warps a block: many small blocks hide the latency of the
         # fragment loads; 32 rows once 16 rows would give an SM 16 blocks
         bm = 32 if (-(-t // 16) * bh >= 16 * FULL_WAVE
-                    and 2 * attention_mma_smem_bytes(t, d, 32) <= SMEM_LIMIT) else 16
+                    and 2 * attention_mma_smem_bytes(tk, d, 32) <= SMEM_LIMIT) else 16
         return AttentionPlan(bm, 64, 4, 0, -(-t // bm) * bh,
-                             attention_mma_smem_bytes(t, d, bm), True)
+                             attention_mma_smem_bytes(tk, d, bm), True)
     bn = 64 if d * elt <= 512 else 32
     tilings = TILINGS[-1:] if elt == 2 else TILINGS if bn == 64 else TILINGS_32_KEYS
 
     def plan(bm, warps):
         return AttentionPlan(bm, bn, warps, wv_rows(bm, warps, d), -(-t // bm) * bh,
-                             attention_smem_bytes(t, d, elt, bm, bn))
+                             attention_smem_bytes(tk, d, elt, bm, bn))
 
     for bm, warps in tilings[:-1]:
         p = plan(bm, warps)
@@ -148,7 +154,7 @@ def _kernel():
         lib.pdae_attention_smem_bytes.restype = ctypes.c_size_t
         lib.pdae_attention_mma_smem_bytes.argtypes = [ci, ci, ci]
         lib.pdae_attention_mma_smem_bytes.restype = ctypes.c_size_t
-        lib.pdae_attention_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+        lib.pdae_attention_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                            ctypes.c_float, ci, ci, ci, ci, ci, ci, vp]
         lib.pdae_attention_fwd.restype = ci
         _lib = lib
@@ -156,20 +162,22 @@ def _kernel():
 
 
 def library_smem_bytes(plan: AttentionPlan, t: int, d: int, elt: int) -> int:
-    """``plan``'s shared memory as the built source computes it: the card's
-    check that ``attention_plan`` and the kernel lay the block out alike."""
+    """``plan``'s shared memory over ``t`` keys as the built source computes
+    it: the card's check that ``attention_plan`` and the kernel lay the block
+    out alike."""
     if plan.mma:
         return _kernel().pdae_attention_mma_smem_bytes(t, d, plan.bm)
     return _kernel().pdae_attention_smem_bytes(t, d, elt, plan.bm, plan.bn)
 
 
 def _launch(plan: AttentionPlan, q, k, v):
-    """The kernel under ``plan`` on checked ``[B, H, T, D]`` tensors."""
+    """The kernel under ``plan`` on checked q ``[B, H, Tq, D]`` and k, v
+    ``[B, H, Tk, D]``."""
     global launches
     b, h, t, d = q.shape
     out = torch.empty_like(q)
     err = _kernel().pdae_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, k.shape[2], d,
         1.0 / math.sqrt(math.sqrt(d)), dtype_code(q.dtype), plan.bm, plan.bn,
         plan.warps, plan.r, int(plan.mma), stream_handle(q))
     check_cuda_error(err, "attention kernel")
@@ -178,10 +186,12 @@ def _launch(plan: AttentionPlan, q, k, v):
 
 
 def attention_cuda(q, k, v):
-    """Launch the kernel on CUDA tensors ``[B, H, T, D]`` under
-    ``attention_plan``'s tiling; raises on what it does not take."""
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"attention takes equal [B,H,T,D] q/k/v, got "
+    """Launch the kernel on CUDA tensors q ``[B, H, Tq, D]``, k and v ``[B, H,
+    Tk, D]`` under ``attention_plan``'s tiling; raises on what it does not
+    take."""
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2]
+            or q.shape[3] != k.shape[3]):
+        raise ValueError(f"attention takes [B,H,Tq,D] q and [B,H,Tk,D] k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
@@ -193,9 +203,10 @@ def attention_cuda(q, k, v):
     dtype_code(q.dtype)              # raises on a dtype the kernels do not take
     if b * h > 65535:
         raise ValueError(f"attention kernel: B*H={b * h} exceeds the grid's 65535")
-    plan = attention_plan(b * h, t, d, q.element_size())
+    tk = k.shape[2]
+    plan = attention_plan(b * h, t, d, q.element_size(), None if tk == t else tk)
     if plan.smem_bytes > SMEM_LIMIT:
-        raise ValueError(f"attention kernel: T={t}, D={d} needs {plan.smem_bytes} B "
+        raise ValueError(f"attention kernel: Tk={tk}, D={d} needs {plan.smem_bytes} B "
                          f"of shared memory, over the {SMEM_LIMIT} B a block may use")
     return _launch(plan, q, k, v)
 
@@ -234,7 +245,7 @@ class _Attention(torch.autograd.Function):
 
 
 def fused_qkv_attention(q, k, v):
-    """``[B, H, T, D]`` attention: the kernel for CUDA tensors, the plain
+    """``[B, H, Tq, D]`` queries against ``[B, H, Tk, D]`` keys and values: the kernel for CUDA tensors, the plain
     version for CPU tensors (see ``pdae_torch.ops.set_use_kernels``);
     differentiable through ``attention_bwd``."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

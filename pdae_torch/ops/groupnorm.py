@@ -29,6 +29,15 @@ For training, both the kernel (``save_stats``) and ``gn_adagn_silu_fwd``
 (``return_stats``) also give the fp32 ``[B, G]`` mean and rsqrt(var + eps),
 the residuals of the JAX ``_fwd``; ``gn_adagn_silu`` routes through the
 autograd Function of ``groupnorm_train.py`` whenever a gradient is wanted.
+
+Under spatial parallelism a rank holds some rows of every slab, and model
+mode runs as two passes of the same source with one all-reduce between
+them (``groupnorm_train.gn_adagn_silu_split``): ``gn_stats`` (the fp32
+partial sums of x and x^2 of each slab, ``[B, G, 2]``), then ``gn_apply``
+(the chain from a given ``[B, G]`` mean and rstd, which ``moments_from_sums``
+forms from the ranks' summed sums by the one-pass formula). Their plain
+versions are ``gn_stats_plain`` and ``gn_apply_plain``; ``pass_launches``
+counts the launches of each pass under its own name.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ EPS = 1e-5   # torch GroupNorm default, as the JAX package
 
 launches = 0   # kernel launches since the last reset (pdae_torch.ops)
 variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
+pass_launches = {"gn_stats": 0, "gn_apply": 0}    # the split passes' launches
 
 PART_BYTES = 65536       # most of a slab one block of the cluster variant holds
 CLUSTER_SIZES = (1, 2, 4, 8)
@@ -128,22 +138,49 @@ def gn_adagn_silu_fwd(x, gn_scale, gn_bias, scale=None, shift=None,
     """Plain version of model mode, the op/dtype sequence of the JAX models.
     With ``return_stats`` it returns ``(out, mean, rstd)``, the stats fp32
     ``[B, G]`` as the JAX ``_stats`` gives them."""
-    b, nd = x.shape[0], x.dim()
+    b = x.shape[0]
     xg = x.float().reshape(b, groups, -1)
     mean = xg.mean(dim=2, keepdim=True)
     mean2 = xg.square().mean(dim=2, keepdim=True)
     var = torch.clamp(mean2 - mean.square(), min=0.0)
     rstd = torch.rsqrt(var + EPS)
-    xhat = ((xg - mean) * rstd).reshape(x.shape)
+    out = gn_apply_plain(x, mean, rstd, gn_scale, gn_bias, scale, shift, z_scale, z_shift,
+                         groups)
+    if return_stats:
+        return out, mean.reshape(b, groups), rstd.reshape(b, groups)
+    return out
+
+
+def gn_apply_plain(x, mean, rstd, gn_scale, gn_bias, scale=None, shift=None,
+                   z_scale=None, z_shift=None, groups: int = 32):
+    """Plain version of the apply pass: model mode's chain from the fp32
+    ``[B, G]`` (or ``[B, G, 1]``) ``mean`` and ``rstd``."""
+    b, nd = x.shape[0], x.dim()
+    xg = x.float().reshape(b, groups, -1)
+    xhat = ((xg - mean.reshape(b, groups, 1)) * rstd.reshape(b, groups, 1)).reshape(x.shape)
     y = (xhat * _per_channel(gn_scale, nd) + _per_channel(gn_bias, nd)).to(x.dtype)
     if scale is not None:
         y = y * (1.0 + _per_channel(scale, nd)) + _per_channel(shift, nd)
     if z_scale is not None:
         y = (1.0 + _per_channel(z_scale, nd)) * y + _per_channel(z_shift, nd)
-    out = y * torch.sigmoid(y)
-    if return_stats:
-        return out, mean.reshape(b, groups), rstd.reshape(b, groups)
-    return out
+    return y * torch.sigmoid(y)
+
+
+def gn_stats_plain(x, groups: int):
+    """Plain version of the stats pass: fp32 ``[B, G, 2]``, the sums of x
+    and of x^2 over each (batch, group) slab of ``x``."""
+    xg = x.float().reshape(x.shape[0], groups, -1)
+    return torch.stack([xg.sum(dim=2), xg.square().sum(dim=2)], dim=2)
+
+
+def moments_from_sums(sums, n: int):
+    """``(mean, rstd)`` fp32 ``[B, G]`` from the ``[B, G, 2]`` sums of x
+    and x^2 over slabs of ``n`` elements, by the one-pass formula of
+    ``pdae_tpu/ops/groupnorm_train.py::_stats`` (``var = max(E[x^2] -
+    mean^2, 0)``)."""
+    mean = sums[..., 0] / n
+    var = torch.clamp(sums[..., 1] / n - mean.square(), min=0.0)
+    return mean, torch.rsqrt(var + EPS)
 
 
 def _kernel():
@@ -157,6 +194,11 @@ def _kernel():
         lib.pdae_gn_adagn_silu_fwd.restype = ci
         lib.pdae_launch_empty.argtypes = [vp]
         lib.pdae_launch_empty.restype = ci
+        lib.pdae_gn_stats.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.pdae_gn_stats.restype = ci
+        lib.pdae_gn_apply.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, ci,
+                                      ci, ci, ci, vp]
+        lib.pdae_gn_apply.restype = ci
         _fn = lib
     return _fn
 
@@ -235,6 +277,63 @@ def gn_cuda(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None,
     _launch(plan_for(x, out, groups), x, out, gamma, beta, scale, shift, z_scale,
             z_shift, groups, fold, mean, rstd)
     return (out, mean, rstd) if save_stats else out
+
+
+def gn_stats_cuda(x, groups: int):
+    """Launch the stats pass on a contiguous CUDA ``x`` [B, C, ...]: fp32
+    ``[B, G, 2]`` as ``gn_stats_plain``."""
+    if x.dim() < 3 or not x.is_cuda or not x.is_contiguous() or x.shape[1] % groups:
+        raise ValueError(f"GN stats pass takes a contiguous CUDA [B, C, ...] tensor whose "
+                         f"channels split into {groups} groups, got {tuple(x.shape)} on "
+                         f"{x.device}")
+    b, c = x.shape[:2]
+    sums = torch.empty(b, groups, 2, device=x.device, dtype=torch.float32)
+    err = _kernel().pdae_gn_stats(x.data_ptr(), sums.data_ptr(), b, c, x.numel() // (b * c),
+                                  groups, dtype_code(x.dtype), stream_handle(x))
+    check_cuda_error(err, "GN stats pass")
+    pass_launches["gn_stats"] += 1
+    return sums
+
+
+def gn_apply_cuda(x, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+                  z_shift=None, groups: int = 32):
+    """Launch the apply pass on a contiguous CUDA ``x`` [B, C, ...] with the
+    fp32 ``[B, G]`` ``mean`` and ``rstd``."""
+    check_gn_inputs(x, gamma, beta, groups)
+    b, c = x.shape[:2]
+    for stat in (mean, rstd):
+        if (stat.dtype != torch.float32 or tuple(stat.shape) != (b, groups)
+                or stat.device != x.device or not stat.is_contiguous()):
+            raise ValueError(f"GN apply pass: mean/rstd must be contiguous float32 "
+                             f"[{b}, {groups}] on {x.device}")
+    s, t, st_stride = _pair(scale, shift, x, "scale/shift")
+    zs, zt, z_stride = _pair(z_scale, z_shift, x, "z_scale/z_shift")
+    out = torch.empty_like(x)
+    err = _kernel().pdae_gn_apply(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t, st_stride, zs, zt, z_stride,
+        out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b, c, x.numel() // (b * c), groups,
+        dtype_code(x.dtype), stream_handle(x))
+    check_cuda_error(err, "GN apply pass")
+    pass_launches["gn_apply"] += 1
+    return out
+
+
+def gn_stats(x, groups: int):
+    """The stats pass: the kernel for a CUDA ``x``, ``gn_stats_plain`` for a
+    CPU one."""
+    if kernel_for(x):
+        return gn_stats_cuda(x, groups)
+    return gn_stats_plain(x, groups)
+
+
+def gn_apply(x, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+             z_shift=None, groups: int = 32):
+    """The apply pass: the kernel for a CUDA ``x``, ``gn_apply_plain`` for a
+    CPU one."""
+    if kernel_for(x):
+        return gn_apply_cuda(x, mean.contiguous(), rstd.contiguous(), gamma, beta, scale,
+                             shift, z_scale, z_shift, groups)
+    return gn_apply_plain(x, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift, groups)
 
 
 def gn_adagn_silu(x, gamma, beta, scale=None, shift=None, z_scale=None,

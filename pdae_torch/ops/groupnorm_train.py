@@ -28,6 +28,18 @@ pair (x and g) over a thread block cluster and keeps it in shared memory
 between the sums and dx (one read of memory), the general variant takes every
 shape with one block per slab. ``variant_launches`` counts each; ``launches``
 is their sum.
+
+Under spatial parallelism (``gn_adagn_silu_split``, ``parallel/sp.py``) a
+rank holds some rows of every slab. Its forward is ``groupnorm.py``'s stats
+pass, one all-reduce of the ``[B, G, 2]`` sums, and the apply pass; its
+backward is two passes of ``csrc/groupnorm_bwd.cu``: the moments pass (the
+rank's dA, dB and the partial ``sum_c A dB``, ``sum_c A dA`` of each slab:
+m1 and m2 are linear in dA and dB, so the ranks' partials add), one
+all-reduce of those ``[B, G, 2]`` moments, and the dx pass, which reads the
+whole slab's m1 and m2. dA and dB stay the rank's partial sums, so the
+gradients of gamma, beta and the AdaGN inputs are partial, as every other
+parameter gradient of a rank is. Plain versions: ``gn_bwd_moments_plain``
+and ``gn_bwd_dx_plain``; ``pass_launches`` counts the two launches.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from ._dispatch import check_cuda_error, dtype_code, kernel_for, stream_handle
 
 launches = 0   # backward-kernel launches since the last reset (pdae_torch.ops)
 variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
+pass_launches = {"gn_bwd_moments": 0, "gn_bwd_dx": 0}   # the split passes' launches
 
 PAIR_BYTES = 65536      # most of a slab pair (x and g) one block of the cluster variant holds
 MAX_PAIR_BYTES = 196608  # ... where 8 parts of PAIR_BYTES do not hold it (the source's limit)
@@ -93,6 +106,51 @@ def gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, scale=None, shift=Non
         dx = inv_g * (dy * a - m1[:, :, None, None] - xhat * m2[:, :, None, None])
         dx = dx.reshape(x.shape).to(x.dtype)
     return dx, d_a.reshape(b, c), d_b.reshape(b, c)
+
+
+def _point(x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift, groups):
+    """fp32 ``(xhat, dy, A)`` shaped ``[B, G, cs, hw]`` (A ``[B, G, cs, 1]``)
+    of the backward's closed form."""
+    b, c = x.shape[:2]
+    cs = c // groups
+    shape = (b, groups, cs, -1)
+    x32, g32 = x.float().reshape(shape), g.float().reshape(shape)
+    xhat = (x32 - mean.reshape(b, groups, 1, 1)) * rstd.reshape(b, groups, 1, 1)
+    a, bb = fold_affine(gamma, beta, scale, shift, z_scale, z_shift)
+    a = a.expand(b, c).reshape(b, groups, cs, 1)
+    bb = bb.expand(b, c).reshape(b, groups, cs, 1)
+    y = xhat * a + bb
+    sig = torch.sigmoid(y)
+    return xhat, g32 * (sig * (1.0 + y * (1.0 - sig))), a
+
+
+def gn_bwd_moments_plain(x, g, mean, rstd, gamma, beta, scale=None, shift=None,
+                         z_scale=None, z_shift=None, groups: int = 32):
+    """Plain version of the moments pass: ``(dA, dB, moments)``, dA and dB
+    fp32 ``[B, C]`` over the rank's rows and ``moments`` fp32 ``[B, G, 2]``,
+    ``sum_c A dB`` and ``sum_c A dA`` of each slab (not divided by n)."""
+    b, c = x.shape[:2]
+    xhat, dy, a = _point(x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift,
+                         groups)
+    d_a = (dy * xhat).sum(dim=3)                     # [B, G, cs]
+    d_b = dy.sum(dim=3)
+    moments = torch.stack([(a[..., 0] * d_b).sum(dim=2), (a[..., 0] * d_a).sum(dim=2)],
+                          dim=2)
+    return d_a.reshape(b, c), d_b.reshape(b, c), moments
+
+
+def gn_bwd_dx_plain(x, g, mean, rstd, moments, gamma, beta, scale=None, shift=None,
+                    z_scale=None, z_shift=None, groups: int = 32):
+    """Plain version of the dx pass: ``dx = inv (dy A - m1 - xhat m2)`` in
+    x's dtype from ``moments`` fp32 ``[B, G, 2]``, the whole slab's m1 and m2
+    (divided by its n)."""
+    xhat, dy, a = _point(x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift,
+                         groups)
+    b = x.shape[0]
+    inv_g = rstd.reshape(b, groups, 1, 1)
+    m1 = moments[..., 0].reshape(b, groups, 1, 1)
+    m2 = moments[..., 1].reshape(b, groups, 1, 1)
+    return (inv_g * (dy * a - m1 - xhat * m2)).reshape(x.shape).to(x.dtype)
 
 
 def unfold_grads(d_a, d_b, gamma, beta, scale, shift, z_scale, z_shift, needs):
@@ -180,6 +238,12 @@ def _kernel():
             vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp,
             ci, ci, ci, ci, ci, ci, ci, vp]
         lib.pdae_gn_adagn_silu_bwd.restype = ci
+        lib.pdae_gn_bwd_moments.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp,
+                                            vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.pdae_gn_bwd_moments.restype = ci
+        lib.pdae_gn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
+                                       vp, ci, ci, ci, ci, ci, vp]
+        lib.pdae_gn_bwd_dx.restype = ci
         _fn = lib
     return _fn
 
@@ -203,11 +267,7 @@ def _launch(plan: groupnorm.GNPlan, x, g, mean, rstd, gamma, beta, scale, shift,
     variant_launches[plan.variant] += 1
 
 
-def gn_bwd_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
-                z_shift=None, groups: int = 32, need_dx: bool = True):
-    """Launch the backward kernel on contiguous CUDA ``x``, ``g`` [B, C, ...]
-    under ``gn_bwd_plan``'s choice; raises on what it does not take. Returns
-    ``(dx, dA, dB)`` as ``gn_adagn_silu_bwd_plain``."""
+def _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups: int) -> None:
     groupnorm.check_gn_inputs(x, gamma, beta, groups)
     b, c = x.shape[:2]
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
@@ -223,12 +283,66 @@ def gn_bwd_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=N
     if c // groups > 6144:
         raise ValueError(f"GN backward kernel: {c // groups} channels per group "
                          "exceed the 6144 its shared memory holds")
+
+
+def gn_bwd_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+                z_shift=None, groups: int = 32, need_dx: bool = True):
+    """Launch the backward kernel on contiguous CUDA ``x``, ``g`` [B, C, ...]
+    under ``gn_bwd_plan``'s choice; raises on what it does not take. Returns
+    ``(dx, dA, dB)`` as ``gn_adagn_silu_bwd_plain``."""
+    _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups)
+    b, c = x.shape[:2]
     dx = torch.empty_like(x) if need_dx else None
     d_a = torch.empty(b, c, device=x.device, dtype=torch.float32)
     d_b = torch.empty_like(d_a)
     _launch(plan_for(x, g, dx, groups), x, g, mean, rstd, gamma, beta, scale, shift,
             z_scale, z_shift, groups, dx, d_a, d_b)
     return dx, d_a, d_b
+
+
+def _split_args(x, g, gamma, beta, scale, shift, z_scale, z_shift):
+    s, t, st_stride = groupnorm._pair(scale, shift, x, "scale/shift")
+    zs, zt, z_stride = groupnorm._pair(z_scale, z_shift, x, "z_scale/z_shift")
+    return (x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t, st_stride,
+            zs, zt, z_stride)
+
+
+def gn_bwd_moments_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+                        z_shift=None, groups: int = 32):
+    """Launch the moments pass on contiguous CUDA ``x``, ``g`` [B, C, ...];
+    returns ``(dA, dB, moments)`` as ``gn_bwd_moments_plain``."""
+    _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups)
+    b, c = x.shape[:2]
+    d_a = torch.empty(b, c, device=x.device, dtype=torch.float32)
+    d_b = torch.empty_like(d_a)
+    moments = torch.empty(b, groups, 2, device=x.device, dtype=torch.float32)
+    err = _kernel().pdae_gn_bwd_moments(
+        *_split_args(x, g, gamma, beta, scale, shift, z_scale, z_shift), mean.data_ptr(),
+        rstd.data_ptr(), d_a.data_ptr(), d_b.data_ptr(), moments.data_ptr(), b, c,
+        x[0, 0].numel(), groups, dtype_code(x.dtype), stream_handle(x))
+    check_cuda_error(err, "GN backward moments pass")
+    pass_launches["gn_bwd_moments"] += 1
+    return d_a, d_b, moments
+
+
+def gn_bwd_dx_cuda(x, g, mean, rstd, moments, gamma, beta, scale=None, shift=None,
+                   z_scale=None, z_shift=None, groups: int = 32):
+    """Launch the dx pass on contiguous CUDA ``x``, ``g`` [B, C, ...] with the
+    whole slab's fp32 ``[B, G, 2]`` m1, m2; returns dx."""
+    _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups)
+    b, c = x.shape[:2]
+    if (moments.dtype != torch.float32 or tuple(moments.shape) != (b, groups, 2)
+            or moments.device != x.device or not moments.is_contiguous()):
+        raise ValueError(f"GN dx pass: moments must be contiguous float32 [{b}, {groups}, 2] "
+                         f"on {x.device}")
+    dx = torch.empty_like(x)
+    err = _kernel().pdae_gn_bwd_dx(
+        *_split_args(x, g, gamma, beta, scale, shift, z_scale, z_shift), mean.data_ptr(),
+        rstd.data_ptr(), moments.data_ptr(), dx.data_ptr(), b, c, x[0, 0].numel(), groups,
+        dtype_code(x.dtype), stream_handle(x))
+    check_cuda_error(err, "GN backward dx pass")
+    pass_launches["gn_bwd_dx"] += 1
+    return dx
 
 
 class _GNAdaGNSiLU(torch.autograd.Function):
@@ -260,6 +374,67 @@ class _GNAdaGNSiLU(torch.autograd.Function):
         grads = unfold_grads(d_a, d_b, gamma, beta, scale, shift, z_scale, z_shift,
                              ctx.needs_input_grad[1:7])
         return (dx, *grads, None)
+
+
+def _split_forward(x, gamma, beta, scale, shift, z_scale, z_shift, groups, reduce, parts):
+    """The split chain's forward: ``(out, mean, rstd)``."""
+    use_kernel = kernel_for(x)
+    sums = groupnorm.gn_stats(x, groups)
+    if reduce is not None:
+        sums = reduce(sums)
+    mean, rstd = groupnorm.moments_from_sums(sums, x[0].numel() // groups * parts)
+    out = groupnorm.gn_apply(x, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift, groups)
+    return out, mean.contiguous(), rstd.contiguous(), use_kernel
+
+
+class _GNAdaGNSiLUSplit(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, z_scale, z_shift, groups, reduce, parts):
+        out, mean, rstd, ctx.use_kernel = _split_forward(
+            x, gamma, beta, scale, shift, z_scale, z_shift, groups, reduce, parts)
+        ctx.groups, ctx.reduce, ctx.n = groups, reduce, x[0].numel() // groups * parts
+        ctx.save_for_backward(x, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift = ctx.saved_tensors
+        g = g.contiguous()
+        coefs = (gamma, beta, scale, shift, z_scale, z_shift)
+        if ctx.use_kernel:
+            d_a, d_b, moments = gn_bwd_moments_cuda(x, g, mean, rstd, *coefs, ctx.groups)
+        else:
+            d_a, d_b, moments = gn_bwd_moments_plain(x, g, mean, rstd, *coefs, ctx.groups)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            if ctx.reduce is not None:
+                moments = ctx.reduce(moments)
+            moments = moments / ctx.n
+            dx_pass = gn_bwd_dx_cuda if ctx.use_kernel else gn_bwd_dx_plain
+            dx = dx_pass(x, g, mean, rstd, moments.contiguous(), *coefs, ctx.groups)
+        grads = unfold_grads(d_a, d_b, *coefs, ctx.needs_input_grad[1:7])
+        return (dx, *grads, None, None, None)
+
+
+def gn_adagn_silu_split(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None,
+                        groups: int = 32, reduce=None, parts: int = 1):
+    """The model-mode chain on a rank's rows of each slab (``parts`` ranks
+    hold equal rows of every slab): the stats pass, ``reduce`` (the sum of a
+    ``[B, G, 2]`` fp32 tensor over the ranks, returned), the apply pass; where
+    a gradient is wanted, differentiable through the moments and dx passes,
+    whose moments ``reduce`` sums too. Kernels for CUDA tensors, their plain
+    versions for CPU ones."""
+    if (scale is None) != (shift is None) or (z_scale is None) != (z_shift is None):
+        raise ValueError("scale/shift and z_scale/z_shift: both set or both None")
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (x, gamma, beta, scale, shift, z_scale, z_shift)):
+        return _GNAdaGNSiLUSplit.apply(x, gamma, beta, scale, shift, z_scale, z_shift, groups,
+                                       reduce, parts)
+    return _split_forward(x, gamma, beta, scale, shift, z_scale, z_shift, groups, reduce,
+                          parts)[0]
 
 
 def gn_adagn_silu_train(x, gamma, beta, scale=None, shift=None, z_scale=None,

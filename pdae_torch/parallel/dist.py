@@ -305,6 +305,46 @@ def all_gather_into_(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
         _through_host("all_gather", out, inp, group)
 
 
+def all_gather_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The ``n`` ranks of ``group``'s ``x`` concatenated along ``dim`` in rank
+    order (the tensor group's backend; over gloo, a card's tensors through
+    the host). Collective; no gradient."""
+    dim %= x.ndim
+    x = x.contiguous()
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    all_gather_into_(out.view(-1), x.view(-1), group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.movedim(0, dim).reshape(shape)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``group``'s ``x``, a new tensor. Collective; no gradient."""
+    with torch.no_grad():
+        if _TENSOR_BACKEND == "gloo" and x.is_cuda:
+            host = host_stage(x.contiguous())
+            gloo_all_reduce_(host, group)
+            return host.to(x.device)
+        out = x.contiguous().clone()
+        if _TENSOR_BACKEND == "gloo":
+            gloo_all_reduce_(out, group)
+        else:
+            dist.all_reduce(out, group=group)
+        return out
+
+
+def reduce_scatter_dim(x: torch.Tensor, group, n: int, index: int, dim: int) -> torch.Tensor:
+    """Rank ``index``'s block along ``dim`` of the sum of the ``n`` ranks of
+    ``group``'s ``x``. Collective; no gradient."""
+    dim %= x.ndim
+    blk = x.shape[dim] // n
+    with torch.no_grad():
+        stacked = x.unflatten(dim, (n, blk)).movedim(dim, 0).contiguous()
+        out = torch.empty(stacked.shape[1:], dtype=x.dtype, device=x.device)
+        _through_host("reduce_scatter", out.view(-1), stacked.view(-1), group)
+        return out
+
+
 def gather_full(shards: Sequence[torch.Tensor], dims: Sequence[Optional[int]],
                 group=None) -> List[torch.Tensor]:
     """The whole tensors of which every process holds ``shards``, split

@@ -1,7 +1,8 @@
 """The layout rules of ``pdae_tpu/parallel/mesh.py`` as pure functions of a
 flax leaf's shape: which of its dims FSDP (``fsdp_sharding``), tensor
 parallelism (``tp_sharding``) and both together (``fsdp_tp_sharding``) split,
-or none; and a rank's place on the ``[data, model]`` grid (``make_tp_mesh``).
+or none; and a rank's place on the ``[data, model]`` grid (``make_tp_mesh``)
+and on the ``[data, sp]`` grid (``make_sp_mesh``).
 
 ``pdae_tpu`` lays a leaf out over the data axis of its mesh by this rule; the
 port's ``param_sharding: fsdp`` (``training/fsdp.py``) applies it to the
@@ -83,3 +84,13 @@ def tp_coords(rank: int, world: int, tp: int) -> Tuple[int, int]:
     if tp < 1 or world % tp:
         raise ValueError(f"model_size={tp} must divide the device count {world}")
     return rank // tp, rank % tp
+
+
+def sp_coords(rank: int, world: int, sp: int) -> Tuple[int, int]:
+    """``(data index, sp index)`` of ``rank`` on ``pdae_tpu``'s
+    ``reshape(world // sp, sp)`` grid (``make_sp_mesh``): a row is a data
+    replica, a column a rank's share of every image's rows. Raises
+    ``pdae_tpu``'s ``ValueError`` where ``sp`` does not divide ``world``."""
+    if sp < 1 or world % sp:
+        raise ValueError(f"sp_size={sp} must divide the device count {world}")
+    return rank // sp, rank % sp

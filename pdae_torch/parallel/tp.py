@@ -49,7 +49,6 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -99,47 +98,20 @@ def tp_groups(tp_size: Optional[int] = None) -> Groups:
 # collectives over the model group, through the host over gloo
 # --------------------------------------------------------------------- #
 
-def _staged(x: torch.Tensor) -> bool:
-    return pdist.tensor_backend() == "gloo" and x.is_cuda
-
-
 def _all_gather(x: torch.Tensor, g: Groups, dim: int) -> torch.Tensor:
     """Every model rank's ``x`` concatenated along ``dim`` in rank order."""
-    dim %= x.ndim
-    x = x.contiguous()
-    out = torch.empty((g.tp,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    pdist.all_gather_into_(out.view(-1), x.view(-1), g.model_group)
-    shape = list(x.shape)
-    shape[dim] *= g.tp
-    return out.movedim(0, dim).reshape(shape)
+    return pdist.all_gather_dim(x, g.model_group, g.tp, dim)
 
 
 def _all_reduce(x: torch.Tensor, g: Groups) -> torch.Tensor:
     """The sum of every model rank's ``x``."""
-    with torch.no_grad():
-        if _staged(x):
-            host = pdist.host_stage(x.contiguous())
-            pdist.gloo_all_reduce_(host, g.model_group)
-            return host.to(x.device)
-        out = x.contiguous().clone()
-        if pdist.tensor_backend() == "gloo":
-            pdist.gloo_all_reduce_(out, g.model_group)
-        else:
-            dist.all_reduce(out, group=g.model_group)
-        return out
+    return pdist.all_reduce_sum(x, g.model_group)
 
 
 def _reduce_scatter(x: torch.Tensor, g: Groups, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum of every model rank's
     ``x``."""
-    dim %= x.ndim
-    blk = x.shape[dim] // g.tp
-    with torch.no_grad():
-        stacked = x.unflatten(dim, (g.tp, blk)).movedim(dim, 0).contiguous()
-        out = torch.empty(stacked.shape[1:], dtype=x.dtype, device=x.device)
-
-        pdist._through_host("reduce_scatter", out.view(-1), stacked.view(-1), g.model_group)
-        return out
+    return pdist.reduce_scatter_dim(x, g.model_group, g.tp, g.model_index, dim)
 
 
 def own(x: torch.Tensor, g: Groups, dim: int) -> torch.Tensor:

@@ -26,10 +26,13 @@ before it runs it; every other rank runs a follower loop that takes each
 broadcast and runs the op; at shutdown rank 0 broadcasts a stop. A follower
 whose op fails as the request's own fault (``ValueError``, ``KeyError``,
 ``TypeError``: the leader answers it with a 400) goes on; any other error
-ends the follower with a nonzero exit. Spatial parallelism (``--sp-size``)
-is not ported and is refused.
+ends the follower with a nonzero exit. ``--sp-size K`` serves
+spatial-parallel the same way (``PDAEService``'s ``sp_size``: each image's
+rows over K ranks); the two flags together raise ``pdae_tpu``'s
+``ValueError`` before anything else.
 
     torchrun --nproc-per-node 2 -m pdae_torch.serve --config YML --tp-size 2
+    torchrun --nproc-per-node 2 -m pdae_torch.serve --config YML --sp-size 2
 """
 
 from __future__ import annotations
@@ -220,16 +223,18 @@ def main(argv=None):
                    help="torch device (default: the card; 'cpu' to run without one)")
     p.add_argument("--tp-size", type=int, default=None,
                    help="tensor-parallel model ranks, under torchrun (module docstring)")
-    p.add_argument("--sp-size", type=int, default=None, help="not ported; refused")
+    p.add_argument("--sp-size", type=int, default=None,
+                   help="spatial-parallel ranks per image, under torchrun (module docstring)")
     args = p.parse_args(argv)
-    if args.sp_size is not None:
-        raise SystemExit("--sp-size: spatial parallelism is not ported (ROADMAP.md, "
-                         "queue 1 item 15)")
+    if (args.tp_size or 1) > 1 and (args.sp_size or 1) > 1:
+        raise ValueError("tp_size and sp_size are mutually exclusive")
 
     from .utils import load_yaml
 
     config = load_yaml(args.config)
-    if args.tp_size is None:
+    sizes = {k: v for k, v in (("tp_size", args.tp_size), ("sp_size", args.sp_size))
+             if v is not None}
+    if not sizes:
         server, batcher = make_server(config, args.host, args.port, args.coalesce_ms,
                                       args.device)
         _serve(server, batcher, args.host)
@@ -237,20 +242,27 @@ def main(argv=None):
     from . import parallel
     from .serving import PDAEService
 
+    import torch.distributed as dist
+
     parallel.init_distributed()
-    service = PDAEService.from_config({**config, "tp_size": args.tp_size},
-                                      device=args.device)
-    if not parallel.is_primary():
-        print(f"rank {parallel.process_index()}: following", flush=True)
-        follow(service)
-        return
-    leader = Lockstep(service)
     try:
-        server, batcher = make_server(config, args.host, args.port, args.coalesce_ms,
-                                      service=leader)
-        _serve(server, batcher, args.host)
+        service = PDAEService.from_config({**config, **sizes}, device=args.device)
+        if not parallel.is_primary():
+            print(f"rank {parallel.process_index()}: following", flush=True)
+            follow(service)
+            return
+        leader = Lockstep(service)
+        try:
+            server, batcher = make_server(config, args.host, args.port, args.coalesce_ms,
+                                          service=leader)
+            _serve(server, batcher, args.host)
+        finally:
+            leader.stop()
     finally:
-        leader.stop()
+        # torn down before the interpreter exits: a gloo group left to its
+        # destructors there can abort the process
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _serve(server, batcher, host):

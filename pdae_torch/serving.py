@@ -29,6 +29,7 @@ from .data import CELEBAHQ_LABEL_TO_ID
 from .diffusion import GaussianDiffusion
 from .models import (build_classifier, build_decoder, build_encoder,
                      build_latent_denoise_fn)
+from .parallel import sp as spatial_parallel
 from .parallel import tp as tensor_parallel
 from .utils import encoder_tree, mlp_skip_net_tree, unet_tree
 from .sampling import SamplerContext
@@ -68,8 +69,14 @@ class PDAEService:
     ``tp_min_size``, 2**15, elements) and run split over the model group,
     the padded bucket is split over the ``world // tp_size`` data groups as
     ``pad_shard_batch`` splits it, and every rank returns the whole result.
-    The classifier's rows are read, not run, and stay whole. ``sp_size``
-    above 1 raises: spatial parallelism is not ported.
+    The classifier's rows are read, not run, and stay whole. ``sp_size`` (1)
+    above 1 serves spatial-parallel likewise (``parallel/sp.py``): the
+    parameters stay whole, the encoder and decoder run on the rank's rows of
+    each map over the ``sp_size`` ranks of an sp group, the bucket splits
+    over the ``world // sp_size`` data groups, and the sampling loops keep
+    ``x_t`` whole on every rank (each model call gathers its output), so a
+    batch of one uses every rank. ``tp_size`` and ``sp_size`` both above 1
+    raise ``pdae_tpu``'s ``ValueError``.
 
     ``encoder_state``/``decoder_state`` are state dicts in the reference
     layout (``pdae_torch.utils.convert``). ``generate`` also needs
@@ -89,17 +96,19 @@ class PDAEService:
     def __init__(self, config: dict, encoder_state: dict, decoder_state: dict,
                  device=None, *, latent_state: Optional[dict] = None,
                  latent_stats=None, classifier_state: Optional[dict] = None):
-        if int(config.get("sp_size", 1)) > 1:
-            raise NotImplementedError(
-                f"sp_size={config['sp_size']}: spatial parallelism is not ported "
-                "(ROADMAP.md, queue 1 item 15)")
-        self.tp_layout = None
+        tp_size, sp_size = int(config.get("tp_size", 1)), int(config.get("sp_size", 1))
+        if tp_size > 1 and sp_size > 1:
+            raise ValueError("tp_size and sp_size are mutually exclusive")
+        self.tp_layout = self.sp_groups = None
         self._data = (0, 1)         # (data index, data groups)
-        if int(config.get("tp_size", 1)) > 1:
-            groups = tensor_parallel.tp_groups(int(config["tp_size"]))
+        if tp_size > 1:
+            groups = tensor_parallel.tp_groups(tp_size)
             self.tp_layout = tensor_parallel.Layout(
                 groups, int(config.get("tp_min_size", parallel.FSDP_MIN_SIZE)))
             self._data = (groups.data_index, groups.dp)
+        elif sp_size > 1:
+            self.sp_groups = spatial_parallel.sp_groups(sp_size)
+            self._data = (self.sp_groups.data_index, self.sp_groups.dp)
         fused = str(config.get("fused_upsample", "auto")).lower()
         if fused not in ("on", "off", "auto", "true", "false", "1", "0"):
             raise ValueError(f"fused_upsample must be on|off|auto, got {fused!r}")
@@ -120,6 +129,8 @@ class PDAEService:
             model.to(self.device).eval()
             if self.tp_layout is not None:
                 self.tp_layout.add(model, to_tree)
+            if self.sp_groups is not None:
+                spatial_parallel.shard_rows(model, self.sp_groups, self.size)
         self.latent_dim = int(config["encoder_config"]["latent_dim"])
         self._latent_state = latent_state
         self._latent_stats_in = latent_stats
@@ -245,12 +256,12 @@ class PDAEService:
 
     def _whole(self, local: torch.Tensor) -> torch.Tensor:
         """The data groups' results concatenated in order, on every rank
-        (each model group's first rank's, gathered over gloo); ``local``
-        itself with one data group. Collective."""
+        (each model or sp group's first rank's, gathered over gloo);
+        ``local`` itself with one data group. Collective."""
         if self._data[1] == 1:
             return local
         parts = parallel.gather_objects([local.cpu()])
-        return torch.cat(parts[::self.tp_layout.groups.tp]).to(local.device)
+        return torch.cat(parts[::parallel.process_count() // self._data[1]]).to(local.device)
 
     @staticmethod
     def _to_nhwc(x: torch.Tensor, n: int) -> np.ndarray:

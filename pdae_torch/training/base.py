@@ -98,8 +98,23 @@ adds the FSDP plan over the data group on the dims of ``pdae_tpu``'s
 groups; a ``sharded`` one writes each rank's replica-0 pieces, a start on
 every dim.
 
-Not ported yet, and refused by name rather than ignored: the sp layouts,
-``mesh_layout: hier`` and profiler traces.
+Spatial parallelism (``param_sharding: sp``, ``sp_size`` ranks per image,
+by default the whole world; ``parallel/sp.py``): rank r has data index ``r //
+sp_size`` and sp index ``r % sp_size``; the parameters, EMA and moments stay
+whole on every rank, and the UNets, ShiftUNets and encoders (the frozen ones
+too) run on the rank's rows of every map whose height splits. The batch
+shards over the data group as under ``tp``. The gradients of modules that
+run split are each rank's partial sums: the step sums them over the sp
+group and averages over the data group (one all-reduce over the world of
+``sp * grad``); those of a module that runs whole on every rank (MLPSkipNet,
+the classifier, or any model when the images' height does not divide by
+``sp_size``, so that no map splits) are averaged over the world as they
+are. ``fsdp+sp`` adds
+the FSDP plan over the data group, with the sp group's sum before it. Both
+checkpoint formats write as under ``replicated`` and ``fsdp``.
+
+Not ported yet, and refused by name rather than ignored: ``mesh_layout:
+hier`` and profiler traces.
 """
 
 from __future__ import annotations
@@ -128,6 +143,7 @@ from ..utils.image import png_bytes
 from ..utils.rng import DROPOUT, INIT, TRAIN, StepGenerator, stream_seed
 from ..utils.sharded_checkpoint import (cleanup_stale_shards, manifest_skeleton,
                                         write_manifest, write_shard_file)
+from ..parallel import sp as spatial_parallel
 from ..parallel import tp as tensor_parallel
 from .fsdp import FsdpPlan, local_pieces
 from .state import TrainState, adam_moments, flat_params, host_copy, make_optimizer
@@ -224,8 +240,10 @@ def refuse_unported(config: dict) -> None:
     if layout == "hier" and "tp" in sharding.split("+"):
         raise ValueError("mesh_layout 'hier' applies to fsdp; tp builds its own [data, "
                          "model] mesh")
+    if layout == "hier" and "sp" in sharding.split("+"):
+        raise ValueError("mesh_layout 'hier' applies to fsdp; sp builds its own [data, sp] "
+                         "mesh")
     checks = [
-        (sharding in ("sp", "fsdp+sp"), f"runner_config.param_sharding={sharding!r}", 15),
         (layout == "hier", "runner_config.mesh_layout='hier'", 15),
         (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
     ]
@@ -321,6 +339,14 @@ class BaseTrainer:
             groups = tensor_parallel.tp_groups(int(rc.get("tp_size", self.world)))
             self.tp_layout = tensor_parallel.Layout(groups, self.fsdp_min_size)
             self.data_rank, self.data_world = groups.data_index, groups.dp
+        # spatial parallelism: the sp groups, and the parameters of the
+        # modules that run split (their gradients are partial sums)
+        self.sp_groups = None
+        self._split_params = set()
+        if "sp" in self.param_sharding.split("+"):
+            self.sp_groups = spatial_parallel.sp_groups(int(rc.get("sp_size", self.world)))
+            self.data_rank, self.data_world = (self.sp_groups.data_index,
+                                               self.sp_groups.dp)
 
         if self.primary:
             os.makedirs(os.path.join(run_path, "checkpoints"), exist_ok=True)
@@ -500,13 +526,32 @@ class BaseTrainer:
     def _build(self):
         raise NotImplementedError
 
-    def _tp_shard(self, module: nn.Module, to_tree) -> None:
+    def _shard_module(self, module: nn.Module, to_tree) -> None:
         """Under tensor parallelism, ``module`` laid out over the model
         group (``parallel/tp.py``; ``to_tree`` maps its state dict to the flax
-        tree): its sharded parameters become the rank's blocks. Call it
-        before the module's parameters go into the state."""
+        tree): its sharded parameters become the rank's blocks. Under spatial
+        parallelism its UNets and encoders run on the rank's rows
+        (``parallel/sp.py``) where the images' height splits. Call it before
+        the module's parameters go into the state."""
         if self.tp_layout is not None:
             self.tp_layout.add(module, to_tree)
+        if self.sp_groups is not None:
+            size = int(self.config["train_dataset_config"]["image_size"])
+            for m in spatial_parallel.shard_rows(module, self.sp_groups, size):
+                self._split_params.update(id(p) for p in m.parameters())
+
+    def _partial_grads(self, params) -> bool:
+        """Whether the gradients of ``params`` are each rank's partial sums
+        over the sp group: some of them run split (a module whose input does
+        not split runs whole on every rank, and its gradients are whole)."""
+        return any(id(p) in self._split_params for p in params)
+
+    def _sp_sum(self, params) -> Optional[Any]:
+        """``sum(grads)``: the gradients summed over the sp group in place
+        (the pre-reduction of ``fsdp+sp``), where they are partial sums;
+        else None."""
+        return spatial_parallel.grad_sum(sum(p.numel() for p in params), self.device,
+                                         self.sp_groups, self._partial_grads(params))
 
     def _shard_state(self, params: Dict[str, Dict], to_trees: Dict[str, Any]) -> None:
         """The trained ``params`` (``{group: {name: Parameter}}``, the
@@ -525,6 +570,11 @@ class BaseTrainer:
                     params, to_trees, self.fsdp_min_size, self.device, g.data_group,
                     (g.data_index, g.dp), self.tp_layout.fsdp_rule(params),
                     self.tp_layout.model_sum(flat_params(params), self.device))
+            elif self.param_sharding == "fsdp+sp":
+                g = self.sp_groups
+                self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device,
+                                     g.data_group, (g.data_index, g.dp),
+                                     pre_reduce=self._sp_sum(flat_params(params)))
         masters = params if self.plan is None else self.plan.masters
         self.optimizer = make_optimizer(self.optimizer_config, flat_params(masters))
         self.state = TrainState.create(params, self.optimizer, plan=self.plan,
@@ -544,6 +594,11 @@ class BaseTrainer:
             return {"rows": rows, "reduce": self.tp_layout.reducer(params, self.device),
                     "plan": None}
         numel = 1 + sum(p.numel() for p in params)
+        if self.sp_groups is not None:
+            return {"rows": rows, "plan": None,
+                    "reduce": spatial_parallel.grad_reducer(numel, self.device,
+                                                            self.sp_groups,
+                                                            self._partial_grads(params))}
         return {"rows": rows, "reduce": parallel.mean_all_reducer(numel, self.device),
                 "plan": None}
 
@@ -804,6 +859,8 @@ class BaseTrainer:
             tree = {"step": np.asarray(step, np.int32), **self.checkpoint_tree(snap)}
             index = (None if self.tp_layout is None else
                      self.tp_layout.piece_index(self.plan is not None))
+            if self.sp_groups is not None:
+                index = spatial_parallel.piece_index(self.sp_groups)
             pieces = local_pieces(tree, skeleton, self.rank, self.world, index)
             for _, target in targets:
                 os.makedirs(target, exist_ok=True)

@@ -76,9 +76,9 @@ class ManipulationTrainer(StageTrainer):
             raise ValueError(f"class_id {class_id} is not one of the classifier's "
                              f"{self.num_classes} classes")
         weight = self.ema_weights(whole=True)["weight"]      # collective under FSDP/tp
-        # under tensor parallelism the frozen PDAE runs split: every rank
-        # decodes, the primary writes
-        if not self.primary and self.tp_layout is None:
+        # under tensor or spatial parallelism the frozen PDAE runs split:
+        # every rank decodes, the primary writes
+        if not self.primary and self.tp_layout is None and self.sp_groups is None:
             return
         t0 = time.perf_counter()
         batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])

@@ -80,8 +80,8 @@ class RepresentationLearningTrainer(BaseTrainer):
         self.decoder.to(self.device)
         self._dropout = has_dropout(self.decoder)
 
-        self._tp_shard(self.encoder, encoder_tree)
-        self._tp_shard(self.decoder, unet_tree)
+        self._shard_module(self.encoder, encoder_tree)
+        self._shard_module(self.decoder, unet_tree)
         self._shard_state(trainable_params(self.encoder, self.decoder),
                           {"encoder": encoder_tree, "shift": unet_tree})
         rc = self.runner_config

@@ -36,7 +36,7 @@ class StageTrainer(BaseTrainer):
     def _train_module(self, model: nn.Module) -> None:
         self.model = model.to(self.device)
         self._dropout = has_dropout(model)
-        self._tp_shard(model, type(self).to_tree)
+        self._shard_module(model, type(self).to_tree)
         self._shard_state({"model": dict(model.named_parameters())},
                           {"model": type(self).to_tree})
         self.ema_decay = float(self.runner_config.get("ema_decay", 0.9999))
@@ -81,8 +81,8 @@ class StageTrainer(BaseTrainer):
         for m in (self.encoder, self.decoder):
             m.requires_grad_(False)
             m.to(self.device).eval()
-        self._tp_shard(self.encoder, encoder_tree)
-        self._tp_shard(self.decoder, unet_tree)
+        self._shard_module(self.encoder, encoder_tree)
+        self._shard_module(self.decoder, unet_tree)
         mean, std = load_latent_stats(cfg["inferred_latents"])
         self.latents_mean, self.latents_std = mean.to(self.device), std.to(self.device)
         self.latent_dim = int(pdae_cfg["encoder_config"]["latent_dim"])

@@ -28,8 +28,14 @@ path within twice the plain path's own bf16-against-fp32 gap, and FFHQ128's
 256-channel 128x128 GN backward slab pair (1 MB in fp32) runs on the cluster
 variant. With ``steps_per_dispatch`` > 1 the representation step and a
 resident latent chunk replayed from a CUDA graph equal the eager K=1 steps
-bit for bit, and a step that cannot be captured raises. ``chip_smoke.py``
-covers every path shape, bf16 and timings.
+bit for bit, and a step that cannot be captured raises. The split passes
+of spatial parallelism (the GN stats and apply passes, the backward's
+moments and dx passes) match their plain versions at a rank's shapes in fp32
+and bf16, the apply pass on the fused kernel's saved stats gives the fused
+kernel's bits, the split chain's Function in one part matches the fused
+one, and the attention of a rank's query rows against every key matches the
+plain version and the same rows of the ``Tq = Tk`` launch.
+``chip_smoke.py`` covers every path shape, bf16 and timings.
 """
 
 import pytest
@@ -432,6 +438,60 @@ def test_gn_backward_repeats_bit_for_bit(cuda, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("shape,variant", [((8, 256, 32, 64), "adagn_z"),
+                                           ((8, 512, 4, 8), "adagn"), ((2, 64, 3, 3), "plain")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_split_gn_passes_match_plain(cuda, shape, variant, dtype):
+    x, g, mean, rstd, gamma, beta, coef = _bwd_inputs(cuda, shape, variant, dtype)
+    n = x[0].numel() // 32
+    sums = groupnorm.gn_stats_cuda(x, 32)
+    want = ops.gn_stats_plain(x, 32)
+    torch.testing.assert_close(sums, want, rtol=1e-4,
+                               atol=1e-5 * max(1.0, float(want.abs().max())))
+    mean, rstd = ops.moments_from_sums(want, n)
+    got = groupnorm.gn_apply_cuda(x, mean, rstd, gamma, beta, *coef)
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (3e-2, 2e-2)
+    torch.testing.assert_close(got.float(), ops.gn_apply_plain(
+        x, mean, rstd, gamma, beta, *coef).float(), rtol=rtol, atol=atol)
+    fused, m_f, r_f = groupnorm.gn_cuda(x, gamma, beta, *coef, save_stats=True)
+    assert torch.equal(groupnorm.gn_apply_cuda(x, m_f, r_f, gamma, beta, *coef), fused)
+    d_a, d_b, moments = groupnorm_train.gn_bwd_moments_cuda(x, g, mean, rstd, gamma, beta,
+                                                            *coef)
+    want_m = ops.gn_bwd_moments_plain(x, g, mean, rstd, gamma, beta, *coef)
+    _assert_bwd_close((d_a, d_b, moments), want_m, dtype)
+    m = (want_m[2] / n).contiguous()
+    dx = groupnorm_train.gn_bwd_dx_cuda(x, g, mean, rstd, m, gamma, beta, *coef)
+    _assert_bwd_close((dx,), (ops.gn_bwd_dx_plain(x, g, mean, rstd, m, gamma, beta, *coef),),
+                      dtype)
+
+
+def test_the_split_chain_in_one_part_matches_the_fused_chain(cuda):
+    x, g, _, _, gamma, beta, coef = _bwd_inputs(cuda, (4, 256, 32, 32), "adagn_z")
+    args = [a.detach().clone().requires_grad_(True) for a in (x, gamma, beta, *coef)]
+    out = ops.gn_adagn_silu_split(*args, groups=32)
+    got = torch.autograd.grad(out, args, g)
+    args2 = [a.detach().clone().requires_grad_(True) for a in args]
+    want_out = ops.gn_adagn_silu_train(*args2, groups=32)
+    want = torch.autograd.grad(want_out, args2, g)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+    _assert_bwd_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(32, 4, 128, 256, 32), (32, 4, 32, 64, 128),
+                                   (2, 2, 25, 50, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tq_below_tk_attention_matches_plain_and_the_whole_rows(cuda, shape, dtype):
+    b, h, tq, tk, d = shape
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(b, h, tk, d, generator=gen).to(cuda, dtype) for _ in range(3))
+    rows = q[:, :, :tq].contiguous()
+    got = attention.attention_cuda(rows, k, v)
+    want = ops.reference_attention(rows, k, v, d ** -0.25)
+    atol, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(got, attention.attention_cuda(q, k, v)[:, :, :tq])
+
+
 def test_gn_backward_misaligned_input_takes_the_general_variant(cuda):
     x, g, mean, rstd, gamma, beta, coef = _bwd_inputs(cuda, (2, 256, 16, 16), "adagn_z")
     aligned = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
@@ -578,7 +638,8 @@ def test_trainer_steps_saves_and_resumes_on_the_card(cuda, tmp_path):
     ops.reset_launch_counts()
     assert trainer.train(max_steps=2) == 2
     counts = ops.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")), \
+        counts
     resumed = RepresentationLearningTrainer(config=config, run_path=run, resume="latest")
     assert resumed.start_step == 2
     for group in ("encoder", "shift"):
@@ -803,7 +864,7 @@ def test_stage_trainer_steps_and_resumes_on_the_card(cuda, card_files, tmp_path,
         ops.reset_launch_counts()
         out = inner(batch)
         torch.cuda.synchronize()
-        seen.append(ops.launch_counts())
+        seen.append({k: ops.launch_counts()[k] for k in want})
         return out
 
     trainer.train_step = counted
@@ -894,7 +955,8 @@ def test_the_captured_representation_step_replays_the_eager_one(cuda, tmp_path):
         torch.backends.cudnn.deterministic = saved
     dispatch = graph._dispatch
     assert dispatch.replays == 3 and list(dispatch.graphs) == [True]
-    assert dispatch.launches == per_step and all(per_step.values())
+    assert dispatch.launches == per_step
+    assert all(per_step[k] for k in ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd"))
     assert len(got) == len(want) == 4
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     _assert_same_state(graph, eager)

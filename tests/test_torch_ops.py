@@ -126,7 +126,8 @@ def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
     ops.gn_adagn_silu(torch.randn(1, 32, 4, 4), torch.ones(32), torch.zeros(32),
                       groups=32)
     assert ops.launch_counts() == {"attention": 0, "gn_adagn_silu": 0,
-                                   "gn_adagn_silu_bwd": 0}
+                                   "gn_adagn_silu_bwd": 0, "gn_stats": 0, "gn_apply": 0,
+                                   "gn_bwd_moments": 0, "gn_bwd_dx": 0}
     ops.set_use_kernels(False)
     assert torch.equal(ops.fused_qkv_attention(q, q, q), out)
 

@@ -114,9 +114,12 @@ def test_from_config_builds_the_latent_models_at_the_first_op_that_needs_them(fi
 
 
 def test_from_config_refuses_what_the_port_does_not_serve(files):
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # tp and sp serve over a process group they divide (tests/test_torch_tp.py,
+    # tests/test_torch_sp.py), never together
+    with pytest.raises(ValueError, match="tp_size and sp_size are mutually exclusive"):
+        PDAEService.from_config(dict(files.config, tp_size=2, sp_size=2), device="cpu")
+    with pytest.raises(ValueError, match="sp_size=2 must divide the device count 1"):
         PDAEService.from_config(dict(files.config, sp_size=2), device="cpu")
-    # tp serves over a process group it divides (tests/test_torch_tp.py)
     with pytest.raises(ValueError, match="model_size=2 must divide the device count 1"):
         PDAEService.from_config(dict(files.config, tp_size=2), device="cpu")
     with pytest.raises(ValueError, match="fused_upsample"):
@@ -203,12 +206,12 @@ def test_serve_answers_over_http(files):
 
 @pytest.mark.parametrize("flag", ["--tp-size", "--sp-size"])
 def test_serve_refuses_parallelism_by_name(flag, tmp_path):
-    """``--sp-size`` is refused by name; ``--tp-size`` is taken (it serves
-    under torchrun, ``tests/test_torch_tp.py``): here it gets as far as
-    reading the config."""
-    if flag == "--sp-size":
-        with pytest.raises(SystemExit, match=f"{flag}: .*item 15"):
-            serve.main(["--config", "unused.yml", flag, "2"])
-        return
+    """``--tp-size`` and ``--sp-size`` are taken (they serve under torchrun,
+    ``tests/test_torch_tp.py``, ``tests/test_torch_sp.py``): here each gets
+    as far as reading the config; both together raise ``pdae_tpu``'s
+    ``ValueError`` before the config is read."""
     with pytest.raises(FileNotFoundError):
         serve.main(["--config", str(tmp_path / "missing.yml"), flag, "2"])
+    with pytest.raises(ValueError, match="tp_size and sp_size are mutually exclusive"):
+        serve.main(["--config", str(tmp_path / "missing.yml"), "--tp-size", "2",
+                    "--sp-size", "2"])

@@ -276,16 +276,16 @@ def test_a_missing_artifact_raises():
 
 @pytest.mark.parametrize("key", ["tp_size", "sp_size"])
 def test_tensor_or_spatial_parallelism_raises(key):
-    """Spatial parallelism is refused by name; tensor parallelism serves
-    (``tests/test_torch_tp.py``) over a process group whose world it
-    divides, and one process has a world of one."""
+    """Tensor and spatial parallelism serve (``tests/test_torch_tp.py``,
+    ``tests/test_torch_sp.py``) over a process group whose world their size
+    divides, and one process has a world of one; the two together raise
+    ``pdae_tpu``'s ``ValueError`` before either is looked at."""
     enc, dec, _ = _small_artifacts()
-    if key == "sp_size":
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            PDAEService(dict(SMALL_CONFIG, **{key: 2}), enc, dec, device="cpu")
-    else:
-        with pytest.raises(ValueError, match="model_size=2 must divide the device count 1"):
-            PDAEService(dict(SMALL_CONFIG, **{key: 2}), enc, dec, device="cpu")
+    want = {"tp_size": "model_size=2", "sp_size": "sp_size=2"}[key]
+    with pytest.raises(ValueError, match=f"{want} must divide the device count 1"):
+        PDAEService(dict(SMALL_CONFIG, **{key: 2}), enc, dec, device="cpu")
+    with pytest.raises(ValueError, match="tp_size and sp_size are mutually exclusive"):
+        PDAEService(dict(SMALL_CONFIG, tp_size=2, sp_size=2), enc, dec, device="cpu")
     PDAEService(dict(SMALL_CONFIG, **{key: 1}), enc, dec, device="cpu")
 
 

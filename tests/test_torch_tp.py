@@ -133,8 +133,9 @@ def test_a_tp_size_that_does_not_divide_the_world_is_refused():
 
 # -- the live runs ---------------------------------------------------------------- #
 
-def _start(root, jobs, world, tag):
-    """Start ``world`` worker processes on ``jobs``; ``_finish`` waits."""
+def _start(root, jobs, world, tag, worker="_torch_tp_worker.py"):
+    """Start ``world`` worker processes (of ``worker``) on ``jobs``;
+    ``_finish`` waits."""
     spec = root / f"spec_{tag}.json"
     with open(spec, "w") as f:
         json.dump({"jobs": jobs, "out_dir": str(root)}, f)
@@ -145,7 +146,7 @@ def _start(root, jobs, world, tag):
                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost", MASTER_PORT=port,
                    OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "_torch_tp_worker.py"), str(spec),
+            [sys.executable, os.path.join(HERE, worker), str(spec),
              str(root / f"{tag}_rank{rank}.json")],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return root, tag, procs

@@ -185,38 +185,39 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
     assert tr.train(max_steps=2) == 2
 
 
-# fsdp, tp, fsdp+tp and the sharded write train (tests/test_torch_fsdp.py,
-# tests/test_torch_tp.py); the sp layouts and the hierarchical mesh are
-# refused by their own names
+# fsdp, tp, sp, their compositions and the sharded write train
+# (tests/test_torch_fsdp.py, tests/test_torch_tp.py, tests/test_torch_sp.py);
+# the hierarchical mesh and profiler traces are refused by their own names,
+# and the sp layouts' errors are pdae_tpu's ValueErrors, raised before the
+# run directory exists
 REFUSALS = {
-    "param_sharding": ({"runner_config": {"param_sharding": "sp", "sp_size": 2}}, 15),
-    "param_sharding_sp": ({"runner_config": {"param_sharding": "sp"}}, 15),
-    "param_sharding_fsdp+sp": ({"runner_config": {"param_sharding": "fsdp+sp"}}, 15),
+    "param_sharding": ({"runner_config": {"param_sharding": "sp", "sp_size": 2}},
+                       ValueError, "sp_size=2 must divide the device count 1"),
+    "param_sharding_sp": ({"runner_config": {"param_sharding": "sp", "mesh_layout": "hier"}},
+                          ValueError, "mesh_layout 'hier' applies to fsdp; sp builds"),
+    "param_sharding_fsdp+sp": ({"runner_config": {"param_sharding": "fsdp+sp",
+                                                  "sp_size": 3}},
+                               ValueError, "sp_size=3 must divide the device count 1"),
     "mesh_layout": ({"runner_config": {"param_sharding": "fsdp", "mesh_layout": "hier"}},
-                    15),
-    "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}}, 6),
-    # a torchrun launch trains replicated, fsdp, tp or fsdp+tp params; the
-    # composed sp layout under it is still refused by its own name, before
-    # the join
-    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp+sp"}}, 15),
+                    NotImplementedError, "mesh_layout='hier'.*item 15\\)"),
+    "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}},
+                    NotImplementedError, "profile_dir.*item 6\\)"),
+    # a torchrun launch of any layout, fsdp+sp too, needs the process group
+    # joined first
+    "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp+sp"}},
+                   RuntimeError, "WORLD_SIZE=2, but this process has not joined"),
 }
-REFUSED_AS = {"param_sharding": "param_sharding='sp'",
-              "param_sharding_sp": "param_sharding='sp'",
-              "param_sharding_fsdp+sp": "param_sharding='fsdp\\+sp'",
-              "mesh_layout": "mesh_layout='hier'",
-              "WORLD_SIZE": "param_sharding='fsdp\\+sp'"}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
-    change, item = REFUSALS[name]
-    what = REFUSED_AS.get(name, name)
+    change, error, what = REFUSALS[name]
     if name == "WORLD_SIZE":
         monkeypatch.setenv("WORLD_SIZE", "2")
     cfg = tiny_pdae_config()
     for section, values in change.items():
         cfg[section].update(values)
-    with pytest.raises(NotImplementedError, match=f"{what}.*item {item}\\)"):
+    with pytest.raises(error, match=what):
         _trainer(tmp_path / "run", cfg)
     assert not os.path.exists(tmp_path / "run")
 
