@@ -249,7 +249,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    structure's; recorded: wall ms per step of each chunk, two more traced
    replays of each (busy ms, kernels, NCCL kernels, the costliest kernels)
    and the eager all-reduce's ms (``chiprun_out/chip_smoke_ddp.json``). The
-   two-rank and the NCCL processes then make the fsdp phase's runs.
+   two-rank and the NCCL processes then make the fsdp phase's runs, the NCCL
+   process once the other has left the card (cuDNN filters its algorithms
+   by the card's free memory: a run held bit for bit against these has at
+   least the memory they had).
 15. ``fsdp``: ``param_sharding: fsdp`` (``pdae_torch/training/fsdp.py``) on
    the ddp phase's config, run by the ddp phase's processes after their own
    runs. Two ranks on the one card over gloo, eager, b32 a
@@ -258,15 +261,19 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the final state gathered from the ranks' blocks (params, EMA, moments and
    the reduced gradients) bit-equal to the ddp phase's two ranks, the resume
    bit-equal, the directory exactly the manifest and the two step-tagged
-   shard files, each rank's launches the structure's per step. Then the same
-   config at K=4 from the captured graph with an NCCL group of one rank:
-   every loss and the final state bit-equal to the ddp phase's K=4 runs, the
-   launches per replay the structure's, and in the trace of two replays the
-   reduce-scatter's and the all-gather's copies (at world 1 NCCL runs each
-   as one copy on the card) beside the plan's write-back of each sharded
-   block, beyond the replicated step's copies.
-   Recorded: each rank's bytes of EMA, moments and masters beside
-   ``replicated``'s, peak memory, the sharded write's seconds and bytes, the
+   shard files, each rank's launches the structure's per step, and the bytes
+   a rank holds between steps (EMA, moments, the blocks of the trained
+   tensors and of the frozen trunk: blocks at rest, gathered per use) within
+   2% of ``pdae_tpu``'s layout. Then the same config at K=4 from the
+   captured graph with an NCCL group of one rank: every loss and the final
+   state bit-equal to the ddp phase's K=4 runs, the launches per replay the
+   structure's, and in the trace of two replays one copy per gather the
+   captured step made plus the reduce-scatter's (at world 1 NCCL runs each
+   as one copy on the card), beyond the replicated step's copies.
+   Recorded: each rank's bytes of state beside ``replicated``'s and the
+   layout's before blocks at rest, the plan's buffers, the device memory
+   between steps and the peak beside the ddp phase's ``replicated`` ranks',
+   the gathers a step, the sharded write's seconds and bytes, the
    collectives' ms over gloo and NCCL, ms per step
    (``chiprun_out/chip_smoke_fsdp.json``).
 16. ``tp``: tensor parallelism (``pdae_torch/parallel/tp.py``). The ddp
@@ -277,19 +284,23 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    launch's input at the rank's local shape (``tp_local_keys``: the
    attention on half the heads, GN on half the channels with 16 groups;
    the kernels phase holds every such shape to the plain versions); then
-   ``PDAEService(tp_size=2)``'s b8 ddim2/ddim2 autoencode against the
+   ``PDAEService(tp_size=2)``'s b8 ddim1/ddim1 autoencode against the
    one-process service within the larger of one uint8 level and the
    whole-path phase's control. Four processes of their own, started with the
    ddp phase and released when the two ranks' train run ends (they share
    the card with the service run), run ``fsdp+tp`` (tp 2 x data 2, b8 a data
-   rank, 2 steps) against one process over the 16 rows. The ddp phase's NCCL process runs the tp path at ``tp_size`` 1 from
+   rank, 1 step) against one process over the 16 rows, and, after the ddp
+   phase's graph runs and their ``fsdp+sp`` run, ``fsdp`` under
+   ``mesh_layout: hier`` on a ``[2, 2]`` grid (b8 a rank, 1 step) against
+   one process over the 32 rows, each rank's launches the structure's. The
+   ddp phase's NCCL process runs the tp path at ``tp_size`` 1 from
    the captured graph (K=4), bit-equal to the ``replicated`` K=4 run.
    Recorded per rank: bytes of parameters (trained and frozen), EMA and
    moments beside ``replicated``'s, peak memory, ms per step
    (``chiprun_out/chip_smoke_tp.json``).
 17. ``sp``: spatial parallelism (``pdae_torch/parallel/sp.py``). The ddp
    phase's two processes, after their tp runs, serve
-   ``PDAEService(sp_size=2)``'s b8 and b1 ddim2/ddim2 autoencodes (while
+   ``PDAEService(sp_size=2)``'s b8 and b1 ddim1/ddim1 autoencodes (while
    the four processes below hold the card) against the one-process service
    within the larger of one uint8 level and the whole-path phase's control,
    then train its config at sp 2 (every image's rows split over the two
@@ -301,8 +312,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    kernels) and every launch's input at the rank's local shape (the
    attention's queries half the keys); the service's launches and inputs
    are held likewise. The
-   tp phase's four processes, after their ``fsdp+tp`` run, run ``fsdp+sp``
-   (sp 2 x data 2, b8 a data rank, 2 steps) against the tp phase's one
+   tp phase's four processes, after the ddp phase's graph runs, run
+   ``fsdp+sp`` (sp 2 x data 2, b8 a data rank, 1 step) against the tp phase's one
    process over the 16 rows. Recorded per rank: the sp collectives' count,
    bytes and ms per step, ms per step, parameter bytes and peak memory
    beside one process's (``chiprun_out/chip_smoke_sp.json``). Then the
@@ -3929,6 +3940,7 @@ def summarise_split(kind, results, weights, per) -> dict:
 
 
 DDP_RANKS = 2                    # two ranks on the one card, b32 each
+WORKER_STACKS_S = 420            # a ddp-phase process's stacks to its log this often
 DDP_STEPS = 3                    # a save at DDP_CUT, resumed there
 DDP_CUT = 2
 DDP_GRAPH_STEPS = 8              # the world-1 NCCL run: chunks 4+4 at K=4
@@ -3999,6 +4011,17 @@ def timed_losses(trainer) -> tuple:
     return losses, ms
 
 
+def wait_for_file(path, limit: float = 1200) -> float:
+    """Seconds until ``path`` exists (a go another process gives); raises
+    after ``limit`` seconds."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > limit:
+            raise TimeoutError(f"no {path}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
 def ddp_worker(spec_path, out_path) -> int:
     """One process of the ddp phase (``python3 chip_smoke.py --ddp-worker SPEC
     OUT``): ``two_ranks``, a rank of the gloo run (A: 3 steps saved at 2, B:
@@ -4015,8 +4038,13 @@ def ddp_worker(spec_path, out_path) -> int:
     from pdae_torch import ops, parallel
     from pdae_torch.train import pick_trainer
 
+    import faulthandler
+
     with open(spec_path) as f:
         spec = json.load(f)
+    # a process stuck in a collective shows where: every thread's stack
+    # goes to its log every WORKER_STACKS_S seconds (the runs end sooner)
+    faulthandler.dump_traceback_later(WORKER_STACKS_S, repeat=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -4044,6 +4072,7 @@ def ddp_worker(spec_path, out_path) -> int:
         if role == "two_ranks":
             cfg = spec["config"]
             run_a = os.path.join(root, "a", f"rank{rank}")
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             a = pick_trainer(cfg)(config=cfg, run_path=run_a, seed=spec["seed"])
             out["build_s"] = time.perf_counter() - t0
@@ -4059,7 +4088,7 @@ def ddp_worker(spec_path, out_path) -> int:
             torch.cuda.synchronize()
             out["launches"] = named_launches()
             out.update(losses=losses, step_ms=ms, step=a.step, files=files_under(run_a),
-                       save_s=a.save_seconds)
+                       save_s=a.save_seconds, memory=step_memory())
             state = ddp_state(a)
             out["digest"] = state_digest(state)
             if parallel.is_primary():
@@ -4091,10 +4120,21 @@ def ddp_worker(spec_path, out_path) -> int:
                 out["sp"] = sp_run(spec["sp"], "two_ranks")
         elif role == "four_ranks":
             out["tp"] = tp_run(spec["tp"], "four_ranks")
-            if "sp" in spec:
-                out["sp"] = sp_run(spec["sp"], "four_ranks")
+            # the tp run has left the card: the two ranks' sp run may start
+            parallel.sync_global_devices("sp_go")
+            if rank == 0:
+                with open(spec["sp"]["go"], "w"):
+                    pass
+            # the card is the ddp phase's graph runs' next: they are held bit
+            # for bit against each other, and cuDNN picks its algorithms by
+            # the card's free memory; the sp and hier runs follow them
+            wait_for_file(spec["after_graphs"])
+            out["sp"] = sp_run({k: v for k, v in spec["sp"].items() if k != "go"},
+                               "four_ranks")
+            out["hier"] = hier_run(spec["hier"])
         else:
             cfg = ddp_config(spec["dpm"], k=4)
+            out["card_free_gb"] = torch.cuda.mem_get_info()[0] / 1e9
             tr = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, role),
                                    seed=spec["seed"])
             losses, ms = timed_losses(tr)
@@ -4108,12 +4148,23 @@ def ddp_worker(spec_path, out_path) -> int:
                        launches_on_path=path_launches(named_launches(), d),
                        digest=state_digest(ddp_state(tr, grads=False)))
             out["trace"] = traced_chunk(tr, TRACED_STEPS)
+            if role == "nogroup":
+                drop_graphs(tr)
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+                with open(spec["done"], "w"):
+                    pass
             if role == "nccl1":
                 out["all_reduce_ms"] = all_reduce_ms(tr)
                 drop_graphs(tr)
                 del tr
                 gc.collect()
                 torch.cuda.empty_cache()
+                # cuDNN filters its algorithms by the card's free memory: the
+                # runs held bit for bit against this one wait until the
+                # process beside it has left the card
+                out["waited_s"] = wait_for_file(spec["after"])
                 if "fsdp" in spec:
                     out["fsdp"] = fsdp_run(spec["fsdp"], "nccl1")
                 if "tp" in spec:
@@ -4315,10 +4366,14 @@ def ddp_phase(seed, device, want_step) -> tuple:
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
     # the workers share the card with this process: hand back what its
-    # earlier phases left cached
+    # earlier phases left cached (cuBLAS's workspaces too)
     gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     torch.cuda.empty_cache()
     records["main_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    records["main_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
     fsdp_runs, tp_runs = {}, {}
     # the tp phase's fsdp+tp run: four processes that wait for the two-rank
     # processes' tp train run to end and share the card with their tp
@@ -4328,7 +4383,9 @@ def ddp_phase(seed, device, want_step) -> tuple:
                 "root": tp_root, "seed": seed,
                 "config": tp_config(dpm, mode="fsdp+tp", batch=TP4_BATCH)},
             "sp": {"root": sp_root, "seed": seed, "go": spec["sp"]["wait_for"],
-                   "config": sp_config(dpm, mode="fsdp+sp", batch=SP4_BATCH)}}
+                   "config": sp_config(dpm, mode="fsdp+sp", batch=SP4_BATCH)},
+            "hier": {"root": tp_root, "seed": seed, "config": hier_config(dpm)},
+            "after_graphs": os.path.join(tp_root, "graphs_done")}
     env4 = {"WORLD_SIZE": "4", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
             "MASTER_PORT": str(free_port())}
     tp_runs["four_ranks"] = start_workers(
@@ -4339,19 +4396,23 @@ def ddp_phase(seed, device, want_step) -> tuple:
     graph_runs = {
         "nccl1": start_workers("nccl", [(
             {**graph_spec, "role": "nccl1", "wait_for": os.path.join(root, "go_nccl1"),
+             "after": os.path.join(root, "nogroup_done"),
              "fsdp": {**fsdp, "config": fsdp_config(dpm, 4)},
              "tp": {"root": os.path.join(OUT_DIR, "tp"), "seed": seed,
                     "config": tp_config(dpm, k=4, tp_size=1)}},
             {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
              "MASTER_ADDR": "localhost"})], root),
         "nogroup": start_workers("nogroup", [(
-            {**graph_spec, "role": "nogroup", "wait_for": os.path.join(root, "go_nogroup")},
+            {**graph_spec, "role": "nogroup", "wait_for": os.path.join(root, "go_nogroup"),
+             "done": os.path.join(root, "nogroup_done")},
             {"WORLD_SIZE": "1", "LOCAL_RANK": "0"})], root)}
 
     def graph_runs_together():
         """Both graph runs' outputs and wall seconds from their go: released
-        at once, beside each other (each holds a b32 step; bit-equality does
-        not depend on what shares the card)."""
+        at once, beside each other (each holds a b32 step), while the four
+        processes wait: cuDNN filters its algorithms by the card's free
+        memory, so the runs held bit for bit against each other run with the
+        same processes beside them."""
         t0 = time.perf_counter()
         for role in graph_runs:
             with open(os.path.join(root, f"go_{role}"), "w"):
@@ -4385,6 +4446,7 @@ def ddp_phase(seed, device, want_step) -> tuple:
                "resume_files": {f"rank{r['rank']}": r["resume_files"] for r in ranks},
                "launches_per_rank": {f"rank{r['rank']}": r["launches"] for r in ranks},
                "world2_step_ms": r0["step_ms"], "save_s": r0["save_s"],
+               "memory": [r["memory"] for r in ranks],
                "gloo_all_reduce_ms": [r["all_reduce_ms"] for r in ranks]}
         rec["launches_ok"] = all(r["launches"] == {k: v * DDP_STEPS for k, v in want_step.items()}
                                  for r in ranks)
@@ -4429,10 +4491,16 @@ def ddp_phase(seed, device, want_step) -> tuple:
         # (b) the all-reduce in the captured graph: NCCL at world 1 and the
         # same run with no group, side by side on the card
         nccl, wall, alone, wall_alone = graph_runs_together()
+        # the four processes' sp and hier runs take the card once the graph
+        # runs, held bit for bit, have left it
+        with open(four["after_graphs"], "w"):
+            pass
         fsdp_runs["nccl1"] = nccl.pop("fsdp")
         tp_runs["nccl1"] = nccl.pop("tp")
-        wall -= fsdp_runs["nccl1"]["s"] + tp_runs["nccl1"]["s"]
+        wall -= fsdp_runs["nccl1"]["s"] + tp_runs["nccl1"]["s"] + nccl["waited_s"]
         rec = {"wall_s": [wall, wall_alone], "tensor_backend": nccl["tensor_backend"],
+               "nccl1_waited_s": nccl["waited_s"],
+               "card_free_gb": [nccl["card_free_gb"], alone["card_free_gb"]],
                "losses": nccl["losses"], "replays": nccl["replays"],
                "captures": nccl["captures"], "launches_per_replay": nccl["launches_per_replay"],
                "launches_on_path": nccl["launches_on_path"],
@@ -4492,35 +4560,55 @@ def gathered_state(trainer, grads=True) -> dict:
     return out
 
 
+def step_memory() -> dict:
+    """This process's device memory now, between steps (the bytes of its
+    live tensors: the state, the resident data, the plan's buffers), and its
+    peak since the last reset, in GB."""
+    torch.cuda.synchronize()
+    return {"between_steps_gb": torch.cuda.memory_allocated() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def held_bytes(trainer) -> dict:
-    """Bytes this rank holds of the trained state: EMA, Adam moments and the
-    masters that are tensors of their own (a sharded tensor's block), beside
-    the bytes each would take whole (``replicated``)."""
-    state, opt = trainer.state, trainer.optimizer.state
+    """Bytes of state this rank holds between steps under FSDP: EMA, Adam
+    moments, the plan's parameters (its blocks of the trained and frozen
+    tensors and the tensors it keeps whole) and, apart, the step's flat
+    buffers by name; beside them what ``replicated`` holds (every tensor
+    whole) and what the layout before blocks at rest held (the whole trained
+    and frozen tensors beside the blocks), both reckoned from the shapes."""
+    state, opt, plan = trainer.state, trainer.optimizer.state, trainer.plan
     masters = [m for named in state.masters.values() for m in named.values()]
-    params = [p for named in state.params.values() for p in named.values()]
-    whole = sum(p.numel() * p.element_size() for p in params)
-    return {"ema": sum(t.numel() * t.element_size() for named in state.ema_params.values()
-                       for t in named.values()),
-            "moments": sum(opt[m][s].numel() * opt[m][s].element_size() for m in masters
-                           for s in ("exp_avg", "exp_avg_sq")),
-            "masters": sum(m.numel() * m.element_size() for m, p in zip(masters, params)
-                           if m is not p),
-            "replicated": {"ema": whole, "moments": 2 * whole, "masters": 0}}
+    trained = sum(p.numel() * 4 for named in state.params.values() for p in named.values())
+    frozen = sum(p.numel() * 4 for named in plan.frozen.values() for p in named.values())
+    out = {"ema": param_nbytes(t for named in state.ema_params.values()
+                               for t in named.values()),
+           "moments": sum(opt[m][s].numel() * opt[m][s].element_size() for m in masters
+                          for s in ("exp_avg", "exp_avg_sq")),
+           **plan.held_bytes()}
+    out["total"] = sum(out.values())
+    out["buffers"] = plan.buffer_bytes()
+    out["replicated"] = {"params": trained, "ema": trained, "moments": 2 * trained,
+                         "frozen": frozen, "total": 4 * trained + frozen}
+    out["pdae_tpu_layout"] = (4 * trained + frozen) / 2
+    out["before_blocks_at_rest"] = (out["ema"] + out["moments"] + out["trained_blocks"]
+                                    + trained + frozen)
+    return out
 
 
-def collective_ms(trainer, reps: int = 3) -> dict:
+def collective_ms(trainer, reps: int = 1) -> dict:
     """Wall ms of an FSDP step's collectives alone, after one untimed each:
     the gradients' reduce-scatter with the whole tensors' all-reduce
-    (``reduce_grads``, on zero gradients) and the parameters' all-gather
-    (``gather_params``, which rewrites the same values). Collective."""
+    (``reduce_grads``, on zero gradients) and one gather of every tensor the
+    plan holds (a forward's per-use all-gathers of them, one by one).
+    Collective."""
     plan = trainer.plan
     zeros = [torch.zeros_like(p) for named in trainer.state.params.values()
              for p in named.values()]
     loss = torch.zeros((), device=trainer.device)
-    out = {}
+    keys = [key for _, _, _, key in plan.held]
+    out = {"held_tensors": len(keys)}
     for name, fn in (("reduce_grads_ms", lambda: plan.reduce_grads(loss, zeros)),
-                     ("gather_params_ms", plan.gather_params)):
+                     ("gather_each_held_ms", lambda: [plan._whole(k) for k in keys])):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4560,6 +4648,7 @@ def fsdp_run(spec, kind) -> dict:
             out["exceptions"] = a.plan.exceptions
             losses, ms = timed_losses(a)
             ops.reset_launch_counts()
+            gathers = a.plan.gathers
             a.train(max_steps=DDP_CUT)               # the final save: sharded, at DDP_CUT
             latest = os.path.join(run_a, "checkpoints", "latest.ckpt")
             shard = os.path.join(latest, f"shard-{DDP_CUT}-{rank:05d}-of-{DDP_RANKS:05d}.msgpack")
@@ -4573,7 +4662,8 @@ def fsdp_run(spec, kind) -> dict:
             torch.cuda.synchronize()
             out["launches"] = named_launches()
             out.update(losses=losses, step_ms=ms, step=a.step, held=held_bytes(a),
-                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                       memory=step_memory(), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       gathers_per_step=(a.plan.gathers - gathers) / DDP_STEPS)
             state = gathered_state(a)
             out["digest"] = state_digest(state)
             out["collectives"] = collective_ms(a)
@@ -4592,24 +4682,34 @@ def fsdp_run(spec, kind) -> dict:
                                                    for x, y in zip(ts, got[k]))][:5]
             del b
         else:
+            out["card_free_gb"] = torch.cuda.mem_get_info()[0] / 1e9
             tr = pick_trainer(cfg)(config=cfg, run_path=runs[0], seed=spec["seed"])
             losses, ms = timed_losses(tr)
             ops.reset_launch_counts()
+            gathers = tr.plan.gathers
             tr.train(max_steps=DDP_GRAPH_STEPS, save_on_exit=False)
             torch.cuda.synchronize()
             d = tr._dispatch
+            # the eager warm-up step and each capture gathered once apiece
+            per_step = (tr.plan.gathers - gathers) / (1 + len(d.graphs))
             out.update(losses=list(losses), chunk_step_ms=list(ms), step=tr.step,
                        replays=d.replays, captures=len(d.graphs),
                        launches_per_replay=named_launches(d.launches),
                        launches_on_path=path_launches(named_launches(), d),
                        sharded_tensors=len(tr.plan.sharded), held=held_bytes(tr),
+                       memory=step_memory(), gathers_per_step=per_step,
                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                        digest=state_digest(gathered_state(tr, grads=False)))
             out["trace"] = traced_chunk(tr, TRACED_STEPS)
             out["collectives"] = collective_ms(tr)
             drop_graphs(tr)
-    finally:
+    except BaseException:
+        # a rank that failed leaves at once: a barrier here would wait for
+        # the ranks that wait for it in a collective
+        raise
+    else:
         parallel.sync_global_devices("fsdp_done")
+    finally:
         if parallel.is_primary():
             for path in runs:
                 shutil.rmtree(path, ignore_errors=True)
@@ -4626,16 +4726,21 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
     to 3. Every loss and the gathered final state (with the reduced
     gradients) bit-equal to the ddp phase's two ranks (its digest), B
     bit-equal to A, the step-2 directory exactly the manifest and the two
-    step-tagged shard files, each rank's launches the structure's per step;
-    recorded: each rank's bytes of EMA, moments and masters beside
-    ``replicated``'s, its peak memory, the sharded write's seconds and bytes
-    beside the ddp phase's full write, the collectives' ms. (b) The same
-    config at K=4 from the captured graph with an NCCL group of one rank:
-    every loss and the final state bit-equal to the ddp phase's K=4 runs
-    (NCCL at world 1 and no group, ``replicated``: without a group ``fsdp`` is
-    that same one-process path), the launches per replay the structure's,
-    the reduce-scatter and the all-gather in the trace of a chunk of
-    replays; recorded: ms per step beside the ddp phase's K=4 runs."""
+    step-tagged shard files, each rank's launches the structure's per step,
+    its bytes of state between steps (EMA, moments, the blocks of the trained
+    tensors and of the frozen trunk: blocks at rest) within 2% of
+    ``pdae_tpu``'s layout; recorded: those bytes beside ``replicated``'s and
+    the layout's before blocks at rest (reckoned), the plan's buffers, the
+    device memory between steps and the peak beside the ddp phase's
+    ``replicated`` ranks', the per-use gathers a step, the sharded write's
+    seconds and bytes beside the ddp phase's full write, the collectives'
+    ms. (b) The same config at K=4 from the captured graph with an NCCL group
+    of one rank: every loss and the final state bit-equal to the ddp phase's
+    K=4 runs (NCCL at world 1 and no group, ``replicated``: without a group
+    ``fsdp`` is that same one-process path), the launches per replay the
+    structure's, the per-use all-gathers and the reduce-scatter in the trace
+    of a chunk of replays; recorded: ms per step beside the ddp phase's K=4
+    runs."""
     import shutil
 
     records = {"config": {
@@ -4665,6 +4770,8 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
                "launches_per_rank": {f"rank{r['rank']}": r["launches"] for r in ranks},
                "held_bytes": {f"rank{r['rank']}": r["held"] for r in ranks},
                "peak_gb": [r["peak_gb"] for r in ranks],
+               "memory": {"replicated": want["memory"], "fsdp": [r["memory"] for r in ranks]},
+               "gathers_per_step": [r["gathers_per_step"] for r in ranks],
                "world2_step_ms": r0["step_ms"], "ddp_world2_step_ms": want["world2_step_ms"],
                "sharded_save_s": {f"rank{r['rank']}": r["save_s"] for r in ranks},
                "shard_bytes": {f"rank{r['rank']}": r["shard_bytes"] for r in ranks},
@@ -4673,9 +4780,15 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
         rec["launches_ok"] = all(r["launches"] == {k: v * DDP_STEPS
                                                    for k, v in want_step.items()}
                                  for r in ranks)
+        # a rank holds the blocks of the trained state and of the frozen
+        # trunk: pdae_tpu's layout, within 2% (the leaves kept whole)
+        rec["held_of_pdae_tpu_layout"] = [r["held"]["total"] / r["held"]["pdae_tpu_layout"]
+                                          for r in ranks]
+        rec["held_ok"] = all(abs(v - 1) <= 0.02 for v in rec["held_of_pdae_tpu_layout"])
         rec["ok"] = bool(rec["losses_equal_ddp"] and rec["state_equal_ddp"]
-                         and rec["resume_bit_equal"] and rec["launches_ok"]
+                         and rec["resume_bit_equal"] and rec["launches_ok"] and rec["held_ok"]
                          and r0["cut_files"] == want_files and r0["sharded_tensors"] > 0
+                         and all(r["gathers_per_step"] > 0 for r in ranks)
                          and all(math.isfinite(v) for v in r0["losses"]))
         records["two_ranks"] = rec
 
@@ -4688,26 +4801,30 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
                "launches_on_path": nccl["launches_on_path"],
                "chunk_step_ms": nccl["chunk_step_ms"],
                "ddp_chunk_step_ms": graph["chunk_step_ms"], "held_bytes": nccl["held"],
-               "peak_gb": nccl["peak_gb"], "trace": trace,
+               "peak_gb": nccl["peak_gb"], "memory": nccl["memory"], "trace": trace,
+               "gathers_per_step": nccl["gathers_per_step"],
+               "card_free_gb": {"fsdp": nccl["card_free_gb"],
+                                "ddp": graph.get("card_free_gb")},
                "ddp_nccl1_kernels_per_step": replicated["kernels_per_step"],
                "collectives_nccl": nccl["collectives"],
                "losses_equal_ddp": nccl["losses"] == graph["losses"]
                and len(nccl["losses"]) == DDP_GRAPH_STEPS,
                "state_equal_ddp": nccl["digest"] == graph["digest"]["nccl1"]
                == graph["digest"]["nogroup"]}
-        # the reduce-scatter and the all-gather replayed in the step's graph:
-        # at world 1 NCCL runs each as one copy on the card, so a replayed
-        # step holds, beyond the replicated step's device-to-device copies,
-        # the plan's write-back of each sharded tensor's block and those two
+        # the per-use all-gathers and the reduce-scatter replayed in the
+        # step's graph: at world 1 NCCL runs each as one copy on the card, so
+        # a replayed step holds, beyond the replicated step's device-to-device
+        # copies, one for each gather the captured step made and one more
         def copies(counts):
             return sum(c for name, c in counts.items() if "memcpy" in name.lower()
                        and "htod" not in name.lower() and "dtoh" not in name.lower())
 
         added = (copies(trace["events"]) - copies(replicated["events"])) / TRACED_STEPS
         rec["copies_added_per_step"] = added
-        rec["collectives_in_trace"] = added >= nccl["sharded_tensors"] + 2
+        rec["collectives_in_trace"] = added >= nccl["gathers_per_step"] + 1
         rec["ok"] = bool(rec["losses_equal_ddp"] and rec["state_equal_ddp"]
                          and nccl["tensor_backend"] == "nccl" and nccl["sharded_tensors"] > 0
+                         and nccl["gathers_per_step"] > 0
                          and nccl["replays"] == DDP_GRAPH_STEPS - 1
                          and nccl["launches_per_replay"] == want_step
                          and nccl["launches_on_path"] == {k: v * DDP_GRAPH_STEPS
@@ -4725,9 +4842,9 @@ def fsdp_phase(want_step, ddp, runs) -> dict:
 TP_SIZE = 2                      # two model ranks on the one card, over gloo
 TP_STEPS = 1                     # b32 steps of the tp run, then its control's
 TP4_BATCH = 8                    # a data rank's batch under fsdp+tp at world 4
-TP4_STEPS = 2
+TP4_STEPS = 1
 TP_SERVE_IMAGES = 8              # the tp service's b8 autoencode
-TP_SERVE_STYLE = "ddim2"
+TP_SERVE_STYLE = "ddim1"
 
 
 def tp_config(dpm_path, k=1, mode="tp", tp_size=TP_SIZE, batch=TRAIN_BATCH) -> dict:
@@ -4796,16 +4913,17 @@ def recorded_kernel_inputs(seen: collections.Counter):
 
 
 @contextlib.contextmanager
-def timed_tp_collectives(record: dict):
+def timed_tp_collectives(record: dict, targets=None):
     """The wall ms and the count of the model group's collectives
-    (``parallel/tp.py``'s all-gather, all-reduce and reduce-scatter) while
-    the block runs, into ``record``: the card is synchronised on entry to
-    each (gloo's host copy waits for it anyway), so the time is the
-    collective's own."""
-    from pdae_torch.parallel import tp
-
-    originals = {name: getattr(tp, name) for name in ("_all_gather", "_all_reduce",
-                                                      "_reduce_scatter")}
+    (``parallel/tp.py``'s all-gather, all-reduce and reduce-scatter; or
+    ``targets``, ``(module, name)`` pairs) while the block runs, into
+    ``record``: the card is synchronised on entry to each (gloo's host copy
+    waits for it anyway), so the time is the collective's own; the bytes
+    are those of the first argument (a tensor or a list of them)."""
+    if targets is None:
+        from pdae_torch.parallel import tp
+        targets = [(tp, name) for name in ("_all_gather", "_all_reduce", "_reduce_scatter")]
+    originals = [(module, name, getattr(module, name)) for module, name in targets]
     record.update(ms=0.0, count=0, bytes=0)
 
     def timed(fn):
@@ -4816,17 +4934,17 @@ def timed_tp_collectives(record: dict):
             torch.cuda.synchronize()
             record["ms"] += (time.perf_counter() - t0) * 1e3
             record["count"] += 1
-            record["bytes"] += x.numel() * x.element_size()
+            record["bytes"] += param_nbytes(x if isinstance(x, (list, tuple)) else [x])
             return out
         return wrapped
 
-    for name, fn in originals.items():
-        setattr(tp, name, timed(fn))
+    for module, name, fn in originals:
+        setattr(module, name, timed(fn))
     try:
         yield record
     finally:
-        for name, fn in originals.items():
-            setattr(tp, name, fn)
+        for module, name, fn in originals:
+            setattr(module, name, fn)
 
 
 def tp_all_gather_ms(groups, device, reps: int = 5) -> dict:
@@ -4873,12 +4991,19 @@ def tp_held_bytes(trainer) -> dict:
     ones and the frozen trunk, each its block where sharded), the EMA and
     the Adam moments, beside the bytes each would take whole."""
     modules = [trainer.encoder, trainer.decoder]
-    state, opt = trainer.state, trainer.optimizer.state
+    state, opt, plan = trainer.state, trainer.optimizer.state, trainer.plan
     masters = [m for named in state.masters.values() for m in named.values()]
     trained = [p for named in state.params.values() for p in named.values()]
     frozen = [p for m in modules for p in m.parameters() if not p.requires_grad]
     whole = sum(int(np.prod(trainer.tp_layout.whole_shape(p))) * 4 for p in trained)
-    return {"trained_params": param_nbytes(trained), "frozen_params": param_nbytes(frozen),
+    held = {"trained_params": param_nbytes(trained), "frozen_params": param_nbytes(frozen)}
+    if plan is not None:
+        # fsdp+tp: a tensor the plan holds has its block alone, its
+        # parameter is a placeholder
+        b = plan.held_bytes()
+        held = {"trained_params": b["trained_blocks"] + b["trained_whole"],
+                "frozen_params": b["frozen_blocks"] + b["frozen_whole"]}
+    return {**held,
             "ema": param_nbytes(t for named in state.ema_params.values()
                                 for t in named.values()),
             "moments": sum(opt[m][s].numel() * opt[m][s].element_size() for m in masters
@@ -4956,8 +5081,13 @@ def tp_run(spec, kind) -> dict:
                 with open(spec["go"], "w"):
                     pass
             out["service"] = tp_service(spec)
-    finally:
+    except BaseException:
+        # a rank that failed leaves at once: a barrier here would wait for
+        # the ranks that wait for it in a collective
+        raise
+    else:
         parallel.sync_global_devices("tp_done")
+    finally:
         if parallel.is_primary():
             shutil.rmtree(run, ignore_errors=True)
         out["s"] = time.perf_counter() - t0
@@ -4995,6 +5125,79 @@ def tp_service(spec) -> dict:
             "recon": recon.tolist()}
 
 
+HIER_SHAPE = [2, 2]              # fsdp over two "hosts" of two ranks, on the one card
+
+
+def hier_config(dpm_path) -> dict:
+    """``ddp_config`` under ``param_sharding: fsdp`` with ``mesh_layout:
+    hier`` on the ``HIER_SHAPE`` grid, ``TP4_BATCH`` a rank."""
+    cfg = tp_config(dpm_path, batch=TP4_BATCH)
+    rc = {k: v for k, v in cfg["runner_config"].items() if k != "tp_size"}
+    cfg["runner_config"] = {**rc, "param_sharding": "fsdp", "mesh_layout": "hier",
+                            "hier_shape": HIER_SHAPE}
+    return cfg
+
+
+def hier_run(spec) -> dict:
+    """The tp phase's ``hier`` run, made by the four-rank processes after
+    their sp run: a rank of ``fsdp`` on the ``HIER_SHAPE`` host grid
+    (blocks over a row of two, averaged over a column of two),
+    ``TP4_STEPS`` steps at b``TP4_BATCH``, the kernels' inputs and the plan's
+    collectives recorded. The run directory is deleted at the end."""
+    import gc
+    import shutil
+
+    from pdae_torch import ops, parallel
+    from pdae_torch.parallel import dist as pdist
+    from pdae_torch.train import pick_trainer
+
+    t0 = time.perf_counter()
+    rank, root, cfg = parallel.process_index(), spec["root"], spec["config"]
+    run = os.path.join(root, "hier")
+    out = {"rank": rank, "tensor_backend": parallel.tensor_backend()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        b0 = time.perf_counter()
+        tr = pick_trainer(cfg)(config=cfg, run_path=run, seed=spec["seed"])
+        out["build_s"] = time.perf_counter() - b0
+        g = tr.hier_groups
+        out.update(layout=tr.mesh_layout, place=[g.row, g.col],
+                   sharded=len(tr.plan.sharded) + len(tr.plan.frozen_sharded))
+        losses, ms = timed_losses(tr)
+        ops.reset_launch_counts()
+        seen, comm = collections.Counter(), {}
+        plan_collectives = [(pdist, "all_gather_dim"), (pdist, "all_reduce_mean_"),
+                            (parallel, "reduce_scatter_mean_")]
+        with recorded_kernel_inputs(seen), timed_tp_collectives(comm, plan_collectives):
+            tr.train(max_steps=TP4_STEPS, save_on_exit=False)
+            torch.cuda.synchronize()
+        out["collectives_per_step"] = {k: v / TP4_STEPS for k, v in comm.items()}
+        out.update(losses=losses, step_ms=ms, step=tr.step, launches=named_launches(),
+                   kernel_inputs=[[list(k), n] for k, n in sorted(seen.items(), key=str)],
+                   held=held_bytes(tr), memory=step_memory(),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        state = gathered_state(tr)
+        out["digest"] = state_digest(state)
+        if rank == 0:
+            torch.save(state, os.path.join(root, "hier_state.pt"))
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException:
+        # a rank that failed leaves at once: a barrier here would wait for
+        # the ranks that wait for it in a collective
+        raise
+    else:
+        parallel.sync_global_devices("hier_done")
+    finally:
+        if parallel.is_primary():
+            shutil.rmtree(run, ignore_errors=True)
+        out["s"] = time.perf_counter() - t0
+    return out
+
+
 def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, bound,
              controls=None) -> dict:
     """Tensor parallelism (``param_sharding: tp``/``fsdp+tp``, the service's
@@ -5011,7 +5214,10 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
     ``fsdp+tp`` at world 4 (tp 2 x data 2), b8 a data rank, ``TP4_STEPS``
     steps against one process over the 16 rows. (d) The tp path at
     ``tp_size`` 1 with an NCCL group of one rank, from the captured graph at
-    K=4: bit-equal to the ddp phase's ``replicated`` K=4 run. The
+    K=4: bit-equal to the ddp phase's ``replicated`` K=4 run. (e) ``fsdp``
+    under ``mesh_layout: hier`` on the ``HIER_SHAPE`` grid, the four
+    processes' last run: b``TP4_BATCH`` a rank, ``TP4_STEPS`` steps against
+    one process over the 32 rows, each rank's launches the structure's. The
     one-process runs and the service's result go into ``controls``, and
     the four processes' sp runs into ``runs["sp_four_ranks"]``, for the sp
     phase."""
@@ -5034,6 +5240,9 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
                       f"rank, {TP4_STEPS} steps; control: one process at b{2 * TP4_BATCH}",
         "nccl1": f"the tp path at tp_size 1, K=4 from the captured graph, {DDP_GRAPH_STEPS} "
                  "steps, an NCCL group of one rank; against the ddp phase's replicated run",
+        "hier": f"fsdp under mesh_layout hier, hier_shape {HIER_SHAPE} on one card, "
+                f"b{TP4_BATCH} a rank, {TP4_STEPS} steps; control: one process at "
+                f"b{4 * TP4_BATCH}",
         "numerics": "fp32, TF32 off, cudnn.deterministic, Adam eps 1e-5",
         "tolerances": DDP_TOL}}
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -5062,21 +5271,23 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
             shutil.rmtree(os.path.join(root, "control"), ignore_errors=True)
             return losses, ms, state
 
-        # (c) ran in four processes of their own beside the two ranks' tp run
-        four, wall4 = finish_workers(runs["four_ranks"])
-        runs["sp_four_ranks"] = [r.pop("sp") for r in four]
-        four = [r["tp"] for r in four]
         # the one-process runs the tp runs are held to, and the one-process
-        # service's autoencode
+        # service's autoencode, beside the four processes' sp and hier runs
         made = {"two_ranks": control(tp_config(dpm), 1, TRAIN_BATCH, TP_STEPS),
                 "four_ranks": control(tp_config(dpm, batch=TP4_BATCH), 2, TP4_BATCH,
                                       TP4_STEPS),
+                "hier": control(tp_config(dpm, batch=TP4_BATCH), 4, TP4_BATCH, TP4_STEPS),
                 "service": service.autoencode(images[:TP_SERVE_IMAGES], TP_SERVE_STYLE,
                                               TP_SERVE_STYLE)}
         if controls is not None:
             controls.update(made)
+        # (c) ran in four processes of their own beside the two ranks' tp run
+        four, wall4 = finish_workers(runs["four_ranks"])
+        runs["sp_four_ranks"] = [r.pop("sp") for r in four]
+        hier = [r.pop("hier") for r in four]
+        four = [r["tp"] for r in four]
 
-        def held_to(run, kind, ranks, batch, steps, want_launches):
+        def held_to(run, kind, ranks, batch, steps, want_launches, tp=TP_SIZE):
             r0 = run[0]
             want_losses, want_ms, want = made[kind]
             got = torch.load(os.path.join(root, f"{kind}_state.pt"))
@@ -5099,7 +5310,7 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
             rec["launches_ok"] = all(r["launches"] == {k: v * steps for k, v in
                                                        want_launches.items()} for r in run)
             local = {str(list(k)): n * steps for k, n in tp_local_keys(
-                per_step, batch=batch).items()}
+                per_step, tp=tp, batch=batch).items()}
             rec["kernel_inputs_local"] = all(
                 {str(k): n for k, n in r["kernel_inputs"]} == local for r in run)
             rec["ok"] = bool(rec["loss_rel"] <= DDP_TOL["loss_rel"]
@@ -5117,6 +5328,13 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
         records["two_ranks"] = rec
         rec = held_to(four, "four_ranks", 2, TP4_BATCH, TP4_STEPS, want_step)
         records["four_ranks"] = rec
+        # (e) fsdp on the [2, 2] host grid, held to one process over its 32 rows
+        rec = held_to(hier, "hier", 4, TP4_BATCH, TP4_STEPS, want_step, tp=1)
+        rec.update(places=[r["place"] for r in hier], memory=[r["memory"] for r in hier],
+                   layout=[r["layout"] for r in hier])
+        rec["ok"] = bool(rec["ok"] and rec["layout"] == ["hier"] * 4
+                         and rec["places"] == [[0, 0], [0, 1], [1, 0], [1, 1]])
+        records["hier"] = rec
         # (b) the service
         got = [np.asarray(r["service"]["recon"], np.uint8) for r in two]
         want = made["service"]
@@ -5150,6 +5368,7 @@ def tp_phase(seed, device, want_step, per_step, ddp, runs, service, images, boun
                              "four_ranks": four[0]["kernel_inputs"]}
         records["run_s"] = {"two_ranks": max(r["s"] for r in two),
                             "four_ranks": max(r["s"] for r in four), "nccl1": n1["s"],
+                            "hier": max(r["s"] for r in hier),
                             "four_ranks_wall_from_ddp_start": wall4}
     finally:
         stop_workers(runs["four_ranks"])
@@ -5389,8 +5608,9 @@ def sp_run(spec, kind) -> dict:
         out["collectives_per_step"] = {k: v / steps for k, v in comm.items()}
         out.update(losses=losses, step_ms=ms, step=tr.step, launches=named_launches(),
                    kernel_inputs=[[list(k), n] for k, n in sorted(seen.items(), key=str)],
-                   params_bytes=param_nbytes(p for m in (tr.encoder, tr.decoder)
-                                             for p in m.parameters()),
+                   params_bytes=(param_nbytes(p for m in (tr.encoder, tr.decoder)
+                                              for p in m.parameters()) if tr.plan is None
+                                 else sum(tr.plan.held_bytes().values())),
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         state = sp_state(tr)
         out["digest"] = state_digest(state)
@@ -5399,8 +5619,13 @@ def sp_run(spec, kind) -> dict:
         del tr, state
         gc.collect()
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
+        # a rank that failed leaves at once: a barrier here would wait for
+        # the ranks that wait for it in a collective
+        raise
+    else:
         parallel.sync_global_devices("sp_done")
+    finally:
         if parallel.is_primary():
             shutil.rmtree(run, ignore_errors=True)
         out["s"] = time.perf_counter() - t0
@@ -5963,6 +6188,18 @@ def main(argv=None) -> int:
     emit({"phase": "whole_path", "batch": 2, **res, "ok": ok})
     if not ok:
         raise AssertionError("the kernel path disagrees with the plain path")
+
+    # the train step's state and the models the phases above compared are
+    # done with: their memory goes back to the card now, before the later
+    # phases' allocations settle around it (the ddp phase's processes share
+    # the card, and cuDNN filters its algorithms by its free memory)
+    import gc
+
+    del state, optimizer, params, start, frozen_start, train_step, now, leaves, loss, x_0
+    del x, t, zz, eps_k, g_k, eps_p, g_p, noise, grads_k, grads_p, latent, classifier
+    del kernel_out, kernel_again, plain_out, x_s, weight
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 7. the representation-learning trainer at full width ---------------------
     trainer = trainer_phase(args.seed, device, want_step,

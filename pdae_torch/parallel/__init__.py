@@ -9,12 +9,13 @@ from .dist import (all_gather_into_, all_reduce_mean_, default_backend,
                    dispatch_num_samples_for_process, gather_full, gather_objects,
                    init_distributed, is_primary, mean_all_reducer, process_count,
                    process_index, process_shard_indices, reduce_scatter_mean_,
-                   sync_global_devices, tensor_backend)
-from .mesh import FSDP_MIN_SIZE, fsdp_dim, fsdp_tp_dims, sp_coords, tp_coords, tp_dim
+                   sync_global_devices, tensor_backend, tensor_group)
+from .mesh import (FSDP_MIN_SIZE, fsdp_dim, fsdp_tp_dims, hier_coords, hier_shape, sp_coords,
+                   tp_coords, tp_dim)
 
 __all__ = ["all_gather_into_", "all_reduce_mean_", "default_backend",
            "dispatch_num_samples_for_process", "gather_full", "gather_objects",
            "init_distributed", "is_primary", "mean_all_reducer", "process_count",
            "process_index", "process_shard_indices", "reduce_scatter_mean_",
-           "sync_global_devices", "tensor_backend", "FSDP_MIN_SIZE", "fsdp_dim",
-           "fsdp_tp_dims", "sp_coords", "tp_coords", "tp_dim"]
+           "sync_global_devices", "tensor_backend", "tensor_group", "FSDP_MIN_SIZE", "fsdp_dim",
+           "fsdp_tp_dims", "hier_coords", "hier_shape", "sp_coords", "tp_coords", "tp_dim"]

@@ -1,8 +1,9 @@
 """The layout rules of ``pdae_tpu/parallel/mesh.py`` as pure functions of a
 flax leaf's shape: which of its dims FSDP (``fsdp_sharding``), tensor
 parallelism (``tp_sharding``) and both together (``fsdp_tp_sharding``) split,
-or none; and a rank's place on the ``[data, model]`` grid (``make_tp_mesh``)
-and on the ``[data, sp]`` grid (``make_sp_mesh``).
+or none; and a rank's place on the ``[data, model]`` grid (``make_tp_mesh``),
+on the ``[data, sp]`` grid (``make_sp_mesh``) and on the ``[rows, cols]``
+host grid of ``mesh_layout: hier`` (``make_hier_mesh``).
 
 ``pdae_tpu`` lays a leaf out over the data axis of its mesh by this rule; the
 port's ``param_sharding: fsdp`` (``training/fsdp.py``) applies it to the
@@ -94,3 +95,37 @@ def sp_coords(rank: int, world: int, sp: int) -> Tuple[int, int]:
     if sp < 1 or world % sp:
         raise ValueError(f"sp_size={sp} must divide the device count {world}")
     return rank // sp, rank % sp
+
+
+def hier_shape(world: int, local_world: int,
+               shape: Optional[Sequence[int]] = None) -> Tuple[int, int]:
+    """``(rows, cols)`` of the host grid of ``pdae_tpu``'s ``make_hier_mesh``
+    over ``world`` ranks: a row a host, a column a card of each host. Without
+    ``shape`` a host is the ``local_world`` ranks that torchrun numbers
+    together (``LOCAL_WORLD_SIZE``): ``world // local_world`` rows of
+    ``local_world``, and ``pdae_tpu``'s ``ValueError`` where ``local_world``
+    does not divide ``world``. ``shape`` (``runner_config.hier_shape``)
+    must cover the world: a process group cannot leave ranks out as a JAX
+    mesh leaves devices out."""
+    if shape is not None:
+        rows, cols = (int(v) for v in shape)
+        if rows < 1 or cols < 1 or rows * cols != world:
+            raise ValueError(f"runner_config.hier_shape={list(shape)} must cover the "
+                             f"world of {world} processes (rows * cols == {world})")
+        return rows, cols
+    if local_world < 1 or world % local_world:
+        counts = [local_world] * (world // max(local_world, 1))
+        if world % max(local_world, 1):
+            counts.append(world % max(local_world, 1))
+        raise ValueError(f"uneven device count per process: {counts}")
+    return world // local_world, local_world
+
+
+def hier_coords(rank: int, world: int, rows: int, cols: int) -> Tuple[int, int]:
+    """``(row, column)`` of ``rank`` on the ``[rows, cols]`` host grid
+    (``make_hier_mesh``'s ``devices[:rows * cols].reshape(rows, cols)``): the
+    row is its host (``dcn``), the column its card there (``ici``), the
+    FSDP axis."""
+    if rows * cols != world:
+        raise ValueError(f"a [{rows}, {cols}] grid does not cover {world} processes")
+    return rank // cols, rank % cols

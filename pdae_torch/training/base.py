@@ -62,19 +62,28 @@ group cannot be captured, so ``steps_per_dispatch`` > 1 needs NCCL there.
 
 FSDP (``param_sharding: fsdp`` under ``torchrun``, ``fsdp_min_size``): each
 rank holds only its block of every trained tensor that ``pdae_tpu``'s rule
-shards (its master, EMA and Adam moments; ``training/fsdp.py``), the step
-reduce-scatters those gradients and all-gathers the parameters, and the
-frozen modules stay whole. A ``full`` save gathers the state first (on the
-card; collective) and the primary writes it; the eval gathers the EMA on
-every rank. In one process, or without a tensor group, ``fsdp`` is the
-one-process layout, as every process function is then the identity.
-``mesh_layout`` ``auto`` and ``flat`` are the one flat group (JAX's ``auto``
-picks ``hier`` only for processes of several devices; a port process has one
-card).
+shards (its master, EMA and Adam moments; ``training/fsdp.py``) and of every
+such frozen tensor (the representation trunk, the latent and manipulation
+stages' frozen encoder and decoder: ``_place_frozen``'s placement); the step
+all-gathers each tensor where it is used and reduce-scatters the gradients. A
+``full`` save gathers the state first (on the card; collective) and the
+primary writes it; the eval gathers the EMA and the frozen modules on every
+rank for its duration. In one process, or without a tensor group, ``fsdp``
+is the one-process layout, as every process function is then the identity.
+``mesh_layout`` (``pdae_tpu``'s, resolved by ``mesh_layout()``): ``flat``
+shards over the world; ``hier`` lays the ranks out on a ``[rows, cols]``
+host grid (``hier_shape``, else a host is the ranks of one
+``LOCAL_WORLD_SIZE``; ``parallel/hier.py``), shards over a host's row, and
+averages the blocks' gradients over the column; ``auto`` is ``hier`` for
+``fsdp`` over more than one host of more than one rank each, as ``pdae_tpu``
+picks it for processes of several chips each, else ``flat``. Under
+``replicated`` the layout changes nothing, as in ``pdae_tpu``. The batch
+shards over the whole world in rank order under either layout.
 
 ``checkpoint_format: sharded`` writes ``pdae_tpu``'s directory layout
 (``utils/sharded_checkpoint.py``): every rank its pieces of the sharded
-tensors, rank 0 the leaves that are whole everywhere, the primary the
+tensors (under ``hier`` the ranks of row 0), rank 0 the leaves that are
+whole everywhere, the primary the
 manifest last, after every shard file is on disk; with one process the
 background writer does it, with several the write is synchronous (its
 barrier is a collective), and a failed write stops the ranks by consensus as
@@ -113,8 +122,7 @@ are. ``fsdp+sp`` adds
 the FSDP plan over the data group, with the sp group's sum before it. Both
 checkpoint formats write as under ``replicated`` and ``fsdp``.
 
-Not ported yet, and refused by name rather than ignored: ``mesh_layout:
-hier`` and profiler traces.
+Not ported yet, and refused by name rather than ignored: profiler traces.
 """
 
 from __future__ import annotations
@@ -143,6 +151,7 @@ from ..utils.image import png_bytes
 from ..utils.rng import DROPOUT, INIT, TRAIN, StepGenerator, stream_seed
 from ..utils.sharded_checkpoint import (cleanup_stale_shards, manifest_skeleton,
                                         write_manifest, write_shard_file)
+from ..parallel import hier as hier_parallel
 from ..parallel import sp as spatial_parallel
 from ..parallel import tp as tensor_parallel
 from .fsdp import FsdpPlan, local_pieces
@@ -243,14 +252,9 @@ def refuse_unported(config: dict) -> None:
     if layout == "hier" and "sp" in sharding.split("+"):
         raise ValueError("mesh_layout 'hier' applies to fsdp; sp builds its own [data, sp] "
                          "mesh")
-    checks = [
-        (layout == "hier", "runner_config.mesh_layout='hier'", 15),
-        (bool(rc.get("profile_dir")), "runner_config.profile_dir", 6),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1 "
-                                      f"item {item})")
+    if rc.get("profile_dir"):
+        raise NotImplementedError("runner_config.profile_dir is not ported yet (ROADMAP.md, "
+                                  "queue 1 item 6)")
     if rc.get("checkpoint_format", "full") not in ("full", "sharded"):
         raise ValueError(f"runner_config.checkpoint_format must be 'full' or 'sharded', "
                          f"got {rc['checkpoint_format']!r}")
@@ -262,6 +266,23 @@ def refuse_unported(config: dict) -> None:
         raise RuntimeError(f"WORLD_SIZE={world}, but this process has not joined the "
                            "process group: call pdae_torch.parallel.init_distributed() "
                            "before building the trainer (python -m pdae_torch.train does)")
+
+
+def mesh_layout(config: dict, world: int, local_world: int):
+    """``(layout, (rows, cols))``: ``runner_config.mesh_layout`` resolved as
+    ``pdae_tpu/training/base.py`` resolves it, with a host the ranks of one
+    ``local_world`` (torchrun's ``LOCAL_WORLD_SIZE``): ``auto`` is ``hier``
+    where ``fsdp`` spans more than one host of more than one rank each, else
+    ``flat``; the grid is ``hier_shape`` where set (it must cover the world),
+    else the hosts (``parallel.hier_shape``), and ``None`` under ``flat``."""
+    rc = config.get("runner_config") or {}
+    layout = rc.get("mesh_layout", "auto")
+    if layout == "auto":
+        fsdp = rc.get("param_sharding", "replicated") == "fsdp"
+        layout = "hier" if fsdp and 1 < local_world < world else "flat"
+    if layout != "hier":
+        return layout, None
+    return layout, parallel.hier_shape(world, local_world, rc.get("hier_shape"))
 
 
 def has_dropout(*modules) -> bool:
@@ -291,9 +312,12 @@ def with_weights(modules: Dict[str, nn.Module], weights: Dict[str, Dict], fn, *a
     """``fn(*modules.values(), *args)`` with ``weights`` (module name ->
     parameter name -> tensor: the EMA) in place of those parameters for the
     one call (``torch.func.functional_call``, once for a whole sampling
-    loop); the modules' own tensors are never touched."""
+    loop); the modules' own tensors are never touched. A module registered
+    under two names (MLPSkipNet's ``linear_emb``, also ``cond_layers.1``)
+    is one entry: ``tie_weights`` would swap it under each name and put back
+    the first swap's tensor under the second, leaving the EMA in place."""
     flat = {f"mods.{m}.{k}": v for m, named in weights.items() for k, v in named.items()}
-    return torch.func.functional_call(_Bound(modules, fn), flat, args)
+    return torch.func.functional_call(_Bound(modules, fn), flat, args, tie_weights=False)
 
 
 class BaseTrainer:
@@ -330,6 +354,14 @@ class BaseTrainer:
         # leaves smaller than this stay whole under fsdp
         self.fsdp_min_size = int(rc.get("fsdp_min_size", parallel.FSDP_MIN_SIZE))
         self.plan = None            # the FSDP plan (_shard_state)
+        self._frozen = {}           # the frozen tensors the plan holds (_freeze)
+        # FSDP's host grid under mesh_layout hier (the batch still shards
+        # over the whole world)
+        self.mesh_layout, grid = mesh_layout(
+            self.config, self.world, int(os.environ.get("LOCAL_WORLD_SIZE", self.world)))
+        self.hier_groups = None
+        if grid is not None and self.param_sharding == "fsdp":
+            self.hier_groups = hier_parallel.hier_groups(*grid)
         self._skeleton_cache = None
         # tensor parallelism: the layout of the sharded modules, and the
         # batch's shard by data index (every rank's own without tp)
@@ -553,28 +585,52 @@ class BaseTrainer:
         return spatial_parallel.grad_sum(sum(p.numel() for p in params), self.device,
                                          self.sp_groups, self._partial_grads(params))
 
-    def _shard_state(self, params: Dict[str, Dict], to_trees: Dict[str, Any]) -> None:
+    def _freeze(self, group: str, module: nn.Module, to_tree,
+                params: Optional[Dict[str, nn.Parameter]] = None) -> None:
+        """Hand a frozen module (``to_tree`` maps its state dict to the flax
+        tree; ``params``: its frozen parameters by name, by default all) to
+        the FSDP plan, which holds the sharded ones as blocks; call it before
+        ``_shard_state``."""
+        self._frozen[group] = (dict(module.named_parameters()) if params is None else params,
+                               to_tree, module)
+
+    def _shard_state(self, params: Dict[str, Dict], to_trees: Dict[str, Any],
+                     modules=()) -> None:
         """The trained ``params`` (``{group: {name: Parameter}}``, the
-        rank's tp blocks under tensor parallelism) laid out: under ``fsdp``
-        or ``fsdp+tp`` with a tensor group the FSDP plan (``to_trees[group]``
-        maps a group's state dict to its flax tree; over the data group under
-        ``fsdp+tp``), then the optimizer (``optimizer_config``) over the
-        masters and the ``TrainState``."""
+        rank's tp blocks under tensor parallelism) laid out: under ``fsdp``,
+        ``fsdp+tp`` or ``fsdp+sp`` with a tensor group the FSDP plan
+        (``to_trees[group]`` maps a group's state dict to its flax tree; over
+        a host's row under ``hier``, over the data group under ``fsdp+tp`` and
+        ``fsdp+sp``) of them (``modules`` hold them) and of the frozen
+        modules' tensors (``_freeze``), then the optimizer
+        (``optimizer_config``) over the masters and the ``TrainState``."""
         self.optimizer_config = self.config["optimizer_config"]
-        if parallel.tensor_backend() is not None:
-            if self.param_sharding == "fsdp":
-                self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device)
+        if parallel.tensor_backend() is not None and "fsdp" in self.param_sharding.split("+"):
+            held = {"modules": list(modules) + [m for _, _, m in self._frozen.values()],
+                    "frozen": {g: named for g, (named, _, _) in self._frozen.items()},
+                    "frozen_trees": {g: tree for g, (_, tree, _) in self._frozen.items()}}
+            if self.param_sharding == "fsdp" and self.hier_groups is not None:
+                g = self.hier_groups
+                self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device,
+                                     g.row_group, (g.col, g.cols),
+                                     whole_group=parallel.tensor_group(),
+                                     replica_group=g.col_group if g.rows > 1 else None,
+                                     **held)
+            elif self.param_sharding == "fsdp":
+                self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device,
+                                     **held)
             elif self.param_sharding == "fsdp+tp":
                 g = self.tp_layout.groups
                 self.plan = FsdpPlan(
                     params, to_trees, self.fsdp_min_size, self.device, g.data_group,
-                    (g.data_index, g.dp), self.tp_layout.fsdp_rule(params),
-                    self.tp_layout.model_sum(flat_params(params), self.device))
-            elif self.param_sharding == "fsdp+sp":
+                    (g.data_index, g.dp), self.tp_layout.fsdp_rule({**params,
+                                                                    **held["frozen"]}),
+                    self.tp_layout.model_sum(flat_params(params), self.device), **held)
+            else:
                 g = self.sp_groups
                 self.plan = FsdpPlan(params, to_trees, self.fsdp_min_size, self.device,
                                      g.data_group, (g.data_index, g.dp),
-                                     pre_reduce=self._sp_sum(flat_params(params)))
+                                     pre_reduce=self._sp_sum(flat_params(params)), **held)
         masters = params if self.plan is None else self.plan.masters
         self.optimizer = make_optimizer(self.optimizer_config, flat_params(masters))
         self.state = TrainState.create(params, self.optimizer, plan=self.plan,
@@ -659,6 +715,20 @@ class BaseTrainer:
             out[g][k] = t
         return out
 
+    def _whole_frozen(self):
+        """The frozen modules whole for the block's duration (an eval), under
+        FSDP gathered on every rank (collective); as they are without a
+        plan."""
+        return contextlib.nullcontext() if self.plan is None else self.plan.whole_frozen()
+
+    def _load_module(self, module: nn.Module, state_dict: Dict[str, Any]) -> None:
+        """``module.load_state_dict(state_dict, strict=True)``, under FSDP
+        into the blocks of the tensors the plan holds."""
+        if self.plan is None:
+            module.load_state_dict(state_dict, strict=True)
+        else:
+            self.plan.load_module(module, state_dict)
+
     def _frozen_snapshot(self) -> Dict[str, Any]:
         """What a snapshot holds besides the trained state (the
         representation trainer's trunk tree)."""
@@ -676,8 +746,8 @@ class BaseTrainer:
         count, mu, nu = adam_moments(self.optimizer, live)
         held = [ema[g][k] for g, k in names] + mu + nu
         if full and self.plan is not None:
-            live = [self.state.params[g][k] for g, k in names]
-            held = self.plan.gather(held)
+            whole = self.plan.gather(live + held)
+            live, held = whole[:len(names)], whole[len(names):]
         if full and self.tp_layout is not None:
             params = [self.state.params[g][k] for g, k in names]
             whole = self.tp_layout.gather(live + held, params * 4)
@@ -705,16 +775,18 @@ class BaseTrainer:
     def _skeleton(self) -> Dict[str, Dict]:
         """The checkpoint's manifest skeleton, each leaf's global ``{shape,
         dtype}`` keyed by path, made once from the whole parameters (whole
-        on every rank; zeros of the whole shapes under tensor
-        parallelism)."""
+        on every rank; under FSDP or tensor parallelism host zeros of the
+        whole shapes)."""
         if self._skeleton_cache is None:
             params = self.state.params
             names = [(g, k) for g in params for k in params[g]]
-            if self.tp_layout is None:
-                copies = host_copy([params[g][k] for g, k in names])
-            else:
+            if self.tp_layout is not None:
                 copies = [torch.zeros(self.tp_layout.whole_shape(params[g][k]))
                           for g, k in names]
+            elif self.plan is not None:
+                copies = [torch.zeros(params[g][k].shape) for g, k in names]
+            else:
+                copies = host_copy([params[g][k] for g, k in names])
             whole = {g: {} for g in params}
             for (g, k), t in zip(names, copies):
                 whole[g][k] = t
@@ -861,6 +933,8 @@ class BaseTrainer:
                      self.tp_layout.piece_index(self.plan is not None))
             if self.sp_groups is not None:
                 index = spatial_parallel.piece_index(self.sp_groups)
+            if self.hier_groups is not None:
+                index = hier_parallel.piece_index(self.hier_groups)
             pieces = local_pieces(tree, skeleton, self.rank, self.world, index)
             for _, target in targets:
                 os.makedirs(target, exist_ok=True)

@@ -95,7 +95,7 @@ class LatentDiffusionTrainer(StageTrainer):
 
         self.model.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._whole_frozen():
                 imgs = with_weights({"model": self.model}, {"model": self.ema_weights()},
                                     sample, z_T, x_T)
         finally:

@@ -76,20 +76,21 @@ class ManipulationTrainer(StageTrainer):
             raise ValueError(f"class_id {class_id} is not one of the classifier's "
                              f"{self.num_classes} classes")
         weight = self.ema_weights(whole=True)["weight"]      # collective under FSDP/tp
-        # under tensor or spatial parallelism the frozen PDAE runs split:
-        # every rank decodes, the primary writes
-        if not self.primary and self.tp_layout is None and self.sp_groups is None:
-            return
-        t0 = time.perf_counter()
-        batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
-        x_0 = x0_from_transfer(torch.from_numpy(batch["x_0"]).to(self.device)
-                               .permute(0, 3, 1, 2).contiguous())
-        with torch.inference_mode():
-            x_T = self.gd.representation_learning_ddim_encode(
-                encode_style, self.encoder, self.decoder, x_0)
-            imgs = self.gd.manipulation_sample(
-                decode_style, weight, self.encoder, self.decoder, x_0, x_T,
-                self.latents_mean, self.latents_std, class_id, scale)
+        with self._whole_frozen():                           # collective under FSDP
+            # under tensor or spatial parallelism the frozen PDAE runs split:
+            # every rank decodes, the primary writes
+            if not self.primary and self.tp_layout is None and self.sp_groups is None:
+                return
+            t0 = time.perf_counter()
+            batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
+            x_0 = x0_from_transfer(torch.from_numpy(batch["x_0"]).to(self.device)
+                                   .permute(0, 3, 1, 2).contiguous())
+            with torch.inference_mode():
+                x_T = self.gd.representation_learning_ddim_encode(
+                    encode_style, self.encoder, self.decoder, x_0)
+                imgs = self.gd.manipulation_sample(
+                    decode_style, weight, self.encoder, self.decoder, x_0, x_T,
+                    self.latents_mean, self.latents_std, class_id, scale)
         if not self.primary:
             return
         grid = to_uint8(torch.cat([x_0, imgs]).permute(0, 2, 3, 1).cpu().numpy())

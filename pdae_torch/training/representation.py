@@ -22,9 +22,10 @@ gradient branch trained on a frozen pre-trained DPM. The port of
   shift branch), ``ema_decoder`` (trunk and EMA shift branch), ``optimizer``
   (optax's layout) and ``step``, every tree in the flax layout, so
   ``pdae_tpu``'s trainer resumes from the port's files and the port from its.
-  Under FSDP (``param_sharding: fsdp``) the encoder and the shift branch are
-  sharded by the plan (``training/fsdp.py``), the trunk stays whole on every
-  rank and rank 0 writes it in a sharded checkpoint. Under tensor
+  Under FSDP (``param_sharding: fsdp``) the plan (``training/fsdp.py``)
+  holds the encoder's, the shift branch's and the trunk's large tensors as
+  each rank's blocks; the trunk's checkpoint tree stays the whole host copy
+  made at the graft, which rank 0 writes in a sharded checkpoint. Under tensor
   parallelism the encoder and the whole decoder, trunk too, hold the rank's
   tp blocks and run split (``parallel/tp.py``); the trunk's checkpoint tree
   stays the whole host copy made at the graft.
@@ -47,7 +48,7 @@ from ..utils.image import make_grid, x0_from_transfer
 from ..utils.rng import EVAL, generator
 from .artifacts import graft_ddpm_into_decoder, load_ddpm_params, resolve_model_config
 from .base import BaseTrainer, has_dropout, init_on_cpu, with_weights
-from .partition import split_shift_tree, trainable_params
+from .partition import split_shift_tree, split_shift_unet, trainable_params
 from .steps import make_representation_train_step
 
 def _copy_tree(tree):
@@ -82,8 +83,11 @@ class RepresentationLearningTrainer(BaseTrainer):
 
         self._shard_module(self.encoder, encoder_tree)
         self._shard_module(self.decoder, unet_tree)
+        self._freeze("trunk", self.decoder, unet_tree,
+                     split_shift_unet(dict(self.decoder.named_parameters()))[1])
         self._shard_state(trainable_params(self.encoder, self.decoder),
-                          {"encoder": encoder_tree, "shift": unet_tree})
+                          {"encoder": encoder_tree, "shift": unet_tree},
+                          (self.encoder, self.decoder))
         rc = self.runner_config
         self._step_fn = make_representation_train_step(
             self.gd, self.encoder, self.decoder, self.optimizer,
@@ -123,7 +127,7 @@ class RepresentationLearningTrainer(BaseTrainer):
         self.encoder.eval()
         self.decoder.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._whole_frozen():
                 imgs = with_weights({"encoder": self.encoder, "decoder": self.decoder},
                                     {"encoder": ema["encoder"], "decoder": ema["shift"]},
                                     sample, x_0, x_T)
@@ -163,7 +167,7 @@ class RepresentationLearningTrainer(BaseTrainer):
         shift, trunk = split_shift_tree(raw["decoder"])
         ema_shift, _ = split_shift_tree(raw["ema_decoder"])
         moments = optimizer_moments(self.optimizer_config, raw["optimizer"])
-        self.decoder.load_state_dict(unet_state_dict(raw["decoder"]), strict=True)
+        self._load_module(self.decoder, unet_state_dict(raw["decoder"]))
         self.state.load_converted({
             "step": int(raw["step"]),
             "params": {"encoder": encoder_state_dict(raw["encoder"]),

@@ -6,9 +6,9 @@ PDAE they read.
 The checkpoint of a stage holds ``<params_key>``, ``<ema_key>``,
 ``optimizer`` and ``step``, each tree as ``pdae_tpu``'s trainer of that
 stage writes it, so either package resumes the other's files. Under FSDP the
-trained module is sharded by the plan (``training/fsdp.py``); the frozen
-PDAE stays whole on every rank. Under tensor parallelism the trained module
-and the frozen PDAE hold the rank's tp blocks and run split
+plan (``training/fsdp.py``) holds the large tensors of the trained module
+and of the frozen PDAE as each rank's blocks. Under tensor parallelism the
+trained module and the frozen PDAE hold the rank's tp blocks and run split
 (``parallel/tp.py``).
 """
 
@@ -38,7 +38,7 @@ class StageTrainer(BaseTrainer):
         self._dropout = has_dropout(model)
         self._shard_module(model, type(self).to_tree)
         self._shard_state({"model": dict(model.named_parameters())},
-                          {"model": type(self).to_tree})
+                          {"model": type(self).to_tree}, [model])
         self.ema_decay = float(self.runner_config.get("ema_decay", 0.9999))
         self.eval_seconds = []
 
@@ -83,6 +83,8 @@ class StageTrainer(BaseTrainer):
             m.to(self.device).eval()
         self._shard_module(self.encoder, encoder_tree)
         self._shard_module(self.decoder, unet_tree)
+        self._freeze("frozen_encoder", self.encoder, encoder_tree)
+        self._freeze("frozen_decoder", self.decoder, unet_tree)
         mean, std = load_latent_stats(cfg["inferred_latents"])
         self.latents_mean, self.latents_std = mean.to(self.device), std.to(self.device)
         self.latent_dim = int(pdae_cfg["encoder_config"]["latent_dim"])
@@ -112,7 +114,8 @@ class StageTrainer(BaseTrainer):
         if self._resident_cache is None:
             from .resident import encode_corpus, materialize_step_arrays
             host = materialize_step_arrays(self.train_dataset, ("x_0",) + tuple(keys))
-            z = encode_corpus(self.encoder, host["x_0"], self.device)
+            with self._whole_frozen():
+                z = encode_corpus(self.encoder, host["x_0"], self.device)
             print(f"precomputed-z corpus: {z.shape[0]} items, "
                   f"{z.numel() * z.element_size() / 2 ** 20:.1f} MB on {self.device}",
                   flush=True)

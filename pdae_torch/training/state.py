@@ -7,8 +7,9 @@ EMA copy and the optimizer's moments **in place**. ``TrainState`` holds
 references to the modules' parameters, not copies.
 
 Under FSDP (``training/fsdp.py``) the optimizer and the EMA run on the
-plan's ``masters``: this rank's block of each sharded tensor, a tensor of its
-own, and the parameter itself where the tensor is whole; without a plan the
+plan's ``masters``: this rank's block of each sharded tensor, the one copy
+of it the rank holds (its parameter is an empty placeholder between uses),
+and the parameter itself where the tensor is whole; without a plan the
 masters are the parameters. Under tensor parallelism (``parallel/tp.py``)
 the parameters themselves are the rank's tp blocks.
 
@@ -100,9 +101,9 @@ class TrainState:
 
     def load_converted(self, converted: dict) -> None:
         """Copy a train state carried over by
-        ``pdae_torch.utils.convert.train_state_tensors`` (whole tensors) into
-        the modules' parameters, and this rank's part of it into the masters,
-        the EMA copy and the optimizer's moments."""
+        ``pdae_torch.utils.convert.train_state_tensors`` (whole tensors): this
+        rank's part of it into the masters (the modules' parameters, or
+        under FSDP the blocks), the EMA copy and the optimizer's moments."""
         self.step = int(converted["step"])
         with torch.no_grad():
             for group, named in self.params.items():
@@ -111,8 +112,9 @@ class TrainState:
                 for key, p in named.items():
                     m = self.masters[group][key]
                     whole = converted["params"][group][key]
-                    p.copy_(self._param_part(group, key, whole))
-                    if m is not p:
+                    if m is p:
+                        p.copy_(self._param_part(group, key, whole))
+                    else:
                         m.copy_(self._local(group, key, whole))
                     self.ema_params[group][key].copy_(
                         self._local(group, key, converted["ema_params"][group][key]))

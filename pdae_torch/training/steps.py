@@ -29,14 +29,16 @@ gradients and the update ``reduce`` averages the gradients and the detached
 loss over the processes in one collective, so the step returns the global
 batch's loss, as JAX's GSPMD step does; without ``reduce`` (one process) no
 collective is issued. Under FSDP ``plan`` (``training/fsdp.py``, the
-state's own) takes ``reduce``'s place: it reduce-scatters the sharded
-tensors' gradients into this rank's blocks and all-reduces the rest with the
-loss, Adam and the EMA update the state's masters, and the plan's all-gather
-then rewrites the whole parameters from the updated blocks.
+state's own) takes ``reduce``'s place: the forward and backward run inside
+its ``saving()`` (each sharded tensor all-gathered from the blocks at each
+use), it reduce-scatters the sharded tensors' gradients into this rank's
+blocks and all-reduces the rest with the loss, and Adam and the EMA update
+the state's masters, which are the blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -81,6 +83,12 @@ def _modes(trained=(), frozen=()):
             m.eval()
 
 
+def _saving(plan):
+    """The step's forward and backward: inside the FSDP ``plan``'s
+    ``saving()``, else as they are."""
+    return contextlib.nullcontext() if plan is None else plan.saving()
+
+
 def _reduced(reduce, plan, loss, grads):
     """The loss and the grads of the state's masters, averaged over the
     processes: by the FSDP ``plan``, or in place by ``reduce`` (both None:
@@ -94,16 +102,12 @@ def _reduced(reduce, plan, loss, grads):
 
 def _update(state, optimizer, grads, ema_decay, ema_every, ema=None):
     """Adam/AdamW of the masters on ``grads``, then the EMA where ``ema``
-    says (None: where it is due at the new count), then, under FSDP, the
-    whole parameters gathered from the updated blocks, then the step
-    count."""
+    says (None: where it is due at the new count), then the step count."""
     for p, g in zip(flat_params(state.masters), grads):
         p.grad = g
     optimizer.step()
     if ema_due(state.step + 1, ema_every) if ema is None else ema:
         ema_update(state.ema_params, state.masters, ema_decay)
-    if state.plan is not None:
-        state.plan.gather_params()
     state.step += 1
 
 
@@ -148,9 +152,11 @@ def make_representation_train_step(gd, encoder, decoder, optimizer,
         _check(state, optimizer, plan, generator, t, noise)
         _modes(trained=(encoder, decoder))   # the ShiftUNet keeps its trunk in eval mode
         params = flat_params(state.params)
-        loss, grads = _reduced(reduce, plan, *accumulate_grads(
-            loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
-            t=t, noise=noise, draw=_image_draws(gd), rows=rows))
+        with _saving(plan):
+            summed = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
+                                      generator, num_iters, t=t, noise=noise,
+                                      draw=_image_draws(gd), rows=rows)
+        loss, grads = _reduced(reduce, plan, *summed)
         _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
@@ -177,10 +183,12 @@ def make_regular_train_step(gd, model, optimizer, ema_decay: float = 0.9999,
         _check(state, optimizer, plan, generator, t, noise)
         _modes(trained=(model,))
         params = flat_params(state.params)
-        loss, grads = _reduced(reduce, plan, *accumulate_grads(
-            loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
-            t=t, noise=noise, cond=None if condition is None else condition.to(device),
-            draw=_image_draws(gd), rows=rows))
+        with _saving(plan):
+            summed = accumulate_grads(
+                loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
+                t=t, noise=noise, cond=None if condition is None else condition.to(device),
+                draw=_image_draws(gd), rows=rows)
+        loss, grads = _reduced(reduce, plan, *summed)
         _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
@@ -211,9 +219,11 @@ def make_latent_train_step(gd, model, encoder, optimizer, mean, std,
         _check(state, optimizer, plan, generator, t, noise)
         _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
-        loss, grads = _reduced(reduce, plan, *accumulate_grads(
-            loss_fn, params, x0_from_transfer(x_0.to(device)), generator, num_iters,
-            t=t, noise=noise, draw=draw, rows=rows))
+        with _saving(plan):
+            summed = accumulate_grads(loss_fn, params, x0_from_transfer(x_0.to(device)),
+                                      generator, num_iters, t=t, noise=noise, draw=draw,
+                                      rows=rows)
+        loss, grads = _reduced(reduce, plan, *summed)
         _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 
@@ -233,11 +243,12 @@ def make_manipulation_train_step(gd, model, encoder, optimizer, mean, std,
         _check_state(state, optimizer, plan)
         _modes(trained=(model,), frozen=(encoder,))
         params = flat_params(state.params)
-        loss = gd.manipulation_train_one_batch(
-            model, encoder, x0_from_transfer(x_0.to(device)), label.to(device), mean,
-            std)["bce_loss"]
-        loss, grads = _reduced(reduce, plan, loss.detach(),
-                               torch.autograd.grad(loss, params))
+        with _saving(plan):
+            loss = gd.manipulation_train_one_batch(
+                model, encoder, x0_from_transfer(x_0.to(device)), label.to(device), mean,
+                std)["bce_loss"]
+            grads = torch.autograd.grad(loss, params)
+        loss, grads = _reduced(reduce, plan, loss.detach(), grads)
         _update(state, optimizer, grads, ema_decay, ema_every, ema)
         return loss
 

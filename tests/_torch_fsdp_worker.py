@@ -6,8 +6,9 @@ Imports no JAX.
 Usage: python _torch_fsdp_worker.py <spec.json> <out.json>
 
 The spec holds the jobs to run in order; for each the worker writes its
-rank's gathered final state, losses and local sizes to
-``<out_dir>/<job>_rank<r>.pt`` and what it observed to ``out.json``.
+rank's gathered final state, losses, local sizes and what it holds between
+steps (``at_rest``) to ``<out_dir>/<job>_rank<r>.pt`` and what it observed
+to ``out.json``.
 """
 
 import json
@@ -15,6 +16,7 @@ import os
 import shutil
 import sys
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -36,7 +38,7 @@ from pdae_torch.training import (TrainState, make_optimizer,  # noqa: E402
 from pdae_torch.training.fsdp import FsdpPlan  # noqa: E402
 from pdae_torch.training.state import flat_params  # noqa: E402
 from pdae_torch.utils import encoder_tree, unet_tree  # noqa: E402
-from pdae_torch.utils.sharded_checkpoint import write_shard_file  # noqa: E402
+from pdae_torch.utils.sharded_checkpoint import flatten_dict, write_shard_file  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -59,6 +61,34 @@ def gathered_state(trainer) -> dict:
                 f"{lf.group}.{lf.name}" for lf in plan.sharded]}
 
 
+def at_rest(trainer) -> dict:
+    """What an FSDP trainer holds between steps: the parameters the plan
+    holds that are not their placeholder (a NaN scalar expanded, in its
+    module's entry), each frozen group's pieces in the flax layout (its
+    blocks, and its whole tensors, keyed by flax path), the plan's leaves and
+    its held and buffer bytes."""
+    plan = trainer.plan
+    if plan is None:
+        return {}
+    pieces = {}
+    for g, (named, to_tree, _) in trainer._frozen.items():
+        tree = to_tree({k: plan._blocks.get((g, k), p).detach().clone()
+                        for k, p in named.items()})
+        pieces[g] = {path: torch.from_numpy(np.array(leaf))
+                     for path, leaf in flatten_dict(tree).items()}
+    whole = [f"{g}.{k}" for m, attr, p, (g, k) in plan.held
+             if not (p.untyped_storage().nbytes() <= p.element_size()
+                     and all(st == 0 for st in p.stride()) and m._parameters[attr] is p)]
+    return {"whole": whole,
+            "held": sorted(f"{g}.{k}" for _, _, _, (g, k) in plan.held),
+            "frozen_pieces": pieces,
+            "frozen_exceptions": plan.frozen_exceptions,
+            "leaves": [(lf.group, lf.name, list(lf.flax_shape), lf.flax_dim, lf.torch_dim)
+                       for lf in plan.leaves + plan.frozen_leaves],
+            "held_bytes": plan.held_bytes(), "buffer_bytes": plan.buffer_bytes(),
+            "gathers": plan.gathers}
+
+
 def parity_job(job, rank, out_dir):
     """The port's representation step under an FSDP plan as this rank of
     the global batch: weights, x, t and noise from the test, cut to this
@@ -71,7 +101,7 @@ def parity_job(job, rank, out_dir):
     decoder.load_state_dict(data["decoder"], strict=True)
     params = trainable_params(encoder, decoder)
     plan = FsdpPlan(params, {"encoder": encoder_tree, "shift": unet_tree}, job["min_size"],
-                    "cpu")
+                    "cpu", modules=(encoder, decoder))
     optimizer = make_optimizer(job["optimizer"], flat_params(plan.masters))
     ts = TrainState.create(params, optimizer, plan=plan)
     step = make_representation_train_step(
@@ -82,8 +112,9 @@ def parity_job(job, rank, out_dir):
     loss = step(ts, data["x"][mine], t=data["t"][mine], noise=data["noise"][mine])
     names = [(g, k) for g in ts.params for k in ts.params[g]]
     grads = plan.gather([ts.masters[g][k].grad for g, k in names])
+    whole = plan.gather([ts.masters[g][k] for g, k in names])
     torch.save({"loss": loss, "grads": {f"{g}.{k}": t for (g, k), t in zip(names, grads)},
-                "params": {f"{g}.{k}": ts.params[g][k].detach() for g, k in names},
+                "params": {f"{g}.{k}": t for (g, k), t in zip(names, whole)},
                 "sharded": len(plan.sharded)},
                os.path.join(out_dir, f"{job['name']}_rank{rank}.pt"))
     return {}
@@ -101,7 +132,9 @@ def trainer_job(job, rank, out_dir):
     to that step first and copy its latest checkpoint to ``copy_to``;
     ``switch``: after the run, copy the sharded latest to ``sharded_copy``,
     save it in the full format over the directory, then sharded again over
-    the file; ``fail_writes``: every shard-file write of rank 0 fails."""
+    the file; ``fail_writes``: every shard-file write of rank 0 fails;
+    ``eval``: the trainer's ``evaluate`` with these arguments after the
+    run."""
     run = job["root"]             # one run directory, as a sharded save needs
     cfg = job["config"]
     trainer = pick_trainer(cfg)(config=cfg, run_path=run, resume=job.get("resume"),
@@ -113,6 +146,7 @@ def trainer_job(job, rank, out_dir):
     losses = recording(trainer)
     latest = os.path.join(run, "checkpoints", "latest.ckpt")
     out = {}
+    built = at_rest(trainer)
     if job.get("copy_at") is not None:
         trainer.train(max_steps=job["copy_at"])
         copy_dir(latest, job["copy_to"])
@@ -122,6 +156,8 @@ def trainer_job(job, rank, out_dir):
         out["stopped_at"], out["error"] = None, str(e)
     finally:
         port_base.write_shard_file = write_shard_file
+    if job.get("eval"):
+        trainer.evaluate(trainer.step, **job["eval"])
     out["files"] = files_under(run)
     if job.get("switch"):
         out["latest_files"] = sorted(os.listdir(latest)) if is_primary() else []
@@ -138,10 +174,12 @@ def trainer_job(job, rank, out_dir):
         trainer.save(trainer.step)
         trainer._join_save()
         out["after_sharded_files"] = sorted(os.listdir(latest)) if is_primary() else []
+    rest = at_rest(trainer)
     state = gathered_state(trainer)
-    torch.save({"losses": losses, **state},
+    torch.save({"losses": losses, **state, "at_rest": rest,
+                "frozen_at_build": built.get("frozen_pieces")},
                os.path.join(out_dir, f"{job['name']}_rank{rank}.pt"))
-    out.update(step=trainer.step, sharded=len(state["sharded"]),
+    out.update(step=trainer.step, sharded=len(state["sharded"]), layout=trainer.mesh_layout,
                exceptions=[] if trainer.plan is None else trainer.plan.exceptions)
     return out
 

@@ -87,7 +87,8 @@ def parity_job(job, rank, out_dir):
     if job.get("fsdp"):
         plan = FsdpPlan(params, {"encoder": encoder_tree, "shift": unet_tree},
                         job["min_size"], "cpu", g.data_group, (g.data_index, g.dp),
-                        pre_reduce=sp.grad_sum(numel, "cpu", g, partial))
+                        pre_reduce=sp.grad_sum(numel, "cpu", g, partial),
+                        modules=(encoder, decoder))
     else:
         reduce = sp.grad_reducer(1 + numel, "cpu", g, partial)
     masters = params if plan is None else plan.masters
@@ -102,11 +103,12 @@ def parity_job(job, rank, out_dir):
     loss = step(ts, data["x"][mine], t=data["t"][mine], noise=data["noise"][mine])
     names = [(gr, k) for gr in ts.params for k in ts.params[gr]]
     grads = [ts.masters[gr][k].grad for gr, k in names]
+    values = [ts.masters[gr][k].detach() for gr, k in names]
     if plan is not None:
-        grads = plan.gather(grads)
+        grads, values = plan.gather(grads), plan.gather(values)
     torch.save({"loss": loss, "partial": partial,
                 "grads": {f"{gr}.{k}": t for (gr, k), t in zip(names, grads)},
-                "params": {f"{gr}.{k}": ts.params[gr][k].detach() for gr, k in names}},
+                "params": {f"{gr}.{k}": t for (gr, k), t in zip(names, values)}},
                os.path.join(out_dir, f"{job['name']}_rank{rank}.pt"))
     return {}
 

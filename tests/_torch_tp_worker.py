@@ -100,7 +100,8 @@ def parity_job(job, rank, out_dir):
     if job.get("fsdp"):
         plan = FsdpPlan(params, {"encoder": encoder_tree, "shift": unet_tree},
                         job["min_size"], "cpu", g.data_group, (g.data_index, g.dp),
-                        layout.fsdp_rule(params), layout.model_sum(flat_params(params), "cpu"))
+                        layout.fsdp_rule(params), layout.model_sum(flat_params(params), "cpu"),
+                        modules=(encoder, decoder))
     masters = params if plan is None else plan.masters
     optimizer = make_optimizer(job["optimizer"], flat_params(masters))
     ts = TrainState.create(params, optimizer, plan=plan, tp=layout)
@@ -114,10 +115,11 @@ def parity_job(job, rank, out_dir):
     loss = step(ts, data["x"][mine], t=data["t"][mine], noise=data["noise"][mine])
     names = [(gr, k) for gr in ts.params for k in ts.params[gr]]
     grads = [ts.masters[gr][k].grad for gr, k in names]
+    values = [ts.masters[gr][k].detach() for gr, k in names]
     if plan is not None:
-        grads = plan.gather(grads)
+        grads, values = plan.gather(grads), plan.gather(values)
     plist = [ts.params[gr][k] for gr, k in names]
-    whole = layout.gather(grads + [p.detach() for p in plist], plist * 2)
+    whole = layout.gather(grads + values, plist * 2)
     n = len(names)
     torch.save({"loss": loss,
                 "grads": {f"{gr}.{k}": t for (gr, k), t in zip(names, whole[:n])},

@@ -23,6 +23,13 @@ Held here:
   the global batch;
 * each rank holding only its blocks: its EMA and moments have the sum over
   the trained tensors of numel / 2 (sharded) or numel (whole) elements;
+  between steps every trained and frozen tensor the plan shards is its
+  placeholder (ZeRO-3: gathered per use), the rank's bytes of parameters
+  the rule's reckoning, and the frozen modules' blocks (the trunk, the
+  latent and manipulation stages' frozen encoder and decoder)
+  ``pdae_tpu``'s ``_place_frozen`` shards on a 2-device mesh, bit-equal
+  across steps; the representation run under ``remat: full`` and bf16
+  bit-equal to ``replicated``;
 * the sharded write at world 2: the manifest and the two step-tagged shard
   files only, read by ``pdae_tpu``'s ``load_sharded_checkpoint`` bit-equal
   to the port's full checkpoint of the same step, the manifest's leaves
@@ -54,10 +61,12 @@ from pdae_torch.models import (SemanticEncoder, build_classifier, build_decoder,
                                build_denoise_fn, build_latent_denoise_fn)
 from pdae_torch.train import pick_trainer
 from pdae_torch.training import RegularDiffusionTrainer
+from pdae_torch.training.artifacts import load_pdae
 from pdae_torch.training.fsdp import layout
+from pdae_torch.training.partition import split_shift_tree
 from pdae_torch.utils import (classifier_tree, encoder_tree, load_checkpoint,
                               mlp_skip_net_tree, unet_tree)
-from pdae_torch.utils.sharded_checkpoint import (_read, is_sharded_checkpoint,
+from pdae_torch.utils.sharded_checkpoint import (_read, flatten_dict, is_sharded_checkpoint,
                                                  load_sharded_checkpoint)
 from pdae_tpu.parallel import fsdp_sharding, make_mesh
 from pdae_tpu.utils import sharded_checkpoint as jax_sharded
@@ -72,7 +81,14 @@ from test_torch_training import (DIFFUSION, EMA_DECAY, LATENT, OPT, SIZE, TINY_D
 torch.set_num_threads(1)
 MIN_SIZE, MANIP_MIN_SIZE = 256, 64
 STEPS = {"representation": 4, "regular": 3, "latent_epoch": 3, "manipulation": 3}
+REMAT_STEPS = 2                  # the representation run under remat full and bf16
+EVALS = {"representation": {"ddim_style": "ddim10"},
+         "latent_epoch": {"latent_ddim_style": "ddim5", "decoder_ddim_style": "ddim5"},
+         "manipulation": {"encode_style": "ddim5", "decode_style": "ddim5", "class_id": 1}}
 FINAL_DENSE = "final_dense/kernel"
+FROZEN = {"representation": {"trunk"}, "regular": set(),
+          "latent_epoch": {"frozen_encoder", "frozen_decoder"},
+          "manipulation": {"frozen_encoder", "frozen_decoder"}}
 
 
 # -- the rule ------------------------------------------------------------------- #
@@ -174,13 +190,19 @@ def _jobs(root, configs, parity_inputs):
         for mode in ("fsdp", "replicated"):
             cfg = configs[name] if mode == "replicated" else _fsdp(configs[name], min_size)
             job = {"kind": "trainer", "name": f"{name}_{mode}", "config": cfg, "steps": steps,
-                   "root": str(root / f"{name}_{mode}")}
+                   "root": str(root / f"{name}_{mode}"), "eval": EVALS.get(name)}
             if name == "representation" and mode == "fsdp":
                 cfg["runner_config"]["checkpoint_format"] = "sharded"
                 job.update(copy_at=2, copy_to=str(root / "rep_step2.sharded"), switch=True,
                            sharded_copy=str(root / "rep_step4.sharded"),
                            full_copy=str(root / "rep_step4.ckpt"))
             jobs.append(job)
+    for mode in ("fsdp", "replicated"):
+        cfg = copy.deepcopy(configs["representation"])
+        cfg["runner_config"].update(remat="full", compute_dtype="bfloat16")
+        jobs.append({"kind": "trainer", "name": f"remat_bf16_{mode}", "steps": REMAT_STEPS,
+                     "config": _fsdp(cfg) if mode == "fsdp" else cfg,
+                     "root": str(root / f"remat_bf16_{mode}")})
     resume = _fsdp(configs["representation"], checkpoint_format="sharded")
     jobs.append({"kind": "trainer", "name": "representation_resume", "config": resume,
                  "steps": 4, "root": str(root / "representation_resume"),
@@ -200,7 +222,7 @@ def live(tmp_path_factory):
     jx = _Jax()
     inputs, jax_want = _parity_inputs(root, jx)
     outs, logs = _run_world2(root, _jobs(root, configs, inputs), worker="_torch_fsdp_worker.py")
-    names = [f"{n}_{m}" for n in STEPS for m in ("fsdp", "replicated")]
+    names = [f"{n}_{m}" for n in list(STEPS) + ["remat_bf16"] for m in ("fsdp", "replicated")]
     dumps = {name: [torch.load(root / f"{name}_rank{r}.pt") for r in range(WORLD)]
              for name in names + ["representation_resume", "parity", "fail_writes"]}
     controls = {}
@@ -225,7 +247,7 @@ def live(tmp_path_factory):
         controls["w1_resumed"] = {"state": _state(resumed), "start": start,
                                   "step": resumed.step}
     yield {"root": root, "outs": outs, "logs": logs, "dumps": dumps, "controls": controls,
-           "jax": jax_want}
+           "jax": jax_want, "configs": configs}
 
 
 @pytest.mark.parametrize("name", list(STEPS))
@@ -266,6 +288,105 @@ def test_each_rank_holds_only_its_blocks(live, name):
         assert fsdp[r]["held"] == {"ema": want, "moments": 2 * want}
     assert whole["held"]["ema"] == sum(ts[0].numel() for ts in whole["tensors"].values())
     assert want < whole["held"]["ema"]
+
+
+# -- blocks at rest ---------------------------------------------------------------- #
+
+@pytest.mark.parametrize("name", list(STEPS))
+def test_between_steps_a_sharded_tensor_is_only_its_block(live, name):
+    """Every trained and frozen tensor the plan shards is its placeholder
+    in its module between steps (its block is the one copy), the frozen
+    modules' among them, and a rank's bytes of parameters are the
+    reckoning from ``pdae_tpu``'s rule: half of a sharded leaf, the whole of
+    the others."""
+    min_size = MANIP_MIN_SIZE if name == "manipulation" else MIN_SIZE
+    for r in range(WORLD):
+        rest = live["dumps"][f"{name}_fsdp"][r]["at_rest"]
+        assert not rest["whole"], rest["whole"]
+        assert set(rest["frozen_pieces"]) == FROZEN[name]
+        assert FROZEN[name] <= {h.split(".")[0] for h in rest["held"]}
+        want = {"trained": 0, "frozen": 0}
+        for group, _, shape, flax_dim, torch_dim in rest["leaves"]:
+            split = parallel.fsdp_dim(shape, WORLD, min_size) is not None
+            assert split == (torch_dim is not None)
+            n = int(np.prod(shape)) * 4 // (WORLD if split else 1)
+            want["frozen" if group in FROZEN[name] else "trained"] += n
+        held = rest["held_bytes"]
+        assert held["trained_blocks"] + held["trained_whole"] == want["trained"]
+        assert held["frozen_blocks"] + held["frozen_whole"] == want["frozen"]
+        assert (held["frozen_blocks"] > 0) == bool(FROZEN[name])
+
+
+def _frozen_trees(live, name):
+    """``{group: flax tree}`` of the frozen modules of trainer ``name``."""
+    if name == "representation":
+        tree = load_checkpoint(str(live["root"] / "representation_replicated" / "checkpoints"
+                                   / "latest.ckpt"))
+        return {"trunk": split_shift_tree(tree["decoder"])[1]}
+    cfg = live["configs"][name]
+    _, enc, dec = load_pdae(cfg["trained_representation_learning_config"],
+                            cfg["trained_representation_learning_checkpoint"])
+    return {"frozen_encoder": enc, "frozen_decoder": dec}
+
+
+@pytest.mark.parametrize("name", ["representation", "latent_epoch", "manipulation"])
+def test_the_frozen_blocks_are_pdae_tpus_place_frozen_shards(live, name):
+    """A rank's frozen pieces are what ``_place_frozen`` puts on the device of
+    its rank (``fsdp_sharding`` on a 2-device mesh), but the named
+    ``final_dense`` of a frozen encoder, and stay bit-equal across steps."""
+    min_size = MANIP_MIN_SIZE if name == "manipulation" else MIN_SIZE
+    mesh = make_mesh(jax.devices()[:WORLD])
+    trees = _frozen_trees(live, name)
+    split = 0
+    for r in range(WORLD):
+        dump = live["dumps"][f"{name}_fsdp"][r]
+        rest = dump["at_rest"]
+        skip = {tuple(e[0].split("/", 1)) for e in rest["frozen_exceptions"]}
+        assert skip == ({("frozen_encoder", FINAL_DENSE)} if name != "representation"
+                        else set())
+        for group, tree in trees.items():
+            mine = rest["frozen_pieces"][group]
+            assert sorted(mine) == sorted(flatten_dict(tree))
+            for path, leaf in flatten_dict(tree).items():
+                assert torch.equal(dump["frozen_at_build"][group][path], mine[path])
+                if (group, path) in skip:
+                    continue
+                placed = jax.device_put(np.asarray(leaf),
+                                        fsdp_sharding(mesh, np.shape(leaf), min_size=min_size))
+                shard = next(s for s in placed.addressable_shards
+                             if s.device == jax.devices()[r])
+                np.testing.assert_array_equal(mine[path].numpy(), np.asarray(shard.data),
+                                              err_msg=f"{group}/{path}")
+                split += not placed.sharding.is_fully_replicated
+    assert split > 0
+
+
+@pytest.mark.parametrize("name", list(EVALS))
+def test_the_eval_grid_under_fsdp_is_replicateds(live, name):
+    """The eval gathers the EMA and the frozen modules whole for its
+    duration (the manipulation eval decodes on the primary alone after
+    every rank joined the gathers): the grid's bytes are ``replicated``'s."""
+    grids = []
+    for mode in ("fsdp", "replicated"):
+        d = live["root"] / f"{name}_{mode}" / "samples"
+        names = sorted(os.listdir(d))
+        assert names == ["sample0k.png"], names
+        grids.append((d / names[0]).read_bytes())
+    assert grids[0] == grids[1]
+    for r in range(WORLD):
+        assert not live["dumps"][f"{name}_fsdp"][r]["at_rest"]["whole"]
+
+
+def test_remat_and_bf16_stay_bit_equal_to_replicated(live):
+    """The representation run under ``remat: full`` (the trunk recomputed in
+    the backward, its blocks gathered there again) and bf16 compute."""
+    for r in range(WORLD):
+        a, b = live["dumps"]["remat_bf16_fsdp"][r], live["dumps"]["remat_bf16_replicated"][r]
+        assert a["count"] == b["count"] == REMAT_STEPS
+        assert a["losses"] == b["losses"]
+        for key, ts in a["tensors"].items():
+            assert all(torch.equal(x, y) for x, y in zip(ts, b["tensors"][key])), (r, key)
+        assert not a["at_rest"]["whole"]
 
 
 def test_two_fsdp_ranks_match_the_jax_step_over_the_global_batch(live):

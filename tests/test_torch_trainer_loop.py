@@ -185,11 +185,11 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
     assert tr.train(max_steps=2) == 2
 
 
-# fsdp, tp, sp, their compositions and the sharded write train
-# (tests/test_torch_fsdp.py, tests/test_torch_tp.py, tests/test_torch_sp.py);
-# the hierarchical mesh and profiler traces are refused by their own names,
-# and the sp layouts' errors are pdae_tpu's ValueErrors, raised before the
-# run directory exists
+# fsdp, tp, sp, their compositions, the hierarchical mesh and the sharded
+# write train (tests/test_torch_fsdp.py, tests/test_torch_tp.py,
+# tests/test_torch_sp.py, tests/test_torch_hier.py); profiler traces are
+# refused by their own name, and the sp layouts' errors are pdae_tpu's
+# ValueErrors, raised before the run directory exists
 REFUSALS = {
     "param_sharding": ({"runner_config": {"param_sharding": "sp", "sp_size": 2}},
                        ValueError, "sp_size=2 must divide the device count 1"),
@@ -198,8 +198,6 @@ REFUSALS = {
     "param_sharding_fsdp+sp": ({"runner_config": {"param_sharding": "fsdp+sp",
                                                   "sp_size": 3}},
                                ValueError, "sp_size=3 must divide the device count 1"),
-    "mesh_layout": ({"runner_config": {"param_sharding": "fsdp", "mesh_layout": "hier"}},
-                    NotImplementedError, "mesh_layout='hier'.*item 15\\)"),
     "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}},
                     NotImplementedError, "profile_dir.*item 6\\)"),
     # a torchrun launch of any layout, fsdp+sp too, needs the process group
@@ -220,6 +218,45 @@ def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
     with pytest.raises(error, match=what):
         _trainer(tmp_path / "run", cfg)
     assert not os.path.exists(tmp_path / "run")
+
+
+def test_with_weights_leaves_every_module_parameter_as_it_was():
+    """The eval's EMA swap (``base.with_weights``) puts each module's own
+    parameter back, under a module's second name too (MLPSkipNet's
+    ``linear_emb`` is also ``cond_layers.1``), and computes with the EMA."""
+    from pdae_torch.models.mlp_skip_net import MLPSkipNet
+    from pdae_torch.training.base import with_weights
+
+    torch.manual_seed(0)
+    model = MLPSkipNet(16, 32, 3, 8)
+    before = [(m, a, p) for m in model.modules() for a, p in m._parameters.items()]
+    ema = {k: v.detach() + 1 for k, v in model.named_parameters()}
+    z, t = torch.randn(2, 16), torch.tensor([3, 7])
+    got = with_weights({"model": model}, {"model": ema}, lambda m, z, t: m(z, t), z, t)
+    assert all(m._parameters[a] is p for m, a, p in before)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.add_(1)
+        assert torch.equal(got, model(z, t))
+
+
+@pytest.mark.parametrize("sharding", ["fsdp", "replicated"])
+def test_mesh_layout_hier_trains(sharding, tmp_path, monkeypatch):
+    """``mesh_layout: hier`` lifted its refusal (the live runs are in
+    ``tests/test_torch_hier.py``): in one process the grid is ``[1, 1]`` and
+    the trainer takes a step; a ``hier_shape`` that does not cover the world
+    raises before the run directory exists."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    patch_tiny_encoders(monkeypatch)
+    cfg = tiny_pdae_config()
+    cfg["runner_config"].update(param_sharding=sharding, mesh_layout="hier")
+    tr = _trainer(tmp_path / "run", cfg)
+    assert tr.mesh_layout == "hier" and tr.plan is None
+    assert tr.train(max_steps=1) == 1
+    cfg["runner_config"].update(hier_shape=[2, 1])
+    with pytest.raises(ValueError, match="hier_shape=\\[2, 1\\] must cover the world of 1"):
+        _trainer(tmp_path / "bad", cfg)
+    assert not os.path.exists(tmp_path / "bad")
 
 
 def test_tp_in_one_process_is_the_one_process_layout_and_hier_is_refused(tmp_path,
