@@ -53,8 +53,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 5. ``serving_ops``: the service's other ops at the same width, with a seeded
    random MLPSkipNet (the celeba64 latent DPM: input 512, model_channel 2048,
    10 layers) and ``Linear(512, 40)`` classifier and latent stats made from
-   the seed: ``generate`` b8 ddim100/ddim100, ``manipulate`` b8
-   (``attribute="Smiling"``, scale 0.3) at ddim100/ddim100, ``autoencode``
+   the seed: ``generate`` b8 ddim50/ddim50, ``manipulate`` b8
+   (``attribute="Smiling"``, scale 0.3) at ddim50/ddim50, ``autoencode``
    b8 at dpm20/dpm20, and a ``CoalescingBatcher`` taking one image from each
    of 8 threads to ``autoencode`` at ddim5/ddim5. Each op's launch counters,
    reset just before it, must equal what the models' structure and the
@@ -107,8 +107,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    per evaluation; ``from_config`` serves a b8 dpm20 ``autoencode``,
    ``generate`` and ``manipulate`` bit-equal to the service built in memory
    from the same trees (``cudnn.deterministic``); every other sampler runs
-   once at ddim10 styles, ``gap_measure`` and ``autoencoding_example``
-   (whose DDPM row runs every step) under a 100-step schedule, each PNG of
+   once at ddim5 styles, ``gap_measure`` and ``autoencoding_example``
+   (whose DDPM row runs every step) under a 50-step schedule, each PNG of
    its layout's size, and ``denoise_one_step`` once more through
    ``python -m pdae_torch.sample`` (a process that runs beside them). Each run's model calls and kernel
    launches must equal the structure's, every GN launch on the cluster
@@ -130,7 +130,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    and the host seconds of the statistics and of ``frechet_distance`` at
    2048-d; ``AutoencodingEval`` with ``lpips_weights`` (32 images, b16,
    dpm20/dpm20) beside the samplers phase's run, and ``UnconditionalSample``
-   with ``fid`` (256 samples, b64, ddim10/ddim10, against the features of
+   with ``fid`` (32 samples, b32, ddim10/ddim10, against the features of
    2,560 SYNTHETIC images), each run's model calls and kernel launches held
    to the structure and every new kernel shape to the plain versions
    (``chiprun_out/chip_smoke_metrics_shapes.json``); and ``AutoencodingEval``
@@ -149,7 +149,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    ``configs/dpm_celebahq.yml`` trunk and the 128px encoder that the phase
    writes), each on SYNTHETIC data that is uint8 and device-resident (the
    regular corpus flipped on the card). Each: run A 6 steps (saves at 3 and 6,
-   the eval at 6, each at ddim20: an 8-image grid, a latent sample of 8, a
+   the eval at 6, each at ddim10: an 8-image grid, a latent sample of 8, a
    manipulation (the trainers' defaults: ddim100, ddim100/ddim100,
    ddim500/ddim200)), run B resumed from A's step-3 file to 6 and bit-equal to
    A (``cudnn.deterministic``); for the latent and manipulation stages run
@@ -177,8 +177,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    FFHQ128 representation step (``configs/ffhq_representation_learning.yml``
    over a seeded trunk of ``configs/dpm_ffhq.yml``, SYNTHETIC 128px, b32)
    under remat none, ``skips`` and full, in fp32 and bf16, each from the same
-   state, t and noise (``cudnn.deterministic``): one warm-up and 2 timed
-   steps, the launches against ``remat_structure``, the modes' losses and
+   state, t and noise (``cudnn.deterministic``): one warm-up and 1 timed
+   step, the launches against ``remat_structure``, the modes' losses and
    first gradients bit-equal (or each within REMAT_GRAD_TOL of its tensor's
    largest), seconds and peak memory printed. Every kernel key these runs
    give that no earlier phase compared is held to the plain versions in fp32
@@ -188,7 +188,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    ``bf16_bound_ms``; bf16 attention's bound on the tensor cores' 989
    TFLOP/s), and the summary sums them over a train step.
 12. ``ingest``: the files a user brings, through the port's CLIs and the
-   native host code. 128 seeded JPEGs at CelebA's 178x218 (quality 95) packed
+   native host code. 64 seeded JPEGs at CelebA's 178x218 (quality 95) packed
    by ``python -m pdae_torch.prepare_lmdb --key-format 'None-%07d'``; the
    trainer phase's DPM exported to a reference ``.pt`` by ``python -m
    pdae_torch.convert --export`` (beside the packing) and converted back,
@@ -228,7 +228,15 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    cluster variant. Wall ms per step over a whole chunk, and busy ms and the
    idle share of one more step under ``torch.profiler``, graph against
    eager, and each path's peak memory
-   (``chiprun_out/chip_smoke_dispatch.json``).
+   (``chiprun_out/chip_smoke_dispatch.json``). Last, the representation
+   config's first chunk (K=4) once more with ``runner_config.profile_dir``:
+   the eager warm-up, the capture into the graph and three replays under
+   the trainer's profiler; its losses bit-equal to the unprofiled graph
+   run's, one trace written, and in it each kernel's device events (by its
+   ``csrc/`` name) as many as the run launched on the card: every replay's
+   exactly, the eager warm-up step's at most one short a kernel (the
+   profiler sometimes leaves one of that step's kernel records out; the
+   record counts it as ``lost``).
 14. ``ddp``: data-parallel training (``param_sharding: replicated``). The
    trainer phase's celeba64 PDAE config at full width (b32 a rank, fp32,
    TF32 off, ``cudnn.deterministic``, Adam eps 1e-5) as two ranks on the one
@@ -316,8 +324,23 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    ``fsdp+sp`` (sp 2 x data 2, b8 a data rank, 1 step) against the tp phase's one
    process over the 16 rows. Recorded per rank: the sp collectives' count,
    bytes and ms per step, ms per step, parameter bytes and peak memory
-   beside one process's (``chiprun_out/chip_smoke_sp.json``). Then the
-   script's total seconds.
+   beside one process's (``chiprun_out/chip_smoke_sp.json``).
+18. ``headline``: the reference-headline program, ``python -m
+   pdae_torch.headline_eval``'s ``main`` in this process at FFHQ128 width
+   (ShiftUNet ``FFHQ128_DPM`` + the 128px encoder, latent 512, bf16): 4
+   train steps at b32 (the tool's 300 cut), then ``ddim1000+ddim100`` (1,099
+   evaluations) and ``dpm20+dpm20`` over one b16 batch of textured SYNTHETIC
+   images, one rep; the tool's JSON printed on its own line and held (its
+   keys, finite losses, 0 < SSIM <= 1, the peak memory). The launches per
+   evaluation, per encoder pass, per train step and per style's batch,
+   each held to the models' structure (GN on the cluster variant); every
+   kernel key the run gives that no earlier phase compared held to the
+   plain versions in fp32 and bf16, its b16 eval keys timed
+   (``chiprun_out/chip_smoke_headline_shapes.json``); the
+   ``dpm20+dpm20`` roundtrip of the batch through the kernels against the
+   plain versions
+   within ``PRECISION_RATIO`` times the plain path's own bf16-against-fp32
+   gap. Then the script's total seconds.
 
 Then a ``{"kernels": [...]}`` summary line (the split passes each as a kernel
 of its own, their times summed over one sp rank's train step; the attention's
@@ -348,6 +371,7 @@ import torch.nn.functional as F
 LATENT = 512
 BATCH = 8
 STEPS = 100                      # ddim100 encode + ddim100 decode
+OPS_STYLE = "ddim50"             # serving_ops' generate and manipulate (a depth cut)
 TRAIN_BATCH = 32                 # the 64px train batch of the JAX package's bench
 BUCKETS = (1, 2, 4)              # the smaller buckets the batcher forms
 # the celeba64 latent DPM (configs/celeba64_latent.yml) and the manipulation
@@ -1131,14 +1155,14 @@ def serving_ops(service, images, dec_counts, enc_counts, seed) -> dict:
     from pdae_torch.serving import CoalescingBatcher
 
     gd = service.gd
-    ddim = gd.ddim_schedule(f"ddim{STEPS}").num_steps
+    ddim = gd.ddim_schedule(OPS_STYLE).num_steps
     dpm_encode = gd.solver_tables("dpm20", direction="encode").num_steps
     dpm_decode = gd.solver_tables("dpm20").num_steps
     # the first calls build the latent DPM and the classifier: not counted
     service.generate(BATCH, seed, "ddim2", "ddim2")
     service.manipulate(images, attribute="Smiling", encode_style="ddim2",
                        decode_style="ddim2")
-    style = f"ddim{STEPS}"
+    style = OPS_STYLE
     runs = {
         "generate": (lambda: service.generate(BATCH, seed, style, style),
                      launches_of(ddim, 0, dec_counts, enc_counts)),
@@ -1149,7 +1173,7 @@ def serving_ops(service, images, dec_counts, enc_counts, seed) -> dict:
                              launches_of(dpm_encode + dpm_decode, 1, dec_counts,
                                          enc_counts)),
     }
-    records = {"steps": {f"ddim{STEPS}": ddim, "dpm20_encode": dpm_encode,
+    records = {"steps": {OPS_STYLE: ddim, "dpm20_encode": dpm_encode,
                          "dpm20_decode": dpm_decode}}
     outs = {}
     for name, (fn, want) in runs.items():
@@ -1590,6 +1614,9 @@ def sampler_base() -> dict:
             "num_classes": NUM_CLASSES}
 
 
+SAMPLER_STYLE = "ddim5"          # the later samplers' styles (a depth cut)
+
+
 def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     """The sampler suite and the file-built service on the trainer phase's
     files (its run config, step-6 checkpoint and DPM), with a seeded celeba64
@@ -1639,7 +1666,7 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
                "diffusion_config": diffusion}, path("dpm.yml"))
     del latent, classifier
     base = sampler_base()
-    short = {"timesteps": 100, "betas_type": "linear"}     # the depth cut
+    short = {"timesteps": 50, "betas_type": "linear"}      # the depth cut
     gd, gd_short = GaussianDiffusion(diffusion), GaussianDiffusion(short)
 
     def steps(style, g=gd, direction="decode"):
@@ -1664,9 +1691,9 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
                          "its seeded DPM), a seeded celeba64 MLPSkipNet and Linear(512, 40); "
                          "SYNTHETIC 64px RGB, 64 images; fp32, TF32 off",
                "depth_cut": "gap_measure and autoencoding_example (its DDPM row runs every "
-                            "step) under a 100-step linear schedule; every other sampler on "
-                            "the run's 1000 steps; styles ddim10 (AutoencodingEval and the "
-                            "file-built service dpm20); interpolation at 3 alphas"}
+                            "step) under a 50-step linear schedule; every other sampler on "
+                            f"the run's 1000 steps; styles {SAMPLER_STYLE} (AutoencodingEval "
+                            "and the file-built service dpm20); interpolation at 3 alphas"}
 
     # 1. InferLatents: the stats the later steps read ----------------------------
     cfg = dict(base, batch_size=32, output_path=path("synthetic.ckpt"))
@@ -1837,33 +1864,34 @@ def samplers_phase(seed, device, dec_counts, enc_counts, rho, compared) -> dict:
     # 4. every other sampler once ------------------------------------------------
     alphas = [0.0, 0.5, 1.0]
     scales = [-0.3, -0.1, 0.1, 0.3]
-    ddim10 = steps("ddim10")
+    style = SAMPLER_STYLE
+    evals = steps(style)
     others = {
         "test_dpms": ({"config_path": path("dpm.yml"),
                        "checkpoint_path": os.path.join(trainer, "dpm.ckpt"),
                        "image_size": 64, "image_channel": 3, "num_samples": 9,
-                       "ddim_style": "ddim10"},
-                      {"UNet": ddim10}, grid_hw(9, 3)),
-        "autoencoding_example": (dict(base, image_index=0, encoder_ddim_style="ddim10",
-                                      decoder_ddim_style="ddim10", diffusion_config=short),
-                                 {"ShiftUNet": 3 * steps("ddim10", gd_short)
+                       "ddim_style": style},
+                      {"UNet": evals}, grid_hw(9, 3)),
+        "autoencoding_example": (dict(base, image_index=0, encoder_ddim_style=style,
+                                      decoder_ddim_style=style, diffusion_config=short),
+                                 {"ShiftUNet": 3 * steps(style, gd_short)
                                   + short["timesteps"], "SemanticEncoder": 3},
                                  grid_hw(12, 12)),
         "denoise_one_step": (dict(base, image_index=0),
                              {"ShiftUNet": 1, "SemanticEncoder": 1}, rows_hw(6, 6)),
-        "interpolation": (dict(base, image_index_1=0, image_index_2=1, ddim_style="ddim10",
+        "interpolation": (dict(base, image_index_1=0, image_index_2=1, ddim_style=style,
                                alphas=alphas),
-                          {"ShiftUNet": ddim10 + 3 * ddim10 * len(alphas),
+                          {"ShiftUNet": evals + 3 * evals * len(alphas),
                            "SemanticEncoder": 1},
                           rows_hw(len(alphas) + 2, len(alphas) + 2)),
-        "manipulation": (dict(base, image_index=0, encode_ddim_style="ddim10",
-                              decode_ddim_style="ddim10", scale_list=scales),
-                         {"ShiftUNet": ddim10 * (1 + len(scales)),
+        "manipulation": (dict(base, image_index=0, encode_ddim_style=style,
+                              decode_ddim_style=style, scale_list=scales),
+                         {"ShiftUNet": evals * (1 + len(scales)),
                           "SemanticEncoder": 1 + len(scales)},
                          grid_hw(len(scales) + 1, len(scales) + 1)),
-        "unconditional_sample": (dict(base, num_samples=8, latent_ddim_style="ddim10",
-                                      decoder_ddim_style="ddim10"),
-                                 {"ShiftUNet": ddim10}, grid_hw(8)),
+        "unconditional_sample": (dict(base, num_samples=8, latent_ddim_style=style,
+                                      decoder_ddim_style=style),
+                                 {"ShiftUNet": evals}, grid_hw(8)),
         "gap_measure": (dict(base, batch_size=2, num_samples=2, diffusion_config=short),
                         {"ShiftUNet": short["timesteps"], "SemanticEncoder": 1}, None),
     }
@@ -1913,8 +1941,8 @@ METRIC_SIZES = (64, 320)         # InceptionV3 resizes up from one, down from th
 FID_SET = 2560                   # SYNTHETIC images a feature set: more rows than features
 LPIPS_BATCH = 16
 LPIPS_TIMED_BATCHES = 20
-FID_SAMPLES = 64                 # UnconditionalSample's generated set
-FID_BATCH = 64
+FID_SAMPLES = 32                 # UnconditionalSample's generated set
+FID_BATCH = 32
 FID_STYLES = ("ddim10", "ddim10")
 WORLD2_MEAN_RTOL = 1e-12         # the float64 means' order
 WORLD2_LATENT_RTOL = 1e-6        # the float32 mean's order over another concatenation
@@ -2434,7 +2462,7 @@ STAGE_STEPS = 6                  # saves at 3 and 6, the eval at 6
 STAGE_LENGTH = {"regular": 320, "latent": 640, "manipulation": 640}
 STAGE_BATCH = {"regular": 32, "latent": 128, "manipulation": 128}   # the configs'
 # the depth cut of the manipulation eval (the trainer's default ddim500/ddim200)
-STAGE_EVAL = "ddim20"           # every stage's eval style (the trainers' are ddim100-500)
+STAGE_EVAL = "ddim10"           # every stage's eval style (the trainers' are ddim100-500)
 STAGE_EVAL_KWARGS = {"regular": {"ddim_style": STAGE_EVAL},
                      "latent": {"latent_ddim_style": STAGE_EVAL,
                                 "decoder_ddim_style": STAGE_EVAL},
@@ -2927,7 +2955,7 @@ FFHQ_DPM = dict(
     input_channel=3, base_channel=128, channel_multiplier=(1, 1, 2, 2, 4, 4),
     num_residual_blocks_of_a_block=2, attention_resolutions=(16,), num_heads=4,
     head_channel=-1, use_new_attention_order=False, dropout=0.0)
-FFHQ_STEPS = 2                   # timed per (dtype, remat), after one warm-up
+FFHQ_STEPS = 1                   # timed per (dtype, remat), after one warm-up
 REMAT_MODES = {"none": None, "skips": "skips", "full": True}
 # bf16 whole path: kernels against plain versions within this many times the
 # plain path's own bf16-against-fp32 relative L2 on the same inputs
@@ -3169,17 +3197,31 @@ def precision_phase(seed, device, compared, want_step, fp32) -> dict:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
 
     # 4. every new kernel key against the plain versions, fp32 and bf16 -------
-    runs_of = keys.runs_of()
-    check_gen = torch.Generator(device=device).manual_seed(seed + 15)
+    # (the 128x128 GN slabs timed)
+    records["kernel_shapes"] = compare_keys(
+        keys.runs_of(), compared, seed + 15, device, "chip_smoke_precision_shapes.json",
+        lambda key: key[0] != "attention" and key[3] == 128)
+    records["phase_s"] = time.perf_counter() - phase_t0
+    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
+    return records
+
+
+def compare_keys(runs_of, compared, seed, device, table, timed) -> dict:
+    """Every kernel key of ``runs_of`` ({key: the runs that gave it}, as
+    ``KernelKeys`` keys them) that is not in ``compared`` held to the plain
+    versions in fp32 and bf16, each GN key on the cluster variant, the keys
+    ``timed(key)`` picks timed (device ms, bound, plain and library ms, in
+    bf16 too); the full table goes to ``table`` under ``chiprun_out/``, and
+    ``compared`` takes the new keys."""
+    check_gen = torch.Generator(device=device).manual_seed(seed)
     checks = {"attention": check_attention, "gn": check_gn, "gn_bwd": check_gn_bwd}
     results = {}
     for key in sorted(k for k in runs_of if k not in compared):
-        timed = key[0] != "attention" and key[3] == 128     # the 128x128 GN slabs
         arg = key[1:] if key[0] == "attention" else key
-        results[key] = dict(checks[key[0]](arg, check_gen, device, timed=timed),
-                            runs=runs_of[key], timed=timed)
+        results[key] = dict(checks[key[0]](arg, check_gen, device, timed=timed(key)),
+                            runs=runs_of[key], timed=timed(key))
     compared.update(results)
-    with open(os.path.join(OUT_DIR, "chip_smoke_precision_shapes.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, table), "w") as f:
         json.dump([{"key": list(k), **v} for k, v in results.items()], f, indent=1)
     disagree = [(list(k), e) for k, r in results.items() for e, v in r["err"].items()
                 if not v["ok"]]
@@ -3191,18 +3233,15 @@ def precision_phase(seed, device, compared, want_step, fp32) -> dict:
         for k, r in results.items() if r["timed"]}
     for k, r in results.items():
         if r["timed"]:
-            timed_rows[json.dumps(list(k))]["bound_ms"] = max(
-                r["bytes"] / HBM_BYTES_PER_S, r["flops"] / FP32_FLOPS) * 1e3
-            timed_rows[json.dumps(list(k))]["plan_fp32"] = r["variant"]["float32"]
-    records["kernel_shapes"] = {
-        "shapes": len(runs_of), "compared_here": len(results),
-        "max_abs_err_fp32": max((v["max_abs_err"] for r in results.values()
-                                 for e, v in r["err"].items() if "float32" in e), default=0.0),
-        "timed_128px": timed_rows, "off_cluster": off_cluster, "disagree": disagree,
-        "ok": not disagree and not off_cluster}
-    records["phase_s"] = time.perf_counter() - phase_t0
-    records["ok"] = all(v["ok"] for v in records.values() if isinstance(v, dict) and "ok" in v)
-    return records
+            row = timed_rows[json.dumps(list(k))]
+            row["bound_ms"] = max(r["bytes"] / HBM_BYTES_PER_S, r["flops"] / FP32_FLOPS) * 1e3
+            row["plan_fp32"] = r["variant"]["float32"] if "variant" in r else r["tiling"]
+    return {"shapes": len(runs_of), "compared_here": len(results),
+            "max_abs_err_fp32": max((v["max_abs_err"] for r in results.values()
+                                     for e, v in r["err"].items() if "float32" in e),
+                                    default=0.0),
+            "timed": timed_rows, "off_cluster": off_cluster, "disagree": disagree,
+            "ok": not disagree and not off_cluster}
 
 
 def bf16_whole_path(seed, device, rep, reg, reg_cfg) -> dict:
@@ -3359,7 +3398,7 @@ def ffhq_remat_runs(tr, keys, inputs, dtype, device) -> dict:
     return out
 
 
-INGEST_IMAGES = 128              # synthetic JPEGs at CelebA's geometry, packed by the CLI
+INGEST_IMAGES = 64               # synthetic JPEGs at CelebA's geometry, packed by the CLI
 INGEST_HW = (218, 178)           # CelebA's aligned images, height x width
 INGEST_QUALITY = 95
 INGEST_STEPS = 5                 # the first is a warm-up
@@ -3759,6 +3798,90 @@ def chunk_times(trainer, k) -> dict:
             "timing_s": time.perf_counter() - t0}
 
 
+# the port's kernels by their csrc/ names, as a profiler trace names them
+CSRC_KERNELS = {"attention_fwd_kernel": "attention",
+                "attention_fwd_bf16_mma_kernel": "attention",
+                "gn_adagn_silu_kernel": "gn_adagn_silu",
+                "gn_adagn_silu_cluster_kernel": "gn_adagn_silu",
+                "gn_adagn_silu_bwd_kernel": "gn_adagn_silu_bwd",
+                "gn_adagn_silu_bwd_cluster_kernel": "gn_adagn_silu_bwd"}
+
+
+def traced_kernels(trace_dir) -> tuple:
+    """(the trace files ``torch.profiler.tensorboard_trace_handler`` wrote
+    under ``trace_dir``, their MB, the device events of every kernel, and
+    the events of the port's kernels as {stream: {kernel: events}} with the
+    stream of the earliest of them first). A kernel is known by its
+    ``csrc/`` name in the event's name."""
+    files = sorted(os.listdir(trace_dir))
+    mb, every, ours = 0.0, 0, []
+    for name in files:
+        path = os.path.join(trace_dir, name)
+        mb += os.path.getsize(path) / 2 ** 20
+        with open(path) as f:
+            trace = json.load(f)
+        for e in trace["traceEvents"]:
+            if e.get("cat") != "kernel":
+                continue
+            every += 1
+            found = [k for c, k in CSRC_KERNELS.items() if c in e.get("name", "")]
+            if len(found) == 1:
+                ours.append((e["ts"], str(e.get("args", {}).get("stream")), found[0]))
+    by_stream = {}
+    for _, stream, kernel in sorted(ours):
+        counts = by_stream.setdefault(stream, {k: 0 for k in FUSED_KERNELS})
+        counts[kernel] += 1
+    return files, mb, every, by_stream
+
+
+def profiled_chunk(trainer, k, want_losses, trace_dir) -> dict:
+    """One chunk of ``k`` steps of ``trainer`` (``steps_per_dispatch`` k,
+    ``runner_config.profile_dir`` = ``trace_dir``): the eager warm-up step
+    on the dispatch's side stream, then the capture under the profiler and
+    the replays. Its losses must equal ``want_losses`` (the same steps
+    without the profiler) bit for bit, the loop must have written one
+    trace, and the trace must hold the device events of each kernel of the
+    replays (every stream but the warm-up's, the first to run one of the
+    port's kernels) as many as the capture launched times the replays, and
+    of the warm-up step as many as it launched: the profiler sometimes
+    leaves one kernel record of that step out of the trace (PERF.md, PR
+    18), which ``lost`` counts, and at most one a kernel passes."""
+    import shutil
+
+    from pdae_torch import ops
+
+    losses = recording(trainer)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train(max_steps=k, save_on_exit=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    d = trainer._dispatch
+    launched = path_launches(named_launches(), d)
+    per_replay = {n: d.launches.get(n, 0) for n in FUSED_KERNELS}
+    files, mb, every, by_stream = traced_kernels(trace_dir)
+    shutil.rmtree(trace_dir)             # tens of MB: not brought back
+    streams = list(by_stream)
+    warm = by_stream[streams[0]] if streams else {n: 0 for n in FUSED_KERNELS}
+    replayed = {n: sum(by_stream[s][n] for s in streams[1:]) for n in FUSED_KERNELS}
+    warm_launched = {n: launched[n] - per_replay[n] * d.replays for n in FUSED_KERNELS}
+    rec = {"s": seconds, "steps": len(losses), "replays": d.replays,
+           "losses": [float(v) for v in losses],
+           "losses_bit_equal": len(losses) == k and all(
+               torch.equal(a, b) for a, b in zip(losses, want_losses[:k])),
+           "trace_files": files, "trace_mb": mb, "trace_kernel_events_all": every,
+           "trace_kernel_events_by_stream": by_stream, "launches_on_path": launched,
+           "replay_events": replayed,
+           "replay_launches": {n: per_replay[n] * d.replays for n in FUSED_KERNELS},
+           "warm_up_events": warm, "warm_up_launches": warm_launched,
+           "lost": {n: warm_launched[n] - warm[n] for n in FUSED_KERNELS}}
+    rec["ok"] = bool(rec["losses_bit_equal"] and len(files) == 1
+                     and replayed == rec["replay_launches"]
+                     and all(per_replay[n] and warm[n] for n in FUSED_KERNELS)
+                     and all(0 <= n <= 1 for n in rec["lost"].values()))
+    return rec
+
+
 def dispatch_phase(seed, device, files, ffhq) -> dict:
     """``steps_per_dispatch`` on the card: each config of ``dispatch_configs``
     trained eagerly at K=1 (E) and from the captured graph at its K: G1 to
@@ -3802,9 +3925,10 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
     saved_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 
-    def build(name, run, k, resume=None):
+    def build(name, run, k, resume=None, **runner):
         cfg = configs[name][0]
-        cfg = {**cfg, "runner_config": {**cfg["runner_config"], "steps_per_dispatch": k}}
+        cfg = {**cfg, "runner_config": {**cfg["runner_config"], "steps_per_dispatch": k,
+                                        **runner}}
         trainer = pick_trainer(cfg)(config=cfg, run_path=os.path.join(root, name, run),
                                     resume=resume, seed=seed)
         if name == "regular":
@@ -3902,12 +4026,22 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
                              and rec.get("g2_start_step", DISPATCH_CUT) == DISPATCH_CUT
                              and ("g2" in rec) == resumed
                              and all(math.isfinite(v) for v in got_l))
-            rec["config_s"] = time.perf_counter() - t0
-            records[name] = rec
             drop_graphs(last)
             last._resident_cache = None
-            del last, want_losses, got_losses, want_state
+            del last
             release()
+            if name == "representation":
+                # the same graph run's first chunk with runner_config.profile_dir
+                trace_dir = os.path.join(root, name, "trace")
+                traced = build(name, "profiled", k, profile_dir=trace_dir)
+                rec["profile_dir"] = profiled_chunk(traced, k, got_losses, trace_dir)
+                rec["ok"] = rec["ok"] and rec["profile_dir"]["ok"]
+                drop_graphs(traced)
+                del traced
+                release()
+            rec["config_s"] = time.perf_counter() - t0
+            records[name] = rec
+            del want_losses, got_losses, want_state
             torch.cuda.reset_peak_memory_stats()
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
@@ -5781,6 +5915,196 @@ def sp_phase(device, per_step, serve_counts, runs, controls, service, images, bo
     return records
 
 
+# the reference-headline program (python -m pdae_torch.headline_eval) as the
+# phase runs it: FFHQ128 at full width, the reference's eval batch of 16,
+# one batch and one rep of both style pairs, bf16; the tool's 300 train
+# steps cut to the script's time limit
+HEADLINE_TRAIN_STEPS = 4
+HEADLINE_EVAL_BATCH = 16
+HEADLINE_TEXTURE = 0.15
+HEADLINE_ARGS = ["--size", "128", "--train_steps", str(HEADLINE_TRAIN_STEPS),
+                 "--train_batch", str(TRAIN_BATCH), "--eval_batch", str(HEADLINE_EVAL_BATCH),
+                 "--eval_n", str(HEADLINE_EVAL_BATCH), "--reps", "1",
+                 "--styles", "ddim1000+ddim100,dpm20+dpm20", "--dtype", "bfloat16",
+                 "--texture", str(HEADLINE_TEXTURE)]
+HEADLINE_KEYS = {"size", "device", "dtype", "train_steps", "train_batch", "train_wall_s",
+                 "loss_first", "loss_last", "eval_batch", "eval_n", "texture", "styles",
+                 "fast_eval_trade"}
+
+
+def style_evals(gd, style: str, direction: str) -> int:
+    """ShiftUNet evaluations of one ``ddimN`` or ``dpmN`` loop (``ddim1000``
+    is 999 on 1000 timesteps)."""
+    if style.startswith("dpm"):
+        return gd.solver_tables(style, direction=direction).num_steps
+    return gd.ddim_schedule(style).num_steps
+
+
+def headline_phase(seed, device, compared) -> dict:
+    """The reference-headline program in this process, as a user runs it:
+    ``pdae_torch.headline_eval.main(HEADLINE_ARGS)`` (FFHQ128 ShiftUNet and
+    128px encoder, latent 512, a brief bf16 training at b32, then
+    ``ddim1000+ddim100`` and ``dpm20+dpm20`` over one b16 batch of textured
+    SYNTHETIC images), its functions wrapped to count: the training's
+    launches against ``remat_structure`` per step, each roundtrip's model
+    calls and launches against the styles' evaluations times the launches
+    of one evaluation (``per_call``) plus an encoder pass, each warm-up's
+    one evaluation and encoder pass, every GN launch on the cluster
+    variant. The kernel keys are read in the training and the warm-ups
+    (at the roundtrips' shapes): a global module hook in the roundtrips
+    would make the host pace their 1,139 evaluations. Then every kernel key
+    the run gave that no earlier phase compared is held to the plain
+    versions in fp32 and bf16, the b16 eval keys among them timed
+    (``chiprun_out/chip_smoke_headline_shapes.json``); and the
+    ``dpm20+dpm20`` roundtrip of the batch on the trained models through
+    the kernels, against the plain versions, within PRECISION_RATIO times the plain path's own
+    bf16-against-fp32 gap (fp32 twins of the models)."""
+    import gc
+
+    from pdae_torch import headline_eval, ops
+    from pdae_torch.data import SYNTHETIC
+
+    phase_t0 = time.perf_counter()
+    keys = KernelKeys()
+    keys.name = "headline"
+    calls = collections.Counter()
+    built, runs = {}, []
+    real = {n: getattr(headline_eval, n) for n in ("build", "train", "evaluate", "autoencode")}
+
+    def snapshot():
+        torch.cuda.synchronize()
+        return (ops.launch_counts(), ops.gn_variant_counts(), ops.gn_bwd_variant_counts(),
+                calls.copy())
+
+    def counting(name):
+        def wrapped(*args):
+            before = snapshot()
+            if name == "autoencode":
+                keys.handle.remove()
+            try:
+                out = real[name](*args)
+            finally:
+                if name == "autoencode":
+                    keys.handle = torch.nn.modules.module.register_module_forward_pre_hook(
+                        keys.hook)
+            after = snapshot()
+            diff = [{k: a[k] - b.get(k, 0) for k in a} for a, b in zip(after, before)]
+            runs.append({"fn": name, "arg": args[4] if name == "train" else args[1],
+                         "launches": named_launches(diff[0]), "gn_variants": diff[1],
+                         "gn_bwd_variants": diff[2], "calls": diff[3]})
+            return out
+        return wrapped
+
+    def build(*args):
+        built["models"] = real["build"](*args)
+        for model in built["models"][1:]:
+            model.register_forward_pre_hook(
+                lambda mod, args: calls.update([type(mod).__name__]))
+        return built["models"]
+
+    for name in ("train", "evaluate", "autoencode"):
+        setattr(headline_eval, name, counting(name))
+    headline_eval.build = build
+    try:
+        t0 = time.perf_counter()
+        out = headline_eval.main(HEADLINE_ARGS)
+        main_s = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(headline_eval, name, fn)
+        keys.handle.remove()
+    gd, encoder, decoder = built["models"]
+    x1 = torch.zeros(1, 3, 128, 128, device=device)
+    per_eval = per_call(decoder, x1, torch.zeros(1, dtype=torch.int32, device=device),
+                        torch.zeros(1, LATENT, device=device))
+    per_enc = per_call(encoder, x1)
+    per_step = remat_structure(encoder, decoder)["none"]
+
+    def times(counts, n):
+        return {k: n * v for k, v in counts.items()}
+
+    def plus(a, b):
+        return {k: a[k] + b[k] for k in a}
+
+    def on_cluster(run, want):
+        return (run["gn_variants"] == {"cluster": want["gn_adagn_silu"], "general": 0}
+                and run["gn_bwd_variants"] == {"cluster": want["gn_adagn_silu_bwd"],
+                                               "general": 0})
+
+    launches, launches_ok = {"per_eval": per_eval, "per_encoder_pass": per_enc,
+                             "per_train_step": per_step}, True
+    for run in runs:
+        if run["fn"] == "train":
+            want = times(per_step, run["arg"])
+            want_calls = {}              # the step's forward calls the models' modules
+        elif run["fn"] == "autoencode":
+            enc_style, dec_style = run["arg"].split("+")
+            evals = style_evals(gd, enc_style, "encode") + style_evals(gd, dec_style, "decode")
+            want = plus(times(per_eval, evals), per_enc)
+            want_calls = {"ShiftUNet": evals, "SemanticEncoder": 1}
+        else:                            # evaluate: its warm-up and its roundtrips
+            mine = [r for r in runs if r["fn"] == "autoencode" and r["arg"] == run["arg"]]
+            run["warm_up"] = {k: v - sum(r["launches"][k] for r in mine)
+                              for k, v in run["launches"].items()}
+            want = plus(per_eval, per_enc)
+            run["ok"] = bool(run["warm_up"] == want and mine)
+            launches_ok &= run["ok"]
+            continue
+        run["launches_expected"] = want
+        run["ok"] = bool(run["launches"] == want and on_cluster(run, want)
+                         and (run["fn"] == "train" or run["calls"] == want_calls))
+        launches_ok &= run["ok"]
+    launches["runs"] = runs
+
+    styles = out.get("styles", {})
+    finite = [out["loss_first"], out["loss_last"], out["train_wall_s"]] + [
+        v for r in styles.values() for k, v in r.items() if k != "peak_mb"]
+    tool_ok = bool(set(out) == HEADLINE_KEYS and len(styles) == 2
+                   and all(v is not None and math.isfinite(v) for v in finite)
+                   and all(0.0 < r["ssim"] <= 1.0 and r["mse"] >= 0.0
+                           and r["imgs_per_sec"] > 0 and r["peak_mb"] > 0
+                           for r in styles.values())
+                   and out["device"] == torch.cuda.get_device_name(device))
+
+    # every new kernel key against the plain versions, the eval keys (b16) timed
+    t0 = time.perf_counter()
+    kernel_shapes = compare_keys(
+        keys.runs_of(), compared, seed + 18, device, "chip_smoke_headline_shapes.json",
+        lambda key: key[0] != "gn_bwd" and key[1] == HEADLINE_EVAL_BATCH)
+    kernel_shapes["s"] = time.perf_counter() - t0
+
+    # the fast roundtrip of the batch through the kernels against the plain
+    # versions
+    t0 = time.perf_counter()
+    ds = SYNTHETIC({"image_size": 128, "image_channel": 3, "length": headline_eval.CORPUS})
+    idxs = np.arange(headline_eval.EVAL_START, headline_eval.EVAL_START + HEADLINE_EVAL_BATCH)
+    x = headline_eval.to_device(headline_eval.synthetic_batch(ds, idxs, HEADLINE_TEXTURE),
+                                device)
+    pair = headline_eval.FAST_PAIR
+    kernel = [headline_eval.autoencode(gd, pair, encoder, decoder, x)]
+    _, enc32, dec32 = headline_eval.build(128, torch.float32, device)
+    enc32.load_state_dict(encoder.state_dict(), strict=True)
+    dec32.load_state_dict(decoder.state_dict(), strict=True)
+    ops.set_use_kernels(False)
+    try:
+        plain = [headline_eval.autoencode(gd, pair, encoder, decoder, x)]
+        plain32 = [headline_eval.autoencode(gd, pair, enc32.eval(), dec32.eval(), x)]
+    finally:
+        ops.set_use_kernels(None)
+    whole = within_control(kernel, plain, plain32)
+    whole["finite"] = bool(torch.isfinite(kernel[0]).all())
+    whole["ok"] = whole["ok"] and whole["finite"]
+    whole["s"] = time.perf_counter() - t0
+    del built, gd, encoder, decoder, enc32, dec32, kernel, plain, plain32, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"args": " ".join(HEADLINE_ARGS), "tool": out, "tool_ok": tool_ok,
+            "main_s": main_s, "launches": launches, "launches_ok": bool(launches_ok),
+            "kernel_shapes": kernel_shapes, f"{pair}_kernels_vs_plain": whole,
+            "phase_s": time.perf_counter() - phase_t0,
+            "ok": bool(tool_ok and launches_ok and kernel_shapes["ok"] and whole["ok"])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6300,6 +6624,12 @@ def main(argv=None) -> int:
     emit({"phase": "sp", **{k: v for k, v in sp.items() if k != "shapes"}})
     if not sp["ok"]:
         raise AssertionError("the sp phase failed its checks")
+
+    # 18. the reference-headline program at FFHQ128 -----------------------------
+    headline = headline_phase(args.seed, device, compared)
+    emit({"phase": "headline", **headline})
+    if not headline["ok"]:
+        raise AssertionError("the headline phase failed its checks")
     emit({"script_s": time.perf_counter() - script_t0})
 
     per_op = {name: op_records[name]["launches"]
@@ -6341,6 +6671,9 @@ def main(argv=None) -> int:
             per_op[f"sp_{run}_{rank}"] = counts
     for n in SP_SERVE_IMAGES:
         per_op[f"sp_service_b{n}_rank0"] = sp["service"][f"b{n}"]["launches_per_rank"]["rank0"]
+    for run in headline["launches"]["runs"]:
+        if run["fn"] != "evaluate":
+            per_op[f"headline_{run['fn']}_{run['arg']}"] = run["launches"]
     sp_main = sp["two_ranks"]["launches_per_rank"]["rank0"]
     regular_ms = stages["regular"]["kernel_ms_per_step"]
     sp_per = (f"one b{TRAIN_BATCH} train step of one rank at sp {SP_SIZE} (sum over its "
@@ -6365,7 +6698,8 @@ def main(argv=None) -> int:
                      per=f"one b{TRAIN_BATCH} train step (sum over its launches)"),
          "launches_per_op": {k: v["gn_adagn_silu_bwd"] for k, v in per_op.items()
                              if k in ("trainer_step", "regular_step", "ingest_step")
-                             or (k.startswith(("dispatch_", "ddp_", "fsdp_", "tp_"))
+                             or (k.startswith(("dispatch_", "ddp_", "fsdp_", "tp_",
+                                               "headline_"))
                                  and v["gn_adagn_silu_bwd"])},
          "regular_step": regular_ms["gn_adagn_silu_bwd"]},
         *({"name": name, "route": "cuda", "source": source, "replaces": replaces,

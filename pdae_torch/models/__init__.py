@@ -19,6 +19,19 @@ CELEBA64_DPM = dict(
     num_residual_blocks_of_a_block=2, attention_resolutions=(16,),
     num_heads=4, head_channel=-1, use_new_attention_order=False, dropout=0.0)
 
+# the 128px DPM geometry of ffhq, celebahq, horse and bedroom
+# (``configs/dpm_ffhq.yml``; the JAX repo's ``FFHQ128_DPM``)
+FFHQ128_DPM = dict(
+    input_channel=3, base_channel=128, channel_multiplier=(1, 1, 2, 2, 4, 4),
+    num_residual_blocks_of_a_block=2, attention_resolutions=(16,),
+    num_heads=4, head_channel=-1, use_new_attention_order=False, dropout=0.0)
+
+# a two-level 16px geometry for smoke runs on the CPU (the JAX repo's ``TINY_DPM``)
+TINY_DPM = dict(
+    input_channel=3, base_channel=32, channel_multiplier=(1, 2),
+    num_residual_blocks_of_a_block=1, attention_resolutions=(2,),
+    num_heads=2, head_channel=-1, use_new_attention_order=False, dropout=0.0)
+
 _UNET_KEYS = ("input_channel", "base_channel", "channel_multiplier",
               "num_residual_blocks_of_a_block", "attention_resolutions",
               "num_heads", "head_channel", "use_new_attention_order",
@@ -92,8 +105,8 @@ def build_classifier(num_classes: int = 40, latent_dim: int = 512,
     return LinearClassifier(num_classes=num_classes, latent_dim=latent_dim, dtype=dtype)
 
 
-__all__ = ["CELEBA64_DPM", "UNet", "ShiftUNet", "SemanticEncoder", "MLPSkipNet",
-           "MLPLNAct", "LinearClassifier", "timestep_embedding",
+__all__ = ["CELEBA64_DPM", "FFHQ128_DPM", "TINY_DPM", "UNet", "ShiftUNet", "SemanticEncoder",
+           "MLPSkipNet", "MLPLNAct", "LinearClassifier", "timestep_embedding",
            "encoder_for_resolution", "build_denoise_fn", "build_decoder", "build_encoder",
            "build_latent_denoise_fn", "build_classifier",
            "SHIFT_TRAINABLE_PREFIXES", "FROZEN_PREFIXES"]

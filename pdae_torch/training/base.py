@@ -122,7 +122,15 @@ are. ``fsdp+sp`` adds
 the FSDP plan over the data group, with the sp group's sum before it. Both
 checkpoint formats write as under ``replicated`` and ``fsdp``.
 
-Not ported yet, and refused by name rather than ignored: profiler traces.
+``runner_config.profile_dir`` traces the whole step loop of each ``train``
+call on the primary rank with ``torch.profiler`` (the host's ops, and the
+card's kernels where there is one), as ``pdae_tpu`` traces it with
+``jax.profiler``: started just before the loop, stopped and written in its
+``finally``, an exception mid-loop included, under ``profile_dir`` in the
+layout of ``torch.profiler.tensorboard_trace_handler`` (TensorBoard's
+profiler plugin reads it; each file is a Chrome trace). With
+``steps_per_dispatch`` > 1 the trace holds the step's capture into the CUDA
+graph and every replay's kernels.
 """
 
 from __future__ import annotations
@@ -233,10 +241,9 @@ def _ours_ckpt_dir(p: str) -> bool:
 PARAM_SHARDINGS = ("replicated", "fsdp", "tp", "sp", "fsdp+tp", "fsdp+sp")
 
 
-def refuse_unported(config: dict) -> None:
-    """Raise, naming the ROADMAP item that will lift it, for every option of
-    the JAX trainer that the port does not run yet, and for values neither
-    package takes."""
+def check_runner_config(config: dict) -> None:
+    """Raise for values of the runner options that neither package takes,
+    and for a torchrun launch whose process group was not joined."""
     rc = config.get("runner_config") or {}
     sharding = rc.get("param_sharding", "replicated")
     if sharding not in PARAM_SHARDINGS:
@@ -252,9 +259,6 @@ def refuse_unported(config: dict) -> None:
     if layout == "hier" and "sp" in sharding.split("+"):
         raise ValueError("mesh_layout 'hier' applies to fsdp; sp builds its own [data, sp] "
                          "mesh")
-    if rc.get("profile_dir"):
-        raise NotImplementedError("runner_config.profile_dir is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 6)")
     if rc.get("checkpoint_format", "full") not in ("full", "sharded"):
         raise ValueError(f"runner_config.checkpoint_format must be 'full' or 'sharded', "
                          f"got {rc['checkpoint_format']!r}")
@@ -332,7 +336,7 @@ class BaseTrainer:
                  seed: int = 0, device=None):
         assert config is not None or config_path is not None
         self.config = config if config is not None else load_yaml(config_path)
-        refuse_unported(self.config)
+        check_runner_config(self.config)
         self.device = resolve_device(device)
         self.run_path = run_path
         self.seed = seed
@@ -1065,6 +1069,22 @@ class BaseTrainer:
             return out, load
         return run
 
+    def _start_profiler(self):
+        """The loop's trace under ``runner_config.profile_dir``, started, on
+        the primary rank (None elsewhere, or without the option)."""
+        path = self.runner_config.get("profile_dir")
+        if not path or not self.primary:
+            return None
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(str(path)))
+        profiler.start()
+        return profiler
+
     def train(self, max_steps: Optional[int] = None, save_on_exit: bool = True) -> int:
         rc = self.runner_config
         display = int(rc.get("display_steps", 100))
@@ -1109,7 +1129,9 @@ class BaseTrainer:
         t_end = time.perf_counter()
         window_steps = 0
         first_window = True     # the first window holds the warm-up
+        profiler = None
         try:
+            profiler = self._start_profiler()
             while (max_steps is None or step < max_steps) and not stop["flag"]:
                 c = next(chunks)
                 metrics, load_s = run_chunk(c)
@@ -1152,9 +1174,13 @@ class BaseTrainer:
             if step != last_saved and save_on_exit:
                 self.save(step)
         finally:
-            for sig, handler in old_handlers.items():
-                signal.signal(sig, handler)
-            self._join_save()
+            try:
+                if profiler is not None:
+                    profiler.stop()       # writes the trace
+            finally:
+                for sig, handler in old_handlers.items():
+                    signal.signal(sig, handler)
+                self._join_save()
         deferred, self._save_error_deferred = self._save_error_deferred, None
         if deferred is not None:
             kind, err = deferred

@@ -187,9 +187,9 @@ def test_steps_per_dispatch_keeps_the_cadence_check(port_dpm, tmp_path, monkeypa
 
 # fsdp, tp, sp, their compositions, the hierarchical mesh and the sharded
 # write train (tests/test_torch_fsdp.py, tests/test_torch_tp.py,
-# tests/test_torch_sp.py, tests/test_torch_hier.py); profiler traces are
-# refused by their own name, and the sp layouts' errors are pdae_tpu's
-# ValueErrors, raised before the run directory exists
+# tests/test_torch_sp.py, tests/test_torch_hier.py), profiler traces are
+# written (the profile_dir tests below); the sp layouts' errors are
+# pdae_tpu's ValueErrors, raised before the run directory exists
 REFUSALS = {
     "param_sharding": ({"runner_config": {"param_sharding": "sp", "sp_size": 2}},
                        ValueError, "sp_size=2 must divide the device count 1"),
@@ -198,8 +198,6 @@ REFUSALS = {
     "param_sharding_fsdp+sp": ({"runner_config": {"param_sharding": "fsdp+sp",
                                                   "sp_size": 3}},
                                ValueError, "sp_size=3 must divide the device count 1"),
-    "profile_dir": ({"runner_config": {"profile_dir": "/nowhere"}},
-                    NotImplementedError, "profile_dir.*item 6\\)"),
     # a torchrun launch of any layout, fsdp+sp too, needs the process group
     # joined first
     "WORLD_SIZE": ({"runner_config": {"param_sharding": "fsdp+sp"}},
@@ -218,6 +216,86 @@ def test_unported_options_are_refused_by_name(name, tmp_path, monkeypatch):
     with pytest.raises(error, match=what):
         _trainer(tmp_path / "run", cfg)
     assert not os.path.exists(tmp_path / "run")
+
+
+def _traces(path) -> list:
+    """The Chrome traces ``tensorboard_trace_handler`` wrote under ``path``,
+    each parsed (a trace cut off mid-write does not parse)."""
+    names = sorted(n for n in os.listdir(path) if n.endswith(".pt.trace.json"))
+    assert len(names) == len(os.listdir(path)), os.listdir(path)
+    out = []
+    for name in names:
+        with open(os.path.join(path, name)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _ops(trace) -> set:
+    return {e.get("name") for e in trace["traceEvents"] if e.get("cat") == "cpu_op"}
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_profile_dir_traces_the_loop_and_keeps_the_bits(k, port_dpm, tmp_path, monkeypatch):
+    """``runner_config.profile_dir`` (the JAX trainer's profiler trace):
+    each ``train`` call writes one trace of its loop (the steps' ops in it)
+    under the directory, eagerly and in chunks of ``steps_per_dispatch``
+    (on the CPU the chunks run eagerly), and the run's losses and state are
+    bit-equal to the same run without it."""
+    patch_tiny_encoders(monkeypatch)
+    runner = {"steps_per_dispatch": k, "display_steps": k}
+    plain = _trainer(tmp_path / "plain", tiny_pdae_config(port_dpm[0], **runner))
+    plain.train(max_steps=2 * k, save_on_exit=False)
+    traced_dir = tmp_path / "trace"
+    traced = _trainer(tmp_path / "traced", tiny_pdae_config(
+        port_dpm[0], profile_dir=str(traced_dir), **runner))
+    traced.train(max_steps=k, save_on_exit=False)
+    traced.train(max_steps=2 * k, save_on_exit=False)
+    assert _losses(tmp_path / "traced") == _losses(tmp_path / "plain")
+    assert len(_losses(tmp_path / "plain")) == 2
+    assert_trees_bitwise(traced.state_dict(), plain.state_dict())
+    traces = _traces(traced_dir)
+    assert len(traces) == 2
+    for trace in traces:
+        assert {"aten::convolution", "aten::group_norm"} <= _ops(trace), sorted(_ops(trace))
+
+
+def test_profile_dir_trace_is_written_when_the_loop_raises(port_dpm, tmp_path, monkeypatch):
+    """An exception mid-loop still stops the profiler and writes a whole
+    trace of the steps before it, and the signal handlers the loop
+    replaced are back."""
+    patch_tiny_encoders(monkeypatch)
+    traced_dir = tmp_path / "trace"
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0],
+                                                     profile_dir=str(traced_dir)))
+    inner = tr.train_step
+    count = {"n": 0}
+
+    def failing(batch):
+        count["n"] += 1
+        if count["n"] == 3:
+            raise RuntimeError("a step failed")
+        return inner(batch)
+
+    tr.train_step = failing
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGINT, signal.SIGTERM)}
+    with pytest.raises(RuntimeError, match="a step failed"):
+        tr.train(max_steps=5)
+    assert {sig: signal.getsignal(sig) for sig in handlers} == handlers
+    assert not torch.autograd.profiler._is_profiler_enabled
+    (trace,) = _traces(traced_dir)
+    assert "aten::convolution" in _ops(trace)
+    assert [s for s, _ in _losses(tmp_path / "run")] == [1, 2]
+
+
+def test_profile_dir_traces_on_the_primary_rank_only(port_dpm, tmp_path, monkeypatch):
+    """Another rank of a run (the primary alone writes) leaves no trace."""
+    patch_tiny_encoders(monkeypatch)
+    traced_dir = tmp_path / "trace"
+    tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0],
+                                                     profile_dir=str(traced_dir)))
+    tr.primary = False
+    assert tr.train(max_steps=1, save_on_exit=False) == 1
+    assert not os.path.exists(traced_dir)
 
 
 def test_with_weights_leaves_every_module_parameter_as_it_was():
