@@ -1,0 +1,4 @@
+"""The device's idle share of the traced window of autoencoding, in %: one
+minus the union of its activities' intervals over the window."""
+
+from h100_bench.trace import idle_share as read  # noqa: F401
