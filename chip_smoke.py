@@ -440,6 +440,25 @@ GN_BWD_EDGES = [(((1, 64, 128, 256), True, True), ("cluster", 8)),
 FUSED_KERNELS = ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")
 
 
+def traced_saves(since_ns: int) -> list:
+    """``[loop's seconds, background write's seconds or None]`` of each
+    checkpoint save begun after ``since_ns`` (``time.time_ns()``): the
+    ``pdae.train.save`` spans of ``pdae_torch.tracing``, each with the next
+    ``pdae.train.save_write`` of its step (the script and its workers record
+    spans from their start, ``tracing.enable()``)."""
+    from pdae_torch import tracing
+    spans = [s for s in tracing.spans() if s.start_ns >= since_ns]
+    writes = [s for s in spans if s.name == "pdae.train.save_write"]
+    out = []
+    for s in spans:
+        if s.name == "pdae.train.save":
+            w = next((w for w in writes if w.key == s.key and w.start_ns >= s.start_ns), None)
+            if w is not None:
+                writes.remove(w)
+            out.append([s.seconds, None if w is None else w.seconds])
+    return out
+
+
 def named_launches(counts=None) -> dict:
     """``ops.launch_counts()`` (or ``counts``, a graph's) as the checks name
     the kernels: the three fused kernels always, a split pass of the GN
@@ -1312,7 +1331,7 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
     from pdae_torch.utils import load_checkpoint, save_checkpoint, unet_tree
     from pdae_torch.utils.image import make_grid
 
-    phase_t0 = time.perf_counter()
+    phase_t0, since = time.perf_counter(), time.time_ns()
     root = os.path.join(OUT_DIR, "trainer")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1426,7 +1445,7 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
             torch.cuda.synchronize()
             bare.append(time.perf_counter() - s0)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        saves = run_a.save_seconds + run_b.save_seconds
+        saves = traced_saves(since)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
     # A's step-6 file and the DPM stay for the samplers phase
@@ -2789,6 +2808,7 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
     try:
         for stage in ("regular", "latent", "manipulation"):
             cfg = configs[stage]
+            since = time.time_ns()
             a, build_s = build(stage, "a")
             if stage == "regular":
                 per = per_call(a.model, torch.zeros(1, 3, 64, 64, device=device),
@@ -2823,6 +2843,7 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
             b, resume_s = build(stage, "b", cfg_b, resume="latest")
             run_b = drive_stage(b, keys, f"{stage}_b")
             mismatched = same_state(a, b)
+            saves = traced_saves(since)
             rec = {"build_s": build_s, "resume_build_s": resume_s, "start_step_b": b.start_step,
                    "losses": run_a["loss"], "step_s": run_a["s"],
                    "mean_step_s": sum(run_a["s"][1:]) / (len(run_a["s"]) - 1),
@@ -2830,8 +2851,7 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
                    "launches_expected": want_step, "gn_variants_per_step": run_a["gn"][-1],
                    "gn_bwd_variants_per_step": run_a["gn_bwd"][-1],
                    "peak_mem_gb": run_a["peak_mem_gb"], "loop_s": run_a["loop_s"],
-                   "save_wait_s": [r[0] for r in a.save_seconds + b.save_seconds],
-                   "save_write_s": [r[1] for r in a.save_seconds + b.save_seconds],
+                   "save_wait_s": [r[0] for r in saves], "save_write_s": [r[1] for r in saves],
                    "checkpoint_bytes": ckpt_bytes, "eval_s": run_a["eval"]["s"],
                    "eval_launches": run_a["eval"]["launches"],
                    "eval_launches_expected": want_eval,
@@ -4169,7 +4189,7 @@ def ddp_worker(spec_path, out_path) -> int:
 
     import torch.distributed as dist
 
-    from pdae_torch import ops, parallel
+    from pdae_torch import ops, parallel, tracing
     from pdae_torch.train import pick_trainer
 
     import faulthandler
@@ -4179,6 +4199,7 @@ def ddp_worker(spec_path, out_path) -> int:
     # a process stuck in a collective shows where: every thread's stack
     # goes to its log every WORKER_STACKS_S seconds (the runs end sooner)
     faulthandler.dump_traceback_later(WORKER_STACKS_S, repeat=True)
+    tracing.enable()             # the save times are its spans (traced_saves)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -4207,7 +4228,7 @@ def ddp_worker(spec_path, out_path) -> int:
             cfg = spec["config"]
             run_a = os.path.join(root, "a", f"rank{rank}")
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
+            t0, since = time.perf_counter(), time.time_ns()
             a = pick_trainer(cfg)(config=cfg, run_path=run_a, seed=spec["seed"])
             out["build_s"] = time.perf_counter() - t0
             losses, ms = timed_losses(a)
@@ -4222,7 +4243,7 @@ def ddp_worker(spec_path, out_path) -> int:
             torch.cuda.synchronize()
             out["launches"] = named_launches()
             out.update(losses=losses, step_ms=ms, step=a.step, files=files_under(run_a),
-                       save_s=a.save_seconds, memory=step_memory())
+                       save_s=traced_saves(since), memory=step_memory())
             state = ddp_state(a)
             out["digest"] = state_digest(state)
             if parallel.is_primary():
@@ -4775,7 +4796,7 @@ def fsdp_run(spec, kind) -> dict:
         if kind == "two_ranks":
             run_a, run_b = runs[0] + "_a", runs[0] + "_b"
             runs = [run_a, run_b, spec["cut_dir"]]
-            b0 = time.perf_counter()
+            b0, since = time.perf_counter(), time.time_ns()
             a = pick_trainer(cfg)(config=cfg, run_path=run_a, seed=spec["seed"])
             out["build_s"] = time.perf_counter() - b0
             out["sharded_tensors"] = len(a.plan.sharded)
@@ -4787,7 +4808,7 @@ def fsdp_run(spec, kind) -> dict:
             latest = os.path.join(run_a, "checkpoints", "latest.ckpt")
             shard = os.path.join(latest, f"shard-{DDP_CUT}-{rank:05d}-of-{DDP_RANKS:05d}.msgpack")
             out["shard_bytes"] = os.path.getsize(shard)
-            out["save_s"] = list(a.save_seconds)
+            out["save_s"] = traced_saves(since)
             if parallel.is_primary():
                 shutil.copytree(latest, spec["cut_dir"])
             parallel.sync_global_devices("copied")
@@ -6117,7 +6138,7 @@ def main(argv=None) -> int:
         return 2
 
     import pdae_torch
-    from pdae_torch import ops
+    from pdae_torch import ops, tracing
     from pdae_torch.models import CELEBA64_DPM, build_classifier, build_latent_denoise_fn
     from pdae_torch.diffusion import GaussianDiffusion
     from pdae_torch.ops import _build, groupnorm
@@ -6131,6 +6152,7 @@ def main(argv=None) -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    tracing.enable()             # the phases' save times are its spans (traced_saves)
     device = pdae_torch.resolve_device()
     smi = run_child(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                     60)

@@ -17,6 +17,8 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -79,7 +81,9 @@ class Loader:
             self._pool = cf.ThreadPoolExecutor(self.num_workers)
         for b in range(skip_batches, nb):
             chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield self.collate(list(self._pool.map(fetch, chunk)))
+            with tracing.span("pdae.loader.fetch"):
+                batch = self.collate(list(self._pool.map(fetch, chunk)))
+            yield batch
 
     def _getitem(self, i: int, rng):
         try:
@@ -105,14 +109,15 @@ def batch_to_device(batch: dict, device, keys: Optional[Sequence[str]] = None) -
     device = torch.device(device)
     pin = device.type == "cuda"
     out = {}
-    for k, v in batch.items():
-        if keys is not None and k not in keys:
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if pin:
-            t = t.pin_memory()
-        t = t.to(device, non_blocking=pin)
-        out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
+    with tracing.span("pdae.loader.h2d"):
+        for k, v in batch.items():
+            if keys is not None and k not in keys:
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if pin:
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=pin)
+            out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
     return out
 
 

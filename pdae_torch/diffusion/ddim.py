@@ -12,6 +12,8 @@ Here each step calls the model eagerly. The math is carried over exactly:
 
 Per-step coefficients are float32 table entries applied as numbers; the
 float32 square roots are taken in numpy float32, as the JAX code takes them.
+Each step (its model calls and its update) is a span ``pdae.solver.step``
+keyed by i (``tracing``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from .schedules import DDIMSchedule
 
 
@@ -54,9 +57,10 @@ def ddim_sample_loop(dds: DDIMSchedule, denoise_fn: Callable, x_T, condition=Non
     """Deterministic DDIM sampling x_T -> x_0."""
     x = x_T
     for i in range(dds.num_steps, 0, -1):
-        eps = denoise_fn(x, _t_vec(dds, i, x), condition)
-        x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
-        x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
+        with tracing.span("pdae.solver.step", i):
+            eps = denoise_fn(x, _t_vec(dds, i, x), condition)
+            x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
+            x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
     return x
 
 
@@ -64,9 +68,10 @@ def ddim_encode_loop(dds: DDIMSchedule, denoise_fn: Callable, x_0, condition=Non
     """Deterministic DDIM encoding x_0 -> x_T."""
     x = x_0
     for i in range(dds.num_steps):
-        eps = denoise_fn(x, _t_vec(dds, i, x), condition)
-        x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
-        x = _step(_entry(dds.alphas_cumprod_next, i), x0, eps)
+        with tracing.span("pdae.solver.step", i):
+            eps = denoise_fn(x, _t_vec(dds, i, x), condition)
+            x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
+            x = _step(_entry(dds.alphas_cumprod_next, i), x0, eps)
     return x
 
 
@@ -76,11 +81,12 @@ def shift_ddim_sample_loop(dds: DDIMSchedule, decoder: Callable, z, x_T,
     stop_step = int(stop_percent * dds.num_steps)
     x = x_T
     for i in range(dds.num_steps, 0, -1):
-        eps, gradient = decoder(x, _t_vec(dds, i, x), z)
-        if (i - 1) >= stop_step:
-            eps = _shifted_noise(dds, eps, gradient, i)
-        x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
-        x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
+        with tracing.span("pdae.solver.step", i):
+            eps, gradient = decoder(x, _t_vec(dds, i, x), z)
+            if (i - 1) >= stop_step:
+                eps = _shifted_noise(dds, eps, gradient, i)
+            x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
+            x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
     return x
 
 
@@ -88,10 +94,11 @@ def shift_ddim_encode_loop(dds: DDIMSchedule, decoder: Callable, z, x_0):
     """PDAE shift-DDIM encoding x_0 -> x_T."""
     x = x_0
     for i in range(dds.num_steps):
-        eps, gradient = decoder(x, _t_vec(dds, i, x), z)
-        eps = _shifted_noise(dds, eps, gradient, i)
-        x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
-        x = _step(_entry(dds.alphas_cumprod_next, i), x0, eps)
+        with tracing.span("pdae.solver.step", i):
+            eps, gradient = decoder(x, _t_vec(dds, i, x), z)
+            eps = _shifted_noise(dds, eps, gradient, i)
+            x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
+            x = _step(_entry(dds.alphas_cumprod_next, i), x0, eps)
     return x
 
 
@@ -102,13 +109,14 @@ def shift_ddim_trajectory_interpolation(dds: DDIMSchedule, decoder: Callable,
     the ``z_1`` call's. Two decoder calls per step."""
     x = x_T
     for i in range(dds.num_steps, 0, -1):
-        t = _t_vec(dds, i, x)
-        eps, gradient_1 = decoder(x, t, z_1)
-        _, gradient_2 = decoder(x, t, z_2)
-        gradient = (1.0 - alpha) * gradient_1 + alpha * gradient_2
-        eps = _shifted_noise(dds, eps, gradient, i)
-        x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
-        x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
+        with tracing.span("pdae.solver.step", i):
+            t = _t_vec(dds, i, x)
+            eps, gradient_1 = decoder(x, t, z_1)
+            _, gradient_2 = decoder(x, t, z_2)
+            gradient = (1.0 - alpha) * gradient_1 + alpha * gradient_2
+            eps = _shifted_noise(dds, eps, gradient, i)
+            x0, eps = _predict_x0_and_renoise(dds, x, i, eps)
+            x = _step(_entry(dds.alphas_cumprod_prev, i), x0, eps)
     return x
 
 
@@ -125,8 +133,9 @@ def latent_ddim_sample_loop_unclamped(dds: DDIMSchedule,
     noise, not one recomputed from z_0."""
     z = z_T
     for i in range(dds.num_steps, 0, -1):
-        eps = latent_denoise_fn(z, _t_vec(dds, i, z))
-        sr = float(_entry(dds.sqrt_recip_alphas_cumprod, i))
-        srm1 = float(_entry(dds.sqrt_recip_alphas_cumprod_m1, i))
-        z = _step(_entry(dds.alphas_cumprod_prev, i), sr * z - srm1 * eps, eps)
+        with tracing.span("pdae.solver.step", i):
+            eps = latent_denoise_fn(z, _t_vec(dds, i, z))
+            sr = float(_entry(dds.sqrt_recip_alphas_cumprod, i))
+            srm1 = float(_entry(dds.sqrt_recip_alphas_cumprod_m1, i))
+            z = _step(_entry(dds.alphas_cumprod_prev, i), sr * z - srm1 * eps, eps)
     return z

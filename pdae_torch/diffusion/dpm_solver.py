@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .schedules import _f32, respace
 
 
@@ -114,16 +115,18 @@ def _t_vec(tables: SolverTables, k: int, x: torch.Tensor) -> torch.Tensor:
 
 
 def _solver_loop(tables: SolverTables, eps_fn: Callable, x_T, order: int):
-    """The multistep update; ``eps_fn(x, k)`` gives the noise at step k."""
+    """The multistep update; ``eps_fn(x, k)`` gives the noise at step k. Each
+    step is a span ``pdae.solver.step`` keyed by k (``tracing``)."""
     if order not in (1, 2):
         raise ValueError(f"order must be 1 or 2, got {order}")
     x, x0_prev = x_T, torch.zeros_like(x_T)
     for k in range(tables.num_steps):
-        eps = eps_fn(x, k)
-        x0 = (_entry(tables.sr, k) * x - _entry(tables.srm1, k) * eps).clamp(-1.0, 1.0)
-        x0_eff = x0 + _entry(tables.c2, k) * (x0 - x0_prev) if order == 2 else x0
-        x = _entry(tables.ratio, k) * x + _entry(tables.acoef, k) * x0_eff
-        x0_prev = x0
+        with tracing.span("pdae.solver.step", k):
+            eps = eps_fn(x, k)
+            x0 = (_entry(tables.sr, k) * x - _entry(tables.srm1, k) * eps).clamp(-1.0, 1.0)
+            x0_eff = x0 + _entry(tables.c2, k) * (x0 - x0_prev) if order == 2 else x0
+            x = _entry(tables.ratio, k) * x + _entry(tables.acoef, k) * x0_eff
+            x0_prev = x0
     return x
 
 

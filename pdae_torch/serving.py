@@ -17,6 +17,7 @@ mantissas.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Optional
@@ -24,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import parallel, resolve_device
+from . import parallel, resolve_device, tracing
 from .data import CELEBAHQ_LABEL_TO_ID
 from .diffusion import GaussianDiffusion
 from .models import (build_classifier, build_decoder, build_encoder,
@@ -91,6 +92,12 @@ class PDAEService:
     XLA rewrite of the decoders' upsample convs with it) is checked and
     ignored: the port computes nearest-up then a 3x3 conv, one numerics for
     every bucket.
+
+    Each op is a span ``pdae.service.<op>`` (``tracing``) keyed by the
+    request's number, counted by the service from 1; inside it
+    ``pdae.service.prepare`` (the input's cast, bucket pad and H2D copy), the
+    solver loops' ``pdae.solver.step`` spans and ``pdae.service.finish``
+    (the finite check, the D2H copy and the cast to uint8).
     """
 
     def __init__(self, config: dict, encoder_state: dict, decoder_state: dict,
@@ -141,6 +148,7 @@ class PDAEService:
         # the first generate or manipulate can come from a batcher's worker
         # thread and a direct caller at once: each lazy build runs once
         self._init_lock = threading.Lock()
+        self._requests = itertools.count(1)
 
     @classmethod
     def from_config(cls, config: dict, device=None) -> "PDAEService":
@@ -177,26 +185,31 @@ class PDAEService:
 
     # -- helpers --------------------------------------------------------- #
 
+    def _request(self, op: str) -> tracing.span:
+        """The span of one call of ``op``, keyed by the next request number."""
+        return tracing.span(f"pdae.service.{op}", next(self._requests))
+
     def _to_model_input(self, images):
         """uint8 (or float in [-1, 1]) NHWC -> padded fp32 NCHW on the device,
         and the number of real images."""
-        arr = np.asarray(images)
-        if arr.dtype == np.uint8:
-            arr = arr.astype(np.float32) / 255.0 * 2.0 - 1.0
-        arr = np.asarray(arr, np.float32)
-        n = arr.shape[0]
-        if n == 0:
-            raise ValueError("empty batch")
-        if n > self.max_batch:
-            raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
-        if arr.shape[1:] != (self.size, self.size, self.channels):
-            raise ValueError(f"images must be [N, {self.size}, {self.size}, "
-                             f"{self.channels}], got {arr.shape}")
-        b = _bucket(n, self.max_batch)
-        if b > n:
-            arr = np.concatenate([arr, np.repeat(arr[:1], b - n, axis=0)], axis=0)
-        x = torch.from_numpy(arr).to(self.device).permute(0, 3, 1, 2).contiguous()
-        return x, n
+        with tracing.span("pdae.service.prepare"):
+            arr = np.asarray(images)
+            if arr.dtype == np.uint8:
+                arr = arr.astype(np.float32) / 255.0 * 2.0 - 1.0
+            arr = np.asarray(arr, np.float32)
+            n = arr.shape[0]
+            if n == 0:
+                raise ValueError("empty batch")
+            if n > self.max_batch:
+                raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
+            if arr.shape[1:] != (self.size, self.size, self.channels):
+                raise ValueError(f"images must be [N, {self.size}, {self.size}, "
+                                 f"{self.channels}], got {arr.shape}")
+            b = _bucket(n, self.max_batch)
+            if b > n:
+                arr = np.concatenate([arr, np.repeat(arr[:1], b - n, axis=0)], axis=0)
+            x = torch.from_numpy(arr).to(self.device).permute(0, 3, 1, 2).contiguous()
+            return x, n
 
     def _latent_stats(self):
         """(mean, std) on the device; the caller holds the init lock."""
@@ -272,13 +285,22 @@ class PDAEService:
             raise FloatingPointError("the model produced non-finite values")
         return x.permute(0, 2, 3, 1).cpu().numpy()
 
+    def _images(self, out: torch.Tensor, n: int) -> np.ndarray:
+        """The data groups' output as the first n uint8 NHWC images."""
+        whole = self._whole(out)
+        with tracing.span("pdae.service.finish"):
+            return to_uint8(self._to_nhwc(whole, n))
+
     # -- ops ------------------------------------------------------------- #
 
     @torch.inference_mode()
     def encode(self, images) -> np.ndarray:
         """images -> semantic latents z ``[N, latent_dim]``."""
-        x, n = self._to_model_input(images)
-        return self._whole(self.encoder(self._rows(x)))[:n].cpu().numpy()
+        with self._request("encode"):
+            x, n = self._to_model_input(images)
+            z = self._whole(self.encoder(self._rows(x)))
+            with tracing.span("pdae.service.finish"):
+                return z[:n].cpu().numpy()
 
     @torch.inference_mode()
     def autoencode(self, images, encode_style: Optional[str] = None,
@@ -286,26 +308,28 @@ class PDAEService:
         """images -> reconstructions (uint8 NHWC)."""
         es = encode_style or self.config.get("encoder_ddim_style", "ddim100")
         ds = decode_style or self.config.get("decoder_ddim_style", "ddim100")
-        x, n = self._to_model_input(images)
-        out = self.gd.representation_learning_autoencoding(
-            es, ds, self.encoder, self.decoder, self._rows(x))
-        return to_uint8(self._to_nhwc(self._whole(out), n))
+        with self._request("autoencode"):
+            x, n = self._to_model_input(images)
+            out = self.gd.representation_learning_autoencoding(
+                es, ds, self.encoder, self.decoder, self._rows(x))
+            return self._images(out, n)
 
     @torch.inference_mode()
     def decode(self, z, x_T, decode_style: Optional[str] = None,
                stop_percent: float = 0.0) -> np.ndarray:
         """(z ``[N, latent_dim]``, x_T NHWC) -> images (uint8 NHWC)."""
         ds = decode_style or self.config.get("decoder_ddim_style", "ddim100")
-        x, n = self._to_model_input(np.asarray(x_T, np.float32))
-        zz = np.asarray(z, np.float32)
-        if zz.shape[0] != n:
-            raise ValueError(f"{zz.shape[0]} latents for {n} images")
-        if x.shape[0] > n:
-            zz = np.concatenate([zz, np.repeat(zz[:1], x.shape[0] - n, axis=0)])
-        x, zz = self._rows(x, torch.from_numpy(zz).to(self.device))
-        out = self.gd.representation_learning_ddim_sample(
-            ds, None, self.decoder, None, x, zz, stop_percent=stop_percent)
-        return to_uint8(self._to_nhwc(self._whole(out), n))
+        with self._request("decode"):
+            x, n = self._to_model_input(np.asarray(x_T, np.float32))
+            zz = np.asarray(z, np.float32)
+            if zz.shape[0] != n:
+                raise ValueError(f"{zz.shape[0]} latents for {n} images")
+            if x.shape[0] > n:
+                zz = np.concatenate([zz, np.repeat(zz[:1], x.shape[0] - n, axis=0)])
+            x, zz = self._rows(x, torch.from_numpy(zz).to(self.device))
+            out = self.gd.representation_learning_ddim_sample(
+                ds, None, self.decoder, None, x, zz, stop_percent=stop_percent)
+            return self._images(out, n)
 
     @torch.inference_mode()
     def generate(self, n: int, seed: int = 0, latent_style: Optional[str] = None,
@@ -323,15 +347,16 @@ class PDAEService:
             raise ValueError(f"n {n} exceeds max_batch {self.max_batch}")
         b = _bucket(n, self.max_batch)
         latent_dim = int(self.config["latent_config"]["input_channel"])
-        gen = torch.Generator(self.device).manual_seed(int(seed))
-        z_T = torch.randn((b, latent_dim), generator=gen, device=self.device)
-        x_T = torch.randn((b, self.channels, self.size, self.size), generator=gen,
-                          device=self.device)
-        z_T, x_T = self._rows(z_T, x_T)
-        out = self.gd.latent_diffusion_sample(
-            None, ls, ds, latent_denoise_fn, self.decoder, x_T, mean, std,
-            latent_dim=latent_dim, z_T=z_T)
-        return to_uint8(self._to_nhwc(self._whole(out), n))
+        with self._request("generate"):
+            gen = torch.Generator(self.device).manual_seed(int(seed))
+            z_T = torch.randn((b, latent_dim), generator=gen, device=self.device)
+            x_T = torch.randn((b, self.channels, self.size, self.size), generator=gen,
+                              device=self.device)
+            z_T, x_T = self._rows(z_T, x_T)
+            out = self.gd.latent_diffusion_sample(
+                None, ls, ds, latent_denoise_fn, self.decoder, x_T, mean, std,
+                latent_dim=latent_dim, z_T=z_T)
+            return self._images(out, n)
 
     @torch.inference_mode()
     def manipulate(self, images, attribute: Optional[str] = None, class_id: int = 31,
@@ -350,14 +375,15 @@ class PDAEService:
             raise ValueError(f"class_id {class_id} is not in [0, {weight.shape[0]})")
         es = encode_style or self.config.get("encode_ddim_style", "ddim500")
         ds = decode_style or self.config.get("decode_ddim_style", "ddim200")
-        x, n = self._to_model_input(images)
-        x = self._rows(x)
-        x_T = self.gd.representation_learning_ddim_encode(
-            es, self.encoder, self.decoder, x)
-        out = self.gd.manipulation_sample(
-            ds, weight, self.encoder, self.decoder, x, x_T, mean, std,
-            int(class_id), float(scale))
-        return to_uint8(self._to_nhwc(self._whole(out), n))
+        with self._request("manipulate"):
+            x, n = self._to_model_input(images)
+            x = self._rows(x)
+            x_T = self.gd.representation_learning_ddim_encode(
+                es, self.encoder, self.decoder, x)
+            out = self.gd.manipulation_sample(
+                ds, weight, self.encoder, self.decoder, x, x_T, mean, std,
+                int(class_id), float(scale))
+            return self._images(out, n)
 
 
 class CoalescingBatcher:

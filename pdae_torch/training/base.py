@@ -130,7 +130,9 @@ card's kernels where there is one), as ``pdae_tpu`` traces it with
 layout of ``torch.profiler.tensorboard_trace_handler`` (TensorBoard's
 profiler plugin reads it; each file is a Chrome trace). With
 ``steps_per_dispatch`` > 1 the trace holds the step's capture into the CUDA
-graph and every replay's kernels.
+graph and every replay's kernels. The loop's spans (``tracing``: each chunk,
+the batch stream's waits, the steps, the display block, the saves and the
+evals, keyed by step) show in it by name.
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import parallel, resolve_device
+from .. import parallel, resolve_device, tracing
 from ..data import Loader, build_dataset, prefetch_to_device
 from ..data.pipeline import batch_to_device
 from ..utils import (is_sharded_checkpoint, load_checkpoint, load_yaml,
@@ -342,7 +344,6 @@ class BaseTrainer:
         self.seed = seed
         self.runner_config = self.config["runner_config"]
         self.dataloader_config = self.config.get("dataloader_config", {})
-        self.save_seconds = []      # (loop's wait, background write) per save
         self._save_thread = None
         self._save_error = None
         self._dropout = False       # the trained modules have dropout (_build says)
@@ -674,7 +675,8 @@ class BaseTrainer:
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One eager step on a device batch, at the live step."""
-        with self.seeded(self.step):
+        step = self.step
+        with tracing.span("pdae.train.step", step + 1), self.seeded(step):
             return self._step(batch)
 
     def _graph_body(self, inputs: Dict[str, torch.Tensor], ema: bool):
@@ -825,9 +827,14 @@ class BaseTrainer:
         paths = [os.path.join(self.run_path, "checkpoints", "latest.ckpt")]
         if snapshot:
             paths.append(snapshot_path(self.run_path, step))
-        if self.checkpoint_format == "sharded":
-            return self._save_sharded(step, paths)
-        t0 = time.perf_counter()
+        with tracing.span("pdae.train.save", step):
+            if self.checkpoint_format == "sharded":
+                return self._save_sharded(step, paths)
+            return self._save_full(step, paths)
+
+    def _save_full(self, step: int, paths) -> None:
+        """``checkpoint_format: full``: ``save``'s host copy on the loop's
+        thread, the rest in the background writer."""
         gathered = self.plan is not None or self.tp_layout is not None
         if gathered:
             snap = self.snapshot_state(full=True)
@@ -836,7 +843,6 @@ class BaseTrainer:
         if not gathered:
             snap = self.snapshot_state()
         self._join_save()
-        record = [0.0, None]
 
         def tree():
             return {"step": np.asarray(step, np.int32), **self.checkpoint_tree(snap)}
@@ -855,17 +861,14 @@ class BaseTrainer:
                 os.replace(p + ".swap", p)
             else:
                 file_paths.append(p)
-        record[0] = time.perf_counter() - t0
-        self.save_seconds.append(record)
         if not file_paths:
             return
 
         def write():
-            w0 = time.perf_counter()
-            sd = tree()
-            for p in file_paths:
-                save_checkpoint(p, sd)
-            record[1] = time.perf_counter() - w0
+            with tracing.span("pdae.train.save_write", step):
+                sd = tree()
+                for p in file_paths:
+                    save_checkpoint(p, sd)
 
         self._spawn_save(write)
 
@@ -922,14 +925,11 @@ class BaseTrainer:
         the manifest is a collective; a rank whose write failed asks for the
         consensus stop and raises once every rank has left the loop, and no
         manifest is written."""
-        t0 = time.perf_counter()
         targets = self._sharded_targets(paths)
         snap = self.snapshot_state()
         skeleton = self._skeleton()
         tag = str(int(step))
         self._join_save()
-        record = [0.0, None]
-        self.save_seconds.append(record)
 
         def write_pieces():
             tree = {"step": np.asarray(step, np.int32), **self.checkpoint_tree(snap)}
@@ -945,14 +945,11 @@ class BaseTrainer:
                 write_shard_file(target, pieces, tag, self.rank, self.world)
 
         if self.world == 1:
-            record[0] = time.perf_counter() - t0
-
             def write():
-                w0 = time.perf_counter()
-                self._clear_swap(targets)
-                write_pieces()
-                self._finish_sharded(targets, skeleton, tag)
-                record[1] = time.perf_counter() - w0
+                with tracing.span("pdae.train.save_write", step):
+                    self._clear_swap(targets)
+                    write_pieces()
+                    self._finish_sharded(targets, skeleton, tag)
 
             self._spawn_save(write)
             return
@@ -963,21 +960,20 @@ class BaseTrainer:
         except Exception as e:           # reported below, after the barrier
             err = e
         parallel.sync_global_devices("sharded_ckpt_targets")
-        w0 = time.perf_counter()
-        if err is None:
-            try:
-                write_pieces()
-            except Exception as e:
-                err = e
-        written = all(parallel.gather_objects([err is None]))
-        if written and self.primary:
-            try:
-                self._finish_sharded(targets, skeleton, tag)
-            except Exception as e:
-                err = e
-        # the next save reads the targets as the primary left them
-        parallel.sync_global_devices("sharded_ckpt_done")
-        record[:] = [time.perf_counter() - t0, time.perf_counter() - w0]
+        with tracing.span("pdae.train.save_write", step):
+            if err is None:
+                try:
+                    write_pieces()
+                except Exception as e:
+                    err = e
+            written = all(parallel.gather_objects([err is None]))
+            if written and self.primary:
+                try:
+                    self._finish_sharded(targets, skeleton, tag)
+                except Exception as e:
+                    err = e
+            # the next save reads the targets as the primary left them
+            parallel.sync_global_devices("sharded_ckpt_done")
         if err is not None:
             # raising here would leave the other ranks in their next
             # collective: ask for the consensus stop, raise after the loop
@@ -1028,7 +1024,9 @@ class BaseTrainer:
         ``c`` steps from ``start_step``. With ``k`` > 1 on the card each step
         is a replay of the captured step (``dispatch.GraphDispatch``), fed
         the host batch or, from a resident corpus, the epoch stream's index
-        row; else an eager ``train_step`` on the batch stream."""
+        row; else an eager ``train_step`` on the batch stream. The seconds
+        spent loading are the ``pdae.loader.next`` spans' (``tracing``):
+        each batch's wait, or a resident chunk's index row."""
         if self._replays(k):
             from .dispatch import GraphDispatch
             if parallel.tensor_backend() == "gloo":
@@ -1043,16 +1041,15 @@ class BaseTrainer:
                         if self.resident_sampling == "epoch" else None)
 
                 def run(c):
-                    t0 = time.perf_counter()
-                    idx = None
-                    if rows is not None:
-                        idx = torch.from_numpy(next(rows).astype(np.int64))
-                        if self.device.type == "cuda":
-                            idx = idx.pin_memory()
-                        idx = idx.to(self.device, non_blocking=True)
-                    load = time.perf_counter() - t0
+                    with tracing.span("pdae.loader.next", self.step + 1, timed=True) as load:
+                        idx = None
+                        if rows is not None:
+                            idx = torch.from_numpy(next(rows).astype(np.int64))
+                            if self.device.type == "cuda":
+                                idx = idx.pin_memory()
+                            idx = idx.to(self.device, non_blocking=True)
                     return [graph.step({} if idx is None else {"indices": idx[i]})
-                            for i in range(c)], load
+                            for i in range(c)], load.seconds
                 return run
             source = graph.step
         else:
@@ -1060,11 +1057,11 @@ class BaseTrainer:
         it = self._batch_iterator(start_step)
 
         def run(c):
-            out, load = [], 0.0
-            for _ in range(c):
-                t0 = time.perf_counter()
-                batch = next(it)
-                load += time.perf_counter() - t0
+            out, load, step = [], 0.0, self.step
+            for i in range(c):
+                with tracing.span("pdae.loader.next", step + i + 1, timed=True) as wait:
+                    batch = next(it)
+                load += wait.seconds
                 out.append(source(batch))
             return out, load
         return run
@@ -1134,7 +1131,8 @@ class BaseTrainer:
             profiler = self._start_profiler()
             while (max_steps is None or step < max_steps) and not stop["flag"]:
                 c = next(chunks)
-                metrics, load_s = run_chunk(c)
+                with tracing.span("pdae.train.chunk", step + 1):
+                    metrics, load_s = run_chunk(c)
                 step += c
                 window_steps += c
                 # device scalars every step; one host sync per display window
@@ -1143,18 +1141,19 @@ class BaseTrainer:
                         losses[name].append(v)
                 meters.add("load_data", load_s, n=c)
                 if step % display == 0:
-                    avg = {name: float(np.mean([float(x) for x in v]))
-                           for name, v in losses.items()}
-                    window = time.perf_counter() - t_end
-                    rate = 0.0 if first_window else window_steps / window
-                    self.logger.scalars(step, {
-                        **avg, "steps_per_sec": rate,
-                        "time/step": window / max(window_steps, 1),
-                        "time/load_data": meters.summary().get("load_data", 0.0)})
-                    if self.primary:
-                        print(f"step {step}: " + " ".join(f"{n}={v:.5f}"
-                                                          for n, v in avg.items())
-                              + f" ({rate:.2f} it/s)", flush=True)
+                    with tracing.span("pdae.train.log", step):
+                        avg = {name: float(np.mean([float(x) for x in v]))
+                               for name, v in losses.items()}
+                        window = time.perf_counter() - t_end
+                        rate = 0.0 if first_window else window_steps / window
+                        self.logger.scalars(step, {
+                            **avg, "steps_per_sec": rate,
+                            "time/step": window / max(window_steps, 1),
+                            "time/load_data": meters.summary().get("load_data", 0.0)})
+                        if self.primary:
+                            print(f"step {step}: " + " ".join(f"{n}={v:.5f}"
+                                                              for n, v in avg.items())
+                                  + f" ({rate:.2f} it/s)", flush=True)
                     losses.clear()
                     meters.reset()
                     first_window = False

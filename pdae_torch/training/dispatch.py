@@ -52,7 +52,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
-from .. import ops
+from .. import ops, tracing
 from .state import ema_due
 
 
@@ -130,27 +130,32 @@ class GraphDispatch:
         tr = self.trainer
         count = tr.state.step
         try:
-            graph = StepGraph(lambda: tr._graph_body(self.static, ema),
-                              [tr._train_gen.generator, tr._data_gen.generator],
-                              self.stream, self.pool)
+            with tracing.span("pdae.graph.capture"):
+                graph = StepGraph(lambda: tr._graph_body(self.static, ema),
+                                  [tr._train_gen.generator, tr._data_gen.generator],
+                                  self.stream, self.pool)
         finally:
             tr.state.step = count
         self.graphs[ema] = graph
         return graph
 
     def step(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step: the input copy, the re-seed, the warm-up or a replay
+        (after the capture, the first time), the outputs' copy; the span
+        ``pdae.train.step`` (``tracing``) covers it all."""
         tr = self.trainer
-        self._load(inputs)
         step = tr.state.step
-        ema = ema_due(step + 1, tr.ema_every)
-        if not self.warm:
+        with tracing.span("pdae.train.step", step + 1):
+            self._load(inputs)
+            ema = ema_due(step + 1, tr.ema_every)
+            if not self.warm:
+                with tr.seeded(step):
+                    out = self._side(lambda: tr._graph_body(self.static, ema))
+                self.warm = True
+                return out
+            graph = self.graphs.get(ema) or self._capture(ema)
             with tr.seeded(step):
-                out = self._side(lambda: tr._graph_body(self.static, ema))
-            self.warm = True
-            return out
-        graph = self.graphs.get(ema) or self._capture(ema)
-        with tr.seeded(step):
-            out = graph.replay()
-        tr.state.step = step + 1
-        self.replays += 1
-        return {k: v.clone() for k, v in out.items()}
+                out = graph.replay()
+            tr.state.step = step + 1
+            self.replays += 1
+            return {k: v.clone() for k, v in out.items()}

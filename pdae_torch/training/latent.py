@@ -27,10 +27,10 @@
 from __future__ import annotations
 
 import os
-import time
 
 import torch
 
+from .. import tracing
 from ..diffusion import GaussianDiffusion
 from ..models import build_latent_denoise_fn
 from ..utils import (mlp_skip_net_state_dict, mlp_skip_net_tree, save_image_grid,
@@ -80,28 +80,27 @@ class LatentDiffusionTrainer(StageTrainer):
 
     def evaluate(self, step: int, latent_ddim_style: str = "ddim100",
                  decoder_ddim_style: str = "ddim100"):
-        t0 = time.perf_counter()
-        n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
-        gen = generator(self.seed, EVAL, step, self.device)
-        z_T = torch.randn((n, self.latent_dim), device=self.device, generator=gen)
-        x_T = torch.randn((n,) + self.sample_shape, device=self.device, generator=gen)
-        mine = self._eval_shard(n)
-        z_T, x_T = z_T[mine], x_T[mine]
+        with tracing.span("pdae.train.eval", step):
+            n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
+            gen = generator(self.seed, EVAL, step, self.device)
+            z_T = torch.randn((n, self.latent_dim), device=self.device, generator=gen)
+            x_T = torch.randn((n,) + self.sample_shape, device=self.device, generator=gen)
+            mine = self._eval_shard(n)
+            z_T, x_T = z_T[mine], x_T[mine]
 
-        def sample(model, z_T, x_T):
-            return self.gd.latent_diffusion_sample(
-                None, latent_ddim_style, decoder_ddim_style, model, self.decoder, x_T,
-                self.latents_mean, self.latents_std, latent_dim=self.latent_dim, z_T=z_T)
+            def sample(model, z_T, x_T):
+                return self.gd.latent_diffusion_sample(
+                    None, latent_ddim_style, decoder_ddim_style, model, self.decoder, x_T,
+                    self.latents_mean, self.latents_std, latent_dim=self.latent_dim, z_T=z_T)
 
-        self.model.eval()
-        try:
-            with torch.inference_mode(), self._whole_frozen():
-                imgs = with_weights({"model": self.model}, {"model": self.ema_weights()},
-                                    sample, z_T, x_T)
-        finally:
-            self.model.train()
-        grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
-        self.eval_seconds.append(time.perf_counter() - t0)
+            self.model.eval()
+            try:
+                with torch.inference_mode(), self._whole_frozen():
+                    imgs = with_weights({"model": self.model}, {"model": self.ema_weights()},
+                                        sample, z_T, x_T)
+            finally:
+                self.model.train()
+            grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
         if grid is None:
             return
         save_image_grid(grid, os.path.join(self.run_path, "samples",

@@ -23,10 +23,10 @@ normalised z, the port of ``pdae_tpu/training/manipulation.py``.
 from __future__ import annotations
 
 import os
-import time
 
 import torch
 
+from .. import tracing
 from ..diffusion import GaussianDiffusion
 from ..models import build_classifier
 from ..utils import classifier_state_dict, classifier_tree, save_image_grid, to_uint8
@@ -81,16 +81,16 @@ class ManipulationTrainer(StageTrainer):
             # every rank decodes, the primary writes
             if not self.primary and self.tp_layout is None and self.sp_groups is None:
                 return
-            t0 = time.perf_counter()
-            batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
-            x_0 = x0_from_transfer(torch.from_numpy(batch["x_0"]).to(self.device)
-                                   .permute(0, 3, 1, 2).contiguous())
-            with torch.inference_mode():
-                x_T = self.gd.representation_learning_ddim_encode(
-                    encode_style, self.encoder, self.decoder, x_0)
-                imgs = self.gd.manipulation_sample(
-                    decode_style, weight, self.encoder, self.decoder, x_0, x_T,
-                    self.latents_mean, self.latents_std, class_id, scale)
+            with tracing.span("pdae.train.eval", step):
+                batch = type(self.eval_dataset).collate_fn([self.eval_dataset[0]])
+                x_0 = x0_from_transfer(torch.from_numpy(batch["x_0"]).to(self.device)
+                                       .permute(0, 3, 1, 2).contiguous())
+                with torch.inference_mode():
+                    x_T = self.gd.representation_learning_ddim_encode(
+                        encode_style, self.encoder, self.decoder, x_0)
+                    imgs = self.gd.manipulation_sample(
+                        decode_style, weight, self.encoder, self.decoder, x_0, x_T,
+                        self.latents_mean, self.latents_std, class_id, scale)
         if not self.primary:
             return
         grid = to_uint8(torch.cat([x_0, imgs]).permute(0, 2, 3, 1).cpu().numpy())
@@ -98,4 +98,3 @@ class ManipulationTrainer(StageTrainer):
                                            f"sample{step // 1000}k.png"),
                         nrow=grid.shape[0])
         self.logger.image(step, "result", make_grid(grid, nrow=grid.shape[0]))
-        self.eval_seconds.append(time.perf_counter() - t0)

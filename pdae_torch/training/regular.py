@@ -21,10 +21,10 @@
 from __future__ import annotations
 
 import os
-import time
 
 import torch
 
+from .. import tracing
 from ..diffusion import GaussianDiffusion
 from ..models import build_denoise_fn
 from ..utils import save_image_grid, to_uint8, unet_state_dict, unet_tree
@@ -63,27 +63,26 @@ class RegularDiffusionTrainer(StageTrainer):
             condition=batch.get("condition"), ema=ema)}
 
     def evaluate(self, step: int, ddim_style: str = "ddim100"):
-        t0 = time.perf_counter()
-        n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
-        x_T = torch.randn((n,) + self.sample_shape, device=self.device,
-                          generator=generator(self.seed, EVAL, step, self.device))
-        cond = (torch.arange(n, device=self.device) % self.num_class
-                if self.num_class is not None else None)
-        mine = self._eval_shard(n)
-        x_T, cond = x_T[mine], None if cond is None else cond[mine]
+        with tracing.span("pdae.train.eval", step):
+            n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
+            x_T = torch.randn((n,) + self.sample_shape, device=self.device,
+                              generator=generator(self.seed, EVAL, step, self.device))
+            cond = (torch.arange(n, device=self.device) % self.num_class
+                    if self.num_class is not None else None)
+            mine = self._eval_shard(n)
+            x_T, cond = x_T[mine], None if cond is None else cond[mine]
 
-        def sample(model, x_T, cond):
-            return self.gd.regular_ddim_sample(ddim_style, model, x_T, cond)
+            def sample(model, x_T, cond):
+                return self.gd.regular_ddim_sample(ddim_style, model, x_T, cond)
 
-        self.model.eval()
-        try:
-            with torch.inference_mode():
-                imgs = with_weights({"model": self.model}, {"model": self.ema_weights()},
-                                    sample, x_T, cond)
-        finally:
-            self.model.train()
-        grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
-        self.eval_seconds.append(time.perf_counter() - t0)
+            self.model.eval()
+            try:
+                with torch.inference_mode():
+                    imgs = with_weights({"model": self.model}, {"model": self.ema_weights()},
+                                        sample, x_T, cond)
+            finally:
+                self.model.train()
+            grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
         if grid is None:
             return
         save_image_grid(grid, os.path.join(self.run_path, "samples", f"step-{step}.png"))

@@ -34,11 +34,11 @@ gradient branch trained on a frozen pre-trained DPM. The port of
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..diffusion import GaussianDiffusion
 from ..models import build_decoder, build_encoder
 from ..utils import (encoder_state_dict, encoder_tree, optimizer_moments,
@@ -94,7 +94,6 @@ class RepresentationLearningTrainer(BaseTrainer):
             ema_decay=float(rc.get("ema_decay", 0.9999)),
             num_iters=self.num_iterations, device=self.device,
             ema_every=self.ema_every, remat=rc.get("remat"), **self._data_parallel())
-        self.eval_seconds = []
 
     @property
     def step(self) -> int:
@@ -108,34 +107,33 @@ class RepresentationLearningTrainer(BaseTrainer):
                                                  self._train_gen.generator, ema=ema)}
 
     def evaluate(self, step: int, ddim_style: str = "ddim100"):
-        t0 = time.perf_counter()
-        n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
-        items = [self.eval_dataset[i] for i in range(min(n, len(self.eval_dataset)))]
-        eval_batch = type(self.eval_dataset).collate_fn(items)
-        x_0 = x0_from_transfer(torch.from_numpy(eval_batch["x_0"]).to(self.device)
-                               .permute(0, 3, 1, 2).contiguous())
-        x_T = torch.randn(x_0.shape, device=self.device,
-                          generator=generator(self.seed, EVAL, step, self.device))
-        mine = self._eval_shard(x_0.shape[0])
-        x_0, x_T = x_0[mine], x_T[mine]
-        ema = self._eval_ema()
+        with tracing.span("pdae.train.eval", step):
+            n = int(self.dataloader_config.get("eval", {}).get("num_generations", 36))
+            items = [self.eval_dataset[i] for i in range(min(n, len(self.eval_dataset)))]
+            eval_batch = type(self.eval_dataset).collate_fn(items)
+            x_0 = x0_from_transfer(torch.from_numpy(eval_batch["x_0"]).to(self.device)
+                                   .permute(0, 3, 1, 2).contiguous())
+            x_T = torch.randn(x_0.shape, device=self.device,
+                              generator=generator(self.seed, EVAL, step, self.device))
+            mine = self._eval_shard(x_0.shape[0])
+            x_0, x_T = x_0[mine], x_T[mine]
+            ema = self._eval_ema()
 
-        def sample(encoder, decoder, x_0, x_T):
-            return self.gd.representation_learning_ddim_sample(ddim_style, encoder, decoder,
-                                                               x_0, x_T)
+            def sample(encoder, decoder, x_0, x_T):
+                return self.gd.representation_learning_ddim_sample(ddim_style, encoder, decoder,
+                                                                   x_0, x_T)
 
-        self.encoder.eval()
-        self.decoder.eval()
-        try:
-            with torch.inference_mode(), self._whole_frozen():
-                imgs = with_weights({"encoder": self.encoder, "decoder": self.decoder},
-                                    {"encoder": ema["encoder"], "decoder": ema["shift"]},
-                                    sample, x_0, x_T)
-        finally:
-            self.encoder.train()
-            self.decoder.train()
-        grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
-        self.eval_seconds.append(time.perf_counter() - t0)
+            self.encoder.eval()
+            self.decoder.eval()
+            try:
+                with torch.inference_mode(), self._whole_frozen():
+                    imgs = with_weights({"encoder": self.encoder, "decoder": self.decoder},
+                                        {"encoder": ema["encoder"], "decoder": ema["shift"]},
+                                        sample, x_0, x_T)
+            finally:
+                self.encoder.train()
+                self.decoder.train()
+            grid = self._gather_eval_images(to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
         if grid is None:
             return
         path = os.path.join(self.run_path, "samples", f"sample{step // 1000}k.png")

@@ -40,7 +40,6 @@ class StageTrainer(BaseTrainer):
         self._shard_state({"model": dict(model.named_parameters())},
                           {"model": type(self).to_tree}, [model])
         self.ema_decay = float(self.runner_config.get("ema_decay", 0.9999))
-        self.eval_seconds = []
 
     @property
     def step(self) -> int:

@@ -29,6 +29,7 @@ import torch.distributed as dist  # noqa: E402
 import pdae_torch.training.base as port_base  # noqa: E402
 import pdae_torch.training.representation as port_rep  # noqa: E402
 import pdae_torch.training.stage as port_stage  # noqa: E402
+from pdae_torch import tracing  # noqa: E402
 from pdae_torch.models import SemanticEncoder, ShiftUNet  # noqa: E402
 from pdae_torch.parallel import (init_distributed, is_primary, mean_all_reducer,  # noqa: E402
                                  process_count, process_index, sync_global_devices)
@@ -124,6 +125,7 @@ def trainer_job(job, rank, out_dir):
     ``fail_writes``), optionally evaluate, and dump this rank's state."""
     run = os.path.join(job["root"], f"rank{rank}")
     cfg = job["config"]
+    tracing.reset()
     trainer = pick_trainer(cfg)(config=cfg, run_path=run, resume=job.get("resume"),
                                 device="cpu")
     if job.get("augment"):
@@ -156,7 +158,7 @@ def trainer_job(job, rank, out_dir):
     torch.save({"losses": losses, **state}, os.path.join(out_dir, f"{job['name']}_rank{rank}.pt"))
     return {"stopped_at": stopped_at, "error": error, "step": trainer.step,
             "files": files_under(run),
-            "eval_seconds": len(trainer.eval_seconds)}
+            "eval_spans": sum(s.name == "pdae.train.eval" for s in tracing.spans())}
 
 
 def main(spec_path, out_path):
@@ -165,6 +167,7 @@ def main(spec_path, out_path):
     port_rep.build_encoder = tiny_encoder
     port_stage.build_encoder = tiny_encoder
     init_distributed(backend="gloo")
+    tracing.enable()
     rank = process_index()
     out = {"rank": rank, "world": process_count()}
     try:

@@ -351,8 +351,8 @@ def test_only_the_primary_writes(live):
     np.testing.assert_allclose(logged, live["dumps"]["representation"][0]["losses"],
                                rtol=1e-6)
     # every rank evaluated; the manipulation eval ran on the primary alone
-    assert [r["representation"]["eval_seconds"] for r in live["outs"]] == [1, 1]
-    assert [r["manipulation"]["eval_seconds"] for r in live["outs"]] == [1, 0]
+    assert [r["representation"]["eval_spans"] for r in live["outs"]] == [1, 1]
+    assert [r["manipulation"]["eval_spans"] for r in live["outs"]] == [1, 0]
 
 
 def test_the_eval_grid_equals_one_process(live):

@@ -17,7 +17,8 @@ the CPU, each chunk runs as eager steps through the same loop. Held here:
 * ``GraphDispatch``, driven here by a stand-in graph that replays its body
   eagerly, trains like K=1: the static buffers (a host batch, a resident
   corpus's index rows), the re-seeding, the count around a capture, and an
-  EMA and a no-EMA graph where ``ema_every`` is 2;
+  EMA and a no-EMA graph where ``ema_every`` is 2; its spans
+  (``pdae_torch.tracing``) a step;
 * a re-seeded ``StepGenerator`` draws what a fresh generator draws;
 * the optimizer as the card builds it (``capturable``: the count and the
   bias corrections as fp32 tensors) against optax within the parity
@@ -231,6 +232,51 @@ class EagerGraph:
         return self.outputs
 
 
+def _eager_graphs(monkeypatch):
+    """Chunks of K > 1 through ``GraphDispatch`` on the CPU, its graphs
+    ``EagerGraph``s."""
+    from pdae_torch.training import dispatch
+
+    monkeypatch.setattr(dispatch, "StepGraph", EagerGraph)
+    monkeypatch.setattr(dispatch.GraphDispatch, "_side", lambda self, fn: fn())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(BaseTrainer, "_replays", lambda self, k: k > 1)
+
+
+@pytest.mark.parametrize("stage", ["regular", "latent"])
+def test_the_graph_dispatcher_spans_each_step(stage, stage34, tmp_path, monkeypatch):
+    """``pdae_torch.tracing``'s spans through ``GraphDispatch`` (K=4 to 5:
+    a chunk of 4, then one): a ``pdae.train.step`` per step, keyed by the
+    step, in its chunk's span; each capture inside the step that made it;
+    the loader's wait a step from the host loader (regular), a chunk's
+    index row from a resident corpus (latent)."""
+    from pdae_torch import tracing
+
+    patch_tiny_encoders(monkeypatch)
+    _eager_graphs(monkeypatch)
+    cfg, cls, _ = _configs(stage, stage34)
+    cfg["runner_config"]["steps_per_dispatch"] = K
+    tr = cls(config=cfg, run_path=str(tmp_path), device="cpu")
+    tracing.reset()
+    tracing.enable()
+    try:
+        assert tr.train(max_steps=5, save_on_exit=False) == 5
+        spans = tracing.spans()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    steps = [s for s in spans if s.name == "pdae.train.step"]
+    assert [s.key for s in steps] == [1, 2, 3, 4, 5]
+    assert all(s.parent == "pdae.train.chunk" for s in steps)
+    assert [s.key for s in spans if s.name == "pdae.train.chunk"] == [1, 5]
+    captures = [s for s in spans if s.name == "pdae.graph.capture"]
+    assert len(captures) == len(tr._dispatch.graphs) >= 1
+    assert all(s.parent == "pdae.train.step" and s.key >= 2 for s in captures)
+    loads = [s.key for s in spans if s.name == "pdae.loader.next"]
+    assert loads == ([1, 2, 3, 4, 5] if stage == "regular" else [1, 5])
+
+
 @pytest.mark.parametrize("stage", ["regular", "latent"])
 def test_the_graph_dispatcher_trains_like_k1(stage, stage34, tmp_path, monkeypatch):
     """``GraphDispatch`` driven on the CPU with ``EagerGraph``: the copies
@@ -240,14 +286,8 @@ def test_the_graph_dispatcher_trains_like_k1(stage, stage34, tmp_path, monkeypat
     each replay, and, with ``ema_every`` 2 (regular), one graph with the EMA
     and one without; the first step is the warm-up. K=4 to 5, resumed to 9,
     against K=1 to 9."""
-    from pdae_torch.training import dispatch
-
     patch_tiny_encoders(monkeypatch)
-    monkeypatch.setattr(dispatch, "StepGraph", EagerGraph)
-    monkeypatch.setattr(dispatch.GraphDispatch, "_side", lambda self, fn: fn())
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **kw: None)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-    monkeypatch.setattr(BaseTrainer, "_replays", lambda self, k: k > 1)
+    _eager_graphs(monkeypatch)
     cfg, cls, key = _configs(stage, stage34)
 
     def trainer(run, k, **kw):

@@ -1,7 +1,8 @@
 """The port's trainer loop on the CPU: bitwise resume, the background
 checkpoint write, SIGINT, ``ema_every``, ``num_iterations``, the cadence
 check, the refusals, ``device_resident`` and ``transfer_uint8``, the trainer
-each config picks, the eval grid and ``python -m pdae_torch.train``.
+each config picks, the eval grid, the loop's spans (``pdae_torch.tracing``) and
+``python -m pdae_torch.train``.
 
 The run is the tiny one of ``tests/test_torch_trainer.py`` (SYNTHETIC 16px
 gray, a two-level UNet of 8 channels, a two-stage encoder), its DPM trunk
@@ -22,6 +23,7 @@ import torch
 
 from _torch_parity import (TRAINER_DPM, assert_trees_bitwise, patch_tiny_encoders,
                            tiny_pdae_config)
+from pdae_torch import tracing
 from pdae_torch.models import UNet
 from pdae_torch.training import RepresentationLearningTrainer, maybe_ema_update
 from pdae_torch.training import base as base_mod
@@ -43,6 +45,17 @@ def port_dpm(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("dpm") / "dpm.ckpt")
     save_checkpoint(path, {"step": np.asarray(0, np.int32), "ema_denoise_fn": tree})
     return path, tree
+
+
+@pytest.fixture
+def traced():
+    """Spans recorded (``pdae_torch.tracing``) for the test, from an empty
+    ring."""
+    tracing.reset()
+    tracing.enable()
+    yield
+    tracing.disable()
+    tracing.reset()
 
 
 def _trainer(run, cfg, **kw):
@@ -84,7 +97,7 @@ def test_resume_is_bitwise(port_dpm, tmp_path, monkeypatch):
                          load_checkpoint(str(tmp_path / "a" / "checkpoints" / "latest.ckpt")))
 
 
-def test_a_save_holds_its_step_while_the_next_runs(port_dpm, tmp_path, monkeypatch):
+def test_a_save_holds_its_step_while_the_next_runs(port_dpm, tmp_path, monkeypatch, traced):
     patch_tiny_encoders(monkeypatch)
     tr = _trainer(tmp_path / "run", tiny_pdae_config(port_dpm[0]))
     tr.train(max_steps=1, save_on_exit=False)
@@ -97,6 +110,7 @@ def test_a_save_holds_its_step_while_the_next_runs(port_dpm, tmp_path, monkeypat
         real(path, tree)
 
     monkeypatch.setattr(base_mod, "save_checkpoint", slow)
+    tracing.reset()
     tr.save(1)
     # the next step changes params, EMA and moments in place while the
     # write waits
@@ -110,7 +124,41 @@ def test_a_save_holds_its_step_while_the_next_runs(port_dpm, tmp_path, monkeypat
     for key in ("decoder", "ema_decoder"):
         assert not np.array_equal(moved[key]["shift_out_conv"]["kernel"],
                                   want[key]["shift_out_conv"]["kernel"])
-    assert tr.save_seconds[-1][1] is not None
+    # the loop's part of the save ended before the next step began; the
+    # background write (its own thread: no parent) after that step ended
+    spans = {s.name: s for s in tracing.spans()}
+    wait, write = spans["pdae.train.save"], spans["pdae.train.save_write"]
+    step = spans["pdae.train.step"]
+    assert (wait.key, write.key, step.key) == (1, 1, 2) and write.parent is None
+    assert wait.end_ns <= step.start_ns < step.end_ns <= write.end_ns
+
+
+def test_eager_loop_spans_a_loader_wait_and_a_step_per_step(port_dpm, tmp_path, monkeypatch, traced):
+    """K=1 on the CPU: one ``pdae.loader.next`` (its fetch and H2D inside)
+    and one ``pdae.train.step`` per step, keyed by the step; a chunk and a
+    log span each; ``time/load_data`` is the mean of each display window's
+    loader spans."""
+    patch_tiny_encoders(monkeypatch)
+    tr = _trainer(tmp_path, tiny_pdae_config(port_dpm[0], display_steps=2,
+                                             steps_per_dispatch=1))
+    tracing.reset()
+    assert tr.train(max_steps=4, save_on_exit=False) == 4
+    spans = tracing.spans()
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    loads, steps = by["pdae.loader.next"], by["pdae.train.step"]
+    assert [s.key for s in loads] == [s.key for s in steps] == [1, 2, 3, 4]
+    assert [s.key for s in by["pdae.train.chunk"]] == [1, 2, 3, 4]
+    assert [s.key for s in by["pdae.train.log"]] == [2, 4]
+    assert all(s.parent == "pdae.train.chunk" for s in loads + steps)
+    for name in ("pdae.loader.fetch", "pdae.loader.h2d"):
+        inside = [s for s in by[name] if s.parent == "pdae.loader.next"]
+        assert {s.key for s in inside} == {1, 2, 3, 4}
+    with open(os.path.join(str(tmp_path), "metrics.jsonl")) as f:
+        logged = [json.loads(line)["time/load_data"] for line in f]
+    want = [np.mean([s.seconds for s in loads[:2]]), np.mean([s.seconds for s in loads[2:]])]
+    np.testing.assert_allclose(logged, want, rtol=1e-9)
 
 
 def test_a_failed_write_reraises(port_dpm, tmp_path, monkeypatch):
