@@ -438,6 +438,7 @@ GN_BWD_EDGES = [(((1, 64, 128, 256), True, True), ("cluster", 8)),
 
 
 FUSED_KERNELS = ("attention", "gn_adagn_silu", "gn_adagn_silu_bwd")
+NHWC_COUNTS = ("gn_adagn_silu_nhwc", "gn_adagn_silu_bwd_nhwc")   # parts of the above
 
 
 def traced_saves(since_ns: int) -> list:
@@ -464,11 +465,20 @@ def named_launches(counts=None) -> dict:
     the kernels: the three fused kernels always, a split pass of the GN
     kernels where it launched. The paths before the sp phase expect the
     fused kernels alone, so a split pass launched there shows as a key they
-    do not expect."""
+    do not expect. The NHWC variants' counts are parts of the fused kernels'
+    and are checked by variant (``gn_on``)."""
     from pdae_torch import ops
 
     counts = ops.launch_counts() if counts is None else counts
-    return {k: n for k, n in counts.items() if k in FUSED_KERNELS or n}
+    return {k: n for k, n in counts.items()
+            if k in FUSED_KERNELS or (n and k not in NHWC_COUNTS)}
+
+
+def gn_on(n: int, nhwc: bool = False) -> dict:
+    """GN launch counts by variant where all ``n`` took the variant of their
+    path's layout: the cluster variant in the NCHW (fp32) models, the NHWC
+    one in the channels-last (bf16) ones."""
+    return {"cluster": 0 if nhwc else n, "general": 0, "nhwc": n if nhwc else 0}
 
 
 _STARTED = time.perf_counter()
@@ -786,6 +796,246 @@ def check_gn(key, gen, device, timed=True):
     return res
 
 
+def ffhq128_bf16_models(seed, device):
+    """The bf16 FFHQ128 ShiftUNet and 128px encoder (``FFHQ_DPM``, latent
+    ``LATENT``) on ``device`` in train mode, with seeded random weights and no
+    silent branch."""
+    from pdae_torch.models import ShiftUNet, encoder_for_resolution
+
+    torch.manual_seed(seed)
+    decoder = ShiftUNet(latent_dim=LATENT, dtype=torch.bfloat16, **FFHQ_DPM)
+    encoder = encoder_for_resolution(128, LATENT, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed + 23)
+    for model in (decoder, encoder):
+        perturb_zero_params(model, gen)
+    return encoder.to(device), decoder.to(device)
+
+
+def ffhq128_bf16_step(encoder, decoder, batch, device, seed):
+    """One bf16 FFHQ128 representation loss and its backward at ``batch``
+    (eager), the fn a caller runs, records or profiles."""
+    from pdae_torch.diffusion import GaussianDiffusion
+
+    gd = GaussianDiffusion({"timesteps": 1000, "betas_type": "linear"})
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x_0 = torch.rand(batch, 3, 128, 128, device=device, generator=gen) * 2 - 1
+    t = torch.randint(0, 1000, (batch,), generator=gen, device=device, dtype=torch.int32)
+    noise = torch.randn(x_0.shape, generator=gen, device=device)
+    leaves = [p for m in (encoder, decoder) for p in m.parameters() if p.requires_grad]
+
+    def step():
+        loss = gd.representation_learning_train_one_batch(
+            None, encoder, decoder, x_0, t=t, noise=noise)["prediction_loss"]
+        return torch.autograd.grad(loss, leaves)
+    return step
+
+
+def nhwc_gn_keys(step):
+    """The GN kernel calls of ``step``: forward keys ``("gn", *shape, AdaGN,
+    z)`` and backward keys ``("gn_bwd", *shape, AdaGN, z, dx)``, each with its
+    count and the layouts its inputs came in."""
+    from pdae_torch.ops import groupnorm, groupnorm_train
+
+    fwd, bwd, layouts = collections.Counter(), collections.Counter(), collections.Counter()
+    gn, gn_bwd = groupnorm.gn_cuda, groupnorm_train.gn_bwd_cuda
+
+    def rec_fwd(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None, *a, **k):
+        fwd[("gn", *x.shape, scale is not None, z_scale is not None)] += 1
+        layouts[groupnorm.memory_layout(x)] += 1
+        return gn(x, gamma, beta, scale, shift, z_scale, z_shift, *a, **k)
+
+    def rec_bwd(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
+                z_shift=None, groups=32, need_dx=True):
+        bwd[("gn_bwd", *x.shape, scale is not None, z_scale is not None, need_dx)] += 1
+        layouts[groupnorm.memory_layout(x)] += 1
+        return gn_bwd(x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift, groups,
+                      need_dx)
+
+    groupnorm.gn_cuda, groupnorm_train.gn_bwd_cuda = rec_fwd, rec_bwd
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        groupnorm.gn_cuda, groupnorm_train.gn_bwd_cuda = gn, gn_bwd
+    return fwd, bwd, layouts
+
+
+def check_nhwc_gn(key, gen, device, timed=True):
+    """The NHWC forward variant against the plain version at one bf16 shape
+    (channels-last inputs), and its stats; timed beside its bytes bound, the
+    plain version, the NCHW cluster variant on the same values and
+    ``group_norm`` (``library_ms``, on the channels-last input)."""
+    from pdae_torch import ops
+    from pdae_torch.ops import groupnorm
+
+    shape, has_st, has_z = key[1:5], key[5], key[6]
+    dtype = torch.bfloat16
+    x, gamma, beta, *coef = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    before = groupnorm.variant_launches["nhwc"]
+    got, mean, rstd = groupnorm.gn_cuda(cl, gamma, beta, *coef, save_stats=True)
+    torch.cuda.synchronize()
+    want, mean_w, rstd_w = ops.gn_adagn_silu_fwd(x, gamma, beta, *coef, return_stats=True)
+    res = {"shape": list(shape), "adagn": has_st, "z": has_z,
+           "plan": groupnorm.nhwc_plan_for(cl, got, 32)._asdict(),
+           "served_nhwc": groupnorm.variant_launches["nhwc"] == before + 1
+           and got.is_contiguous(memory_format=torch.channels_last),
+           "err": {"model": compare(got, want, TOL[("gn_model", dtype)]),
+                   "mean": compare(mean, mean_w, (1e-5, 1e-5)),
+                   "rstd": compare(rstd, rstd_w, (1e-5, 1e-4))}}
+    if timed:
+        lib = (cl, gamma.to(dtype), beta.to(dtype), *coef)
+        res.update(ms=device_ms(lambda: groupnorm.gn_cuda(cl, gamma, beta, *coef)),
+                   nchw_ms=device_ms(lambda: groupnorm.gn_cuda(x, gamma, beta, *coef)),
+                   plain_ms=device_ms(lambda: ops.gn_adagn_silu_fwd(cl, gamma, beta, *coef)),
+                   library_ms=device_ms(lambda: library_gn(*lib, 32)))
+        res["bytes"] = (2 * x.numel() * x.element_size() + 8 * shape[1]
+                        + sum(a.numel() * a.element_size() for a in coef if a is not None))
+        res["bound_ms"] = max(res["bytes"] / HBM_BYTES_PER_S,
+                              15 * x.numel() / FP32_FLOPS) * 1e3
+    return res
+
+
+def check_nhwc_gn_bwd(key, gen, device, timed=True):
+    """The NHWC backward variant against the plain version at one bf16 shape
+    (dx, dA, dB), a second launch bit-equal to the first; timed beside its
+    bytes bound, the plain version, the NCHW cluster variant on the same
+    values and the library's backward on the NCHW values (``library_ms``)."""
+    from pdae_torch import ops
+    from pdae_torch.ops import groupnorm, groupnorm_train
+
+    shape, has_st, has_z, need_dx = key[1:5], key[5], key[6], key[7]
+    dtype = torch.bfloat16
+    x, gamma, beta, *coef = gn_coefficients(shape, has_st, has_z, gen, device, dtype)
+    g = torch.randn(shape, generator=gen, device=gen.device).to(device, dtype)
+    cl, gcl = (t.contiguous(memory_format=torch.channels_last) for t in (x, g))
+    _, mean, rstd = groupnorm.gn_cuda(x, gamma, beta, *coef, save_stats=True)
+    args = (cl, gcl, mean, rstd, gamma, beta, *coef)
+    before = groupnorm_train.variant_launches["nhwc"]
+    got = groupnorm_train.gn_bwd_cuda(*args, need_dx=need_dx)
+    again = groupnorm_train.gn_bwd_cuda(*args, need_dx=need_dx)
+    torch.cuda.synchronize()
+    want = ops.gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, *coef, need_dx=need_dx)
+    res = {"shape": list(shape), "adagn": has_st, "z": has_z, "dx": need_dx,
+           "plan": groupnorm_train.nhwc_plan_for(cl, gcl, got[0], 32)._asdict(),
+           "served_nhwc": groupnorm_train.variant_launches["nhwc"] == before + 2,
+           "bit_equal_repeat": all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+           "err": {what: compare(a, w, scaled(TOL[("gn_bwd", dtype)], w))
+                   for what, a, w in zip(("dx", "dA", "dB"), got, want) if w is not None}}
+    if timed:
+        # the library's backward takes NCHW (native_group_norm refuses channels-last)
+        saved = library_gn_saved(x, gamma.to(dtype), beta.to(dtype), *coef, 32)
+        res.update(
+            ms=device_ms(lambda: groupnorm_train.gn_bwd_cuda(*args, need_dx=need_dx)),
+            nchw_ms=device_ms(lambda: groupnorm_train.gn_bwd_cuda(
+                x, g, mean, rstd, gamma, beta, *coef, need_dx=need_dx)),
+            plain_ms=device_ms(lambda: ops.gn_adagn_silu_bwd_plain(
+                cl, gcl, mean, rstd, gamma, beta, *coef, need_dx=need_dx)),
+            library_ms=device_ms(lambda: library_gn_backward(g, saved, need_dx)))
+        res["bytes"] = ((3 if need_dx else 2) * x.numel() * x.element_size()
+                        + 8 * shape[1] + 8 * shape[0] * 32 + 8 * shape[0] * shape[1]
+                        + sum(a.numel() * a.element_size() for a in coef if a is not None))
+        res["bound_ms"] = max(res["bytes"] / HBM_BYTES_PER_S,
+                              30 * x.numel() / FP32_FLOPS) * 1e3
+    return res
+
+
+def layout_transforms(fn) -> dict:
+    """cuDNN's layout transform kernels (``nchwToNhwc``, ``nhwcToNchw``) in one
+    profiled call of ``fn`` (after one unprofiled), beside the call's whole
+    kernel time: launches and device ms of each kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
+    for kind in ("nchwtonhwc", "nhwctonchw"):
+        hits = [e for e in kernels if kind in e.key.lower()]
+        out[kind] = {"launches": sum(e.count for e in hits),
+                     "ms": sum(e.self_device_time_total for e in hits) / 1e3}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:30]
+    out["top"] = [[e.key[:90], e.count, e.self_device_time_total / 1e3] for e in top]
+    return out
+
+
+def nhwc_phase(seed, device, timed=True) -> dict:
+    """The channels-last path of the bf16 models: every GN call of one bf16
+    FFHQ128 representation step (b32, eager) on the NHWC variants (the
+    counters), each of its shapes held against the plain versions and timed;
+    no cuDNN layout transform in that step, against the same step run NCHW
+    (the layout rule switched off); and a celeba64 fp32 evaluation's launches
+    by variant, all on the NCHW cluster variant as before the NHWC variants.
+    The table goes to ``chiprun_out/chip_smoke_nhwc.json``."""
+    from pdae_torch import ops
+    from pdae_torch.models import CELEBA64_DPM, ShiftUNet, blocks
+
+    t0 = time.perf_counter()
+    encoder, decoder = ffhq128_bf16_models(seed, device)
+    step = ffhq128_bf16_step(encoder, decoder, TRAIN_BATCH, device, seed + 29)
+    ops.reset_launch_counts()
+    fwd, bwd, layouts = nhwc_gn_keys(step)
+    counts = {"launches": ops.launch_counts(), "gn": ops.gn_variant_counts(),
+              "gn_bwd": ops.gn_bwd_variant_counts(), "layouts": dict(layouts)}
+    engaged = (counts["gn"] == gn_on(sum(fwd.values()), nhwc=True)
+               and counts["gn_bwd"] == gn_on(sum(bwd.values()), nhwc=True)
+               and set(layouts) == {"nhwc"})
+    gen = torch.Generator(device=device).manual_seed(seed + 31)
+    fwd_res = {k: check_nhwc_gn(k, gen, device, timed) for k in sorted(fwd)}
+    bwd_res = {k: check_nhwc_gn_bwd(k, gen, device, timed) for k in sorted(bwd)}
+    transforms = {"nhwc": layout_transforms(step)}
+    rule = blocks.nhwc_model
+    blocks.nhwc_model = lambda model: False
+    try:
+        transforms["nchw"] = layout_transforms(step)
+    finally:
+        blocks.nhwc_model = rule
+    del encoder, decoder, step
+    torch.cuda.empty_cache()
+    celeba = ShiftUNet(latent_dim=LATENT, **CELEBA64_DPM).to(device).eval()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        celeba(torch.randn(16, 3, 64, 64, device=device), torch.arange(16, device=device),
+               torch.randn(16, LATENT, device=device))
+    torch.cuda.synchronize()
+    fp32_eval = {"gn": ops.gn_variant_counts(), "launches": named_launches()}
+    del celeba
+    torch.cuda.empty_cache()
+
+    def ok_of(r):
+        return r["served_nhwc"] and all(e["ok"] for e in r["err"].values()) and r.get(
+            "bit_equal_repeat", True)
+
+    rec = {"phase": "nhwc", "batch": TRAIN_BATCH, "counts": counts, "engaged": engaged,
+           "fwd_calls": {str(k): n for k, n in fwd.items()},
+           "bwd_calls": {str(k): n for k, n in bwd.items()},
+           "transforms": {k: {n: v for n, v in t.items() if n != "top"}
+                          for k, t in transforms.items()},
+           "fp32_eval": fp32_eval,
+           "phase_s": time.perf_counter() - t0}
+    if timed:
+        for name, res in (("fwd", fwd_res), ("bwd", bwd_res)):
+            calls = fwd if name == "fwd" else bwd
+            for what in ("ms", "nchw_ms", "plain_ms", "library_ms", "bound_ms"):
+                rec[f"{name}_{what}_per_step"] = sum(calls[k] * r[what] for k, r in res.items())
+    # the model's entry and exit are PyTorch's copies: no cuDNN transform is left
+    no_transforms = not any(transforms["nhwc"][k]["launches"]
+                            for k in ("nchwtonhwc", "nhwctonchw"))
+    rec["ok"] = bool(engaged and no_transforms and all(ok_of(r) for r in fwd_res.values())
+                     and all(ok_of(r) for r in bwd_res.values())
+                     and fp32_eval["gn"] == gn_on(92))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_nhwc.json"), "w") as f:
+        json.dump({**rec, "top_kernels": {k: t["top"] for k, t in transforms.items()},
+                   "fwd": {str(k): r for k, r in fwd_res.items()},
+                   "bwd": {str(k): r for k, r in bwd_res.items()}}, f, indent=1)
+    return rec
+
+
 def check_gn_bwd(key, gen, device, timed=True):
     """The backward kernel against its plain version at one shape of the
     train step: dx (where the chain's input needs one), dA and dB, and a
@@ -1039,7 +1289,7 @@ def check_edges(gen, device) -> dict:
     torch.cuda.synchronize()
     took = {v: n - before[v] for v, n in groupnorm.variant_launches.items()}
     misaligned = compare(shifted, aligned, TOL[("gn_model", torch.float32)])
-    if took != {"cluster": 1, "general": 1} or off.data_ptr() % 16 == 0:
+    if took != {"cluster": 1, "general": 1, "nhwc": 0} or off.data_ptr() % 16 == 0:
         raise AssertionError(f"misaligned GN input: variants took {took}")
 
     # a cluster launch (4 blocks per slab) inside a CUDA graph
@@ -1087,7 +1337,7 @@ def check_edges(gen, device) -> dict:
         off = groupnorm_train.gn_bwd_cuda(xs, gs, mean, rstd, gamma, beta, *coef)
         torch.cuda.synchronize()
         took = {v: n - before[v] for v, n in groupnorm_train.variant_launches.items()}
-        if took != {"cluster": 1, "general": 1}:
+        if took != {"cluster": 1, "general": 1, "nhwc": 0}:
             raise AssertionError(f"misaligned GN backward {what}: variants took {took}")
         for part, a, b in zip(("dx", "dA", "dB"), off, aligned):
             bwd_misaligned[f"{what}_{part}"] = compare(
@@ -1202,8 +1452,7 @@ def serving_ops(service, images, dec_counts, enc_counts, seed) -> dict:
                    shape=list(out.shape), dtype=str(out.dtype))
         rec["ok"] = (out.shape == images.shape and out.dtype == np.uint8
                      and rec["launches"] == want
-                     and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"],
-                                                "general": 0})
+                     and rec["gn_variants"] == gn_on(want["gn_adagn_silu"]))
         records[name] = rec
     # every row of generate's draws is its own image
     distinct = len({o.tobytes() for o in outs["generate"]})
@@ -1248,7 +1497,7 @@ def serving_ops(service, images, dec_counts, enc_counts, seed) -> dict:
                  and all(r is not None and r.shape == (1, 64, 64, 3)
                          and r.dtype == np.uint8 for r in replies)
                  and rec["launches"] == want
-                 and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"], "general": 0})
+                 and rec["gn_variants"] == gn_on(want["gn_adagn_silu"]))
     records["batcher_autoencode_ddim5"] = rec
     return records
 
@@ -1478,13 +1727,12 @@ def trainer_phase(seed, device, want_step, want_eval, bare_step_s) -> dict:
     rec["ok"] = bool(
         all(math.isfinite(v) for v in records["loss"]) and len(records["loss"]) == 6
         and all(c == want_step for c in records["launches"])
-        and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+        and all(v == gn_on(want_step["gn_adagn_silu"])
                 for v in records["gn"])
-        and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+        and all(v == gn_on(want_step["gn_adagn_silu_bwd"])
                 for v in records["gn_bwd"])
         and eval_rec["run"]["launches"] == want_eval
-        and eval_rec["run"]["gn_variants"] == {"cluster": want_eval["gn_adagn_silu"],
-                                               "general": 0}
+        and eval_rec["run"]["gn_variants"] == gn_on(want_eval["gn_adagn_silu"])
         and grafted and trunk_kept and steps_on_file == [3, 6]
         and grid_got == grid_want and metric_steps == [1, 2, 3, 4, 5, 6]
         and loaded_equal and not mismatched
@@ -1583,7 +1831,7 @@ def counted_run(name, fn, want_calls, structure, seen):
     rec.update(calls=dict(calls), calls_expected=want_calls, launches_expected=want)
     rec["ok"] = (dict(calls) == {m: n for m, n in want_calls.items() if n}
                  and rec["launches"] == want
-                 and rec["gn_variants"] == {"cluster": want["gn_adagn_silu"], "general": 0})
+                 and rec["gn_variants"] == gn_on(want["gn_adagn_silu"]))
     return out, rec
 
 
@@ -2894,9 +3142,9 @@ def stages_phase(seed, device, files, compared, timed) -> dict:
             rec["profile"] = idle_share(lambda: b.train_step(batch))
             del batch
             ok = ok and all(c == want_step for c in run_a["launches"] + run_b["launches"])
-            ok = ok and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+            ok = ok and all(v == gn_on(want_step["gn_adagn_silu"])
                             for r in runs for v in r["gn"])
-            ok = ok and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+            ok = ok and all(v == gn_on(want_step["gn_adagn_silu_bwd"])
                             for r in runs for v in r["gn_bwd"])
             rec["ok"] = bool(ok)
             records[stage] = rec
@@ -3091,8 +3339,8 @@ def bf16_step_record(trainer, run, want, fp32, models) -> dict:
         all(math.isfinite(v) for v in run["loss"]) and rec["params_fp32"]
         and rec["grads_fp32_finite"] and rec["layers_bf16"]
         and all(c == want for c in run["launches"])
-        and all(v == {"cluster": want["gn_adagn_silu"], "general": 0} for v in run["gn"])
-        and all(v == {"cluster": want["gn_adagn_silu_bwd"], "general": 0}
+        and all(v == gn_on(want["gn_adagn_silu"], nhwc=True) for v in run["gn"])
+        and all(v == gn_on(want["gn_adagn_silu_bwd"], nhwc=True)
                 for v in run["gn_bwd"]))
     return rec
 
@@ -3397,9 +3645,9 @@ def ffhq_remat_runs(tr, keys, inputs, dtype, device) -> dict:
             "launches_per_step": rec["launches"][-1], "launches_expected": w,
             "ok": bool(all(math.isfinite(v) for v in rec["loss"])
                        and all(c == w for c in rec["launches"])
-                       and all(v == {"cluster": w["gn_adagn_silu"], "general": 0}
+                       and all(v == gn_on(w["gn_adagn_silu"], dtype == "bfloat16")
                                for v in rec["gn"])
-                       and all(v == {"cluster": w["gn_adagn_silu_bwd"], "general": 0}
+                       and all(v == gn_on(w["gn_adagn_silu_bwd"], dtype == "bfloat16")
                                for v in rec["gn_bwd"]))}
     base_loss, base_grads = first["none"]
     for mode in ("skips", "full"):
@@ -3603,9 +3851,9 @@ def ingest_phase(seed, device, want_step, want_request, trainer_step_s) -> dict:
             all(math.isfinite(v) for v in steps["loss"])
             and len(steps["loss"]) == INGEST_STEPS
             and all(c == want_step for c in steps["launches"])
-            and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+            and all(v == gn_on(want_step["gn_adagn_silu"])
                     for v in steps["gn"])
-            and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+            and all(v == gn_on(want_step["gn_adagn_silu_bwd"])
                     for v in steps["gn_bwd"])
             and rec["train"]["reader"] == "NativeReader")
         dataset = run.train_dataset
@@ -3673,8 +3921,7 @@ def ingest_phase(seed, device, want_step, want_request, trainer_step_s) -> dict:
             trees_equal and rec["serve"]["bit_equal_to_unconverted"]
             and out.shape == images.shape and out.dtype == np.uint8
             and counts["launches"] == want_request
-            and counts["gn_variants"] == {"cluster": want_request["gn_adagn_silu"],
-                                          "general": 0})
+            and counts["gn_variants"] == gn_on(want_request["gn_adagn_silu"]))
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_flags
         drop_ingest_files()
@@ -3973,10 +4220,10 @@ def dispatch_phase(seed, device, files, ffhq) -> dict:
         launches = path_launches(counted, d)
         steps = d.replays + 1
         per_replay = named_launches(d.launches)
+        nhwc = trainer._compute_dtype() == torch.bfloat16
         ok = (per_replay == want and launches == {k: v * steps for k, v in want.items()}
-              and gn == {"cluster": want["gn_adagn_silu"] * (1 + captures), "general": 0}
-              and bwd == {"cluster": want["gn_adagn_silu_bwd"] * (1 + captures),
-                          "general": 0})
+              and gn == gn_on(want["gn_adagn_silu"] * (1 + captures), nhwc)
+              and bwd == gn_on(want["gn_adagn_silu_bwd"] * (1 + captures), nhwc))
         return losses, {"s": s, "steps": steps, "replays": d.replays, "captures": captures,
                         "launches_counted": counted, "launches_per_replay": per_replay,
                         "launches_on_path": launches, "launches_ok": bool(ok)}
@@ -6047,10 +6294,9 @@ def headline_phase(seed, device, compared) -> dict:
     def plus(a, b):
         return {k: a[k] + b[k] for k in a}
 
-    def on_cluster(run, want):
-        return (run["gn_variants"] == {"cluster": want["gn_adagn_silu"], "general": 0}
-                and run["gn_bwd_variants"] == {"cluster": want["gn_adagn_silu_bwd"],
-                                               "general": 0})
+    def on_cluster(run, want):     # bf16 models: the NHWC variants
+        return (run["gn_variants"] == gn_on(want["gn_adagn_silu"], nhwc=True)
+                and run["gn_bwd_variants"] == gn_on(want["gn_adagn_silu_bwd"], nhwc=True))
 
     launches, launches_ok = {"per_eval": per_eval, "per_encoder_pass": per_enc,
                              "per_train_step": per_step}, True
@@ -6129,6 +6375,8 @@ def headline_phase(seed, device, compared) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("nhwc",), default=None,
+                    help="build, then the nhwc phase alone")
     args = ap.parse_args(argv)
     script_t0 = time.perf_counter()
 
@@ -6167,6 +6415,12 @@ def main(argv=None) -> int:
           "ptxas": {src: [ln.strip() for ln in log.splitlines()
                           if "Used" in ln or "spill" in ln]
                     for src, log in _build.build_logs.items()}})
+
+    if args.only == "nhwc":
+        rec = nhwc_phase(args.seed, device)
+        emit(rec)
+        print(smi, flush=True)
+        return 0 if rec["ok"] else 1
 
     # the models of the path, and the shapes they give the kernels
     decoder, encoder = build_models(args.seed, device)
@@ -6273,6 +6527,11 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     if not_cluster:
         raise AssertionError(f"GN path shapes off the cluster variant: {not_cluster}")
+    # the channels-last path of the bf16 models: the NHWC variants
+    nhwc = nhwc_phase(args.seed, device)
+    emit(nhwc)
+    if not nhwc["ok"]:
+        raise AssertionError("the NHWC variants or the bf16 models' layout failed their checks")
 
     # 3. serving at full width ---------------------------------------------
     config = {"trained_ddpm_config": CELEBA64_DPM,
@@ -6317,7 +6576,7 @@ def main(argv=None) -> int:
     if enc["launches"] != want_enc or ae_launches != want_ae:
         raise AssertionError("the launch counters do not match the path's structure")
     for variants, want in ((enc["gn_variants"], want_enc), (ae["gn_variants"], want_ae)):
-        if variants != {"cluster": want["gn_adagn_silu"], "general": 0}:
+        if variants != gn_on(want["gn_adagn_silu"]):
             raise AssertionError(f"GN launches off the cluster variant: {variants}")
 
     # 4. the other ops of the service ------------------------------------------
@@ -6379,9 +6638,9 @@ def main(argv=None) -> int:
     ema_finite = all(bool(torch.isfinite(e).all()) for e in flat_params(state.ema_params))
     train_ok = (all(math.isfinite(v) for v in losses)
                 and all(c == want_step for c in step_launches)
-                and all(v == {"cluster": want_step["gn_adagn_silu"], "general": 0}
+                and all(v == gn_on(want_step["gn_adagn_silu"])
                         for v in step_variants)
-                and all(v == {"cluster": want_step["gn_adagn_silu_bwd"], "general": 0}
+                and all(v == gn_on(want_step["gn_adagn_silu_bwd"])
                         for v in step_bwd_variants)
                 and not stuck and not bad_grad and not thawed
                 and 2 * len(ema_still) < len(leaves) and ema_finite

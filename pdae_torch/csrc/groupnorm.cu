@@ -1,5 +1,5 @@
 // GroupNorm + AdaGN (+ shift-AdaGN) + SiLU forward for Hopper (sm_90a),
-// fp32 or bf16 activations, NCHW.
+// fp32 or bf16 activations, NCHW (contiguous) or NHWC (channels-last).
 //
 //   out = silu((1 + z_scale) * ((GN(x) * gamma + beta) * (1 + scale) + shift) + z_shift)
 //
@@ -54,6 +54,15 @@
 //     L2 only while the input and the output written so far fit there, which
 //     at the large slabs of the celeba64 path ([8,256,64,64]: 33.5 MB in,
 //     33.5 MB out, all blocks resident at once, 50 MB of L2) they do not.
+//
+// A channels-last x (the bf16 models keep their activations NHWC, the layout
+// of cuDNN's bf16 kernels on sm90) goes to a third kernel, chosen by the
+// wrapper from x's strides (pdae_torch/ops/groupnorm.py::nhwc_plan), model
+// mode only:
+//
+//   NHWC variant (gn_adagn_silu_nhwc_kernel): a cluster per tile of k groups
+//     of one batch element, its blocks splitting the pixels, each thread one
+//     16-byte column of channels; the design is in the kernel's note below.
 //
 // Bound: bytes. Each element is read once and written once (8 bytes in
 // fp32, 4 in bf16) for ~15 flops, far below the card's ops-per-byte ridge.
@@ -543,6 +552,216 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 
 __global__ void empty_kernel() {}
 
+// ------------------------------------------------------------------- NHWC
+
+#include "gn_nhwc.cuh"
+
+// Chain<T, false>::apply on one element from its coefficients, with one
+// difference in bf16: the sigmoid's reciprocal is __fdividef's (2 ulp in
+// fp32, where the sigmoid is then rounded to bf16's 8 bits; on an H100 it took
+// 14% off the NHWC forward at FFHQ128's 128x128 maps). fp32 divides exactly.
+template <typename T>
+__device__ __forceinline__ float nhwc_chain(float xv, float mean, float inv, float a, float b,
+                                            float s1, float sh, float z1, float zsh,
+                                            bool has_st, bool has_z) {
+  const float xhat = __fmul_rn(__fsub_rn(xv, mean), inv);
+  float y = rnd<T>(__fadd_rn(__fmul_rn(xhat, a), b));
+  if (has_st) {
+    y = rnd<T>(__fmul_rn(y, s1));
+    y = rnd<T>(__fadd_rn(y, sh));
+  }
+  if (has_z) {
+    y = rnd<T>(__fmul_rn(z1, y));
+    y = rnd<T>(__fadd_rn(y, zsh));
+  }
+  const float d = 1.f + expf(-y);
+  const float r = sizeof(T) == 2 ? __fdividef(1.f, d) : 1.f / d;
+  return __fmul_rn(y, rnd<T>(r));
+}
+
+// Channels-last variant (gn_adagn_silu_nhwc_kernel, model mode). In NHWC a
+// (batch, group) is cs = C/G channels strided over every pixel: at FFHQ128's
+// top level 4 channels, 8 bytes of bf16 a pixel. So a cluster owns a tile of
+// k groups of one batch element, [H*W, W = k*cs] channels, whose pixel rows
+// are W*elt contiguous bytes, and its blocks split the pixels. Thread t owns
+// one column of V channels (t % R, R = W / V 16-byte columns a row)
+// over every P-th pixel of the block's part, and sums x and x^2 per channel
+// in registers; the columns' sums go through shared memory (column_totals)
+// to per-group sums, which the cluster exchanges through distributed shared
+// memory and adds in rank order, as the NCHW cluster variant does: no
+// atomics, one order. A vector holds V channels where the NCHW variant's
+// holds one, so each element needs its own coefficients: a thread keeps its
+// channels' gamma, beta, mean and rstd in registers and reads the AdaGN
+// factors from a table in shared memory (a float4 broadcast an element, only
+// where the chain has them). All of them in registers took over 100 a
+// thread, and so few warps an SM that the chain's long dependent arithmetic
+// (the apply is bound by it, not by memory: on an H100 the apply without its
+// stores took 135 of the 215 us of [32,128,128,128]) went unhidden. kKeep:
+// the part is copied into shared memory once (16-byte cp.async, four
+// groups) and the chain applied from there, so x is read once and out
+// written once; without it (a tile over the cluster's shared memory, or V =
+// 1: unaligned or ragged channel rows) the apply reads x from memory again.
+// Shared memory: the part (kKeep), scratch (column_totals's), coef [W][8],
+// chan [2W], slots [2k], stats [2k].
+template <typename T, int V, bool kKeep>
+__global__ void __launch_bounds__(kNhwcThreads, kNhwcMinBlocks)
+gn_adagn_silu_nhwc_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, const T* __restrict__ scale,
+                          const T* __restrict__ shift, int st_stride,
+                          const T* __restrict__ z_scale, const T* __restrict__ z_shift,
+                          int z_stride, T* __restrict__ out, float* __restrict__ mean_out,
+                          float* __restrict__ rstd_out, int c, int hw, int groups, int k,
+                          int npx, float eps) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned csize = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int tiles = groups / k;
+  const int bt = blockIdx.x / csize;
+  const int b = bt / tiles;
+  const int tile = bt - b * tiles;
+  const int cs = c / groups;
+  const int w_ch = k * cs;                       // the tile's channels
+  const int r = w_ch / V;                        // vectors a pixel row
+  const int c0 = tile * w_ch;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j = tid % r;                         // this thread's column
+  const int step_px = nthr / r;
+  const int p0 = rank * npx;
+  const int np = max(0, min(npx, hw - p0));      // this block's pixels
+  const T* xg = x + ((size_t)b * hw + p0) * c + c0 + j * V;
+  T* og = out + ((size_t)b * hw + p0) * c + c0 + j * V;
+
+  T* xs = reinterpret_cast<T*>(raw);
+  float* scratch = reinterpret_cast<float*>(raw + (kKeep ? (size_t)npx * w_ch * sizeof(T) : 0));
+  float* coef = scratch + align4((size_t)scratch_slots(r, nthr) * V * 2);
+  float* chan_a = coef + 8 * w_ch;
+  float* chan_b = chan_a + w_ch;
+  float* slots = chan_b + w_ch;
+  float* stats = slots + 2 * k;
+
+  // pixel tid / r + it * step_px, it in [0, iters), in kLoadGroups groups of `per`
+  const int first = tid / r;
+  const int iters = (npx + step_px - 1) / step_px;
+  const int per = (iters + kLoadGroups - 1) / kLoadGroups;
+  if (kKeep) {
+#pragma unroll
+    for (int grp = 0; grp < kLoadGroups; ++grp) {
+      for (int it = grp * per; it < min((grp + 1) * per, iters); ++it) {
+        const int p = first + it * step_px;
+        if (p < np) cp_async16(xs + (size_t)p * w_ch + j * V, xg + (size_t)p * c);
+      }
+      cp_async_commit();
+    }
+  }
+
+  // under the copies: the table of the tile's coefficients (gamma, beta,
+  // mean, rstd, 1 + scale, shift, 1 + z_scale, z_shift a channel)
+  const bool has_st = scale != nullptr, has_z = z_scale != nullptr;
+  for (int w = tid; w < w_ch; w += nthr) {
+    const int ch = c0 + w;
+    Chain<T, false> chain = {};
+    chain.load(gamma, beta, scale, shift, (size_t)b * st_stride + ch, z_scale, z_shift,
+               (size_t)b * z_stride + ch, ch);
+    float* e = coef + 8 * w;
+    e[0] = chain.a; e[1] = chain.b; e[4] = chain.s1; e[5] = chain.sh;
+    e[6] = chain.z1; e[7] = chain.zsh;
+  }
+
+  float s1[V], s2[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) s1[u] = s2[u] = 0.f;
+  auto sums = [&](int lo, int hi) {
+    for (int it = lo; it < hi; ++it) {
+      const int p = first + it * step_px;
+      if (p < np) {
+        float v[V];
+        if (kKeep) load_frag<T, V>(xs + (size_t)p * w_ch + j * V, v);
+        else load_frag<T, V>(xg + (size_t)p * c, v);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          s1[u] += v[u];
+          s2[u] = fmaf(v[u], v[u], s2[u]);
+        }
+      }
+    }
+  };
+  if (kKeep) {
+    cp_async_wait<3>(); sums(0, min(per, iters));
+    cp_async_wait<2>(); sums(per, min(2 * per, iters));
+    cp_async_wait<1>(); sums(2 * per, min(3 * per, iters));
+    cp_async_wait<0>(); sums(3 * per, iters);
+  } else {
+    sums(0, iters);
+  }
+  column_totals<V>(s1, s2, r, scratch, chan_a, chan_b);
+
+  // the block's sums per group (its channels in order), then the cluster's in rank order
+  for (int g = tid; g < k; g += nthr) {
+    float a = 0.f, bb = 0.f;
+    for (int w = g * cs; w < (g + 1) * cs; ++w) {
+      a += chan_a[w];
+      bb += chan_b[w];
+    }
+    slots[2 * g] = a;
+    slots[2 * g + 1] = bb;
+  }
+  if (csize > 1) cluster.sync();
+  else __syncthreads();
+  const float n = (float)(cs * hw);
+  for (int g = tid; g < k; g += nthr) {
+    float t1 = 0.f, t2 = 0.f;
+    for (unsigned q = 0; q < csize; ++q) {
+      const float* theirs = csize > 1 ? cluster.map_shared_rank(slots, q) : slots;
+      t1 += theirs[2 * g];
+      t2 += theirs[2 * g + 1];
+    }
+    const float mean = t1 / n;
+    const float var = fmaxf(__fsub_rn(t2 / n, __fmul_rn(mean, mean)), 0.f);
+    const float inv = rsqrtf(var + eps);
+    stats[2 * g] = mean;
+    stats[2 * g + 1] = inv;
+    if (mean_out != nullptr && rank == 0) {
+      mean_out[(size_t)b * groups + tile * k + g] = mean;
+      rstd_out[(size_t)b * groups + tile * k + g] = inv;
+    }
+  }
+  // no block may leave while another still reads its slots: arrive now, wait last
+  if (csize > 1) cluster_arrive();
+  __syncthreads();
+  for (int w = tid; w < w_ch; w += nthr) {
+    coef[8 * w + 2] = stats[2 * (w / cs)];
+    coef[8 * w + 3] = stats[2 * (w / cs) + 1];
+  }
+  __syncthreads();
+
+  // gamma, beta, mean and rstd of this thread's channels in registers; the
+  // AdaGN factors read from the table where the chain has them
+  const float* table = coef + 8 * j * V;
+  float ga[V], be[V], mean[V], inv[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const float4 e = table_entry(table + 8 * u);
+    ga[u] = e.x; be[u] = e.y; mean[u] = e.z; inv[u] = e.w;
+  }
+  for (int it = 0; it < iters; ++it) {
+    const int p = first + it * step_px;
+    if (p >= np) break;
+    float v[V];
+    if (kKeep) load_frag<T, V>(xs + (size_t)p * w_ch + j * V, v);
+    else load_frag<T, V>(xg + (size_t)p * c, v);
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (has_st || has_z) e = table_entry(table + 8 * u + 4);
+      v[u] = nhwc_chain<T>(v[u], mean[u], inv[u], ga[u], be[u], e.x, e.y, e.z, e.w, has_st,
+                           has_z);
+    }
+    store_frag<T, V>(og + (size_t)p * c, v);
+  }
+  if (csize > 1) cluster_wait();
+}
+
 // ---------------------------------------------------------------- launchers
 
 constexpr int kMaxDevices = 64;
@@ -657,6 +876,31 @@ int launch_apply(const Args& a, const float* mean, const float* rstd) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V, bool kKeep>
+int launch_nhwc_as(const Args& a, const NhwcPlan& p) {
+  const int w_ch = p.k * (a.c / a.groups);
+  const size_t smem = (kKeep ? (size_t)p.npx * w_ch * sizeof(T) : 0)
+                      + (align4((size_t)scratch_slots(w_ch / V, p.threads) * V * 2)
+                         + 10 * (size_t)w_ch + 4 * (size_t)p.k) * sizeof(float);
+  return launch_clusters<gn_adagn_silu_nhwc_kernel<T, V, kKeep>>(
+      p, a.b * (a.groups / p.k), smem, a.stream, static_cast<const T*>(a.x), a.gamma, a.beta,
+      static_cast<const T*>(a.scale), static_cast<const T*>(a.shift), a.st_stride,
+      static_cast<const T*>(a.z_scale), static_cast<const T*>(a.z_shift), a.z_stride,
+      static_cast<T*>(a.out), a.mean_out, a.rstd_out, a.c, a.hw, a.groups, p.k, p.npx, a.eps);
+}
+
+template <typename T>
+int launch_nhwc(const Args& a, const NhwcPlan& p) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  if (!nhwc_plan_ok(p, a.c, a.hw, a.groups, VEC)) return (int)cudaErrorInvalidValue;
+  if (p.vec == 1) return launch_nhwc_as<T, 1, false>(a, p);
+  if (a.c % VEC != 0 || reinterpret_cast<uintptr_t>(a.x) % 16 != 0
+      || reinterpret_cast<uintptr_t>(a.out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (p.keep) return launch_nhwc_as<T, VEC, true>(a, p);
+  return launch_nhwc_as<T, VEC, false>(a, p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -726,6 +970,36 @@ int pdae_gn_adagn_silu_fwd(const void* x, const void* gamma, const void* beta,
   if (dtype == 0 && fold) return launch<float, true>(a);
   if (dtype == 1 && !fold) return launch<__nv_bfloat16, false>(a);
   if (dtype == 1 && fold) return launch<__nv_bfloat16, true>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The NHWC variant (model mode): x, out channels-last [b, hw, c]; the other
+// tensors as pdae_gn_adagn_silu_fwd's. k groups a tile, `cluster` blocks of
+// `threads` threads a tile with npx pixels each, vec 1 or the 16-byte vector,
+// keep: the part held in shared memory (what each asks is in the kernel's
+// note; a launch it does not take returns cudaErrorInvalidValue).
+int pdae_gn_adagn_silu_nhwc_fwd(const void* x, const void* gamma, const void* beta,
+                                const void* scale, const void* shift, int st_stride,
+                                const void* z_scale, const void* z_shift, int z_stride,
+                                void* out, void* mean_out, void* rstd_out, int b, int c,
+                                int hw, int groups, float eps, int dtype, int k, int cluster,
+                                int threads, int npx, int vec, int keep, void* stream) {
+  Args a = {};
+  a.x = x; a.scale = scale; a.shift = shift; a.z_scale = z_scale; a.z_shift = z_shift;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.out = out;
+  a.mean_out = static_cast<float*>(mean_out);
+  a.rstd_out = static_cast<float*>(rstd_out);
+  a.st_stride = st_stride; a.z_stride = z_stride;
+  a.b = b; a.c = c; a.hw = hw; a.groups = groups;
+  a.eps = eps;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (c % groups != 0 || (a.mean_out == nullptr) != (a.rstd_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const NhwcPlan p = {k, cluster, threads, npx, vec, keep};
+  if (dtype == 0) return launch_nhwc<float>(a, p);
+  if (dtype == 1) return launch_nhwc<__nv_bfloat16>(a, p);
   return (int)cudaErrorInvalidValue;
 }
 

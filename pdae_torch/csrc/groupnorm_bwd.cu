@@ -1,5 +1,6 @@
 // Backward of the GroupNorm + AdaGN (+ shift-AdaGN) + SiLU chain for Hopper
-// (sm_90a), fp32 or bf16 activations, NCHW.
+// (sm_90a), fp32 or bf16 activations, NCHW (contiguous) or NHWC
+// (channels-last).
 //
 // Replaces the TPU kernel pdae_tpu/ops/groupnorm_train.py::_bwd_kernel and
 // computes what the closed form pdae_tpu/ops/groupnorm_train.py::_bwd
@@ -65,6 +66,15 @@
 //     slabs of the celeba64 train step they do not: [32,384,64,64] holds
 //     ~528 slab pairs of 384 KB in flight, ~200 MB against 50 MB of L2, and
 //     moves ~20 bytes per element in fp32 where the bound counts 12.
+//
+// Channels-last x and g (the bf16 models) go to a third kernel, chosen by
+// the wrapper from x's strides (pdae_torch/ops/groupnorm_train.py::
+// nhwc_plan_for):
+//
+//   NHWC variant (gn_adagn_silu_bwd_nhwc_kernel): a cluster per tile of k
+//     groups of one batch element, its blocks splitting the pixels, each
+//     thread one 16-byte column of channels, dA and dB column sums; the
+//     design is in the kernel's note below.
 //
 // The split passes (spatial parallelism, pdae_torch/parallel/sp.py): a rank
 // holds some rows of each slab, so m1 and m2 span ranks. Two kernels take
@@ -597,6 +607,225 @@ gn_adagn_silu_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ 
   if (csize > 1) cluster_wait();
 }
 
+// ------------------------------------------------------------------- NHWC
+
+#include "gn_nhwc.cuh"
+
+// point() with one difference in bf16: the sigmoid's reciprocal is
+// __fdividef's (2 ulp in fp32, beside dx's rounding to bf16; on an H100 it
+// took 7% off the NHWC backward of the bf16 FFHQ128 step). fp32 divides
+// exactly.
+template <typename T>
+__device__ __forceinline__ void point_nhwc(float x, float g, float mean, float inv, float a,
+                                           float b, float* dy, float* xhat) {
+  *xhat = __fmul_rn(__fsub_rn(x, mean), inv);
+  const float y = __fadd_rn(__fmul_rn(*xhat, a), b);
+  const float d = 1.f + expf(-y);
+  const float sig = sizeof(T) == 2 ? __fdividef(1.f, d) : 1.f / d;
+  *dy = g * (sig * (1.f + y * (1.f - sig)));
+}
+
+// Channels-last variant (gn_adagn_silu_bwd_nhwc_kernel). A cluster owns a
+// tile of k groups of one batch element, [H*W, W = k*cs] channels of x and
+// of g, whose blocks split the pixels, as the NHWC forward's do. Thread t
+// owns one 16-byte column of V channels (t % R) over every P-th pixel
+// of the block's part and sums dy * xhat and dy per channel in registers; it
+// keeps its channels' fold (A, B), mean and rstd in registers too, read once
+// from a table in shared memory (8 floats a channel), where pass 2 reads each
+// group's m1 and m2 (a float2 broadcast an element), so that three blocks
+// share an SM. dA and dB are column sums in this layout: column_totals gives
+// the block's, the blocks exchange them through distributed shared memory
+// and add them in rank order (no atomics: every block and every run gets the
+// same dA, dB, m1 and m2), and block `rank` writes the channels w with w %
+// csize == rank. m1 and m2 are each group's channels in order. kKeep (dx is
+// made and the pair fits): the block's part of x and g is copied into shared
+// memory once (16-byte cp.async, four groups) and pass 2 computes dx
+// from there, recomputing dy and xhat; so x and g are read from memory once
+// and dx written once. Without it (no dx, a pair over the cluster's shared
+// memory, or V = 1) pass 2 reads x and g again. Shared memory: the x and g
+// parts (kKeep), scratch (column_totals's), rec [W][8], chan_a, chan_b,
+// tot_a, tot_b [W], moments [2k].
+template <typename T, int V, bool kKeep>
+__global__ void __launch_bounds__(kNhwcThreads, kNhwcMinBlocks)
+gn_adagn_silu_bwd_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                              const float* __restrict__ gamma, const float* __restrict__ beta,
+                              const T* __restrict__ scale, const T* __restrict__ shift,
+                              int st_stride, const T* __restrict__ z_scale,
+                              const T* __restrict__ z_shift, int z_stride,
+                              const float* __restrict__ mean_bg,
+                              const float* __restrict__ rstd_bg, T* __restrict__ dx,
+                              float* __restrict__ d_a, float* __restrict__ d_b, int c, int hw,
+                              int groups, int k, int npx) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned csize = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const int tiles = groups / k;
+  const int bt = blockIdx.x / csize;
+  const int b = bt / tiles;
+  const int tile = bt - b * tiles;
+  const int cs = c / groups;
+  const int w_ch = k * cs;                       // the tile's channels
+  const int r = w_ch / V;                        // vectors a pixel row
+  const int c0 = tile * w_ch;
+  const int g0 = tile * k;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int j = tid % r;                         // this thread's column
+  const int step_px = nthr / r;
+  const int p0 = rank * npx;
+  const int np = max(0, min(npx, hw - p0));      // this block's pixels
+  const size_t at = ((size_t)b * hw + p0) * c + c0 + j * V;
+  const T* xg = x + at;
+  const T* gg = g + at;
+
+  const size_t part = kKeep ? (size_t)npx * w_ch : 0;
+  T* xs = reinterpret_cast<T*>(raw);
+  T* gs = xs + part;
+  float* scratch = reinterpret_cast<float*>(gs + part);
+  float* rec = scratch + align4((size_t)scratch_slots(r, nthr) * V * 2);
+  float* chan_a = rec + 8 * w_ch;
+  float* chan_b = chan_a + w_ch;
+  float* tot_a = chan_b + w_ch;
+  float* tot_b = tot_a + w_ch;
+  float* moments = tot_b + w_ch;
+
+  // pixel tid / r + it * step_px, it in [0, iters), in kLoadGroups groups of `per`
+  const int first = tid / r;
+  const int iters = (npx + step_px - 1) / step_px;
+  const int per = (iters + kLoadGroups - 1) / kLoadGroups;
+  if (kKeep) {
+#pragma unroll
+    for (int grp = 0; grp < kLoadGroups; ++grp) {
+      for (int it = grp * per; it < min((grp + 1) * per, iters); ++it) {
+        const int p = first + it * step_px;
+        if (p < np) {
+          cp_async16(xs + (size_t)p * w_ch + j * V, xg + (size_t)p * c);
+          cp_async16(gs + (size_t)p * w_ch + j * V, gg + (size_t)p * c);
+        }
+      }
+      cp_async_commit();
+    }
+  }
+
+  // under the copies: each channel's fold, mean and rstd (rec[w] = A, B, mean, rstd)
+  for (int w = tid; w < w_ch; w += nthr) {
+    const int ch = c0 + w;
+    float* e = rec + 8 * w;
+    fold(gamma, beta, scale, shift, (size_t)b * st_stride + ch, z_scale, z_shift,
+         (size_t)b * z_stride + ch, ch, &e[0], &e[1]);
+    e[2] = mean_bg[(size_t)b * groups + g0 + w / cs];
+    e[3] = rstd_bg[(size_t)b * groups + g0 + w / cs];
+  }
+  __syncthreads();
+  // this thread's channels' A, B, mean and rstd in registers; m1 and m2 (pass
+  // 2) read from the table
+  const float* table = rec + 8 * j * V;
+  float ca[V], cb[V], mean[V], inv[V], sa[V], sb[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const float4 e = table_entry(table + 8 * u);
+    ca[u] = e.x; cb[u] = e.y; mean[u] = e.z; inv[u] = e.w;
+    sa[u] = sb[u] = 0.f;
+  }
+
+  // pass 1: this thread's sums of dy * xhat and dy per channel
+  auto pass1 = [&](int lo, int hi) {
+    for (int it = lo; it < hi; ++it) {
+      const int p = first + it * step_px;
+      if (p < np) {
+        float xv[V], gv[V];
+        if (kKeep) {
+          load_frag<T, V>(xs + (size_t)p * w_ch + j * V, xv);
+          load_frag<T, V>(gs + (size_t)p * w_ch + j * V, gv);
+        } else {
+          load_frag<T, V>(xg + (size_t)p * c, xv);
+          load_frag<T, V>(gg + (size_t)p * c, gv);
+        }
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          float dy, xhat;
+          point_nhwc<T>(xv[u], gv[u], mean[u], inv[u], ca[u], cb[u], &dy, &xhat);
+          sa[u] = fmaf(dy, xhat, sa[u]);
+          sb[u] += dy;
+        }
+      }
+    }
+  };
+  if (kKeep) {
+    cp_async_wait<3>(); pass1(0, min(per, iters));
+    cp_async_wait<2>(); pass1(per, min(2 * per, iters));
+    cp_async_wait<1>(); pass1(2 * per, min(3 * per, iters));
+    cp_async_wait<0>(); pass1(3 * per, iters);
+  } else {
+    pass1(0, iters);
+  }
+  column_totals<V>(sa, sb, r, scratch, chan_a, chan_b);
+
+  // the cluster's sums per channel, in rank order
+  if (csize > 1) cluster.sync();
+  for (int w = tid; w < w_ch; w += nthr) {
+    float ta = 0.f, tb = 0.f;
+    for (unsigned q = 0; q < csize; ++q) {
+      const float* ra = csize > 1 ? cluster.map_shared_rank(chan_a, q) : chan_a;
+      const float* rb = csize > 1 ? cluster.map_shared_rank(chan_b, q) : chan_b;
+      ta += ra[w];
+      tb += rb[w];
+    }
+    tot_a[w] = ta;
+    tot_b[w] = tb;
+    if (w % (int)csize == (int)rank) {
+      d_a[(size_t)b * c + c0 + w] = ta;
+      d_b[(size_t)b * c + c0 + w] = tb;
+    }
+  }
+  // no block may leave while another still reads its sums: arrive now, wait last
+  if (csize > 1) cluster_arrive();
+
+  if (dx != nullptr) {
+    __syncthreads();
+    const float n = (float)(cs * hw);
+    for (int q = tid; q < k; q += nthr) {
+      float m1 = 0.f, m2 = 0.f;
+      for (int w = q * cs; w < (q + 1) * cs; ++w) {
+        m1 = fmaf(rec[8 * w], tot_b[w], m1);
+        m2 = fmaf(rec[8 * w], tot_a[w], m2);
+      }
+      moments[2 * q] = m1 / n;
+      moments[2 * q + 1] = m2 / n;
+    }
+    __syncthreads();
+    for (int w = tid; w < w_ch; w += nthr) {
+      rec[8 * w + 4] = moments[2 * (w / cs)];
+      rec[8 * w + 5] = moments[2 * (w / cs) + 1];
+    }
+    __syncthreads();
+
+    // pass 2: dx, from shared memory (kKeep) or memory
+    T* dxg = dx + at;
+    for (int it = 0; it < iters; ++it) {
+      const int p = first + it * step_px;
+      if (p >= np) break;
+      float xv[V], gv[V], out[V];
+      if (kKeep) {
+        load_frag<T, V>(xs + (size_t)p * w_ch + j * V, xv);
+        load_frag<T, V>(gs + (size_t)p * w_ch + j * V, gv);
+      } else {
+        load_frag<T, V>(xg + (size_t)p * c, xv);
+        load_frag<T, V>(gg + (size_t)p * c, gv);
+      }
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const float2 m = table_entry2(table + 8 * u + 4);
+        float dy, xhat;
+        point_nhwc<T>(xv[u], gv[u], mean[u], inv[u], ca[u], cb[u], &dy, &xhat);
+        out[u] = inv[u] * (dy * ca[u] - m.x - xhat * m.y);
+      }
+      store_frag<T, V>(dxg + (size_t)p * c, out);
+    }
+  }
+  if (csize > 1) cluster_wait();
+}
+
 // ---------------------------------------------------------------- launchers
 
 constexpr int kMaxDevices = 64;
@@ -726,6 +955,35 @@ int launch_dx(const Args& a, const float* moments) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V, bool kKeep>
+int launch_nhwc_as(const Args& a, const NhwcPlan& p) {
+  const int w_ch = p.k * (a.c / a.groups);
+  const size_t smem = (kKeep ? 2 * (size_t)p.npx * w_ch * sizeof(T) : 0)
+                      + (align4((size_t)scratch_slots(w_ch / V, p.threads) * V * 2)
+                         + 12 * (size_t)w_ch + 2 * (size_t)p.k) * sizeof(float);
+  return launch_clusters<gn_adagn_silu_bwd_nhwc_kernel<T, V, kKeep>>(
+      p, a.b * (a.groups / p.k), smem, a.stream, static_cast<const T*>(a.x),
+      static_cast<const T*>(a.g), a.gamma, a.beta, static_cast<const T*>(a.scale),
+      static_cast<const T*>(a.shift), a.st_stride, static_cast<const T*>(a.z_scale),
+      static_cast<const T*>(a.z_shift), a.z_stride, a.mean, a.rstd, static_cast<T*>(a.dx),
+      a.d_a, a.d_b, a.c, a.hw, a.groups, p.k, p.npx);
+}
+
+// The NHWC variant's launch; p.keep asks for dx.
+template <typename T>
+int launch_nhwc(const Args& a, const NhwcPlan& p) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  if (!nhwc_plan_ok(p, a.c, a.hw, a.groups, VEC) || (p.keep && a.dx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (p.vec == 1) return launch_nhwc_as<T, 1, false>(a, p);
+  if (a.c % VEC != 0 || reinterpret_cast<uintptr_t>(a.x) % 16 != 0
+      || reinterpret_cast<uintptr_t>(a.g) % 16 != 0
+      || reinterpret_cast<uintptr_t>(a.dx) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (p.keep) return launch_nhwc_as<T, VEC, true>(a, p);
+  return launch_nhwc_as<T, VEC, false>(a, p);
+}
+
 Args split_args(const void* x, const void* g, const void* gamma, const void* beta,
                 const void* scale, const void* shift, int st_stride, const void* z_scale,
                 const void* z_shift, int z_stride, const void* mean, const void* rstd, int b,
@@ -813,6 +1071,30 @@ int pdae_gn_adagn_silu_bwd(const void* x, const void* g, const void* gamma,
   a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a);
   if (dtype == 1) return launch<__nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The NHWC variant: x, g, dx channels-last [b, hw, c] (dx may be null); the
+// other tensors as pdae_gn_adagn_silu_bwd's; k, cluster, threads, npx, vec
+// and keep as pdae_gn_adagn_silu_nhwc_fwd's (groupnorm.cu), keep only with dx.
+// Returns the launch's error code, 0 on success, or cudaErrorInvalidValue for
+// a launch the variant does not take.
+int pdae_gn_adagn_silu_bwd_nhwc(const void* x, const void* g, const void* gamma,
+                                const void* beta, const void* scale, const void* shift,
+                                int st_stride, const void* z_scale, const void* z_shift,
+                                int z_stride, const void* mean, const void* rstd, void* dx,
+                                void* d_a, void* d_b, int b, int c, int hw, int groups,
+                                int dtype, int k, int cluster, int threads, int npx, int vec,
+                                int keep, void* stream) {
+  Args a = split_args(x, g, gamma, beta, scale, shift, st_stride, z_scale, z_shift, z_stride,
+                      mean, rstd, b, c, hw, groups, stream);
+  a.dx = dx;
+  a.d_a = static_cast<float*>(d_a);
+  a.d_b = static_cast<float*>(d_b);
+  if (c % groups != 0) return (int)cudaErrorInvalidValue;
+  const NhwcPlan p = {k, cluster, threads, npx, vec, keep};
+  if (dtype == 0) return launch_nhwc<float>(a, p);
+  if (dtype == 1) return launch_nhwc<__nv_bfloat16>(a, p);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,4 @@
-"""Building blocks of the diffusion UNets, NCHW.
+"""Building blocks of the diffusion UNets, NCHW or channels-last.
 
 Port of ``pdae_tpu/models/blocks.py``. Submodule names and indices follow the
 reference torch state-dict layout (``pdae_tpu/utils/torch_convert.py``), so a
@@ -15,6 +15,17 @@ first, as flax's ``_normalize``). The casts are written out, not left to
 ``torch.autocast``, whose op lists are not flax's. In fp32 every cast is the
 tensor itself, so the fp32 graph is the one without them. The GN+AdaGN+SiLU
 chain computes in the dtype of its input.
+
+Memory layout (``nhwc_model``): a model computing in bf16 and unsharded by
+tensor and spatial parallelism takes its input channels-last
+(``model_input``), keeps every activation so (cuDNN's bf16 kernels on sm90
+run NHWC, so an NCHW model would transpose each conv's tensors in and out)
+and hands its outputs back contiguous NCHW (``model_output``). The blocks
+follow their input: a conv on a channels-last map casts its filter to
+channels-last in the same copy as the cast to the compute dtype, the GN
+chain runs the kernels' NHWC variants, and the attention block runs its
+norm and 1x1 products on the ``[B, T, C]`` view of the map. Everything else
+(fp32 models, the tp and sp paths) is NCHW.
 """
 
 from __future__ import annotations
@@ -28,6 +39,94 @@ from torch import nn
 from .. import ops
 from ..parallel import sp as _sp
 from ..parallel import tp as _tp
+
+
+def is_nhwc(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a channels-last map (a shape that is contiguous both
+    ways, H*W = 1 or C = 1, counts as NCHW)."""
+    return ops.groupnorm.memory_layout(x) == "nhwc"
+
+
+def nhwc_model(model: nn.Module) -> bool:
+    """The layout rule: a UNet, ShiftUNet or semantic encoder runs
+    channels-last where it computes in bf16 and runs unsharded: no spatial
+    parallelism (``sp``) and no tensor parallelism (``parallel/tp.py`` marks
+    every ResBlock and AttentionBlock of a sharded model)."""
+    if model.dtype != torch.bfloat16 or model.sp.sp > 1:
+        return False
+    block = next((m for m in model.modules() if isinstance(m, (ResBlock, AttentionBlock))),
+                 None)
+    return block is None or block.tp is None
+
+
+def model_input(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A model's input cast to its compute dtype: channels-last under
+    ``nhwc_model``, else contiguous NCHW (the tensor itself where it is
+    both already, as an fp32 model's NCHW input is)."""
+    if x.dim() == 4 and nhwc_model(model):
+        return x.to(model.dtype, memory_format=torch.channels_last)
+    return x.to(model.dtype, memory_format=torch.contiguous_format)
+
+
+def model_output(y: torch.Tensor) -> torch.Tensor:
+    """A model's output, fp32 and contiguous (the tensor itself where it is
+    both)."""
+    return y.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsample. A channels-last map is upsampled as a broadcast
+    copy of its ``[B, H, W, C]`` view, channels-last out: the same values, and
+    on an H100 at the bf16 FFHQ128 step's shapes it and its backward (a sum
+    of each 2x2 block) take about half the time of PyTorch's NHWC nearest
+    kernels (an NCHW map's time)."""
+    if not is_nhwc(x):
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    b, c, h, w = x.shape
+    rows = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return rows.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2)
+
+
+def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool. A channels-last map is pooled as the mean of each
+    2x2 block of its ``[B, H, W, C]`` view, channels-last out: the same values
+    (a sum of four and a quarter of it), a third of the time of PyTorch's
+    NHWC pooling kernel on an H100 at the FFHQ128 step's shapes."""
+    b, c, h, w = x.shape
+    if not is_nhwc(x) or h % 2 or w % 2:
+        return F.avg_pool2d(x, 2)
+    blocks = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c)
+    return blocks.mean(dim=(2, 4)).permute(0, 3, 1, 2)
+
+
+class _NHWCConv(torch.autograd.Function):
+    """A conv of a channels-last map whose backward takes the bias gradient
+    as a product with a row of ones: PyTorch's sum over N, H and W of a
+    channels-last bf16 gradient runs about three times as long as over an
+    NCHW one on an H100, the product a third of the NCHW sum. The input and
+    filter gradients are the conv's own (``convolution_backward``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.conf = (stride, padding, dilation, groups)
+        ctx.save_for_backward(x, weight)
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g = g.contiguous(memory_format=torch.channels_last)
+        dx = dw = db = None
+        if need_x or need_w:
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, weight, None, stride, padding, dilation, False, [0, 0], groups,
+                [need_x, need_w, False])
+        if need_b:
+            rows = g.permute(0, 2, 3, 1).reshape(-1, g.shape[1])
+            db = (rows.new_ones(1, rows.shape[0]) @ rows)[0]
+        return dx, dw, db, None, None, None, None
 
 
 def num_groups(channels: int) -> int:
@@ -54,6 +153,15 @@ class _CastConv(_ComputeDtype):
         if self.tp is not None:
             return _tp.dense(self, x, False, False, 1)[0]
         dt = self.compute_dtype
+        if is_nhwc(x):   # the filter's layout folded into its cast: one copy
+            weight = self.weight.to(dt, memory_format=torch.channels_last)
+            args = (x.to(dt), weight, self.bias.to(dt))
+            # the Function only where a gradient is wanted: in eager bf16
+            # FFHQ128 inference on an H100 its bookkeeping cost 9% of the host time
+            if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+                return _NHWCConv.apply(*args, self.stride, self.padding, self.dilation,
+                                       self.groups)
+            return self._conv_forward(*args)
         return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -96,6 +204,15 @@ class GroupNorm(_ComputeDtype, nn.GroupNorm):
     def forward(self, x):
         return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                             self.eps).to(self.compute_dtype)
+
+    def forward_tokens(self, x):
+        """The same on ``[B, T, C]`` tokens, channels last: the statistics of
+        each group over its tokens and channels."""
+        b, t, c = x.shape
+        xg = x.float().reshape(b, t, self.num_groups, c // self.num_groups)
+        var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False, keepdim=True)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, t, c)
+        return (y * self.weight + self.bias).to(self.compute_dtype)
 
 
 class LayerNorm(_ComputeDtype, nn.LayerNorm):
@@ -170,7 +287,7 @@ class Upsample(nn.Module):
             self.conv = conv3x3(channels, out_channels or channels, dtype=dtype)
 
     def forward(self, x):
-        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        x = upsample2x(x)
         return self.conv(x) if self.use_conv else x
 
 
@@ -187,7 +304,7 @@ class Downsample(nn.Module):
             raise ValueError("average-pool downsampling keeps the channel count")
 
     def forward(self, x):
-        return self.op(x) if self.use_conv else F.avg_pool2d(x, 2)
+        return self.op(x) if self.use_conv else avg_pool2x(x)
 
 
 class ResBlock(nn.Module):
@@ -233,13 +350,9 @@ class ResBlock(nn.Module):
         h_out = self.out_height(height)
         h = _sp.chain(self.in_layers[0], x, sp, height)
         if self.up:
-            def up(t):
-                return F.interpolate(t, scale_factor=2, mode="nearest")
-            x, h = (_sp.resample(up, t, sp, height, h_out) for t in (x, h))
+            x, h = (_sp.resample(upsample2x, t, sp, height, h_out) for t in (x, h))
         elif self.down:
-            def down(t):
-                return F.avg_pool2d(t, 2)
-            h, x = (_sp.resample(down, t, sp, height, h_out) for t in (h, x))
+            h, x = (_sp.resample(avg_pool2x, t, sp, height, h_out) for t in (h, x))
         h, _ = _sp.conv(self.in_layers[2], h, sp, h_out)
         scale, shift = self.emb_layers[1](F.silu(emb)).chunk(2, dim=1)
         z_scale = z_shift = None
@@ -320,6 +433,26 @@ def split_heads(qkv: torch.Tensor, num_heads: int, new_order: bool):
     return tuple(a.transpose(-1, -2).contiguous() for a in (q, k, v))
 
 
+def split_heads_last(qkv: torch.Tensor, num_heads: int, new_order: bool):
+    """``split_heads`` of ``qkv`` ``[B, T, 3C]``, the channels last."""
+    b, t, w = qkv.shape
+    if w % (3 * num_heads):
+        raise ValueError(f"{w} qkv channels do not split into 3 x {num_heads} heads")
+    ch = w // (3 * num_heads)
+    if new_order:
+        q, k, v = qkv.reshape(b, t, 3, num_heads, ch).unbind(2)
+    else:
+        q, k, v = qkv.reshape(b, t, num_heads, 3, ch).unbind(3)
+    return tuple(a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+
+def pointwise(conv: "Conv1d", x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 ``Conv1d`` on ``[B, T, C]`` tokens, channels last: the same
+    product as a linear layer, in the conv's compute dtype."""
+    dt = conv.compute_dtype
+    return F.linear(x.to(dt), conv.weight[..., 0].to(dt), conv.bias.to(dt))
+
+
 def qkv_attention(qkv: torch.Tensor, num_heads: int, new_order: bool) -> torch.Tensor:
     """Multi-head self-attention over flattened spatial tokens.
 
@@ -364,6 +497,8 @@ class AttentionBlock(nn.Module):
             return self._forward_tp(x)
         b, c, h, w = x.shape
         split = sp.splits(h if height is None else height)
+        if not split and is_nhwc(x):
+            return self._forward_nhwc(x)
         tokens = x.reshape(b, c, h * w)
         normed = _sp.group_norm(self.norm, tokens, sp) if split else self.norm(tokens)
         q, k, v = split_heads(self.qkv(normed), self.num_heads, self.new_order)
@@ -372,6 +507,18 @@ class AttentionBlock(nn.Module):
                                                                3).unbind(0))
         a = ops.fused_qkv_attention(q, k, v).transpose(-1, -2).reshape(b, c, h * w)
         return (tokens + self.proj_out(a)).reshape(b, c, h, w)
+
+    def _forward_nhwc(self, x):
+        """The forward of a channels-last map: the norm, qkv and the
+        projection on its ``[B, T, C]`` view (a view, not a transpose), the
+        heads split from there; returns the map channels-last."""
+        b, c, h, w = x.shape
+        tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q, k, v = split_heads_last(pointwise(self.qkv, self.norm.forward_tokens(tokens)),
+                                   self.num_heads, self.new_order)
+        a = ops.fused_qkv_attention(q, k, v).transpose(1, 2).reshape(b, h * w, c)
+        out = tokens + pointwise(self.proj_out, a)
+        return out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
     def _forward_tp(self, x):
         """The forward of a tensor-parallel module: with the legacy

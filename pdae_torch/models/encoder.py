@@ -1,4 +1,5 @@
-"""Semantic encoders z = Enc(x_0), NCHW.
+"""Semantic encoders z = Enc(x_0), NCHW in (channels-last inside in bf16:
+``blocks.nhwc_model``).
 
 Port of ``pdae_tpu/models/encoder.py``: stride-2 3x3 convs with GN+SiLU
 pre-activations, one attention block at the 16x16 map, then GN+SiLU, flatten
@@ -9,8 +10,10 @@ SiLU indices hold ``nn.Identity`` (fused into the GN chain before them).
 * 64px:  channels (64, 128, 128, 128), attention after stage 2;
 * 128px: channels (64, 128, 256, 256, 256), attention after stage 3.
 
-Both end at 4x4, so the flatten is ``channels[-1] * 16`` wide. ``dtype`` is
-the compute dtype (``models/blocks.py``): x is cast to it, z is fp32.
+Both end at 4x4, so the flatten is ``channels[-1] * 16`` wide, in NCHW order
+(a channels-last map is made contiguous first, so that converted checkpoints
+keep matching). ``dtype`` is the compute dtype (``models/blocks.py``): x is
+cast to it, z is fp32.
 
 Under spatial parallelism (``sp``, ``parallel/sp.py``) x comes in whole, the
 convs, chains and the attention run on the rank's rows of each map whose
@@ -27,7 +30,7 @@ import torch
 from torch import nn
 
 from ..parallel import sp as _sp
-from .blocks import AttentionBlock, Conv2d, GNSiluChain, Linear, conv3x3
+from .blocks import AttentionBlock, Conv2d, GNSiluChain, Linear, conv3x3, model_input
 
 
 class SemanticEncoder(nn.Module):
@@ -55,7 +58,7 @@ class SemanticEncoder(nn.Module):
         self.encoder = nn.Sequential(*layers)
 
     def forward(self, x):
-        x = x.to(self.dtype)
+        x = model_input(self, x)
         g = self.sp
         height, h = x.shape[2], _sp.enter(x, g)
         for layer in self.encoder:
@@ -66,7 +69,7 @@ class SemanticEncoder(nn.Module):
             elif isinstance(layer, AttentionBlock):
                 h = layer(h, g, height)
             elif isinstance(layer, nn.Flatten):
-                h = layer(_sp.whole(h, g, height))
+                h = layer(_sp.whole(h, g, height).contiguous())
             else:
                 h = layer(h)
         return h.float()

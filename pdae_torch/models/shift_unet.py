@@ -1,5 +1,6 @@
 """ShiftUNet, the PDAE decoder: a frozen pre-trained UNet trunk plus a
-parallel trainable gradient branch, NCHW.
+parallel trainable gradient branch, NCHW in and out (channels-last inside in
+bf16: ``blocks.nhwc_model``).
 
 Port of ``pdae_tpu/models/shift_unet.py``. The input trunk runs once and both
 decode stacks (``middle_block``/``output_blocks`` for epsilon,
@@ -34,7 +35,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .blocks import Linear, timestep_embedding
+from .blocks import Linear, model_input, model_output, timestep_embedding
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel import sp as _sp
@@ -117,7 +118,7 @@ class ShiftUNet(nn.Module):
         check_remat(remat)
         emb = self.time_embed(timestep_embedding(time, self.base_channel))
         shift_emb = self.label_emb(condition.to(self.dtype))
-        x = x.to(self.dtype)
+        x = model_input(self, x)
         height = x.shape[2]
         rng = remat is not None and draws(self)
         if remat == "full":
@@ -131,4 +132,4 @@ class ShiftUNet(nn.Module):
                                    emb)
             gradient = rematerialised(remat == "skips", self._shift, hs, height, emb,
                                       shift_emb, rng=rng)
-        return epsilon.float(), gradient.float()
+        return model_output(epsilon), model_output(gradient)

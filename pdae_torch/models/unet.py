@@ -1,4 +1,5 @@
-"""ADM-style diffusion UNet, NCHW.
+"""ADM-style diffusion UNet, NCHW in and out (channels-last inside in bf16:
+``blocks.nhwc_model``).
 
 Port of ``pdae_tpu/models/unet.py``. The trunk builders
 (``build_input_stack``, ``build_decode_stack``; ``build_trunk`` in the JAX
@@ -35,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel import sp as _sp
 from .blocks import (AttentionBlock, Embedding, GNSiluChain, Linear, ResBlock,
-                     ResBlockShift, conv3x3, timestep_embedding, zero_init)
+                     ResBlockShift, conv3x3, model_input, model_output, timestep_embedding,
+                     zero_init)
 
 
 def time_embed_mlp(base_channel: int, dtype=torch.float32) -> nn.Sequential:
@@ -254,7 +256,7 @@ class UNet(nn.Module):
                 raise ValueError("a class-conditional UNet needs a condition")
             emb = emb + self.label_emb(condition).to(self.dtype)
         hs = []
-        h = x.to(self.dtype)
+        h = model_input(self, x)
         heights = skip_heights(self.input_blocks, h.shape[2])
         inputs = [h.shape[2]] + heights[:-1]
         h = _sp.enter(h, self.sp)
@@ -262,5 +264,6 @@ class UNet(nn.Module):
             h = rematerialised(remat_skips, apply_stage, stage, h, emb, None, self.sp,
                                height, rng=rng)
             hs.append(h)
-        return rematerialised(remat_skips, decode, self.middle_block, self.output_blocks,
-                              self.out, hs, emb, None, self.sp, heights, rng=rng).float()
+        return model_output(rematerialised(remat_skips, decode, self.middle_block,
+                                           self.output_blocks, self.out, hs, emb, None,
+                                           self.sp, heights, rng=rng))

@@ -12,9 +12,12 @@ A CUDA tensor never falls back: it launches the kernel or raises, in the
 forward and, where a gradient is wanted, in the backward. Each kernel
 module keeps a plain integer ``launches`` that its wrapper raises by one per
 launch; ``launch_counts``/``reset_launch_counts`` read and clear them. The GN
-forward and the GN backward each have two hand-written variants, chosen from
-the shape before the launch; ``gn_variant_counts`` and
-``gn_bwd_variant_counts`` say how many of their launches each served. The
+forward and the GN backward each have three hand-written variants: for a
+contiguous (NCHW) input the cluster or the general one, chosen from the shape
+before the launch, and for a channels-last one (the bf16 models) the NHWC
+one; ``gn_variant_counts`` and ``gn_bwd_variant_counts`` say how many of
+their launches each served, and ``launch_counts`` carries the NHWC ones too
+(``gn_adagn_silu_nhwc``, ``gn_adagn_silu_bwd_nhwc``: parts of the totals). The
 split passes of the two GN kernels (spatial parallelism: ``gn_stats``,
 ``gn_apply``, ``gn_bwd_moments``, ``gn_bwd_dx``) are counted under those
 names.
@@ -37,7 +40,9 @@ _KERNEL_MODULES = {"attention": attention, "gn_adagn_silu": groupnorm,
 
 def launch_counts() -> dict:
     return {**{name: mod.launches for name, mod in _KERNEL_MODULES.items()},
-            **groupnorm.pass_launches, **groupnorm_train.pass_launches}
+            **groupnorm.pass_launches, **groupnorm_train.pass_launches,
+            "gn_adagn_silu_nhwc": groupnorm.variant_launches["nhwc"],
+            "gn_adagn_silu_bwd_nhwc": groupnorm_train.variant_launches["nhwc"]}
 
 
 def gn_variant_counts() -> dict:

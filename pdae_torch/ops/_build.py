@@ -3,9 +3,10 @@
 Each source in ``pdae_torch/csrc`` has a plain C interface and compiles on
 its own into one shared library (``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared -Xcompiler -fPIC``), all sources at once, one nvcc
-process each. The libraries go to ``pdae_torch/_build/`` under a name that
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused. Nothing here runs at import time: the CPU
+process each; a source may include the ``.cuh`` headers beside it. The
+libraries go to ``pdae_torch/_build/`` under a name that carries a hash of
+the source, the headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Nothing here runs at import time: the CPU
 tests import every module on machines without nvcc or a card.
 """
 
@@ -41,8 +42,10 @@ def _nvcc() -> str:
 
 def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

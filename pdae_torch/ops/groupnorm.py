@@ -1,5 +1,5 @@
 """GroupNorm + AdaGN (+ shift-AdaGN) + SiLU: the CUDA kernel ``csrc/groupnorm.cu``
-and its two plain versions, all on NCHW tensors.
+and its two plain versions, on NCHW tensors or (model mode) channels-last ones.
 
     silu((1 + z_scale) * ((GN(x) * gamma + beta) * (1 + scale) + shift) + z_shift)
 
@@ -23,7 +23,13 @@ The source holds two hand-written variants and ``gn_plan`` picks one from the
 shape before the launch: the cluster variant splits a (batch, group) slab over
 a thread block cluster and keeps it in shared memory between the stats and
 the apply (one read of memory), the general variant takes every shape with
-one block per slab. ``variant_launches`` counts each; ``launches`` is their sum.
+one block per slab. A channels-last contiguous x (the bf16 models' layout,
+``models/blocks.py``) goes to the third, the NHWC variant, under ``nhwc_plan``
+(a cluster per tile of groups of one batch element, its blocks splitting the
+pixels); an x contiguous both ways (H*W = 1 or C = 1) counts as NCHW, and
+every other stride raises. The output has x's layout, and so does the plain
+version's. ``variant_launches`` counts each variant; ``launches`` is their
+sum.
 
 For training, both the kernel (``save_stats``) and ``gn_adagn_silu_fwd``
 (``return_stats``) also give the fp32 ``[B, G]`` mean and rsqrt(var + eps),
@@ -44,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -54,7 +61,7 @@ from ._dispatch import check_cuda_error, dtype_code, kernel_for, stream_handle
 EPS = 1e-5   # torch GroupNorm default, as the JAX package
 
 launches = 0   # kernel launches since the last reset (pdae_torch.ops)
-variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
+variant_launches = {"cluster": 0, "general": 0, "nhwc": 0}   # the same launches, by variant
 pass_launches = {"gn_stats": 0, "gn_apply": 0}    # the split passes' launches
 
 PART_BYTES = 65536       # most of a slab one block of the cluster variant holds
@@ -73,6 +80,93 @@ class GNPlan(NamedTuple):
 
 
 GENERAL = GNPlan("general", 0, 512, 0)
+
+# the NHWC variant's plan (``nhwc_plan``), measured with pdae_torch.tools.tune_kernels
+NHWC_ROW_BYTES = 32          # the least bytes of a tile's pixel row the plan aims for
+NHWC_TILE_BYTES = 2048       # ... and the least bytes of a tile
+NHWC_PART_BYTES = 65536      # most of a tile one block holds
+NHWC_MAX_PART_BYTES = 131072  # ... where 8 parts of NHWC_PART_BYTES do not hold it
+NHWC_MAX_THREADS = 256
+NHWC_SMEM_BYTES = 232448 - 1024   # what the kernels' launchers let a block use
+
+
+class NHWCPlan(NamedTuple):
+    """The NHWC variant's launch: a cluster per tile of ``groups`` groups of
+    one batch element, its blocks splitting the pixels."""
+    groups: int        # groups a tile (k)
+    cluster: int       # blocks a tile
+    threads: int       # threads a block, a multiple of the tile's vectors a pixel
+    pixels: int        # pixels a block
+    vec: int           # elements a thread's column: 16 bytes, or 1
+    keep: bool         # the part held in shared memory between the passes
+    part_bytes: int    # bytes of the tile (of each operand) one block reads
+    smem_bytes: int    # the block's dynamic shared memory
+
+
+def nhwc_smem_bytes(w: int, k: int, vec: int, threads: int, pixels: int, elt: int,
+                    operands: int, keep: bool) -> int:
+    """The NHWC kernels' dynamic shared memory (their launchers' sum): the
+    parts held, column_totals's scratch, the per-channel table and sums (10
+    floats a channel in the forward, 12 in the backward) and the per-group
+    sums (4 floats a group, 2)."""
+    r = w // vec
+    slots = threads // 32 * r if r < 32 and 32 % r == 0 and threads % 32 == 0 else threads
+    per_channel, per_group = (10, 4) if operands == 1 else (12, 2)
+    part = operands * pixels * w * elt if keep else 0
+    return part + 4 * (-(-slots * vec * 2 // 4) * 4 + per_channel * w + per_group * k)
+
+
+@functools.lru_cache(maxsize=None)
+def nhwc_plan(c: int, hw: int, groups: int, elt: int, vec_ok: bool = True, operands: int = 1,
+              keep_ok: bool = True, row_bytes: int = NHWC_ROW_BYTES,
+              tile_bytes: int = NHWC_TILE_BYTES, part_bytes: int = NHWC_PART_BYTES,
+              max_part_bytes: int = NHWC_MAX_PART_BYTES,
+              max_threads: int = NHWC_MAX_THREADS) -> NHWCPlan:
+    """The NHWC variant's launch for ``[B, hw, c]`` channels-last tensors of
+    ``elt`` bytes in ``groups`` groups, ``operands`` of them read a tile (x,
+    or x and g). A thread's column is a 16-byte vector where ``vec_ok`` (the
+    pointers aligned) and a pixel's ``c`` channels make whole vectors, else
+    one element. A tile takes the fewest groups whose pixel row is at least
+    ``row_bytes`` and whose tile is at least ``tile_bytes`` (else the most
+    that one block's threads cover). It is split over the smallest cluster
+    whose part of each operand is at most ``part_bytes`` (else
+    ``max_part_bytes``) and held in shared memory where ``keep_ok``; a tile
+    over 8 of those, or a 1-element column, is read twice instead, over the
+    smallest cluster whose part is at most ``part_bytes`` (else 8). A part of
+    32 KB or more gets ``max_threads`` threads, a smaller one a thread per
+    vector up to half of that, in multiples of the warp and of the vectors a
+    pixel. A part that would take the block over ``NHWC_SMEM_BYTES`` is read
+    twice instead."""
+    cs = c // groups
+    vec = 16 // elt if vec_ok and c * elt % 16 == 0 else 1
+    ks = [k for k in range(1, groups + 1)
+          if groups % k == 0 and k * cs % vec == 0 and k * cs // vec <= max_threads]
+    if not ks:
+        raise ValueError(f"GN kernel (NHWC): {cs} channels a group are more than a block's "
+                         f"{max_threads} threads cover")
+    k = next((k for k in ks if k * cs * elt >= row_bytes and hw * k * cs * elt >= tile_bytes),
+             ks[-1])
+    row = k * cs * elt * operands
+
+    def split(limit):
+        return next((cl for cl in CLUSTER_SIZES if -(-hw // cl) * row <= limit), None)
+
+    keep = keep_ok and vec > 1
+    cluster = (split(part_bytes) or split(max_part_bytes)) if keep else None
+    if cluster is None:
+        keep, cluster = False, split(part_bytes) or CLUSTER_SIZES[-1]
+    pixels = -(-hw // cluster)
+    r = k * cs // vec
+    unit = math.lcm(r, 32)
+    unit = unit if unit <= max_threads else r
+    want = max_threads if pixels * row >= 32768 else min(max_threads // 2, pixels * r)
+    threads = max(unit, min(max_threads // unit * unit, -(-want // unit) * unit))
+
+    def smem(keep):
+        return nhwc_smem_bytes(k * cs, k, vec, threads, pixels, elt, operands, keep)
+    keep = keep and smem(True) <= NHWC_SMEM_BYTES
+    return NHWCPlan(k, cluster, threads, pixels, vec, keep, pixels * row // operands,
+                    smem(keep))
 
 
 def cluster_plan(n: int, elt: int, part_bytes: int, max_threads: int):
@@ -110,6 +204,33 @@ def plan_for(x, out, groups: int) -> GNPlan:
     hw = x.numel() // (x.shape[0] * x.shape[1])
     return gn_plan(x.shape[1] // groups * hw, hw, x.element_size(),
                    x.data_ptr() % 16, out.data_ptr() % 16)
+
+
+def nhwc_plan_for(x, out, groups: int) -> NHWCPlan:
+    """``nhwc_plan`` for a channels-last ``x`` [B, C, H, W] and the output
+    buffer ``out``."""
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return nhwc_plan(x.shape[1], x.shape[2] * x.shape[3], groups, x.element_size(), aligned,
+                     1, True, NHWC_ROW_BYTES, NHWC_TILE_BYTES, NHWC_PART_BYTES,
+                     NHWC_MAX_PART_BYTES, NHWC_MAX_THREADS)
+
+
+def memory_layout(x):
+    """``"nchw"`` for a contiguous tensor, ``"nhwc"`` for a channels-last
+    contiguous [B, C, H, W] one (a shape that is both, H*W = 1 or C = 1, is
+    ``"nchw"``), else None."""
+    if x.is_contiguous():
+        return "nchw"
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return "nhwc"
+    return None
+
+
+def like_layout(t, x):
+    """``t`` (x's shape) in x's memory layout: channels-last where x is."""
+    if memory_layout(x) == "nhwc":
+        return t.contiguous(memory_format=torch.channels_last)
+    return t
 
 
 def _per_channel(v, ndim):
@@ -163,7 +284,7 @@ def gn_apply_plain(x, mean, rstd, gn_scale, gn_bias, scale=None, shift=None,
         y = y * (1.0 + _per_channel(scale, nd)) + _per_channel(shift, nd)
     if z_scale is not None:
         y = (1.0 + _per_channel(z_scale, nd)) * y + _per_channel(z_shift, nd)
-    return y * torch.sigmoid(y)
+    return like_layout(y * torch.sigmoid(y), x)
 
 
 def gn_stats_plain(x, groups: int):
@@ -199,6 +320,10 @@ def _kernel():
         lib.pdae_gn_apply.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, ci,
                                       ci, ci, ci, vp]
         lib.pdae_gn_apply.restype = ci
+        lib.pdae_gn_adagn_silu_nhwc_fwd.argtypes = [
+            vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, ci, ci, ci, ci,
+            ctypes.c_float, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.pdae_gn_adagn_silu_nhwc_fwd.restype = ci
         _fn = lib
     return _fn
 
@@ -221,11 +346,15 @@ def _pair(a, b, x, name):
     return a.data_ptr(), b.data_ptr(), a.stride(0)
 
 
-def check_gn_inputs(x, gamma, beta, groups: int) -> None:
-    """What both GN kernels ask of ``x`` and the GroupNorm parameters."""
-    if x.dim() < 3 or not x.is_cuda or not x.is_contiguous():
-        raise ValueError(f"GN kernel takes a contiguous CUDA [B, C, ...] tensor, "
-                         f"got {tuple(x.shape)} on {x.device}")
+def check_gn_inputs(x, gamma, beta, groups: int, nhwc: bool = False) -> str:
+    """What both GN kernels ask of ``x`` and the GroupNorm parameters; returns
+    x's ``memory_layout``. ``nhwc``: a channels-last x is taken (the fused
+    kernels' NHWC variants), else only a contiguous one."""
+    layout = memory_layout(x) if x.dim() >= 3 and x.is_cuda else None
+    if layout is None or (layout == "nhwc" and not nhwc):
+        raise ValueError(f"GN kernel takes a contiguous"
+                         f"{' or channels-last contiguous' if nhwc else ''} CUDA [B, C, ...] "
+                         f"tensor, got {tuple(x.shape)} strides {x.stride()} on {x.device}")
     b, c = x.shape[:2]
     if c % groups:
         raise ValueError(f"GN kernel: {c} channels do not split into {groups} groups")
@@ -234,6 +363,7 @@ def check_gn_inputs(x, gamma, beta, groups: int) -> None:
                 or p.device != x.device or not p.is_contiguous()):
             raise ValueError(f"GN kernel: gamma/beta must be contiguous float32 "
                              f"[{c}] on {x.device}")
+    return layout
 
 
 def launch_empty(device) -> None:
@@ -262,20 +392,46 @@ def _launch(plan: GNPlan, x, out, gamma, beta, scale, shift, z_scale, z_shift,
     variant_launches[plan.variant] += 1
 
 
+def _launch_nhwc(plan: NHWCPlan, x, out, gamma, beta, scale, shift, z_scale, z_shift,
+                 groups: int, mean=None, rstd=None) -> None:
+    """The NHWC variant (model mode) under ``plan`` from a checked
+    channels-last ``x`` into ``out`` (and ``mean``/``rstd``, where given)."""
+    global launches
+    b, c, h, w = x.shape
+    s, t, st_stride = _pair(scale, shift, x, "scale/shift")
+    zs, zt, z_stride = _pair(z_scale, z_shift, x, "z_scale/z_shift")
+    err = _kernel().pdae_gn_adagn_silu_nhwc_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t, st_stride, zs, zt,
+        z_stride, out.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if rstd is None else rstd.data_ptr(), b, c, h * w, groups, EPS,
+        dtype_code(x.dtype), plan.groups, plan.cluster, plan.threads, plan.pixels, plan.vec,
+        int(plan.keep), stream_handle(x))
+    check_cuda_error(err, "GN kernel (nhwc variant)")
+    launches += 1
+    variant_launches["nhwc"] += 1
+
+
 def gn_cuda(x, gamma, beta, scale=None, shift=None, z_scale=None, z_shift=None,
             groups: int = 32, fold: bool = False, save_stats: bool = False):
-    """Launch the kernel on a contiguous CUDA ``x`` [B, C, ...] under
-    ``gn_plan``'s choice; raises on what it does not take. With
-    ``save_stats`` it returns ``(out, mean, rstd)``, the stats fp32
-    ``[B, G]``."""
-    check_gn_inputs(x, gamma, beta, groups)
+    """Launch the kernel on a CUDA ``x`` [B, C, ...]: a contiguous one under
+    ``gn_plan``'s choice, a channels-last contiguous one (model mode) on the
+    NHWC variant under ``nhwc_plan``'s; raises on what it does not take. The
+    output has x's layout. With ``save_stats`` it returns ``(out, mean,
+    rstd)``, the stats fp32 ``[B, G]``."""
+    layout = check_gn_inputs(x, gamma, beta, groups, nhwc=True)
+    if layout == "nhwc" and fold:
+        raise ValueError("GN kernel: fold mode takes a contiguous (NCHW) tensor")
     out = torch.empty_like(x)
     mean = rstd = None
     if save_stats:
         mean = torch.empty(x.shape[0], groups, device=x.device, dtype=torch.float32)
         rstd = torch.empty_like(mean)
-    _launch(plan_for(x, out, groups), x, out, gamma, beta, scale, shift, z_scale,
-            z_shift, groups, fold, mean, rstd)
+    if layout == "nhwc":
+        _launch_nhwc(nhwc_plan_for(x, out, groups), x, out, gamma, beta, scale, shift,
+                     z_scale, z_shift, groups, mean, rstd)
+    else:
+        _launch(plan_for(x, out, groups), x, out, gamma, beta, scale, shift, z_scale,
+                z_shift, groups, fold, mean, rstd)
     return (out, mean, rstd) if save_stats else out
 
 

@@ -26,8 +26,11 @@ The source holds two hand-written variants and ``gn_bwd_plan`` picks one from
 the shape before the launch: the cluster variant splits a (batch, group) slab
 pair (x and g) over a thread block cluster and keeps it in shared memory
 between the sums and dx (one read of memory), the general variant takes every
-shape with one block per slab. ``variant_launches`` counts each; ``launches``
-is their sum.
+shape with one block per slab. Channels-last x and g go to the third, the
+NHWC variant (``nhwc_plan_for``), where dA and dB are column sums; the
+Function brings the incoming gradient to x's layout where it differs, and dx
+has x's layout. ``variant_launches`` counts each variant; ``launches`` is
+their sum.
 
 Under spatial parallelism (``gn_adagn_silu_split``, ``parallel/sp.py``) a
 rank holds some rows of every slab. Its forward is ``groupnorm.py``'s stats
@@ -54,7 +57,7 @@ from . import _build, groupnorm
 from ._dispatch import check_cuda_error, dtype_code, kernel_for, stream_handle
 
 launches = 0   # backward-kernel launches since the last reset (pdae_torch.ops)
-variant_launches = {"cluster": 0, "general": 0}   # the same launches, by variant
+variant_launches = {"cluster": 0, "general": 0, "nhwc": 0}   # the same launches, by variant
 pass_launches = {"gn_bwd_moments": 0, "gn_bwd_dx": 0}   # the split passes' launches
 
 PAIR_BYTES = 65536      # most of a slab pair (x and g) one block of the cluster variant holds
@@ -62,6 +65,14 @@ MAX_PAIR_BYTES = 196608  # ... where 8 parts of PAIR_BYTES do not hold it (the s
 BYTES_PER_THREAD = 128  # of that pair, for which the cluster variant gives a thread
 MAX_THREADS = 256       # the cluster variant's largest block
 MAX_CHANNELS = 128      # the most channels per group the cluster variant takes
+
+# the NHWC variant's plan (groupnorm.nhwc_plan over x and g), measured with
+# pdae_torch.tools.tune_kernels
+NHWC_ROW_BYTES = 16          # the least bytes of a tile's pixel row the plan aims for
+NHWC_TILE_BYTES = 32768      # ... and the least bytes of a tile (of x)
+NHWC_PAIR_BYTES = 65536      # most of a tile's x and g one block holds
+NHWC_MAX_PAIR_BYTES = 65536  # ... where 8 parts of NHWC_PAIR_BYTES do not hold them
+NHWC_MAX_THREADS = 256
 
 _fn = None
 
@@ -88,7 +99,9 @@ def gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, scale=None, shift=Non
     cs = c // groups
     n = x[0].numel() // groups
     shape = (b, groups, cs, -1)
-    x32, g32 = x.float().reshape(shape), g.float().reshape(shape)
+    # NCHW order whatever x's layout, so that the sums run in one order
+    x32 = x.float().contiguous().reshape(shape)
+    g32 = g.float().contiguous().reshape(shape)
     mean_g, inv_g = mean.reshape(b, groups, 1, 1), rstd.reshape(b, groups, 1, 1)
     xhat = (x32 - mean_g) * inv_g
     a, bb = fold_affine(gamma, beta, scale, shift, z_scale, z_shift)
@@ -104,7 +117,7 @@ def gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, scale=None, shift=Non
         m1 = (a[..., 0] * d_b).sum(dim=2) / n         # [B, G]
         m2 = (a[..., 0] * d_a).sum(dim=2) / n
         dx = inv_g * (dy * a - m1[:, :, None, None] - xhat * m2[:, :, None, None])
-        dx = dx.reshape(x.shape).to(x.dtype)
+        dx = groupnorm.like_layout(dx.reshape(x.shape).to(x.dtype), x)
     return dx, d_a.reshape(b, c), d_b.reshape(b, c)
 
 
@@ -229,6 +242,16 @@ def plan_for(x, g, dx, groups: int) -> groupnorm.GNPlan:
                        0 if dx is None else dx.data_ptr() % 16)
 
 
+def nhwc_plan_for(x, g, dx, groups: int) -> groupnorm.NHWCPlan:
+    """``groupnorm.nhwc_plan`` for the backward on channels-last ``x``, ``g``
+    [B, C, H, W] and the input gradient buffer ``dx`` (None without one): x
+    and g read a tile, held only where dx is made."""
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (x, g, dx))
+    return groupnorm.nhwc_plan(x.shape[1], x.shape[2] * x.shape[3], groups, x.element_size(),
+                               aligned, 2, dx is not None, NHWC_ROW_BYTES, NHWC_TILE_BYTES,
+                               NHWC_PAIR_BYTES, NHWC_MAX_PAIR_BYTES, NHWC_MAX_THREADS)
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -244,6 +267,10 @@ def _kernel():
         lib.pdae_gn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
                                        vp, ci, ci, ci, ci, ci, vp]
         lib.pdae_gn_bwd_dx.restype = ci
+        lib.pdae_gn_adagn_silu_bwd_nhwc.argtypes = [
+            vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, vp, vp, vp,
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.pdae_gn_adagn_silu_bwd_nhwc.restype = ci
         _fn = lib
     return _fn
 
@@ -267,14 +294,36 @@ def _launch(plan: groupnorm.GNPlan, x, g, mean, rstd, gamma, beta, scale, shift,
     variant_launches[plan.variant] += 1
 
 
-def _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups: int) -> None:
-    groupnorm.check_gn_inputs(x, gamma, beta, groups)
+def _launch_nhwc(plan: groupnorm.NHWCPlan, x, g, mean, rstd, gamma, beta, scale, shift,
+                 z_scale, z_shift, groups: int, dx, d_a, d_b) -> None:
+    """The NHWC variant under ``plan`` from checked channels-last inputs into
+    ``dx`` (or None), ``d_a`` and ``d_b``."""
+    global launches
+    b, c, h, w = x.shape
+    s, t, st_stride = groupnorm._pair(scale, shift, x, "scale/shift")
+    zs, zt, z_stride = groupnorm._pair(z_scale, z_shift, x, "z_scale/z_shift")
+    err = _kernel().pdae_gn_adagn_silu_bwd_nhwc(
+        x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(), s, t,
+        st_stride, zs, zt, z_stride, mean.data_ptr(), rstd.data_ptr(),
+        None if dx is None else dx.data_ptr(), d_a.data_ptr(), d_b.data_ptr(),
+        b, c, h * w, groups, dtype_code(x.dtype), plan.groups, plan.cluster, plan.threads,
+        plan.pixels, plan.vec, int(plan.keep), stream_handle(x))
+    check_cuda_error(err, "GN backward kernel (nhwc variant)")
+    launches += 1
+    variant_launches["nhwc"] += 1
+
+
+def _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups: int, nhwc: bool = False) -> str:
+    """What the backward kernels ask of their inputs; returns x's
+    ``memory_layout``, which g must share."""
+    layout = groupnorm.check_gn_inputs(x, gamma, beta, groups, nhwc)
     b, c = x.shape[:2]
     if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
-            or not g.is_contiguous()):
+            or groupnorm.memory_layout(g) != layout):
         raise ValueError(f"GN backward kernel: the output gradient must be a "
-                         f"contiguous {x.dtype} {tuple(x.shape)} on {x.device}, got "
-                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+                         f"{x.dtype} {tuple(x.shape)} on {x.device} contiguous in x's layout "
+                         f"({layout}), got {g.dtype} {tuple(g.shape)} strides {g.stride()} on "
+                         f"{g.device}")
     for stat in (mean, rstd):
         if (stat.dtype != torch.float32 or tuple(stat.shape) != (b, groups)
                 or stat.device != x.device or not stat.is_contiguous()):
@@ -283,20 +332,27 @@ def _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups: int) -> None:
     if c // groups > 6144:
         raise ValueError(f"GN backward kernel: {c // groups} channels per group "
                          "exceed the 6144 its shared memory holds")
+    return layout
 
 
 def gn_bwd_cuda(x, g, mean, rstd, gamma, beta, scale=None, shift=None, z_scale=None,
                 z_shift=None, groups: int = 32, need_dx: bool = True):
-    """Launch the backward kernel on contiguous CUDA ``x``, ``g`` [B, C, ...]
-    under ``gn_bwd_plan``'s choice; raises on what it does not take. Returns
-    ``(dx, dA, dB)`` as ``gn_adagn_silu_bwd_plain``."""
-    _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups)
+    """Launch the backward kernel on CUDA ``x``, ``g`` [B, C, ...] of one
+    layout: contiguous under ``gn_bwd_plan``'s choice, channels-last
+    contiguous on the NHWC variant under ``nhwc_plan_for``'s; raises on what
+    it does not take. Returns ``(dx, dA, dB)`` as ``gn_adagn_silu_bwd_plain``,
+    dx in x's layout."""
+    layout = _check_bwd_inputs(x, g, mean, rstd, gamma, beta, groups, nhwc=True)
     b, c = x.shape[:2]
     dx = torch.empty_like(x) if need_dx else None
     d_a = torch.empty(b, c, device=x.device, dtype=torch.float32)
     d_b = torch.empty_like(d_a)
-    _launch(plan_for(x, g, dx, groups), x, g, mean, rstd, gamma, beta, scale, shift,
-            z_scale, z_shift, groups, dx, d_a, d_b)
+    if layout == "nhwc":
+        _launch_nhwc(nhwc_plan_for(x, g, dx, groups), x, g, mean, rstd, gamma, beta, scale,
+                     shift, z_scale, z_shift, groups, dx, d_a, d_b)
+    else:
+        _launch(plan_for(x, g, dx, groups), x, g, mean, rstd, gamma, beta, scale, shift,
+                z_scale, z_shift, groups, dx, d_a, d_b)
     return dx, d_a, d_b
 
 
@@ -369,8 +425,10 @@ class _GNAdaGNSiLU(torch.autograd.Function):
         x, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
         bwd = gn_bwd_cuda if ctx.use_kernel else gn_adagn_silu_bwd_plain
-        dx, d_a, d_b = bwd(x, g.contiguous(), mean, rstd, gamma, beta, scale, shift,
-                           z_scale, z_shift, ctx.groups, need_dx)
+        nhwc = groupnorm.memory_layout(x) == "nhwc"
+        g = g.contiguous(memory_format=torch.channels_last if nhwc else torch.contiguous_format)
+        dx, d_a, d_b = bwd(x, g, mean, rstd, gamma, beta, scale, shift, z_scale, z_shift,
+                           ctx.groups, need_dx)
         grads = unfold_grads(d_a, d_b, gamma, beta, scale, shift, z_scale, z_shift,
                              ctx.needs_input_grad[1:7])
         return (dx, *grads, None)

@@ -1,6 +1,6 @@
 """Sweep the launch plans of the attention and GN kernels on the card.
 
-    python3 -m pdae_torch.tools.tune_kernels [--quick] [--only attention|gn|gn_bwd]
+    python3 -m pdae_torch.tools.tune_kernels [--quick] [--only attention|gn|gn_bwd|nhwc]
 
 Run from the root of the repository: the shapes, the timer, the tolerances
 and the inputs are ``chip_smoke.py``'s (the shapes read off the celeba64
@@ -18,6 +18,16 @@ take ``gn_plan``'s, ``gn_bwd_plan``'s and ``attention_plan``'s choice alone,
 whose constants were chosen from this table. ``--quick`` builds, checks every plan once (the
 attention edge shapes too) and times nothing. One JSON line per shape; the
 whole table goes to ``chiprun_out/tune_kernels.json``.
+
+``--only nhwc`` sweeps the GN kernels' NHWC variants instead, at every GN
+call of one bf16 FFHQ128 representation step (b32, channels-last; the calls
+recorded by ``chip_smoke.nhwc_gn_keys``): ``groupnorm.nhwc_plan`` under each
+pixel-row target, least tile, part size and block size (``rR_sS_pP_tT``:
+bytes, KB, KB of each operand a block holds, threads), forward and
+backward, each held against the plain version and timed in bf16 beside the
+plan the wrappers take (``default``) and the NCHW cluster variant on the
+same values (``nchw``); one JSON line per call, the table to
+``chiprun_out/tune_nhwc.json``.
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ PART_SIZES = (8192, 16384, 32768, 49152, 65536)
 BLOCK_SIZES = (128, 256, 512)
 BWD_BLOCK_SIZES = (32, 64, 128, 256, 512)
 BWD_MAX_PAIR = 196608      # the most of x and g the backward's cluster block takes
+NHWC_ROWS = (16, 32, 64, 128, 256)
+NHWC_TILES = (2048, 8192, 32768)
+NHWC_PARTS = (8192, 16384, 32768, 65536)
+NHWC_THREADS = (64, 128, 256)
 
 
 def attention_candidates(bh, t, d, elt):
@@ -82,10 +96,125 @@ def gn_bwd_candidates(n, hw, elt, need_dx):
     return base, plans
 
 
+def nhwc_candidates(c, hw, operands, keep_ok):
+    """The NHWC plans of a [B, hw, c] bf16 call, by name (``rR_sS_pP_tT``:
+    row bytes, KB of a tile at the least, KB of a part, threads), each once."""
+    from pdae_torch.ops import groupnorm
+
+    plans = {}
+    for row in NHWC_ROWS:
+        for tile in NHWC_TILES:
+            for part in NHWC_PARTS:
+                for threads in NHWC_THREADS:
+                    try:
+                        plan = groupnorm.nhwc_plan(c, hw, 32, 2, True, operands, keep_ok, row,
+                                                   tile, part * operands, part * operands,
+                                                   threads)
+                    except ValueError:
+                        continue
+                    plans.setdefault(
+                        plan, f"r{row}_s{tile // 1024}_p{part // 1024}_t{threads}")
+    return {name: plan for plan, name in plans.items()}
+
+
+def nhwc_sweep(cs, dev, quick) -> int:
+    from pdae_torch import ops
+    from pdae_torch.ops import groupnorm, groupnorm_train
+
+    encoder, decoder = cs.ffhq128_bf16_models(0, dev)
+    fwd, bwd, _ = cs.nhwc_gn_keys(cs.ffhq128_bf16_step(encoder, decoder, cs.TRAIN_BATCH,
+                                                       dev, 1))
+    del encoder, decoder
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table, bad = [], []
+    for key in sorted(fwd) + sorted(bwd):
+        back = key[0] == "gn_bwd"
+        shape, has_st, has_z = key[1:5], key[5], key[6]
+        need_dx = back and key[7]
+        x, gamma, beta, *coef = cs.gn_coefficients(shape, has_st, has_z, gen, dev,
+                                                   torch.bfloat16)
+        cl = x.contiguous(memory_format=torch.channels_last)
+        c, hw = shape[1], shape[2] * shape[3]
+        row = {"key": list(key), "calls": (bwd if back else fwd)[key]}
+        if back:
+            g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            gcl = g.contiguous(memory_format=torch.channels_last)
+            _, mean, rstd = groupnorm.gn_cuda(x, gamma, beta, *coef, save_stats=True)
+            want = ops.gn_adagn_silu_bwd_plain(x, g, mean, rstd, gamma, beta, *coef,
+                                               need_dx=need_dx)
+            dx = torch.empty_like(cl) if need_dx else None
+            d_a = torch.empty(shape[:2], device=dev)
+            d_b = torch.empty_like(d_a)
+            default = groupnorm_train.nhwc_plan_for(cl, gcl, dx, 32)
+            plans = nhwc_candidates(c, hw, 2, need_dx)
+
+            def launch(plan):
+                groupnorm_train._launch_nhwc(plan, cl, gcl, mean, rstd, gamma, beta, *coef,
+                                             32, dx, d_a, d_b)
+
+            def check():
+                worst = 0.0
+                for a, w in zip((dx, d_a, d_b), want):
+                    if w is not None:
+                        res = cs.compare(a, w, cs.scaled(cs.TOL[("gn_bwd", torch.bfloat16)], w))
+                        worst = max(worst, res["max_abs_err"] if res["ok"] else math.inf)
+                return worst
+
+            def nchw():
+                groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef,
+                                            need_dx=need_dx)
+        else:
+            want = ops.gn_adagn_silu_fwd(x, gamma, beta, *coef)
+            out = torch.empty_like(cl)
+            default = groupnorm.nhwc_plan_for(cl, out, 32)
+            plans = nhwc_candidates(c, hw, 1, True)
+
+            def launch(plan):
+                groupnorm._launch_nhwc(plan, cl, out, gamma, beta, *coef, 32)
+
+            def check():
+                res = cs.compare(out, want, cs.TOL[("gn_model", torch.bfloat16)])
+                return res["max_abs_err"] if res["ok"] else math.inf
+
+            def nchw():
+                groupnorm.gn_cuda(x, gamma, beta, *coef)
+        plans = {"default": default, **{k: p for k, p in plans.items() if p != default}}
+        row["default"] = default._asdict()
+        for name, plan in plans.items():
+            try:
+                launch(plan)
+                torch.cuda.synchronize()
+            except RuntimeError as err:           # a launch the kernel does not take
+                row[name] = str(err)[:60]
+                continue
+            err = check()
+            if not math.isfinite(err):
+                bad.append((key, name))
+            if not quick:
+                row[name] = cs.device_ms(lambda: launch(plan))
+        if not quick:
+            row["nchw"] = cs.device_ms(nchw)
+            timed = {k: v for k, v in row.items() if k in plans and isinstance(v, float)}
+            row["best"] = min(timed, key=timed.get) if timed else "default"
+        table.append(row)
+        print(json.dumps({k: v for k, v in row.items() if k != "default"}), flush=True)
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    with open(os.path.join(cs.OUT_DIR, "tune_nhwc.json"), "w") as f:
+        json.dump(table, f, indent=1)
+    if not quick:
+        for name in ("default", "best", "nchw"):
+            total = sum(r["calls"] * (r[r["best"]] if name == "best" else r[name])
+                        for r in table)
+            print(json.dumps({f"{name}_ms_per_step": total}), flush=True)
+    print(json.dumps({"ok": not bad, "bad": bad[:20]}), flush=True)
+    return 0 if not bad else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--only", choices=("attention", "gn", "gn_bwd"), default=None)
+    ap.add_argument("--only", choices=("attention", "gn", "gn_bwd", "nhwc"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device", file=sys.stderr)
@@ -98,6 +227,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     print(json.dumps({"build_s": _build.build()}), flush=True)
+    if args.only == "nhwc":
+        return nhwc_sweep(cs, dev, args.quick)
     decoder, encoder, gen = cs.build_models(0, dev)
     shapes = set()
     for train in (False, True):

@@ -34,7 +34,13 @@ moments and dx passes) match their plain versions at a rank's shapes in fp32
 and bf16, the apply pass on the fused kernel's saved stats gives the fused
 kernel's bits, the split chain's Function in one part matches the fused
 one, and the attention of a rank's query rows against every key matches the
-plain version and the same rows of the ``Tq = Tk`` launch.
+plain version and the same rows of the ``Tq = Tk`` launch. The GN kernels'
+NHWC variants (channels-last inputs: every kind of GN shape of the bf16
+FFHQ128 step and the edges, fp32 and bf16) match the plain versions, the
+backward bit for bit from run to run, inside a CUDA graph too, and refuse
+fold mode and other strides; a bf16 FFHQ128 step runs every GN launch on them
+and agrees with the same models run NCHW, and an fp32 celeba64 evaluation
+runs none of them.
 ``chip_smoke.py`` covers every path shape, bf16 and timings.
 """
 
@@ -1035,3 +1041,200 @@ def test_a_capture_that_fails_raises_rather_than_runs_eagerly(cuda, tmp_path):
     with pytest.raises(RuntimeError, match="capturing the train step into a CUDA graph"):
         trainer.train(max_steps=4, save_on_exit=False)
     assert trainer.step == 1 and trainer._dispatch.replays == 0
+
+
+# -- channels-last: the NHWC variants and the bf16 models' layout ----------- #
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _cl_inputs(cuda, shape, variant, dtype, seed=6):
+    """``_bwd_inputs``'s tensors with x and g channels-last, and the NCHW
+    plain version's stats of x."""
+    x, g, _, _, gamma, beta, coef = _bwd_inputs(cuda, shape, variant, dtype, seed)
+    _, mean, rstd = ops.gn_adagn_silu_fwd(x, gamma, beta, *coef, groups=32, return_stats=True)
+    return _cl(x), _cl(g), mean, rstd, gamma, beta, coef
+
+
+# every kind of GN shape of the bf16 FFHQ128 step at b2 (4 to 32 channels a
+# group, 4x4 to 128x128; 384 and 768 channels give 3-vector rows), then the
+# edges: 96 channels (3 a group), one channel a group, a tile read twice (over
+# the cluster's shared memory) and H*W of no power of two
+NHWC_SHAPES = [(2, 128, 128, 128), (2, 256, 128, 128), (2, 384, 64, 64), (2, 256, 64, 64),
+               (2, 128, 32, 32), (2, 384, 32, 32), (2, 512, 32, 32), (2, 768, 16, 16),
+               (2, 256, 16, 16), (2, 1024, 8, 8), (2, 768, 8, 8), (2, 512, 4, 4),
+               (2, 1024, 4, 4), (2, 64, 64, 64), (3, 96, 12, 12), (2, 32, 16, 16),
+               (1, 64, 256, 256), (2, 128, 10, 6)]
+
+
+@pytest.mark.parametrize("shape", NHWC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nhwc_gn_kernel_matches_plain(cuda, shape, dtype):
+    x, _, mean_w, rstd_w, gamma, beta, coef = _cl_inputs(cuda, shape, "adagn_z", dtype)
+    before = dict(groupnorm.variant_launches)
+    got, mean, rstd = groupnorm.gn_cuda(x, gamma, beta, *coef, groups=32, save_stats=True)
+    torch.cuda.synchronize()
+    assert groupnorm.variant_launches["nhwc"] == before["nhwc"] + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = ops.gn_adagn_silu_fwd(x.contiguous(), gamma, beta, *coef, groups=32)
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol[0], rtol=tol[1])
+    torch.testing.assert_close(mean, mean_w, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstd_w, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", NHWC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("need_dx", [True, False])
+def test_nhwc_gn_backward_kernel_matches_plain(cuda, shape, dtype, need_dx):
+    x, g, mean, rstd, gamma, beta, coef = _cl_inputs(cuda, shape, "adagn_z", dtype)
+    before = dict(groupnorm_train.variant_launches)
+    got = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef, need_dx=need_dx)
+    torch.cuda.synchronize()
+    assert groupnorm_train.variant_launches["nhwc"] == before["nhwc"] + 1
+    if need_dx:
+        assert got[0].is_contiguous(memory_format=torch.channels_last)
+    want = ops.gn_adagn_silu_bwd_plain(x.contiguous(), g.contiguous(), mean, rstd, gamma,
+                                       beta, *coef, need_dx=need_dx)
+    _assert_bwd_close(got, want, dtype)
+
+
+def test_nhwc_gn_misaligned_input_takes_one_element_columns(cuda):
+    """An x 2 bytes off the 16-byte vector: the NHWC variants read one
+    element a column (and twice), with the aligned launch's values."""
+    x, g, mean, rstd, gamma, beta, coef = _cl_inputs(cuda, (2, 256, 16, 16), "adagn",
+                                                     torch.bfloat16)
+    off = _cl(torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view(
+        2, 16, 16, 256).permute(0, 3, 1, 2).copy_(x))
+    assert off.data_ptr() % 16 and groupnorm.memory_layout(off) == "nhwc"
+    assert groupnorm.nhwc_plan_for(off, off, 32).vec == 1
+    aligned = groupnorm.gn_cuda(x, gamma, beta, *coef)
+    torch.testing.assert_close(groupnorm.gn_cuda(off, gamma, beta, *coef).float(),
+                               aligned.float(), atol=2e-2, rtol=2e-2)
+    want = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+    got = groupnorm_train.gn_bwd_cuda(off, g, mean, rstd, gamma, beta, *coef)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nhwc_gn_backward_repeats_bit_for_bit(cuda, dtype):
+    x, g, mean, rstd, gamma, beta, coef = _cl_inputs(cuda, (8, 256, 128, 128), "adagn_z",
+                                                     dtype)
+    first = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+    second = groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef)
+    torch.cuda.synchronize()
+    assert groupnorm_train.nhwc_plan_for(x, g, first[0], 32).cluster > 1
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_nhwc_cluster_launches_capture_in_a_cuda_graph(cuda):
+    x, g, mean, rstd, gamma, beta, coef = _cl_inputs(cuda, (4, 128, 128, 128), "adagn_z",
+                                                     torch.bfloat16)
+    assert groupnorm.nhwc_plan_for(x, x, 32).cluster > 1
+
+    def both():
+        return (groupnorm.gn_cuda(x, gamma, beta, *coef),
+                *groupnorm_train.gn_bwd_cuda(x, g, mean, rstd, gamma, beta, *coef))
+    eager = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+
+
+def test_nhwc_kernels_refuse_fold_mode_and_other_strides(cuda):
+    x = _cl(torch.randn(2, 64, 8, 8, device=cuda))
+    one, zero = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="fold mode"):
+        ops.fused_gn_adagn_silu(x, one, zero, torch.zeros(2, 64, device=cuda),
+                                torch.zeros(2, 64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gn_adagn_silu(x.permute(0, 1, 3, 2), one, zero, groups=32)
+    with pytest.raises(ValueError, match="contiguous"):      # the split passes take NCHW
+        groupnorm.gn_apply_cuda(x, torch.zeros(2, 32, device=cuda),
+                                torch.ones(2, 32, device=cuda), one, zero)
+
+
+def _ffhq128_bf16_models(cuda, encoder_too=True):
+    from pdae_torch.models import FFHQ128_DPM, ShiftUNet, encoder_for_resolution
+
+    torch.manual_seed(0)
+    decoder = ShiftUNet(latent_dim=512, dtype=torch.bfloat16, **FFHQ128_DPM)
+    encoder = encoder_for_resolution(128, 512, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for model in (decoder, encoder):
+            for p in model.parameters():
+                if not p.any():
+                    p.normal_(std=0.02)
+    return encoder.to(cuda), decoder.to(cuda)
+
+
+def test_bf16_ffhq128_step_runs_every_gn_launch_on_the_nhwc_variants(cuda):
+    """A bf16 FFHQ128 representation loss and backward at b2: every GN launch,
+    forward and backward, on the NHWC variants; the outputs contiguous NCHW;
+    and within bf16 rounding of the same models run NCHW (the layout rule
+    switched off)."""
+    from pdae_torch.diffusion import GaussianDiffusion
+    from pdae_torch.models import blocks
+    from pdae_torch.training import trainable_params
+    from pdae_torch.training.state import flat_params
+
+    encoder, decoder = _ffhq128_bf16_models(cuda)
+    gd = GaussianDiffusion({"timesteps": 1000, "betas_type": "linear"})
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x_0 = torch.rand(2, 3, 128, 128, device=cuda, generator=gen) * 2 - 1
+    noise = torch.randn(2, 3, 128, 128, device=cuda, generator=gen)
+    t = torch.tensor([10, 500], dtype=torch.int32, device=cuda)
+    leaves = flat_params(trainable_params(encoder, decoder))
+
+    def loss_and_grads():
+        loss = gd.representation_learning_train_one_batch(
+            None, encoder, decoder, x_0, t=t, noise=noise)["prediction_loss"]
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    ops.reset_launch_counts()
+    got = loss_and_grads()
+    torch.cuda.synchronize()
+    fwd, bwd = ops.gn_variant_counts(), ops.gn_bwd_variant_counts()
+    assert fwd["nhwc"] > 0 and fwd["cluster"] == fwd["general"] == 0, fwd
+    assert bwd["nhwc"] > 0 and bwd["cluster"] == bwd["general"] == 0, bwd
+    counts = ops.launch_counts()
+    assert counts["gn_adagn_silu_nhwc"] == counts["gn_adagn_silu"] == fwd["nhwc"]
+    assert counts["gn_adagn_silu_bwd_nhwc"] == counts["gn_adagn_silu_bwd"] == bwd["nhwc"]
+    eps, grad = decoder(x_0, t, encoder(x_0))
+    assert eps.is_contiguous() and grad.is_contiguous() and eps.dtype == torch.float32
+    rule = blocks.nhwc_model
+    blocks.nhwc_model = lambda model: False
+    try:
+        ops.reset_launch_counts()
+        want = loss_and_grads()
+        assert ops.gn_variant_counts()["nhwc"] == 0
+    finally:
+        blocks.nhwc_model = rule
+    assert _rel_l2(got[:1], want[:1]) <= 2e-2
+    assert _rel_l2(got[1:], want[1:]) <= 5e-2
+
+
+def test_fp32_celeba64_evaluation_stays_on_the_nchw_variants(cuda):
+    """The fp32 celeba64 ShiftUNet's evaluation at b2: the parent's launches
+    by variant (92 an evaluation, all on the cluster variant), none NHWC."""
+    from pdae_torch.models import CELEBA64_DPM, ShiftUNet
+
+    decoder = ShiftUNet(latent_dim=512, **CELEBA64_DPM).to(cuda).eval()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        decoder(torch.randn(2, 3, 64, 64, device=cuda), torch.tensor([5, 9], device=cuda),
+                torch.randn(2, 512, device=cuda))
+    torch.cuda.synchronize()
+    assert ops.gn_variant_counts() == {"cluster": 92, "general": 0, "nhwc": 0}

@@ -107,11 +107,12 @@ def test_plan_for_reads_the_slab_and_both_addresses():
 def test_gn_variant_counters_reset_with_the_launch_counters():
     groupnorm.variant_launches["cluster"] = 3
     groupnorm.variant_launches["general"] = 2
+    groupnorm.variant_launches["nhwc"] = 4
     ops.reset_launch_counts()
-    assert ops.gn_variant_counts() == {"cluster": 0, "general": 0}
+    assert ops.gn_variant_counts() == {"cluster": 0, "general": 0, "nhwc": 0}
     # a CPU tensor takes the plain version and counts nothing
     ops.gn_adagn_silu(torch.randn(1, 32, 4, 4), torch.ones(32), torch.zeros(32), groups=32)
-    assert ops.gn_variant_counts() == {"cluster": 0, "general": 0}
+    assert ops.gn_variant_counts() == {"cluster": 0, "general": 0, "nhwc": 0}
 
 
 @pytest.mark.parametrize("shape,bm,warps,r,blocks", [
@@ -345,9 +346,41 @@ def test_backward_plan_for_reads_the_three_addresses():
 def test_gn_bwd_variant_counters_reset_with_the_launch_counters():
     groupnorm_train.variant_launches["cluster"] = 3
     groupnorm_train.variant_launches["general"] = 1
+    groupnorm_train.variant_launches["nhwc"] = 2
     ops.reset_launch_counts()
-    assert ops.gn_bwd_variant_counts() == {"cluster": 0, "general": 0}
+    assert ops.gn_bwd_variant_counts() == {"cluster": 0, "general": 0, "nhwc": 0}
     # a CPU tensor takes the plain backward and counts nothing
     x = torch.randn(1, 32, 4, 4, requires_grad=True)
     ops.gn_adagn_silu(x, torch.ones(32), torch.zeros(32), groups=32).sum().backward()
-    assert ops.gn_bwd_variant_counts() == {"cluster": 0, "general": 0}
+    assert ops.gn_bwd_variant_counts() == {"cluster": 0, "general": 0, "nhwc": 0}
+
+
+@pytest.mark.parametrize("edited", ["source", "header"])
+def test_library_name_follows_its_source_and_the_headers(tmp_path, monkeypatch, edited):
+    from pdae_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    before = _build._library_path("k.cu")
+    (tmp_path / "notes.txt").write_text("edited\n")
+    assert _build._library_path("k.cu") == before
+    (tmp_path / ("k.cu" if edited == "source" else "h.cuh")).write_text("// v2\n")
+    after = _build._library_path("k.cu")
+    assert after != before and os.path.dirname(after) == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("source", ["groupnorm.cu", "groupnorm_bwd.cu"])
+def test_nhwc_variants_share_one_header(source):
+    from pdae_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC, "gn_nhwc.cuh")) as f:
+        header = f.read()
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    assert text.count('#include "gn_nhwc.cuh"') == 1
+    for definition in ("void load_frag(", "void store_frag(", "void column_totals(",
+                       "float4 table_entry(", "struct NhwcPlan {", "bool nhwc_plan_ok(",
+                       "int launch_clusters("):
+        assert definition in header and definition not in text, definition

@@ -127,7 +127,8 @@ def test_cpu_dispatch_takes_plain_path_and_counts_nothing():
                       groups=32)
     assert ops.launch_counts() == {"attention": 0, "gn_adagn_silu": 0,
                                    "gn_adagn_silu_bwd": 0, "gn_stats": 0, "gn_apply": 0,
-                                   "gn_bwd_moments": 0, "gn_bwd_dx": 0}
+                                   "gn_bwd_moments": 0, "gn_bwd_dx": 0,
+                                   "gn_adagn_silu_nhwc": 0, "gn_adagn_silu_bwd_nhwc": 0}
     ops.set_use_kernels(False)
     assert torch.equal(ops.fused_qkv_attention(q, q, q), out)
 
